@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of flink_tensorflow_tpu.
+
+A second package beside the JAX one.  It mirrors the JAX package's module
+paths and names so each counterpart is easy to find, imports ``torch`` and
+numpy only, and never imports ``jax`` or anything of
+``flink_tensorflow_tpu``: what it needs from there it keeps as its own
+copy.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
+version.
+
+This slice covers LLM serving over the dense KV pool: the char
+transformer, ``DecodeStepRunner``, ``ContinuousBatchingOperator`` and the
+loop that drives one keyed subtask (``core.runtime.KeyedSubtask``).  The
+prefill's flash attention is a hand-written CUDA kernel
+(``csrc/flash_attention.cu``).
+"""

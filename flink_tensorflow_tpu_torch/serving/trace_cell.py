@@ -1,0 +1,71 @@
+"""Where the serving cell's time goes on the card.
+
+    python3 -m flink_tensorflow_tpu_torch.serving.trace_cell
+
+Runs the serving cell (``serving/cell.py``) three times on the GPU: once
+to warm up (kernel build, allocator, library handles), once untraced for
+the end-to-end time, and once under ``torch.profiler`` for the device
+side.  Prints one JSON object: end-to-end seconds untraced and traced,
+device kernel time and the device's busy share of the traced wall time,
+launches and device time per kernel name (top 10), and the host split
+between prefill calls, decode-step calls and the rest of the operator.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("trace_cell: CUDA is not available; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    from flink_tensorflow_tpu_torch.serving.cell import serve, serving_cell
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    mdef, tree, cfg, requests = serving_cell(0)
+    model = mdef.to_model(tree)
+    serve(model, cfg, requests)
+    _, seconds, metrics = serve(model, cfg, requests)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, traced_seconds, _ = serve(model, cfg, requests)
+
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        if us > 0:
+            kernels.append({"name": evt.key[:90], "launches": evt.count, "device_ms": us / 1e3})
+    kernels.sort(key=lambda k: -k["device_ms"])
+    device_ms = sum(k["device_ms"] for k in kernels)
+    prefill_s = sum(metrics.histogram("prefill_s").values)
+    decode_s = sum(metrics.histogram("decode_step_s").values)
+    out = {
+        "card": card,
+        "untraced_s": seconds,
+        "traced_s": traced_seconds,
+        "device_kernel_ms": device_ms,
+        "device_busy_share": device_ms / 1e3 / traced_seconds,
+        "kernel_launches": sum(k["launches"] for k in kernels),
+        "host_prefill_s": prefill_s,
+        "host_decode_step_s": decode_s,
+        "host_other_s": seconds - prefill_s - decode_s,
+        "prefill_calls": len(metrics.histogram("prefill_s").values),
+        "decode_steps": len(metrics.histogram("decode_step_s").values),
+        "top_kernels": kernels[:10],
+    }
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
