@@ -7,8 +7,9 @@ to warm up (kernel build, allocator, library handles), once untraced for
 the end-to-end time, and once under ``torch.profiler`` for the device
 side.  Prints one JSON object: end-to-end seconds untraced and traced,
 device kernel time and the device's busy share of the traced wall time,
-launches and device time per kernel name (top 10), and the host split
-between prefill calls, decode-step calls and the rest of the operator.
+launches and device time per kernel name (top 10), K1's launches, device
+time and share of device time, and the host split between prefill calls,
+decode-step calls and the rest of the operator.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+
+#: Name of K1's kernel (``csrc/flash_attention.cu``) in the profiler's table.
+K1_KERNEL = "flash_fwd_kernel"
 
 
 def main() -> int:
@@ -47,6 +51,8 @@ def main() -> int:
             kernels.append({"name": evt.key[:90], "launches": evt.count, "device_ms": us / 1e3})
     kernels.sort(key=lambda k: -k["device_ms"])
     device_ms = sum(k["device_ms"] for k in kernels)
+    k1 = [k for k in kernels if K1_KERNEL in k["name"]]
+    k1_ms = sum(k["device_ms"] for k in k1)
     prefill_s = sum(metrics.histogram("prefill_s").values)
     decode_s = sum(metrics.histogram("decode_step_s").values)
     out = {
@@ -61,6 +67,9 @@ def main() -> int:
         "host_other_s": seconds - prefill_s - decode_s,
         "prefill_calls": len(metrics.histogram("prefill_s").values),
         "decode_steps": len(metrics.histogram("decode_step_s").values),
+        "k1_launches": sum(k["launches"] for k in k1),
+        "k1_device_ms": k1_ms,
+        "k1_share_of_device": k1_ms / device_ms if device_ms else 0.0,
         "top_kernels": kernels[:10],
     }
     print(json.dumps(out))
