@@ -17,7 +17,18 @@ Phases (any failure exits non-zero and prints no result line):
    64 wide x 3 layers, 96 requests from ``RandomState(11)``) through the
    port's subtask loop on the card, count K1's launches, and hold every
    session's tokens against a CPU run of the port on the same weights;
-5. print one ``kernels`` JSON line, the card line, and the final
+5. run the Inception-v3 streaming cell (``models/inception_cell.py``, the
+   JAX package's Inception bench: 2048 uint8 299x299x3 records, batch
+   128, pipeline depth 6, 1000 classes, bf16) through the port's
+   ``StreamExecutionEnvironment -> count_window -> ModelWindowFunction``
+   on the card; check that every id comes back once, that each label and
+   score equals a direct call of the same module on the card over the
+   same 16 batches, and that 4 records through the CPU's bf16 path and
+   its f32 plain path match the card's bf16 and f32 forwards; print
+   records/s (steady, and over the whole job), latency
+   percentiles, H2D bytes per batch, batches, padded records, and init
+   and warmup seconds, each beside the card line;
+6. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -57,6 +68,23 @@ K1_SHAPES = (
 # and is held to 1e-4.
 TOLERANCE = {"float32": (1e-4, 0.0), "bfloat16": (3e-3, 2 ** -7), "float16": (3e-3, 2 ** -7)}
 LSE_TOLERANCE = 1e-4
+# Inception, the card's f32 forward (cuDNN, TF32 off) against the CPU's f32
+# plain path, relative to the largest |logit|: both sum f32 products in
+# another order through 94 convs (the CPU tests see about 1e-6 between
+# the port and flax; the card read 1.44e-6).  TF32 products (10-bit
+# mantissa) would miss it by orders of magnitude.
+INCEPTION_F32_TOL = 1e-5
+# The card's bf16 forward against the CPU's bf16 path (held to flax by
+# tests/test_torch_inception.py at the same tolerance): every conv rounds
+# its output to bf16 after summing in another order.  Scores are held to
+# the same share of the largest score.  Labels must agree wherever the
+# CPU's top-1/top-2 gap exceeds twice this share of max |logit| (random
+# weights give near ties, so few rows may be that clear).
+INCEPTION_BF16_TOL = 3e-2
+# Labels and scores of the stream against a direct call of the same module
+# on the card, same batches: the same cuDNN algorithms (chosen once per
+# shape) on the same inputs must give the same bits.
+INCEPTION_SCORE_TOL = 0.0
 
 
 def fail(msg: str) -> None:
@@ -190,6 +218,116 @@ def by_session(events):
     return {sid: [toks[i] for i in sorted(toks)] for sid, toks in out.items()}
 
 
+def check_inception(card: str, torch):
+    """Phase 5: the Inception streaming cell on the card, and its checks."""
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+
+    t0 = time.monotonic()
+    mdef, model, pixels, records = cell.inception_cell(SEED)
+    init_s = time.monotonic() - t0
+    results, arrivals, metrics, seconds = cell.run_cell(model, records)
+    ids = [int(r.meta["id"]) for r in results]
+    if sorted(ids) != list(range(cell.RECORDS)):
+        fail(f"inception: {len(ids)} results, {len(set(ids))} distinct ids, "
+             f"want each of {cell.RECORDS} once")
+    got_label = np.empty(cell.RECORDS, np.int32)
+    got_score = np.empty(cell.RECORDS, np.float32)
+    for r in results:
+        got_label[r.meta["id"]] = r["label"]
+        got_score[r.meta["id"]] = r["score"]
+
+    # The same module, called directly on the card over the same batches.
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(model.params).to("cuda").eval()
+    want_label = np.empty_like(got_label)
+    want_score = np.empty_like(got_score)
+    with torch.inference_mode():
+        for lo in range(0, cell.RECORDS, cell.BATCH):
+            batch = torch.from_numpy(pixels[lo:lo + cell.BATCH].copy()).cuda()
+            out = serve(module, {"image": batch})
+            want_label[lo:lo + cell.BATCH] = out["label"].cpu().numpy()
+            want_score[lo:lo + cell.BATCH] = out["score"].cpu().numpy()
+            if lo == 0:
+                card_bf16 = {k: out[k][:4].float().cpu().numpy() for k in out}
+    del module
+    if not np.array_equal(got_label, want_label):
+        bad = np.nonzero(got_label != want_label)[0]
+        fail(f"inception: {len(bad)} labels differ from the direct call, first id {bad[0]}")
+    score_err = float(np.abs(got_score - want_score).max())
+    if score_err > INCEPTION_SCORE_TOL:
+        fail(f"inception: scores differ from the direct call by {score_err}")
+
+    # 4 records: the CPU's bf16 path against the card's bf16 forward (the
+    # direct call above, which the stream equals bit for bit).
+    t_cpu = time.monotonic()
+    with torch.inference_mode():
+        cpu_bf16 = {k: v.float().numpy() for k, v in
+                    serve(model.params, {"image": torch.from_numpy(pixels[:4].copy())}).items()}
+    bf16_cpu_s = time.monotonic() - t_cpu
+    peak = np.abs(cpu_bf16["logits"]).max()
+    bf16_err = float(np.abs(card_bf16["logits"] - cpu_bf16["logits"]).max() / peak)
+    bf16_score_err = float(np.abs(card_bf16["score"] - cpu_bf16["score"]).max()
+                           / np.abs(cpu_bf16["score"]).max())
+    top2 = np.sort(cpu_bf16["logits"], axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * INCEPTION_BF16_TOL * peak
+    if not (np.isfinite(card_bf16["logits"]).all() and bf16_err <= INCEPTION_BF16_TOL
+            and bf16_score_err <= INCEPTION_BF16_TOL):
+        fail(f"inception: card bf16 logits differ from the CPU's by {bf16_err} of max |logit|, "
+             f"scores by {bf16_score_err} (tolerance {INCEPTION_BF16_TOL})")
+    if not np.array_equal(card_bf16["label"][clear], cpu_bf16["label"][clear]):
+        fail("inception: card bf16 labels differ from the CPU's where the top-2 gap is clear")
+
+    # 4 records: the CPU's f32 plain path against the card's f32 forward.
+    f32 = get_model_def("inception_v3", num_classes=cell.CLASSES, image_size=cell.IMAGE,
+                        uint8_input=True, compute_dtype="float32")
+    f32_module = f32.to_model(model.params).params
+    x = torch.from_numpy(pixels[:4].copy())
+    with torch.inference_mode():
+        cpu = f32.methods["serve"].fn(f32_module, {"image": x})["logits"].numpy()
+        gpu = f32.methods["serve"].fn(copy.deepcopy(f32_module).to("cuda"),
+                                      {"image": x.cuda()})["logits"].cpu().numpy()
+    f32_err = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    if not (np.isfinite(gpu).all() and f32_err <= INCEPTION_F32_TOL):
+        fail(f"inception: card f32 logits differ from the CPU's by {f32_err} of max |logit| "
+             f"> {INCEPTION_F32_TOL}")
+
+    rps, span = cell.steady_rps(arrivals, cell.RECORDS, cell.BATCH,
+                                 cell.trailing_exclude(cell.RECORDS))
+    m = {k.split(".", 2)[2]: v for k, v in metrics.items() if k.startswith("inception.0.")}
+    row = {
+        "records": cell.RECORDS, "batch": cell.BATCH, "pipeline_depth": cell.DEPTH,
+        "records_per_s": rps, "steady_span_s": span, "job_seconds": seconds,
+        "job_records_per_s": cell.RECORDS / seconds,
+        "record_latency_p50_ms": m["record_latency_s"]["p50"] * 1e3,
+        "record_latency_p95_ms": m["record_latency_s"]["p95"] * 1e3,
+        "batch_latency_p50_ms": m["batch_latency_s"]["p50"] * 1e3,
+        "batch_latency_p95_ms": m["batch_latency_s"]["p95"] * 1e3,
+        "h2d_bytes_per_batch": m["h2d_bytes"] / m["batches"],
+        "batches": m["batches"], "padded_records": m["padded_records"],
+        "init_s": init_s, "warmup_s": m["warmup_s"]["p50"],
+        "assemble_p50_ms": m["assemble_s"]["p50"] * 1e3,
+        "dispatch_p50_ms": m["dispatch_s"]["p50"] * 1e3,
+        "fetch_wait_p50_ms": m["fetch_wait_s"]["p50"] * 1e3,
+        "score_max_abs_err_vs_direct": score_err, "f32_rel_err_vs_cpu": f32_err,
+        "f32_tolerance": INCEPTION_F32_TOL, "bf16_rel_err_vs_cpu": bf16_err,
+        "bf16_score_err_vs_cpu": bf16_score_err, "bf16_tolerance": INCEPTION_BF16_TOL,
+        "bf16_clear_labels": int(clear.sum()),
+        "bf16_equal_labels": int((card_bf16["label"] == cpu_bf16["label"]).sum()),
+        "bf16_cpu_s": bf16_cpu_s, "card": card,
+    }
+    for key in ("records_per_s", "job_records_per_s", "record_latency_p50_ms",
+                "record_latency_p95_ms", "batch_latency_p50_ms", "batch_latency_p95_ms", "h2d_bytes_per_batch",
+                "batches", "padded_records", "init_s", "warmup_s"):
+        print(f"inception {key}: {row[key]} | card: {card}", flush=True)
+    print("inception", json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -263,6 +401,8 @@ def main() -> int:
         "card": card,
     }
     print("serving", json.dumps(serving_row), flush=True)
+
+    check_inception(card, torch)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{

@@ -8,9 +8,17 @@ copy.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
 version.
 
-This slice covers LLM serving over the dense KV pool: the char
-transformer, ``DecodeStepRunner``, ``ContinuousBatchingOperator`` and the
-loop that drives one keyed subtask (``core.runtime.KeyedSubtask``).  The
-prefill's flash attention is a hand-written CUDA kernel
-(``csrc/flash_attention.cu``).
+Ported so far:
+
+- streaming inference, the README's Quick-start job:
+  ``core.environment.StreamExecutionEnvironment`` -> ``from_collection``
+  -> ``count_window`` -> ``functions.model_function.ModelWindowFunction``
+  -> ``sink_to_list``, on the port's local executor, with
+  ``functions.runner.CompiledMethodRunner``, ``tensors.transfer`` and
+  Inception-v3 (``models.zoo.inception``);
+- LLM serving over the dense KV pool: the char transformer,
+  ``DecodeStepRunner``, ``ContinuousBatchingOperator`` and the loop that
+  drives one keyed subtask (``core.runtime.KeyedSubtask``).  The
+  prefill's flash attention is a hand-written CUDA kernel
+  (``csrc/flash_attention.cu``).
 """

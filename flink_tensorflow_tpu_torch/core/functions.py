@@ -1,0 +1,97 @@
+"""User-function interfaces for the streaming layer.
+
+Copy of ``flink_tensorflow_tpu/core/functions.py`` (``Function`` ...
+``WindowFunction`` ``:154``, ``SourceFunction`` ``:220``, ``SinkFunction``
+``:227``), cut to the functions the ported path hosts.  ``open()`` is
+where a model function builds its runner and moves its weights to the
+device; ``close()`` releases them.
+"""
+
+from __future__ import annotations
+
+import abc
+import typing
+
+if typing.TYPE_CHECKING:
+    from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
+
+
+class Function:
+    """Base of all user functions (marker)."""
+
+    def clone(self) -> "Function":
+        """Per-subtask copy (each subtask gets its own).  Default is a
+        deepcopy; override to share on purpose (collecting sinks) or to
+        skip members that ``open()`` builds anyway."""
+        import copy
+
+        return copy.deepcopy(self)
+
+
+class RichFunction(Function):
+    """Function with a managed lifecycle and access to runtime context."""
+
+    def open(self, ctx: "RuntimeContext") -> None:  # noqa: B027
+        """Called once per subtask before any element is processed."""
+
+    def close(self) -> None:  # noqa: B027
+        """Called once per subtask after the last element (or on cancel)."""
+
+    def snapshot_state(self) -> typing.Any:  # noqa: B027
+        """Return a picklable snapshot of function state (or None)."""
+        return None
+
+    def restore_state(self, state: typing.Any) -> None:  # noqa: B027
+        """Restore from a snapshot produced by :meth:`snapshot_state`."""
+
+
+class MapFunction(RichFunction, abc.ABC):
+    @abc.abstractmethod
+    def map(self, value: typing.Any) -> typing.Any: ...
+
+
+class FilterFunction(RichFunction, abc.ABC):
+    @abc.abstractmethod
+    def filter(self, value: typing.Any) -> bool: ...
+
+
+class Collector:
+    """Downstream emitter handed to process-style functions."""
+
+    __slots__ = ("_emit",)
+
+    def __init__(self, emit: typing.Callable[[typing.Any, typing.Optional[float]], None]):
+        self._emit = emit
+
+    def collect(self, value: typing.Any, timestamp: typing.Optional[float] = None) -> None:
+        self._emit(value, timestamp)
+
+
+class WindowFunction(RichFunction, abc.ABC):
+    """Invoked with the full contents of a fired window (the micro-batch
+    hook a model function occupies)."""
+
+    @abc.abstractmethod
+    def process_window(
+        self,
+        key: typing.Any,
+        window: typing.Any,
+        elements: typing.Sequence[typing.Any],
+        out: Collector,
+    ) -> None: ...
+
+    def on_finish(self, out: Collector) -> None:  # noqa: B027
+        """End of input, after all remaining windows fired: flush any
+        asynchronously in-flight work (pipelined model batches)."""
+
+
+class SourceFunction(RichFunction, abc.ABC):
+    """Pull-based source: yields values."""
+
+    @abc.abstractmethod
+    def run(self) -> typing.Iterator[typing.Any]: ...
+
+
+class SinkFunction(RichFunction, abc.ABC):
+    @abc.abstractmethod
+    def invoke(self, value: typing.Any) -> None: ...

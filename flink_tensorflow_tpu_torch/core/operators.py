@@ -1,7 +1,12 @@
-"""Runtime operators — ``Output`` and the ``Operator`` base.
+"""Runtime operators — ``Output``, the ``Operator`` base, and the
+operators the Quick-start job runs.
 
-Port of ``flink_tensorflow_tpu/core/operators.py:48-271`` (the part the
-serving operator needs; the other operators wait for the runtime slice).
+Port of ``flink_tensorflow_tpu/core/operators.py``: ``Output`` and
+``Operator`` (``:48-271``), ``_FunctionOperator`` (``:274``),
+``MapOperator`` (``:319``, synchronous maps), ``FilterOperator``,
+``WindowOperator`` (``:587``, with the ``ingest_element`` /
+``next_deadline`` / ``fire_due`` hooks a model function uses),
+``SinkOperator`` (``:772``) and ``SourceOperator`` (``:787``).
 Operators are host-side control code: each instance runs on one subtask
 thread, processes stream elements and takes part in snapshots.
 """
@@ -11,7 +16,9 @@ from __future__ import annotations
 import typing
 
 from flink_tensorflow_tpu_torch.core import elements as el
+from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore
+from flink_tensorflow_tpu_torch.core.windows import CountWindow, Trigger, WindowBuffer
 
 if typing.TYPE_CHECKING:
     from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
@@ -104,3 +111,123 @@ class Operator:
 
     def _operator_restore(self, state: typing.Any) -> None:
         pass
+
+
+class _FunctionOperator(Operator):
+    """Operator wrapping one rich user function (a per-subtask clone)."""
+
+    def __init__(self, name: str, function: fn.Function):
+        super().__init__(name)
+        self.function = function.clone()
+
+    def open(self) -> None:
+        if isinstance(self.function, fn.RichFunction):
+            self.function.open(self.ctx)
+
+    def close(self) -> None:
+        if isinstance(self.function, fn.RichFunction):
+            self.function.close()
+
+    def _function_snapshot(self, checkpoint_id=None):
+        if isinstance(self.function, fn.RichFunction):
+            return self.function.snapshot_state()
+        return None
+
+    def _function_restore(self, state):
+        if state is not None and isinstance(self.function, fn.RichFunction):
+            self.function.restore_state(state)
+
+
+class MapOperator(_FunctionOperator):
+    """Hosts a MapFunction (one result per record)."""
+
+    def process_record(self, record):
+        self.output.emit(self.function.map(record.value), record.timestamp)
+
+
+class FilterOperator(_FunctionOperator):
+    def process_record(self, record):
+        if self.function.filter(record.value):
+            self.output.emit(record.value, record.timestamp)
+
+
+class WindowOperator(_FunctionOperator):
+    """Count / count-or-timeout windows per subtask.
+
+    This operator IS the micro-batcher: a fired window hands its elements
+    to a WindowFunction in one call — one batched device call."""
+
+    def __init__(self, name, function: fn.WindowFunction, trigger: Trigger):
+        super().__init__(name, function)
+        self.trigger = trigger
+        self._buffer: typing.Optional[WindowBuffer] = None
+        self._seq = 0
+        self._collector: typing.Optional[fn.Collector] = None
+
+    def open(self) -> None:
+        self._collector = fn.Collector(self.output.emit)
+        super().open()
+
+    def process_record(self, record):
+        if self._buffer is None:
+            self._buffer = WindowBuffer(window=CountWindow(self._seq))
+        value = record.value
+        # Ingestion hook: a tensor window function may take the payload at
+        # arrival and buffer a token instead (None keeps the value).
+        ingest = getattr(self.function, "ingest_element", None)
+        if ingest is not None:
+            token = ingest(value, self._collector)
+            if token is not None:
+                value = token
+        self._buffer.add(value, record.timestamp)
+        if self.trigger.on_element(self._buffer):
+            self._fire()
+
+    def _fire(self) -> None:
+        buf, self._buffer = self._buffer, None
+        self._seq += 1
+        self.function.process_window(None, buf.window, buf.elements, self._collector)
+
+    def next_deadline(self):
+        deadlines = []
+        if self._buffer is not None:
+            d = self.trigger.deadline(self._buffer)
+            if d is not None:
+                deadlines.append(d)
+        # Functions with async in-flight work (pipelined model batches)
+        # declare their own wake-up so results never strand in a lull.
+        fn_deadline = getattr(self.function, "next_deadline", None)
+        if fn_deadline is not None and (d := fn_deadline()) is not None:
+            deadlines.append(d)
+        return min(deadlines) if deadlines else None
+
+    def fire_due(self, now):
+        if self._buffer is not None:
+            d = self.trigger.deadline(self._buffer)
+            if d is not None and d <= now:
+                self._fire()
+        fn_fire = getattr(self.function, "fire_due", None)
+        if fn_fire is not None:
+            fn_fire(now)
+
+    def finish(self):
+        if self._buffer is not None and self._buffer.elements:
+            self._fire()
+        self._buffer = None
+        self.function.on_finish(self._collector)
+
+
+class SinkOperator(_FunctionOperator):
+    def process_record(self, record):
+        self.function.invoke(record.value)
+
+
+class SourceOperator(_FunctionOperator):
+    """Source: the subtask loop iterates its function (no offsets are
+    tracked until checkpoints are ported)."""
+
+    def iterate(self) -> typing.Iterator[typing.Any]:
+        return self.function.run()
+
+    def process_record(self, record):  # pragma: no cover - sources have no input
+        raise RuntimeError("SourceOperator has no input")

@@ -1,7 +1,19 @@
-"""DecodeStepRunner — autoregressive decode dispatch for the serving plane.
+"""Model runners — own a model's device copy and dispatch its calls.
 
-Port of ``flink_tensorflow_tpu/functions/runner.py:DecodeStepRunner`` (and
-of what ``_build_decode_calls`` compiled for it):
+Port of two runners of ``flink_tensorflow_tpu/functions/runner.py``:
+
+:class:`CompiledMethodRunner` (``:1011``) runs one model method on
+micro-batches for the model functions (``functions/model_function.py``):
+the module goes to the device once at ``open``; ``dispatch`` assembles a
+batch into a pinned staging buffer, ships it and launches the method on
+the runner's compute stream without waiting; a fetch thread waits on each
+batch's own event, in dispatch order, and hands per-record results to the
+collecting (subtask) thread.  On the card every call runs under
+``inference_mode``, and ``warmup`` runs on every dispatch lane, so cuDNN's
+algorithm choice and plans are made before the first live window.
+
+:class:`DecodeStepRunner` is the serving plane's decode dispatch (and
+what ``_build_decode_calls`` compiled for it):
 
 - the cache POOL (``[S, L, C, H, Dh]`` K/V tensors, one row per
   active-session slot) is allocated on the device at ``open()`` and
@@ -21,7 +33,11 @@ masked), and prefill shapes quantize to the admit x prompt-length grid.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import contextlib
 import copy
+import threading
 import time
 import typing
 
@@ -29,6 +45,10 @@ import numpy as np
 import torch
 
 from flink_tensorflow_tpu_torch.models.base import Model
+from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+from flink_tensorflow_tpu_torch.tensors.coercion import coerce
+from flink_tensorflow_tpu_torch.tensors.transfer import DeviceTransfer, torch_dtype
+from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
 if typing.TYPE_CHECKING:
@@ -207,3 +227,332 @@ class DecodeStepRunner:
             self.block_h2d_events += 1
         else:
             self.device_block_moves += 1
+
+
+#: Dispatch lane threads of a :class:`CompiledMethodRunner`.
+LANES = 2
+
+_cudnn_lock = threading.Lock()
+_cudnn_holders = 0
+_cudnn_saved_benchmark = False
+
+
+def hold_cudnn_heuristics() -> None:
+    """Turn cuDNN's timed algorithm search (``cudnn.benchmark``) off while
+    any runner on the card is open.  PyTorch keeps the timed choices per
+    THREAD, so two dispatch lanes (or a direct call) could run one batch
+    with different algorithms and round it differently; the heuristic
+    choice is the same on every thread.  The flag is process-wide, so the
+    caller's value is saved by the first holder and restored by the last
+    :func:`release_cudnn_heuristics`.  TF32 and every other numeric flag
+    stay the caller's choice."""
+    global _cudnn_holders, _cudnn_saved_benchmark
+    with _cudnn_lock:
+        if _cudnn_holders == 0:
+            _cudnn_saved_benchmark = torch.backends.cudnn.benchmark
+        _cudnn_holders += 1
+        torch.backends.cudnn.benchmark = False
+
+
+def release_cudnn_heuristics() -> None:
+    global _cudnn_holders
+    with _cudnn_lock:
+        _cudnn_holders -= 1
+        if _cudnn_holders == 0:
+            torch.backends.cudnn.benchmark = _cudnn_saved_benchmark
+
+
+class _FetchError:
+    """Completed-queue marker for a batch whose lane work or fetch failed;
+    the exception re-raises on the collecting thread."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class CompiledMethodRunner:
+    """Executes one model method on one device, on bucketed micro-batches.
+
+    ``output_names`` selects the outputs the job consumes: the others are
+    dropped on the device, so the D2H moves only these.  Assemble + H2D +
+    launch run on ``LANES`` lane threads, so the host work of batch N+1
+    overlaps batch N and the subtask thread never pays it."""
+
+    def __init__(
+        self,
+        model: Model,
+        method_name: str = "serve",
+        *,
+        policy: typing.Optional[BucketPolicy] = None,
+        device=None,
+        output_names: typing.Optional[typing.Sequence[str]] = None,
+    ):
+        self.model = model
+        self.method = model.method(method_name)
+        self.policy = policy or BucketPolicy()
+        self.device = device
+        self.output_names = tuple(output_names) if output_names is not None else None
+        self._module = None
+        self._call = None
+        self._stream: typing.Optional[torch.cuda.Stream] = None
+        self._transfer: typing.Optional[DeviceTransfer] = None
+        self._pool: typing.Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._holds_cudnn = False
+        self._metrics = None
+        #: In-flight batches (lane futures), in dispatch order; appended
+        #: by the dispatching thread, consumed FIFO by the fetch thread;
+        #: guarded by ``_lock``.
+        self._pending: collections.deque = collections.deque()
+        #: Fetched and unbatched results waiting for the subtask thread
+        #: (lists of TensorValues, or a :class:`_FetchError`).
+        self._completed: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self._work_cv = threading.Condition(self._lock)
+        self._done_cv = threading.Condition(self._lock)
+        self._fetcher: typing.Optional[threading.Thread] = None
+        self._fetch_stop = False
+        #: Zero-arg callback fired (from the fetch thread) when a batch's
+        #: results land — the subtask gate's ``wake``.
+        self.on_results_ready: typing.Optional[typing.Callable[[], None]] = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def open(self, ctx=None) -> None:
+        device = self.device
+        if device is None and ctx is not None:
+            device = ctx.device
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            if not self._holds_cudnn:
+                hold_cudnn_heuristics()
+                self._holds_cudnn = True
+            self._stream = torch.cuda.Stream(self.device)
+        # Params to the device once.
+        self._module = copy.deepcopy(self.model.params).to(self.device).eval()
+        self._transfer = DeviceTransfer(self.device, slots=LANES + 2)
+
+        method = self.method
+        select = self.output_names
+        schema = method.input_schema
+        restore = {n: torch_dtype(schema[n].dtype) for n in schema.names}
+
+        def call(inputs):
+            # Dtype restore: a field that arrives in another dtype is cast
+            # back to the schema's as the first op of the call.
+            inputs = {k: (v.to(restore[k]) if k in restore and v.dtype != restore[k] else v)
+                      for k, v in inputs.items()}
+            outputs = method.fn(self._module, inputs)
+            if select is None:
+                return outputs
+            missing = set(select) - set(outputs)
+            if missing:
+                raise KeyError(f"method {method.name!r} has no outputs {missing}")
+            return {k: outputs[k] for k in select}
+
+        self._call = call
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=LANES, thread_name_prefix=f"{self.model.name}-dispatch")
+        if self._fetcher is None:
+            self._fetch_stop = False
+            self._fetcher = threading.Thread(target=self._fetch_loop,
+                                             name=f"{self.model.name}-fetch", daemon=True)
+            self._fetcher.start()
+        if ctx is not None:
+            self._metrics = ctx.metrics
+
+    def warmup(self, batch_sizes: typing.Iterable[int], length_bucket: int = 128) -> None:
+        """Run each batch bucket once on every dispatch lane before the
+        first live window: the first calls' one-time costs (cuDNN's
+        algorithm choice and plans, which PyTorch keeps per thread;
+        allocator growth; pinned staging buffers) stay out of the live
+        windows and out of the metrics."""
+        schema = self.method.input_schema
+        shapes = schema.resolve_dynamic(length_bucket)
+        metrics, self._metrics = self._metrics, None
+        # Each lane task waits for all the others, so every lane thread
+        # takes exactly one of them.
+        barrier = threading.Barrier(LANES)
+
+        def on_each_lane(records, t0):
+            barrier.wait(timeout=600)
+            return self._dispatch_work(records, t0)
+
+        t0 = time.monotonic()
+        try:
+            for b in batch_sizes:
+                fields = {n: np.zeros(shapes[n], schema[n].dtype) for n in schema.names}
+                records = [TensorValue(fields)] * b
+                for _ in range(LANES):
+                    self._enqueue(self._pool.submit(on_each_lane, records, time.monotonic()))
+                self.flush()
+        finally:
+            self._metrics = metrics
+        if metrics is not None:
+            metrics.histogram("warmup_s").record(time.monotonic() - t0)
+
+    def close(self) -> None:
+        # Drain dispatched work through the fetch thread before dropping
+        # the module: errors are irrelevant during teardown.
+        deadline = time.monotonic() + 60.0
+        with self._lock:
+            while (self._pending and self._fetcher is not None and self._fetcher.is_alive()
+                   and time.monotonic() < deadline):
+                self._done_cv.wait(timeout=0.5)
+            self._fetch_stop = True
+            self._pending.clear()
+            self._completed.clear()
+            self._work_cv.notify_all()
+        if self._fetcher is not None:
+            self._fetcher.join(timeout=10.0)
+            self._fetcher = None
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+        if self._holds_cudnn:
+            release_cudnn_heuristics()
+            self._holds_cudnn = False
+        self._module = None
+        self._call = None
+
+    # -- execution ---------------------------------------------------------
+    def dispatch(self, records: typing.Sequence[typing.Any]) -> None:
+        """Assemble + transfer + launch one micro-batch WITHOUT waiting for
+        the device.  Results are collected in dispatch order by
+        :meth:`collect_ready` / :meth:`collect_available` / :meth:`flush`."""
+        if self._call is None:
+            raise RuntimeError("runner not opened")
+        self._enqueue(self._pool.submit(self._dispatch_work, list(records), time.monotonic()))
+
+    def _enqueue(self, item) -> None:
+        with self._lock:
+            self._pending.append(item)
+            self._work_cv.notify()
+
+    def _dispatch_work(self, records, t0: float):
+        """Assemble, H2D, launch, enqueue the D2H (on a lane thread);
+        returns ``(batch, fetch handle, timings)``."""
+        records = [r if isinstance(r, TensorValue) else coerce(r, self.method.input_schema)
+                   for r in records]
+        stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext())
+        t_b = time.monotonic()
+        with stream, torch.inference_mode():
+            batch, inputs, h2d_bytes, assemble_s = self._transfer.assemble_and_ship(
+                records, self.method.input_schema, self.policy)
+            t_h2d = time.monotonic()
+            handle = self._transfer.start_fetch(self._call(inputs))
+        t_c = time.monotonic()
+        timings = {
+            "t0": t0,
+            "assemble_s": assemble_s,
+            # Host seconds from lane start to the launched call and its
+            # queued D2H (staging wait + H2D enqueue + kernel launches).
+            "dispatch_s": t_c - t_b - assemble_s,
+            "h2d_s": t_h2d - t_b - assemble_s,
+            "h2d_bytes": h2d_bytes,
+        }
+        return batch, handle, timings
+
+    # -- background fetch ---------------------------------------------------
+    def _fetch_loop(self) -> None:
+        """Resolve the oldest in-flight batch, wait for its own event, and
+        hand its per-record results to the completed queue (FIFO)."""
+        while True:
+            with self._lock:
+                while not self._pending and not self._fetch_stop:
+                    self._work_cv.wait()
+                if not self._pending:
+                    return  # stop requested and queue drained
+                item = self._pending[0]
+            try:
+                entry = self._process_item(item)
+            except BaseException as exc:  # noqa: BLE001 - re-raised on collect
+                entry = _FetchError(exc)
+            with self._lock:
+                if self._pending:
+                    self._pending.popleft()
+                if not self._fetch_stop:
+                    self._completed.append(entry)
+                self._done_cv.notify_all()
+            cb = self.on_results_ready
+            if cb is not None:
+                cb()
+
+    def _process_item(self, item: concurrent.futures.Future) -> typing.List[TensorValue]:
+        batch, handle, timings = item.result()  # re-raises lane-thread failures here
+        t_fetch = time.monotonic()
+        host = self._transfer.finish_fetch(handle)   # this batch's event only
+        t_done = time.monotonic()
+        results = batch.unbatch(host)
+        dt = t_done - timings["t0"]
+        m = self._metrics
+        if m is not None:
+            m.meter("records").mark(len(results))
+            m.histogram("batch_latency_s").record(dt)
+            m.histogram("record_latency_s").record(dt / max(1, len(results)))
+            m.histogram("assemble_s").record(timings["assemble_s"])
+            m.histogram("dispatch_s").record(timings["dispatch_s"])
+            m.histogram("h2d_s").record(timings["h2d_s"])
+            # Compute wait + D2H: the fetch thread's wait on the event.
+            m.histogram("fetch_wait_s").record(t_done - t_fetch)
+            m.counter("h2d_bytes").inc(timings["h2d_bytes"])
+            m.counter("batches").inc()
+            m.counter("padded_records").inc(batch.padded_size - batch.num_records)
+        return results
+
+    def _consume(self, entry) -> typing.List[TensorValue]:
+        if isinstance(entry, _FetchError):
+            raise entry.exc
+        return entry
+
+    def has_completed(self) -> bool:
+        return bool(self._completed)
+
+    @property
+    def in_flight(self) -> int:
+        """Batches dispatched and not yet fetched."""
+        return len(self._pending)
+
+    def collect_ready(self, max_in_flight: int = 1) -> typing.List[TensorValue]:
+        """Drain completed batches until <= ``max_in_flight`` remain in
+        flight, waiting as needed."""
+        max_in_flight = max(0, max_in_flight)
+        out: typing.List[TensorValue] = []
+        while True:
+            with self._lock:
+                entries = list(self._completed)
+                self._completed.clear()
+                done = len(self._pending) <= max_in_flight
+                if not entries and not done:
+                    self._done_cv.wait(timeout=0.2)
+                    if (self._fetcher is None or not self._fetcher.is_alive()) \
+                            and self._pending and not self._completed:
+                        raise RuntimeError("fetch thread died with batches in flight")
+                    continue
+            for e in entries:
+                out.extend(self._consume(e))
+            if done:
+                return out
+
+    def collect_available(self) -> typing.List[TensorValue]:
+        """Drain every batch already fetched; never waits on the device."""
+        out: typing.List[TensorValue] = []
+        while True:
+            with self._lock:
+                if not self._completed:
+                    return out
+                entry = self._completed.popleft()
+            out.extend(self._consume(entry))
+
+    def collect_progress(self, max_in_flight: int) -> typing.List[TensorValue]:
+        """Everything already fetched, then wait only as far as the
+        pipeline-depth bound requires."""
+        out = self.collect_available()
+        out.extend(self.collect_ready(max_in_flight))
+        return out
+
+    def flush(self) -> typing.List[TensorValue]:
+        """Wait for every in-flight batch (end of input / pre-snapshot)."""
+        return self.collect_ready(0)

@@ -1,0 +1,91 @@
+"""The Inception-v3 streaming cell the port is measured on.
+
+The JAX package's own Inception bench (``bench.py:bench_inception``,
+``:771-835``), at its full size: 2048 uint8 299x299x3 records from
+``np.random.RandomState(0)``, each with its own bytes, through
+``from_collection -> count_window(128, timeout_s=5.0) ->
+ModelWindowFunction(fixed_batch=128, warmup_batches=(128,),
+outputs=("label", "score"), pipeline_depth=6) -> sink_to_callable``, at
+parallelism 1, Inception-v3 with 1000 classes in bf16.  Weights are the
+port's initialiser's, from ``torch.Generator`` seed ``seed``.
+"""
+
+from __future__ import annotations
+
+import time
+import typing
+
+import numpy as np
+
+from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
+from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
+from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+RECORDS = 2048
+BATCH = 128
+DEPTH = 6
+CLASSES = 1000
+IMAGE = 299
+TIMEOUT_S = 5.0
+
+
+def inception_cell(seed: int = 0, records: int = RECORDS):
+    """``(model_def, model, pixels [records, 299, 299, 3] uint8, records)``."""
+    mdef = get_model_def("inception_v3", num_classes=CLASSES, image_size=IMAGE,
+                         uint8_input=True)
+    model = mdef.to_model(mdef.init_params(seed))
+    pixels = np.random.RandomState(0).randint(0, 256, (records, IMAGE, IMAGE, 3),
+                                              dtype=np.uint8)
+    # Read-only: each TensorValue shares its row instead of copying it.
+    pixels.setflags(write=False)
+    values = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(records)]
+    return mdef, model, pixels, values
+
+
+def run_cell(model, records: typing.Sequence[TensorValue], *, device_provider=None,
+             warmup: bool = True, timeout: float = 600.0):
+    """Run the cell's job once.  Returns ``(results, sink arrival times,
+    metric report, seconds of execute())``."""
+    env = StreamExecutionEnvironment(parallelism=1)
+    if device_provider is not None:
+        env.set_device_provider(device_provider)
+    results: typing.List[TensorValue] = []
+    arrivals: typing.List[float] = []
+
+    def sink(record):
+        results.append(record)
+        arrivals.append(time.monotonic())
+
+    fn = ModelWindowFunction(model, policy=BucketPolicy(fixed_batch=BATCH),
+                             warmup_batches=(BATCH,) if warmup else (),
+                             outputs=("label", "score"), pipeline_depth=DEPTH)
+    (env.from_collection(records, parallelism=1)
+     .count_window(BATCH, timeout_s=TIMEOUT_S)
+     .apply(fn, name="inception")
+     .sink_to_callable(sink))
+    t0 = time.monotonic()
+    job = env.execute(timeout=timeout)
+    return results, arrivals, job.metrics, time.monotonic() - t0
+
+
+def steady_rps(arrivals: typing.Sequence[float], total_records: int, first_batch: int,
+               trailing_exclude: int) -> typing.Tuple[float, float]:
+    """Steady-state records/s as ``bench.py:_steady_rps`` (``:674``)
+    computes it on one chip: first sink arrival -> the last counted one,
+    with the first window and the ``trailing_exclude`` records of the
+    end-of-input flush burst left out.  Returns ``(rate, span seconds)``."""
+    if total_records <= first_batch + trailing_exclude:
+        raise ValueError("need more windows to measure steady-state throughput")
+    last = len(arrivals) - 1 - trailing_exclude
+    if last < 1:
+        raise ValueError("arrivals shorter than the records the exclusions assume")
+    span = arrivals[last] - arrivals[0]
+    steady = total_records - first_batch - trailing_exclude
+    return (steady / span if span > 0 else float("nan")), span
+
+
+def trailing_exclude(records: int = RECORDS) -> int:
+    """``bench.py``'s exclusion: the last ``pipeline_depth`` windows."""
+    return max(0, min(DEPTH * BATCH, records - 2 * BATCH))

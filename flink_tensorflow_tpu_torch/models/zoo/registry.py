@@ -16,10 +16,12 @@ from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema
 class ModelDef:
     """An instantiable architecture: module class + typed methods.
 
-    ``init_fn(seed)`` returns the weights as a numpy tree in the JAX
-    package's layout, so the same weights can feed both packages;
-    ``to_model`` carries them into the module through the weight bridge
-    (``models/convert.py``)."""
+    ``init_fn(seed)`` returns the weights: a numpy tree in the JAX
+    package's layout (so the same weights can feed both packages), or,
+    for a def with ``load_fn``, whatever that function takes (the port's
+    own initialised module).  ``to_model`` carries them into the module:
+    through ``load_fn`` when set, else through the weight bridge
+    (``models/convert.py:params_from_jax``)."""
 
     architecture: str
     config: typing.Dict[str, typing.Any]
@@ -27,11 +29,16 @@ class ModelDef:
     input_schema: RecordSchema
     methods: typing.Mapping[str, ModelMethod]
     init_fn: typing.Callable[[typing.Any], typing.Any]
+    #: ``params -> nn.Module``; None loads ``module(**config)`` from a
+    #: numpy tree through ``params_from_jax``.
+    load_fn: typing.Optional[typing.Callable[[typing.Any], typing.Any]] = None
 
     def init_params(self, seed) -> typing.Any:
         return self.init_fn(seed)
 
     def build_module(self, np_tree):
+        if self.load_fn is not None:
+            return self.load_fn(np_tree).eval()
         from flink_tensorflow_tpu_torch.models.convert import params_from_jax
 
         module = self.module(**self.config)
@@ -58,7 +65,7 @@ def register_model_def(name: str):
     return deco
 
 
-_ZOO_MODULES = ("chartransformer",)
+_ZOO_MODULES = ("chartransformer", "inception")
 
 
 def get_model_def(architecture: str, **config) -> ModelDef:

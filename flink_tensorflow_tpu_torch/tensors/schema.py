@@ -1,7 +1,9 @@
 """Record schemas — a flat mapping ``field -> TensorSpec``.
 
-Port of the declarative part of ``flink_tensorflow_tpu/tensors/schema.py``
-(what a model method declares).  Dynamic dims are spelled ``None``.
+Port of ``flink_tensorflow_tpu/tensors/schema.py``: what a model method
+declares, and the checks the coercion and batching layers run against it.
+Dynamic dims are spelled ``None``; batching pads them to a bucket before
+anything reaches the device.
 """
 
 from __future__ import annotations
@@ -30,6 +32,17 @@ class TensorSpec:
     @property
     def rank(self) -> int:
         return len(self.shape)
+
+    def validate(self, array: np.ndarray) -> None:
+        if array.ndim != self.rank:
+            raise TypeError(
+                f"rank mismatch: spec {self.shape} vs array shape {array.shape}")
+        for want, got in zip(self.shape, array.shape):
+            if want is not None and want != got:
+                raise TypeError(
+                    f"shape mismatch: spec {self.shape} vs array shape {array.shape}")
+        if array.dtype != self.dtype:
+            raise TypeError(f"dtype mismatch: spec {self.dtype} vs array {array.dtype}")
 
 
 class RecordSchema:
@@ -60,3 +73,24 @@ class RecordSchema:
     @property
     def names(self) -> typing.List[str]:
         return list(self.fields.keys())
+
+    def validate(self, record: typing.Mapping[str, np.ndarray]) -> None:
+        missing = set(self.fields) - set(record)
+        extra = set(record) - set(self.fields)
+        if missing or extra:
+            raise TypeError(f"record fields mismatch: missing={missing} extra={extra}")
+        for name, spec in self.fields.items():
+            spec.validate(np.asarray(record[name]))
+
+    def resolve_dynamic(self, length_bucket: int) -> typing.Dict[str, typing.Tuple[int, ...]]:
+        """Per-record shapes with every dynamic dim pinned to
+        ``length_bucket`` (the shapes a warmup batch takes)."""
+        return {
+            name: tuple(length_bucket if d is None else d for d in spec.shape)
+            for name, spec in self.fields.items()
+        }
+
+
+def spec(shape, dtype=np.float32) -> TensorSpec:
+    """Shorthand constructor: ``spec((299, 299, 3), np.uint8)``."""
+    return TensorSpec(tuple(shape), dtype)

@@ -1,0 +1,171 @@
+"""Host <-> device transfer of assembled batches.
+
+Port of ``flink_tensorflow_tpu/tensors/transfer.py:DeviceTransfer``
+(``:83``).  The reference ships a batch with one ``jax.device_put`` and
+fetches with one ``jax.device_get``; on a CUDA card the same contract is
+kept with explicit streams and events:
+
+- one **pinned staging slot per in-flight batch**: ``assemble`` writes the
+  records straight into the slot's page-locked buffers (``alloc``), so
+  the stacking copy is the only host copy;
+- one ``non_blocking`` H2D per field, on the transfer's own **side
+  stream**, followed by an event; the compute stream waits on that event
+  (the host never blocks on the copy), and the device tensors are marked
+  with ``record_stream`` so the caching allocator cannot hand their
+  memory out again before the compute stream is done with them;
+- a slot is reused only after its previous H2D has finished (its event is
+  synchronized first), so a pinned buffer is never overwritten under a
+  copy that still reads it;
+- the D2H moves only the outputs the job selected, into pinned host
+  buffers, on the compute stream, followed by a per-batch event that the
+  fetch thread waits on; it never synchronizes the whole device.
+
+On the CPU (a provider that returns ``cpu``) the same calls run the
+plain path: the staging buffers are ordinary numpy arrays shared with the
+tensors, and the fetch is a conversion.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import typing
+
+import numpy as np
+import torch
+
+from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketPolicy, assemble
+from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema
+from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty((0,), dtype=dtype)).dtype
+
+
+class StagingSlot:
+    """Pinned host buffers for one in-flight batch, the event of the H2D
+    copy that last read them, and the lock its user holds from assembly
+    until that copy is enqueued."""
+
+    __slots__ = ("tensors", "copied", "lock")
+
+    def __init__(self) -> None:
+        self.tensors: typing.Dict[str, torch.Tensor] = {}
+        self.copied: typing.Optional[torch.cuda.Event] = None
+        self.lock = threading.Lock()
+
+    def alloc(self, name: str, shape, dtype) -> np.ndarray:
+        """``assemble``'s allocator: a numpy view of a pinned buffer of
+        this shape and dtype (allocated once, then reused)."""
+        t = self.tensors.get(name)
+        tdt = torch_dtype(dtype)
+        if t is None or tuple(t.shape) != tuple(shape) or t.dtype != tdt:
+            t = torch.empty(tuple(shape), dtype=tdt, pin_memory=True)
+            self.tensors[name] = t
+        return t.numpy()
+
+
+class FetchHandle:
+    """Outputs on their way to the host: pinned buffers and the event
+    recorded after their copies (None on the CPU)."""
+
+    __slots__ = ("host", "done")
+
+    def __init__(self, host: typing.Dict[str, torch.Tensor],
+                 done: typing.Optional[torch.cuda.Event]):
+        self.host = host
+        self.done = done
+
+
+class DeviceTransfer:
+    """Per-operator-subtask transfer helper bound to one device.
+
+    ``slots`` is the number of pinned staging slots: a slot is busy from
+    its batch's assembly until that batch's H2D copy has run, so a few
+    more than the dispatch lanes keep assembly from waiting (the runner
+    takes lanes + 2)."""
+
+    def __init__(self, device: torch.device, slots: int = 2):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._stream = torch.cuda.Stream(device) if self.cuda else None
+        self._slots = [StagingSlot() for _ in range(max(1, slots))] if self.cuda else []
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def _acquire(self) -> typing.Optional[StagingSlot]:
+        """The next staging slot, locked; waits for the H2D copy that last
+        read it.  None on the CPU."""
+        if not self.cuda:
+            return None
+        with self._lock:
+            slot = self._slots[self._next]
+            self._next = (self._next + 1) % len(self._slots)
+        slot.lock.acquire()
+        if slot.copied is not None:
+            slot.copied.synchronize()
+        return slot
+
+    def assemble_and_ship(self, records: typing.Sequence[TensorValue], schema: RecordSchema,
+                          policy: BucketPolicy
+                          ) -> typing.Tuple[Batch, typing.Dict[str, torch.Tensor], int, float]:
+        """Assemble ``records`` straight into a staging slot and ship it;
+        returns ``(batch, device tensors, h2d_bytes, assemble_s)``."""
+        slot = self._acquire()
+        try:
+            t0 = time.monotonic()
+            batch = assemble(records, schema, policy, alloc=slot.alloc if slot else None)
+            assemble_s = time.monotonic() - t0
+            dev, nbytes = self._ship(batch, slot)
+        finally:
+            if slot is not None:
+                slot.lock.release()
+        return batch, dev, nbytes, assemble_s
+
+    def _ship(self, batch: Batch, slot: typing.Optional[StagingSlot]
+              ) -> typing.Tuple[typing.Dict[str, torch.Tensor], int]:
+        """The H2D of a batch assembled into ``slot``, on the side stream;
+        the CALLER's current stream (the compute stream) waits for it."""
+        nbytes = sum(a.nbytes for a in batch.arrays.values())
+        if slot is None:
+            return {n: torch.from_numpy(a) for n, a in batch.arrays.items()}, nbytes
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            dev = {n: slot.tensors[n].to(self.device, non_blocking=True) for n in batch.arrays}
+            copied = torch.cuda.Event()
+            copied.record(self._stream)
+        slot.copied = copied
+        compute.wait_event(copied)
+        for t in dev.values():
+            t.record_stream(compute)
+        return dev, nbytes
+
+    def start_fetch(self, outputs: typing.Mapping[str, torch.Tensor]) -> FetchHandle:
+        """Enqueue the D2H of ``outputs`` on the caller's current stream,
+        into pinned host buffers, and record the batch's event."""
+        if not self.cuda:
+            return FetchHandle({n: t.detach() for n, t in outputs.items()}, None)
+        host = {}
+        for n, t in outputs.items():
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host[n] = h
+        # A blocking-sync event: the fetch thread sleeps in the wait
+        # instead of spinning a core the dispatch lanes need.
+        done = torch.cuda.Event(blocking=True)
+        done.record(torch.cuda.current_stream(self.device))
+        return FetchHandle(host, done)
+
+    @staticmethod
+    def finish_fetch(handle: FetchHandle) -> typing.Dict[str, np.ndarray]:
+        """Wait for this batch's D2H only, and return read-only numpy views
+        (``Batch.unbatch`` row views are then shared, not copied)."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        out = {}
+        for n, t in handle.host.items():
+            a = t.numpy()
+            a.setflags(write=False)
+            out[n] = a
+        return out

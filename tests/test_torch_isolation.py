@@ -1,5 +1,7 @@
-"""The port stands alone: it runs with ``import jax`` broken and loads no
-module of the JAX package, and it never falls back to the CPU silently."""
+"""The port stands alone: every module of it imports with ``import jax``
+broken, the serving slice and the Quick-start job run that way, no
+module of the JAX package is loaded, and nothing falls back to the CPU
+silently."""
 
 import os
 import subprocess
@@ -12,9 +14,14 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SLICE = textwrap.dedent("""
-    import sys
+    import importlib, pkgutil, sys
     sys.modules["jax"] = None          # any "import jax" now raises ImportError
     import numpy as np
+    import flink_tensorflow_tpu_torch as port
+    modules = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+    for name in modules:
+        importlib.import_module(name)
+    print("IMPORTED", len(modules))
     from flink_tensorflow_tpu_torch.core.runtime import KeyedSubtask
     from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
     from flink_tensorflow_tpu_torch.serving import (
@@ -31,6 +38,25 @@ _SLICE = textwrap.dedent("""
         device="cpu")
     events = KeyedSubtask(op).run(reqs)
     assert len([e for e in events if e.finished]) == 4
+
+    from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    inception = get_model_def("inception_v3", num_classes=4, image_size=75, uint8_input=True)
+    images = rng.randint(0, 256, (3, 75, 75, 3)).astype(np.uint8)
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.set_device_provider(lambda task, index: "cpu")
+    out = (env.from_collection([TensorValue({"image": im}, {"id": i})
+                                for i, im in enumerate(images)])
+           .count_window(2, timeout_s=5.0)
+           .apply(ModelWindowFunction(inception.to_model(inception.init_params(0)),
+                                      policy=BucketPolicy(fixed_batch=2), warmup_batches=(2,),
+                                      outputs=("label", "score"), pipeline_depth=6))
+           .sink_to_list())
+    env.execute(timeout=60)
+    assert sorted(r.meta["id"] for r in out) == [0, 1, 2]
     leaked = sorted(m for m in sys.modules
                     if m == "flink_tensorflow_tpu" or m.startswith("flink_tensorflow_tpu."))
     print("LEAKED", leaked)
@@ -50,7 +76,7 @@ def test_cpu_slice_runs_without_jax_or_the_jax_package():
 def test_no_device_means_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
-    from flink_tensorflow_tpu_torch.functions.runner import DecodeStepRunner
+    from flink_tensorflow_tpu_torch.functions.runner import CompiledMethodRunner, DecodeStepRunner
     from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
     from flink_tensorflow_tpu_torch.serving import ContinuousBatchingOperator
 
@@ -61,3 +87,7 @@ def test_no_device_means_cuda_and_raises_without_it():
         DecodeStepRunner(model, pool_slots=2, capacity=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ContinuousBatchingOperator("cb", model)
+    inception = get_model_def("inception_v3", num_classes=4, image_size=75)
+    runner = CompiledMethodRunner(inception.to_model(inception.init_params(0)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.open()
