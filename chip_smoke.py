@@ -28,7 +28,22 @@ Phases (any failure exits non-zero and prints no result line):
    records/s (steady, and over the whole job), latency
    percentiles, H2D bytes per batch, batches, padded records, and init
    and warmup seconds, each beside the card line;
-6. print one ``kernels`` JSON line, the card line, and the final
+6. serve the same cell, on phase 4's weights, through the pipeline users
+   call: ``StreamExecutionEnvironment -> from_collection ->
+   key_by(session_id) -> serving.continuous_batching -> sink`` on the
+   port's local executor (``serving/cell.py:keyed_job``), three ways:
+   (a) uninterrupted at parallelism 1, tokens equal to phase 4's, seconds
+   and tokens/s beside phase 4's; (b) with count-based checkpoints every 8
+   records and a tap that raises once after half the tokens, under
+   ``RestartStrategy(max_restarts=1)``: one restart, tokens equal to (a),
+   restored sessions resumed from checkpointed caches, K1's launches equal
+   to layers x (prefill batches of both attempts + warmup prefills x 2),
+   and no KV pool of the failed attempt held when the restart opens its
+   own (device memory before each attempt and after the restart, printed);
+   (c) the same crash at parallelism 2 without a restart strategy, then a
+   restore of the latest checkpoint at parallelism 3: the union of both
+   runs' tokens equal to (a);
+7. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -328,6 +343,185 @@ def check_inception(card: str, torch):
     return row
 
 
+def crash_once(at: int):
+    """A tap on the token events that raises once, at the ``at``-th event;
+    the one instance is shared by every subtask and restart."""
+    from flink_tensorflow_tpu_torch.core import functions as fn
+
+    class CrashOnce(fn.MapFunction):
+        def __init__(self):
+            self.at, self.seen, self.crashed = at, 0, False
+
+        def clone(self):
+            return self
+
+        def map(self, value):
+            self.seen += 1
+            if not self.crashed and self.seen >= self.at:
+                self.crashed = True
+                raise RuntimeError("injected mid-generation crash")
+            return value
+
+    return CrashOnce()
+
+
+def tokens_checked(events):
+    """Per-session tokens; an index seen twice (at-least-once replay) must
+    carry the same token."""
+    out = {}
+    for ev in events:
+        if ev.index < 0:
+            continue
+        prev = out.setdefault(ev.session_id, {}).get(ev.index)
+        if prev is not None and prev != ev.token:
+            fail(f"session {ev.session_id} index {ev.index}: replayed token {ev.token} "
+                 f"differs from {prev}")
+        out[ev.session_id][ev.index] = ev.token
+    return {sid: [toks[i] for i in sorted(toks)] for sid, toks in out.items()}
+
+
+def hold_tokens(what, got, want, requests, model, torch):
+    """Fail unless every session's tokens equal ``want``; on a divergence
+    print the session, the step and the CPU's top-2 logit margin there."""
+    for r in requests:
+        a, b = got.get(r.session_id), want[r.session_id]
+        if a == b:
+            continue
+        if a is None:
+            fail(f"{what}: session {r.session_id} produced no tokens")
+        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        seq = list(r.prompt) + list(b[:step])
+        with torch.no_grad():
+            logits = model.params.last_logits({
+                "tokens": torch.tensor([seq], dtype=torch.int32),
+                "lengths": torch.tensor([len(seq)], dtype=torch.int32)})[0]
+        top2 = torch.topk(logits, 2).values
+        fail(f"{what}: session {r.session_id} differs at step {step} "
+             f"({a[step:step + 1]} vs {b[step:step + 1]}, lengths {len(a)} vs {len(b)}); "
+             f"CPU top-2 logit margin there {float(top2[0] - top2[1])}")
+
+
+def check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, want, phase4):
+    """Phase 6: the serving cell through the keyed pipeline on the local
+    executor: uninterrupted, failover under a restart strategy, and a
+    rescale from parallelism 2 to 3.  Returns K1's launches per path."""
+    import tempfile
+
+    from flink_tensorflow_tpu_torch import RestartStrategy
+    from flink_tensorflow_tpu_torch.checkpoint.store import (
+        checkpoint_size_bytes,
+        latest_checkpoint_id,
+    )
+    from flink_tensorflow_tpu_torch.core.runtime import JobFailure
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job, serve_keyed
+
+    layers = mdef.config["num_layers"]
+    warm = len(cfg.resolved_admit_buckets()) * len(cfg.resolved_prompt_buckets())
+    total = sum(len(v) for v in want.values())
+
+    # (a) uninterrupted, parallelism 1.
+    fa.flash_attention.launches = 0
+    events, seconds, grp = serve_keyed(model, cfg, requests)
+    launches_a = fa.flash_attention.launches
+    got = tokens_checked(events)
+    hold_tokens("keyed pipeline", got, want, requests, model, torch)
+    prefills_a = grp.counter("prefill_batches").count
+    if launches_a != layers * (prefills_a + warm):
+        fail(f"keyed pipeline: K1 launches {launches_a} != {layers} x ({prefills_a} + {warm})")
+    row_a = {"tokens": total, "seconds": seconds, "tokens_per_s": total / seconds,
+             "subtask_loop_seconds": phase4["seconds"],
+             "subtask_loop_tokens_per_s": phase4["tokens_per_s"],
+             "prefill_batches": prefills_a, "k1_launches": launches_a, "card": card}
+    print("keyed_serving", json.dumps(row_a), flush=True)
+
+    # (b) failover: count-based checkpoints, one crash, one restart.
+    pool_bytes = 2 * 4 * cfg.max_active_seqs * layers * cfg.capacity * mdef.config["embed_dim"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chk") as d:
+        tap = crash_once(total // 2)
+        env, arrivals = keyed_job(model, cfg, requests, tap=tap)
+        env.enable_checkpointing(d, every_n_records=8)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fa.flash_attention.launches = 0
+        result = env.execute("failover", timeout=600,
+                             restart_strategy=RestartStrategy(max_restarts=1))
+        launches_b = fa.flash_attention.launches
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        last_id = latest_checkpoint_id(d)
+        last_bytes = checkpoint_size_bytes(os.path.join(d, f"chk-{last_id:06d}"))
+    rep = env.metric_registry.report()
+    grp = env.metric_registry.group("continuous_batching.0")
+    at_open = grp.histogram("device_bytes_at_open").values
+    if result.restarts != 1 or not tap.crashed:
+        fail(f"failover: {result.restarts} restarts (crashed: {tap.crashed}), want 1")
+    got_b = tokens_checked([ev for _, ev in arrivals])
+    hold_tokens("failover", got_b, got, requests, model, torch)
+    h2d_blocks = rep["continuous_batching.0.cache_h2d_blocks"]
+    if h2d_blocks < 1:
+        fail("failover: no session resumed from a checkpointed cache")
+    prefills_b = grp.counter("prefill_batches").count
+    want_b = layers * (prefills_b + warm * (result.restarts + 1))
+    if launches_b != want_b:
+        fail(f"failover: K1 launches {launches_b} != {layers} x ({prefills_b} prefill batches "
+             f"+ {warm} x {result.restarts + 1} warmup prefills)")
+    if len(at_open) != 2:
+        fail(f"failover: the serving operator opened {len(at_open)} times, want 2")
+    # The restart opens its pool only after the failed attempt let go of
+    # its own: less than half a pool may separate the readings.
+    held = max(at_open[1], after) - before
+    if held > pool_bytes // 2:
+        fail(f"failover: {held} device bytes of the failed attempt still held "
+             f"(one KV pool is {pool_bytes})")
+    sync = grp.histogram("cache_sync_s")
+    row_b = {
+        "restarts": result.restarts, "crash_after_events": tap.at,
+        "checkpoints_completed": rep["checkpoint.completed"],
+        "last_checkpoint_id": last_id, "last_checkpoint_bytes": last_bytes,
+        "cache_sync_p50_ms": sync.percentile(50) * 1e3,
+        "cache_sync_max_ms": max(sync.values) * 1e3, "cache_syncs": len(sync.values),
+        "recovery_duration_s": rep["recovery.recovery_duration_s"]["p50"],
+        "cache_h2d_blocks": h2d_blocks,
+        "device_bytes_before": before, "device_bytes_after_failure": at_open[1],
+        "device_bytes_after_restart": after, "kv_pool_bytes": pool_bytes,
+        "k1_launches": launches_b, "k1_launches_expected": want_b,
+        "prefill_batches_both_attempts": prefills_b, "card": card,
+    }
+    print("keyed_failover", json.dumps(row_b), flush=True)
+
+    # (c) crash at parallelism 2, restore the latest checkpoint at 3.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rescale") as d:
+        env1, arrivals1 = keyed_job(model, cfg, requests, parallelism=2,
+                                    tap=crash_once(total // 2))
+        env1.enable_checkpointing(d, every_n_records=8)
+        try:
+            env1.execute("rescale-phase1", timeout=600)
+            fail("rescale: the first run did not crash")
+        except JobFailure:
+            pass
+        cid = latest_checkpoint_id(d)
+        if cid is None:
+            fail("rescale: no checkpoint completed before the crash")
+        env2, arrivals2 = keyed_job(model, cfg, requests, parallelism=3)
+        env2.execute("rescale-phase2", timeout=600, restore_from=d, restore_checkpoint_id=cid)
+    restored = tokens_checked([ev for _, ev in arrivals2])
+    if not restored:
+        fail("rescale: the restored run emitted no session")
+    got_c = tokens_checked([ev for _, ev in arrivals1] + [ev for _, ev in arrivals2])
+    hold_tokens("rescale 2->3", got_c, got, requests, model, torch)
+    row_c = {"restored_from": cid, "sessions_emitted_after_restore": len(restored),
+             "events_before_crash": len(arrivals1), "events_after_restore": len(arrivals2),
+             "card": card}
+    print("keyed_rescale", json.dumps(row_c), flush=True)
+    for key in ("seconds", "tokens_per_s"):
+        print(f"keyed serving {key}: {row_a[key]} (subtask loop {phase4[key]}) | card: {card}")
+    for key in ("checkpoints_completed", "last_checkpoint_bytes", "cache_sync_p50_ms",
+                "cache_sync_max_ms", "recovery_duration_s", "device_bytes_before",
+                "device_bytes_after_failure", "device_bytes_after_restart"):
+        print(f"keyed failover {key}: {row_b[key]} | card: {card}")
+    return {"serving_pipeline": launches_a, "serving_failover": launches_b}
+
+
 def main() -> int:
     import torch
 
@@ -404,6 +598,9 @@ def main() -> int:
 
     check_inception(card, torch)
 
+    keyed_launches = check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, got,
+                                         serving_row)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -417,6 +614,7 @@ def main() -> int:
         "bound_ms": serving_k1["bound_ms"],
         "bound_by": serving_k1["bound_by"],
         "library_ms": serving_k1["library_ms"],
+        "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

@@ -17,8 +17,32 @@ Ported so far:
   ``functions.runner.CompiledMethodRunner``, ``tensors.transfer`` and
   Inception-v3 (``models.zoo.inception``);
 - LLM serving over the dense KV pool: the char transformer,
-  ``DecodeStepRunner``, ``ContinuousBatchingOperator`` and the loop that
-  drives one keyed subtask (``core.runtime.KeyedSubtask``).  The
-  prefill's flash attention is a hand-written CUDA kernel
-  (``csrc/flash_attention.cu``).
+  ``DecodeStepRunner``, ``ContinuousBatchingOperator`` and
+  ``serving.continuous_batching`` on a keyed stream (or one keyed subtask
+  driven directly, ``core.runtime.KeyedSubtask``).  The prefill's flash
+  attention is a hand-written CUDA kernel (``csrc/flash_attention.cu``);
+- keyed streams and exactly-once state: ``key_by().process()``, keyed
+  state, aligned checkpoints (``core.checkpoint``, ``checkpoint.store``),
+  restore, restart (``RestartStrategy``) and rescale by key group.
 """
+
+from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig
+from flink_tensorflow_tpu_torch.core.environment import (
+    RestartStrategy,
+    StreamExecutionEnvironment,
+)
+from flink_tensorflow_tpu_torch.core.functions import ProcessFunction
+from flink_tensorflow_tpu_torch.core.state import StateDescriptor
+from flink_tensorflow_tpu_torch.core.stream import DataStream, KeyedStream, WindowedStream
+
+__all__ = [
+    "CheckpointConfig",
+    "DataStream",
+    "JobConfig",
+    "KeyedStream",
+    "ProcessFunction",
+    "RestartStrategy",
+    "StateDescriptor",
+    "StreamExecutionEnvironment",
+    "WindowedStream",
+]

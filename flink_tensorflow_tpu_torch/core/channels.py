@@ -1,13 +1,15 @@
 """Host-side record channels between operator subtasks.
 
-Port of ``flink_tensorflow_tpu/core/channels.py`` (``InputGate`` ``:39``,
-``ChannelWriter`` ``:333``) without barrier alignment (checkpoints come
-later).  Each downstream subtask owns one gate merging the channels of
-all its upstream subtasks into one bounded queue: a full queue blocks
-the writer (backpressure), an empty one blocks the reader on a condition
-variable until a put, a :meth:`InputGate.wake` or a close.  Only host
-objects cross a channel; tensors reach the device as batches inside the
-model operators.
+Port of ``flink_tensorflow_tpu/core/channels.py`` (``InputGate``
+``:39-312``, ``ChannelWriter`` ``:333``).  Each downstream subtask owns
+one gate merging the channels of all its upstream subtasks into one
+bounded queue: a full queue blocks the writer (backpressure), an empty
+one blocks the reader on a condition variable until a put, a
+:meth:`InputGate.wake` or a close.  Barrier alignment happens here: a
+channel whose barrier arrived is blocked, its later elements are stashed
+and replayed in order once the checkpoint is taken (Flink's aligned
+exactly-once protocol).  Only host objects cross a channel; tensors reach
+the device as batches inside the model operators.
 """
 
 from __future__ import annotations
@@ -21,13 +23,19 @@ from flink_tensorflow_tpu_torch.core import elements as el
 
 
 class InputGate:
-    """Merged input of one subtask: N channels, one bounded queue."""
+    """Merged input of one subtask: N channels, one bounded queue, and
+    barrier alignment (blocked channels, their stashes, the replay queue;
+    these are touched by the single reader thread only)."""
 
     def __init__(self, num_channels: int, capacity: int = 1024):
         self.num_channels = num_channels
         self.capacity = capacity
         self._queue: typing.Deque[typing.Tuple[int, typing.Optional[el.StreamElement]]] = (
             collections.deque())
+        self._stashed: typing.List[typing.Deque[typing.Tuple[int, el.StreamElement]]] = [
+            collections.deque() for _ in range(num_channels)]
+        self._replay: typing.Deque[typing.Tuple[int, el.StreamElement]] = collections.deque()
+        self._blocked: typing.List[bool] = [False] * num_channels
         self._closed = False
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
@@ -52,25 +60,49 @@ class InputGate:
 
     def poll(self, timeout: typing.Optional[float] = None
              ) -> typing.Optional[typing.Tuple[int, el.StreamElement]]:
-        """Next ``(channel, element)``; None on timeout, wake, or a
-        closed and empty gate.  ``timeout=None`` waits for an event."""
+        """Next ``(channel, element)`` from a channel that is not blocked;
+        None on timeout, wake, or a closed and empty gate.
+        ``timeout=None`` waits for an event."""
+        while self._replay:
+            idx, element = self._replay.popleft()
+            if self._blocked[idx]:
+                self._stashed[idx].append((idx, element))
+                continue
+            return idx, element
         deadline = None if timeout is None else time.monotonic() + timeout
-        with self._not_empty:
-            while not self._queue:
-                if self._closed:
-                    return None
-                if deadline is None:
-                    self._not_empty.wait()
-                else:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0 or not self._not_empty.wait(remaining):
-                        if not self._queue:
-                            return None
-            idx, element = self._queue.popleft()
-            self._not_full.notify()
-        if idx < 0:
-            return None  # wake() sentinel: hand control back now
-        return idx, element
+        while True:
+            with self._not_empty:
+                while not self._queue:
+                    if self._closed:
+                        return None
+                    if deadline is None:
+                        self._not_empty.wait()
+                    else:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0 or not self._not_empty.wait(remaining):
+                            if not self._queue:
+                                return None
+                idx, element = self._queue.popleft()
+                self._not_full.notify()
+            if idx < 0:
+                return None  # wake() sentinel: hand control back now
+            if self._blocked[idx]:
+                self._stashed[idx].append((idx, element))
+                continue
+            return idx, element
+
+    def block_channel(self, idx: int) -> None:
+        """Hold ``idx``'s elements back until :meth:`unblock_all` (its
+        barrier arrived; the others' have not)."""
+        self._blocked[idx] = True
+
+    def unblock_all(self) -> None:
+        """Alignment done: stashed elements replay in channel order."""
+        self._blocked = [False] * self.num_channels
+        stashed = self._stashed
+        self._stashed = [collections.deque() for _ in range(self.num_channels)]
+        for dq in stashed:
+            self._replay.extend(dq)
 
     def close(self) -> None:
         with self._lock:

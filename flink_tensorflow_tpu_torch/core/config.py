@@ -1,9 +1,10 @@
 """Typed job configuration.
 
-Port of ``flink_tensorflow_tpu/core/config.py:JobConfig`` (``:85``) with
-the fields the ported runtime reads.  The port always runs with chaining
-off — the reference's ``JobConfig(chaining=False)`` layout: one thread
-and one input gate per operator subtask.
+Port of ``flink_tensorflow_tpu/core/config.py``: ``CheckpointConfig``
+(``:27``) and ``JobConfig`` (``:85``) with the fields the ported runtime
+reads.  The port always runs with chaining off — the reference's
+``JobConfig(chaining=False)`` layout: one thread and one input gate per
+operator subtask.
 """
 
 from __future__ import annotations
@@ -13,9 +14,58 @@ import typing
 
 
 @dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Where and how often aligned snapshots persist."""
+
+    #: Directory for persisted snapshots; None disables persistence.
+    dir: typing.Optional[str] = None
+    #: Periodic trigger interval; None means manual triggers only.
+    interval_s: typing.Optional[float] = None
+    #: Count-based triggers: each source injects barrier k after its
+    #: k*N-th record, so barrier positions are a deterministic function
+    #: of the stream.  Mutually exclusive with interval_s; disables manual
+    #: triggers.
+    every_n_records: typing.Optional[int] = None
+    #: Budget for one aligned checkpoint to drain.
+    timeout_s: float = 60.0
+    #: Keep only the newest N completed checkpoints on disk (Flink's
+    #: retained-checkpoints policy); None keeps everything.  Pruning runs
+    #: after a newer checkpoint is durable.
+    retain_last: typing.Optional[int] = None
+
+    def validate(self) -> None:
+        if self.interval_s is not None:
+            if self.dir is None:
+                raise ValueError("checkpoint.interval_s requires checkpoint.dir")
+            if self.interval_s <= 0:
+                raise ValueError(f"checkpoint.interval_s must be > 0, got {self.interval_s}")
+        if self.every_n_records is not None:
+            if self.dir is None:
+                raise ValueError("checkpoint.every_n_records requires checkpoint.dir")
+            if self.interval_s is not None:
+                raise ValueError(
+                    "checkpoint.every_n_records and interval_s are mutually "
+                    "exclusive (count-based barriers must stay deterministic)")
+            if self.every_n_records < 1:
+                raise ValueError(
+                    f"checkpoint.every_n_records must be >= 1, got {self.every_n_records}")
+        if self.timeout_s <= 0:
+            raise ValueError(f"checkpoint.timeout_s must be > 0, got {self.timeout_s}")
+        if self.retain_last is not None:
+            if self.dir is None:
+                raise ValueError("checkpoint.retain_last requires checkpoint.dir")
+            if self.retain_last < 1:
+                raise ValueError(f"checkpoint.retain_last must be >= 1, got {self.retain_last}")
+
+
+@dataclasses.dataclass(frozen=True)
 class JobConfig:
     #: Default operator parallelism.
     parallelism: int = 1
+    #: Key-group count (Flink's maxParallelism): the upper bound on keyed
+    #: parallelism, fixed for the job's lifetime so keyed state can be
+    #: redistributed when a restart changes parallelism.
+    max_parallelism: int = 128
     #: Bounded capacity of inter-subtask channels (records).
     channel_capacity: int = 1024
     #: Sleep between source emissions — test/backpressure pacing.
@@ -24,14 +74,19 @@ class JobConfig:
     #: a ``torch.device``).  None: model subtasks take
     #: ``utils.device.resolve_device(None)`` — the GPU, or an error.
     device_provider: typing.Optional[typing.Callable[[str, int], typing.Any]] = None
+    #: Aligned snapshots: directory, trigger mode, retention.
+    checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
 
     def validate(self) -> "JobConfig":
         if self.parallelism < 1:
             raise ValueError(f"parallelism must be >= 1, got {self.parallelism}")
+        if self.max_parallelism < 1:
+            raise ValueError(f"max_parallelism must be >= 1, got {self.max_parallelism}")
         if self.channel_capacity < 1:
             raise ValueError(f"channel_capacity must be >= 1, got {self.channel_capacity}")
         if self.source_throttle_s < 0:
             raise ValueError(f"source_throttle_s must be >= 0, got {self.source_throttle_s}")
         if self.device_provider is not None and not callable(self.device_provider):
             raise ValueError("device_provider must be callable (task, idx) -> device")
+        self.checkpoint.validate()
         return self

@@ -1,8 +1,9 @@
 """User-function interfaces for the streaming layer.
 
 Copy of ``flink_tensorflow_tpu/core/functions.py`` (``Function`` ...
-``WindowFunction`` ``:154``, ``SourceFunction`` ``:220``, ``SinkFunction``
-``:227``), cut to the functions the ported path hosts.  ``open()`` is
+``ProcessFunction`` ``:123``, ``WindowFunction`` ``:154``,
+``SourceFunction`` ``:220``, ``SinkFunction`` ``:227``), cut to the
+functions the ported path hosts.  ``open()`` is
 where a model function builds its runner and moves its weights to the
 device; ``close()`` releases them.
 """
@@ -65,6 +66,37 @@ class Collector:
 
     def collect(self, value: typing.Any, timestamp: typing.Optional[float] = None) -> None:
         self._emit(value, timestamp)
+
+
+class ProcessFunction(RichFunction, abc.ABC):
+    """Low-level per-record function with a collector (non-keyed or keyed)."""
+
+    @abc.abstractmethod
+    def process_element(self, value: typing.Any, ctx: "ProcessContext", out: Collector) -> None: ...
+
+    def on_timer(self, timestamp: float, ctx: "ProcessContext", out: Collector) -> None:  # noqa: B027
+        """Called when a registered processing-time timer fires."""
+
+    def on_finish(self, out: Collector) -> None:  # noqa: B027
+        """End of input: flush buffered work (e.g. partial mini-batches)."""
+
+
+class ProcessContext:
+    """Per-element context: timestamp, current key, timers, keyed state."""
+
+    __slots__ = ("timestamp", "current_key", "_runtime")
+
+    def __init__(self, runtime):
+        self.timestamp: typing.Optional[float] = None
+        self.current_key: typing.Any = None
+        self._runtime = runtime
+
+    def state(self, descriptor):
+        """Keyed state access (scoped to :attr:`current_key`)."""
+        return self._runtime.get_value_state(descriptor)
+
+    def register_timer(self, timestamp: float) -> None:
+        self._runtime.register_timer(self.current_key, timestamp)
 
 
 class WindowFunction(RichFunction, abc.ABC):

@@ -2,13 +2,16 @@
 operators the Quick-start job runs.
 
 Port of ``flink_tensorflow_tpu/core/operators.py``: ``Output`` and
-``Operator`` (``:48-271``), ``_FunctionOperator`` (``:274``),
-``MapOperator`` (``:319``, synchronous maps), ``FilterOperator``,
-``WindowOperator`` (``:587``, with the ``ingest_element`` /
-``next_deadline`` / ``fire_due`` hooks a model function uses),
-``SinkOperator`` (``:772``) and ``SourceOperator`` (``:787``).
-Operators are host-side control code: each instance runs on one subtask
-thread, processes stream elements and takes part in snapshots.
+``Operator`` (``:48-271``, with the snapshot, checkpoint-notification and
+key-group rescale protocol), ``StateNotRescalable`` (``:110``),
+``_FunctionOperator`` (``:274``), ``MapOperator`` (``:319``, synchronous
+maps), ``FilterOperator``, ``ProcessOperator`` (``:417``, keyed state and
+timers), ``WindowOperator`` (``:587``, per-subtask count windows with the
+``ingest_element`` / ``next_deadline`` / ``fire_due`` hooks a model
+function uses), ``SinkOperator`` (``:772``) and ``SourceOperator``
+(``:787``, a replayable offset).  Operators are host-side control code:
+each instance runs on one subtask thread, processes stream elements and
+takes part in snapshots.
 """
 
 from __future__ import annotations
@@ -45,6 +48,13 @@ class Output:
         for _, writers in self._edges:
             for w in writers:
                 w.write(element)
+
+
+class StateNotRescalable(RuntimeError):
+    """Raised when a restore changes an operator's parallelism but its
+    snapshot holds per-subtask state that cannot be redistributed by key
+    (source offsets, non-keyed timers).  Keep that operator's parallelism
+    fixed across restarts."""
 
 
 class Operator:
@@ -95,6 +105,12 @@ class Operator:
             "operator": self._operator_snapshot(),
         }
 
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:  # noqa: B027
+        """Checkpoint ``checkpoint_id`` is complete and durable (Flink's
+        CheckpointListener).  Delivered on the subtask thread; one that
+        completes as the job ends is delivered from the join thread after
+        ``close()``."""
+
     def restore(self, snap: typing.Dict[str, typing.Any]) -> None:
         self.keyed_state.restore(snap["keyed"])
         self._function_restore(snap["function"])
@@ -111,6 +127,47 @@ class Operator:
 
     def _operator_restore(self, state: typing.Any) -> None:
         pass
+
+    # -- rescaling (restore with a different parallelism) -----------------
+    def rescale(self, old: typing.Dict[int, typing.Any], index: int, parallelism: int,
+                max_parallelism: int) -> typing.Dict[str, typing.Any]:
+        """Build THIS subtask's snapshot from all old subtasks' snapshots.
+
+        Keyed state redistributes by key group (the routing the
+        HashPartitioner uses, so state lands where records will);
+        function/operator state goes through the per-operator hooks, which
+        raise :class:`StateNotRescalable` for per-subtask state."""
+        from flink_tensorflow_tpu_torch.core.partitioning import subtask_for_key
+
+        def mine(key) -> bool:
+            return subtask_for_key(key, parallelism, max_parallelism) == index
+
+        snaps = [s for s in old.values() if s is not None]
+        keyed: typing.Dict[str, typing.Dict[typing.Any, typing.Any]] = {}
+        for snap in snaps:
+            for name, table in snap["keyed"].items():
+                for key, value in table.items():
+                    if mine(key):
+                        keyed.setdefault(name, {})[key] = value
+        return {
+            "keyed": keyed,
+            "function": self._rescale_function_state([s["function"] for s in snaps], mine),
+            "operator": self._rescale_operator_state([s["operator"] for s in snaps], mine),
+        }
+
+    def _rescale_function_state(self, states: typing.List[typing.Any], mine) -> typing.Any:
+        if any(s is not None for s in states):
+            raise StateNotRescalable(
+                f"operator {self.name!r}: function state is per-subtask and "
+                "cannot be redistributed — restore with the original parallelism")
+        return None
+
+    def _rescale_operator_state(self, states: typing.List[typing.Any], mine) -> typing.Any:
+        if any(s is not None for s in states):
+            raise StateNotRescalable(
+                f"operator {self.name!r}: operator state is per-subtask and "
+                "cannot be redistributed — restore with the original parallelism")
+        return None
 
 
 class _FunctionOperator(Operator):
@@ -137,6 +194,22 @@ class _FunctionOperator(Operator):
         if state is not None and isinstance(self.function, fn.RichFunction):
             self.function.restore_state(state)
 
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        hook = getattr(self.function, "notify_checkpoint_complete", None)
+        if hook is not None:
+            hook(checkpoint_id)
+
+    def _rescale_function_state(self, states, mine):
+        if all(s is None for s in states):
+            return None
+        hook = getattr(self.function, "rescale_state", None)
+        if hook is None:
+            raise StateNotRescalable(
+                f"operator {self.name!r}: {type(self.function).__name__} "
+                "snapshots per-subtask state and defines no rescale_state "
+                "hook — restore with the original parallelism")
+        return hook(states, mine)
+
 
 class MapOperator(_FunctionOperator):
     """Hosts a MapFunction (one result per record)."""
@@ -149,6 +222,70 @@ class FilterOperator(_FunctionOperator):
     def process_record(self, record):
         if self.function.filter(record.value):
             self.output.emit(record.value, record.timestamp)
+
+
+class ProcessOperator(_FunctionOperator):
+    """Hosts a ProcessFunction; keyed if ``key_selector`` is set."""
+
+    def __init__(self, name, function, key_selector=None):
+        super().__init__(name, function)
+        self.key_selector = key_selector
+        self._collector: typing.Optional[fn.Collector] = None
+        self._pctx: typing.Optional[fn.ProcessContext] = None
+        self._timers: typing.Dict[typing.Tuple[typing.Any, float], None] = {}
+
+    def open(self) -> None:
+        self._collector = fn.Collector(self.output.emit)
+        self._pctx = fn.ProcessContext(self)
+        super().open()
+
+    # ProcessContext runtime hooks -------------------------------------
+    def get_value_state(self, descriptor):
+        return self.keyed_state.value_state(descriptor)
+
+    def register_timer(self, key, timestamp: float) -> None:
+        self._timers[(key, timestamp)] = None
+
+    def process_record(self, record):
+        if self.key_selector is not None:
+            key = self.key_selector(record.value)
+            self.keyed_state.current_key = key
+            self._pctx.current_key = key
+        self._pctx.timestamp = record.timestamp
+        self.function.process_element(record.value, self._pctx, self._collector)
+
+    def finish(self):
+        self.function.on_finish(self._collector)
+
+    def next_deadline(self):
+        if not self._timers:
+            return None
+        return min(ts for (_, ts) in self._timers)
+
+    def fire_due(self, now):
+        due = [(k, ts) for (k, ts) in self._timers if ts <= now]
+        for key, ts in sorted(due, key=lambda x: x[1]):
+            del self._timers[(key, ts)]
+            self.keyed_state.current_key = key
+            self._pctx.current_key = key
+            self._pctx.timestamp = ts
+            self.function.on_timer(ts, self._pctx, self._collector)
+
+    def _operator_snapshot(self):
+        return {"timers": list(self._timers.keys())}
+
+    def _operator_restore(self, state):
+        self._timers = {tuple(t): None for t in state["timers"]}
+
+    def _rescale_operator_state(self, states, mine):
+        timers = []
+        for s in states:
+            if s:
+                timers.extend(tuple(t) for t in s["timers"])
+        if timers and self.key_selector is None:
+            raise StateNotRescalable(
+                f"operator {self.name!r}: non-keyed timers are per-subtask")
+        return {"timers": [t for t in timers if mine(t[0])]}
 
 
 class WindowOperator(_FunctionOperator):
@@ -223,11 +360,47 @@ class SinkOperator(_FunctionOperator):
 
 
 class SourceOperator(_FunctionOperator):
-    """Source: the subtask loop iterates its function (no offsets are
-    tracked until checkpoints are ported)."""
+    """Replayable source: tracks an offset, skips on restore (Flink's
+    source-with-offset contract that makes aligned snapshots exactly-once
+    end to end)."""
+
+    def __init__(self, name, function: fn.SourceFunction):
+        super().__init__(name, function)
+        self.offset = 0
+        self._restored_offset = 0
 
     def iterate(self) -> typing.Iterator[typing.Any]:
-        return self.function.run()
+        """Yields values; the caller calls :meth:`record_emitted` after each
+        downstream emit, so a barrier between yield and emit never counts
+        the in-flight record as emitted."""
+        it = self.function.run()
+        # Replay: skip the records emitted before the restored snapshot.
+        skipped = 0
+        while skipped < self._restored_offset:
+            if next(it, _END) is _END:
+                break
+            skipped += 1
+        self.offset = self._restored_offset
+        yield from it
+
+    def record_emitted(self) -> None:
+        self.offset += 1
 
     def process_record(self, record):  # pragma: no cover - sources have no input
         raise RuntimeError("SourceOperator has no input")
+
+    def _operator_snapshot(self):
+        return {"offset": self.offset}
+
+    def _operator_restore(self, state):
+        self._restored_offset = state["offset"]
+
+    def rescale(self, old, index, parallelism, max_parallelism):
+        raise StateNotRescalable(
+            f"source {self.name!r}: offsets are bound to the source's record "
+            "partitioning (subtask i emits every P-th record) — changing "
+            "source parallelism invalidates them; keep source parallelism "
+            "fixed and rescale the keyed operators downstream")
+
+
+_END = object()

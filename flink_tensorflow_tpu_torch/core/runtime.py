@@ -11,8 +11,14 @@ Port of ``flink_tensorflow_tpu/core/runtime.py``:
   thread per operator subtask (:class:`_Subtask`, ``:166``), one input
   gate per non-source subtask, outputs routed by each edge's
   partitioner.  This is the reference's ``JobConfig(chaining=False)``
-  layout, with the same outputs as the chained one.  There is no
-  checkpoint coordinator and no device-resident handoff yet.
+  layout, with the same outputs as the chained one.  Aligned checkpoints
+  run through it: sources cut barriers on request or every N records
+  (``run_source``, ``:349``), workers align them across their channels,
+  snapshot and ack (``run_worker``, ``:541``), the
+  :class:`~flink_tensorflow_tpu_torch.core.checkpoint.CheckpointCoordinator`
+  persists and announces them, and :meth:`LocalExecutor.restore`
+  (``:1247``) loads a checkpoint, redistributing keyed state by key group
+  when a parallelism changed.
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ import threading
 import time
 import typing
 
+from flink_tensorflow_tpu_torch.checkpoint.store import to_host
 from flink_tensorflow_tpu_torch.core import elements as el
 from flink_tensorflow_tpu_torch.core.channels import ChannelWriter, InputGate
+from flink_tensorflow_tpu_torch.core.checkpoint import CheckpointCoordinator
 from flink_tensorflow_tpu_torch.core.graph import DataflowGraph, Transformation
 from flink_tensorflow_tpu_torch.core.operators import Operator, Output, SourceOperator
-from flink_tensorflow_tpu_torch.core.partitioning import ForwardPartitioner
+from flink_tensorflow_tpu_torch.core.partitioning import ForwardPartitioner, HashPartitioner
 from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore
 from flink_tensorflow_tpu_torch.metrics.registry import MetricRegistry
@@ -58,8 +66,8 @@ class KeyedSubtask:
 
     def __init__(self, operator: Operator):
         self.operator = operator
-        self.ctx = RuntimeContext(operator.name)
         self.keyed_state = KeyedStateStore()
+        self.ctx = RuntimeContext(operator.name, keyed_state=self.keyed_state)
         self._sink = _ListWriter()
         operator.setup(self.ctx, Output([(_Forward, [self._sink])]), self.keyed_state)
 
@@ -115,7 +123,8 @@ class JobFailure(RuntimeError):
 
 
 class JobTimeout(JobFailure):
-    """join() deadline expired — not an operator failure."""
+    """join() deadline expired — not an operator failure; restart
+    strategies propagate it instead of replaying a healthy job."""
 
 
 class _Subtask:
@@ -130,63 +139,155 @@ class _Subtask:
         self.gate = gate
         self.num_input_channels = num_input_channels
         self.thread: typing.Optional[threading.Thread] = None
+        self.finished = threading.Event()
+        #: Checkpoint ids a trigger asked this SOURCE to cut, and the
+        #: completed ids to announce to the operator on its own thread.
+        self._control: typing.List[int] = []
+        self._notifications: typing.List[int] = []
+        self._control_lock = threading.Lock()
+        #: Barrier alignment spans (first barrier -> snapshot), set in _build.
+        self.alignment = None
 
     @property
     def scope(self) -> str:
         return f"{self.t.name}.{self.index}"
 
+    # -- control from other threads -----------------------------------------
+    def request_checkpoint(self, checkpoint_id: int) -> None:
+        with self._control_lock:
+            self._control.append(checkpoint_id)
+
+    def _drain_control(self) -> typing.List[int]:
+        with self._control_lock:
+            pending, self._control = self._control, []
+        return pending
+
+    def add_notification(self, checkpoint_id: int) -> None:
+        with self._control_lock:
+            self._notifications.append(checkpoint_id)
+
+    def deliver_notifications(self) -> None:
+        with self._control_lock:
+            pending, self._notifications = self._notifications, []
+        for cid in pending:
+            self.operator.notify_checkpoint_complete(cid)
+
+    # -- thread bodies ---------------------------------------------------------
     def _fire_due(self) -> None:
         deadline = self.operator.next_deadline()
         now = time.monotonic()
         if deadline is not None and now >= deadline:
             self.operator.fire_due(now)
 
+    def _snapshot_and_ack(self, checkpoint_id: int) -> None:
+        # Device tensors leave for the host here, on the thread that owns
+        # them: the coordinator and its persist thread see host objects only.
+        snapshot = to_host(self.operator.snapshot(checkpoint_id))
+        self.executor.coordinator.ack(checkpoint_id, self.t.name, self.index, snapshot)
+
+    def _source_barrier(self, checkpoint_id: int) -> None:
+        """Cut this source's stream: snapshot + ack, then the barrier."""
+        self._snapshot_and_ack(checkpoint_id)
+        self.operator.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
+
     def run_source(self) -> None:
         op = typing.cast(SourceOperator, self.operator)
         executor = self.executor
         throttle = executor.source_throttle_s
+        every_n = executor.checkpoint_every_n
         try:
             op.open()
             for value in op.iterate():
                 if executor.cancelled.is_set():
                     break
+                self.deliver_notifications()
+                for cid in self._drain_control():
+                    self._source_barrier(cid)
                 op.output.emit(value)
+                op.record_emitted()
+                # Count-based barriers: checkpoint k cuts the stream after
+                # this subtask's k*N-th record, a deterministic position.
+                if every_n and op.offset % every_n == 0:
+                    cid = op.offset // every_n
+                    if executor.coordinator.begin_source_checkpoint(cid):
+                        self._source_barrier(cid)
                 if throttle:
                     time.sleep(throttle)
             if not executor.cancelled.is_set():
+                # Serve the barrier requests that raced with the last records.
+                for cid in self._drain_control():
+                    self._source_barrier(cid)
                 op.finish()
                 op.output.broadcast_element(el.EndOfPartition())
             op.close()
         except BaseException as exc:  # noqa: BLE001 - reported through join()
             self._fail(exc)
+        finally:
+            self.finished.set()
+            executor.subtask_finished(self)
 
     def run_worker(self) -> None:
         op = self.operator
         gate = self.gate
         executor = self.executor
-        active = self.num_input_channels
+        n = self.num_input_channels
+        eop = [False] * n
+        #: checkpoint id -> channels whose barrier arrived, and the time
+        #: the first one did.
+        barrier_seen: typing.Dict[int, typing.Set[int]] = {}
+        barrier_t0: typing.Dict[int, float] = {}
+
+        def align(cid: int) -> None:
+            live = {i for i in range(n) if not eop[i]}
+            if live and not live <= barrier_seen[cid]:
+                return
+            self.alignment.record(time.monotonic() - barrier_t0.pop(cid))
+            self._snapshot_and_ack(cid)
+            op.output.broadcast_element(el.CheckpointBarrier(cid))
+            del barrier_seen[cid]
+            gate.unblock_all()
+
         try:
             op.open()
+            active = n
             while active > 0 and not executor.cancelled.is_set():
                 # Event-driven wait: a put / wake / close, or the
                 # operator's earliest deadline.
                 deadline = op.next_deadline()
                 timeout = None if deadline is None else max(0.0, deadline - time.monotonic())
                 item = gate.poll(timeout=timeout)
+                self.deliver_notifications()
                 self._fire_due()
                 if item is None:
                     continue
-                _, element = item
+                idx, element = item
                 if isinstance(element, el.StreamRecord):
                     op.process_record(element)
+                elif isinstance(element, el.CheckpointBarrier):
+                    cid = element.checkpoint_id
+                    seen = barrier_seen.setdefault(cid, set())
+                    if not seen:
+                        barrier_t0[cid] = time.monotonic()
+                    seen.add(idx)
+                    gate.block_channel(idx)
+                    align(cid)
                 elif isinstance(element, el.EndOfPartition):
+                    eop[idx] = True
                     active -= 1
+                    # A finished channel counts as barriered for every
+                    # pending alignment (it can never deliver its barrier).
+                    if active:
+                        for cid in list(barrier_seen):
+                            align(cid)
             if not executor.cancelled.is_set():
                 op.finish()
                 op.output.broadcast_element(el.EndOfPartition())
             op.close()
         except BaseException as exc:  # noqa: BLE001 - reported through join()
             self._fail(exc)
+        finally:
+            self.finished.set()
+            executor.subtask_finished(self)
 
     def _fail(self, exc: BaseException) -> None:
         self.executor.fail(self, exc)
@@ -204,21 +305,43 @@ class LocalExecutor:
     def __init__(self, graph: DataflowGraph, *, channel_capacity: int = 1024,
                  metric_registry: typing.Optional[MetricRegistry] = None,
                  device_provider: typing.Optional[typing.Callable[[str, int], typing.Any]] = None,
-                 source_throttle_s: float = 0.0):
+                 source_throttle_s: float = 0.0,
+                 checkpoint_dir: typing.Optional[str] = None,
+                 checkpoint_every_n: typing.Optional[int] = None,
+                 checkpoint_timeout_s: float = 60.0,
+                 checkpoint_retain_last: typing.Optional[int] = None,
+                 max_parallelism: int = 128):
         self.graph = graph
         self.channel_capacity = channel_capacity
         self.metrics = metric_registry or MetricRegistry()
         self.device_provider = device_provider
         self.source_throttle_s = source_throttle_s
+        self.checkpoint_every_n = checkpoint_every_n
+        self.checkpoint_timeout_s = checkpoint_timeout_s
+        self.checkpoint_retain_last = checkpoint_retain_last
+        self.max_parallelism = max_parallelism
+        #: Periodic trigger interval (set by the environment before start).
+        self.checkpoint_interval_s: typing.Optional[float] = None
         self.cancelled = threading.Event()
         self._error: typing.Optional[BaseException] = None
         self._error_lock = threading.Lock()
         self.subtasks: typing.List[_Subtask] = []
         self._gates: typing.List[InputGate] = []
+        self.coordinator = CheckpointCoordinator(self, checkpoint_dir)
+        self._finished_count = 0
+        self._all_done = threading.Event()
+        self._periodic_thread: typing.Optional[threading.Thread] = None
         self._build()
 
     def _build(self) -> None:
         order = self.graph.topological_order()
+        for t in order:
+            keyed = any(isinstance(e.partitioner, HashPartitioner) for e in t.inputs)
+            if keyed and t.parallelism > self.max_parallelism:
+                raise ValueError(
+                    f"keyed operator {t.name!r} parallelism {t.parallelism} exceeds "
+                    f"max_parallelism {self.max_parallelism} — key groups would starve "
+                    "the subtasks above the bound; raise JobConfig.max_parallelism")
         # Channel layout per transformation: a forward edge contributes one
         # channel to each gate, any other edge one per upstream subtask.
         channel_base: typing.Dict[typing.Tuple[int, int], int] = {}
@@ -270,19 +393,76 @@ class LocalExecutor:
                     edges.append((copy.deepcopy(edge.partitioner), writers))
                 device = (self.device_provider(t.name, st.index)
                           if self.device_provider is not None else None)
-                ctx = RuntimeContext(t.name, st.index, t.parallelism,
-                                     self.metrics.group(st.scope), device=device)
+                grp = self.metrics.group(st.scope)
+                st.alignment = grp.histogram("checkpoint_alignment_s")
+                state = KeyedStateStore()
+                ctx = RuntimeContext(t.name, st.index, t.parallelism, grp, device=device,
+                                     keyed_state=state)
                 if st.gate is not None:
                     ctx.wakeup = st.gate.wake
-                st.operator.setup(ctx, Output(edges), KeyedStateStore())
+                st.operator.setup(ctx, Output(edges), state)
                 self.subtasks.append(st)
 
+    # -- restore ---------------------------------------------------------------
+    def restore(self, snapshots: typing.Dict[str, typing.Dict[int, typing.Any]],
+                from_checkpoint_id: typing.Optional[int] = None) -> None:
+        """Load ``{task: {subtask: snapshot}}`` into the operators before
+        :meth:`start`.  A task whose parallelism changed gets its keyed
+        state redistributed by key group (``Operator.rescale``)."""
+        if from_checkpoint_id is not None:
+            # New checkpoints must never overwrite the restore point.
+            self.coordinator.resume_from(from_checkpoint_id)
+        job_meta = snapshots.pop("__job__", None)
+        if job_meta:
+            pinned = job_meta.get(0, {}).get("max_parallelism")
+            if pinned is not None and pinned != self.max_parallelism:
+                raise ValueError(
+                    f"checkpoint was taken with max_parallelism={pinned}; this job uses "
+                    f"{self.max_parallelism} — the key-group routing would change and "
+                    "orphan keyed state. Restore with the original max_parallelism.")
+        by_task: typing.Dict[str, typing.List[_Subtask]] = {}
+        for st in self.subtasks:
+            by_task.setdefault(st.t.name, []).append(st)
+        for task, subtasks in by_task.items():
+            task_snaps = snapshots.get(task)
+            if task_snaps is None:
+                continue
+            parallelism = subtasks[0].t.parallelism
+            for st in subtasks:
+                if len(task_snaps) == parallelism:
+                    snap = task_snaps.get(st.index)
+                    if snap is not None:
+                        st.operator.restore(snap)
+                else:
+                    st.operator.restore(st.operator.rescale(
+                        task_snaps, st.index, parallelism, self.max_parallelism))
+
+    # -- execution -------------------------------------------------------------
     def start(self) -> None:
         for st in self.subtasks:
             body = st.run_source if st.t.is_source else st.run_worker
             st.thread = threading.Thread(target=body, name=st.scope, daemon=True)
         for st in self.subtasks:
             st.thread.start()
+        if self.checkpoint_interval_s is not None:
+            self._periodic_thread = threading.Thread(
+                target=self._periodic_checkpoints, name="checkpoint-timer", daemon=True)
+            self._periodic_thread.start()
+
+    def _periodic_checkpoints(self) -> None:
+        """Trigger an aligned checkpoint every interval until the job ends.
+        A trigger racing with completion or cancellation just fails and is
+        not retried."""
+        interval = self.checkpoint_interval_s
+        while not self._all_done.wait(interval) and not self.cancelled.is_set():
+            try:
+                self.coordinator.trigger(timeout=self.checkpoint_timeout_s)
+            except Exception:
+                # Catch everything: an escaping error would end this thread
+                # silently and the job would run on, unpersisted.
+                if self._all_done.is_set() or self.cancelled.is_set():
+                    return
+                logger.warning("periodic checkpoint failed", exc_info=True)
 
     def join(self, timeout: typing.Optional[float] = None) -> None:
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -292,6 +472,25 @@ class LocalExecutor:
             if st.thread.is_alive():
                 self.cancel()
                 raise JobTimeout(f"timeout waiting for subtask {st.scope}")
+        if self._periodic_thread is not None:
+            self._periodic_thread.join(
+                None if deadline is None else max(0.1, deadline - time.monotonic()))
+        # Completed checkpoints are durable before the job reports done.
+        in_flight = self.coordinator.wait_for_persistence(
+            None if deadline is None else max(0.1, deadline - time.monotonic()))
+        if in_flight:
+            raise JobTimeout(f"{in_flight} checkpoint write(s) did not drain — completed "
+                             "checkpoints are not yet durable")
+        self.coordinator.shutdown()
+        if self._error is None:
+            # Notifications that landed after a subtask's loop exited: every
+            # thread is joined, so delivering them here keeps one writer.
+            for st in self.subtasks:
+                try:
+                    st.deliver_notifications()
+                except Exception:  # noqa: BLE001 - the job already completed
+                    logger.warning("post-close checkpoint notification failed for %s",
+                                   st.scope, exc_info=True)
         if self._error is not None:
             raise JobFailure(f"job failed: {self._error!r}") from self._error
 
@@ -306,3 +505,22 @@ class LocalExecutor:
         self.cancelled.set()
         for gate in self._gates:
             gate.close()
+        self.coordinator.cancel_pending()
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        """Fan a durable-checkpoint notification out to every subtask
+        (delivered to each operator on its own thread)."""
+        for st in self.subtasks:
+            st.add_notification(checkpoint_id)
+
+    def subtask_finished(self, subtask: _Subtask) -> None:
+        self.coordinator.subtask_finished(subtask)
+        with self._error_lock:
+            self._finished_count += 1
+            if self._finished_count >= len(self.subtasks):
+                self._all_done.set()
+
+    @property
+    def total_subtasks(self) -> int:
+        """The checkpoint coordinator expects one ack per subtask."""
+        return len(self.subtasks)

@@ -1,26 +1,46 @@
 """Per-subtask runtime context handed to operators and functions.
 
 Port of ``flink_tensorflow_tpu/core/runtime_context.py``: the subtask's
-identity, parallelism and metric group; ``device``, the answer of the
-job's device provider (None: the model runner resolves the GPU); and
-``wakeup``, which breaks the subtask loop's wait when a model runner's
-results land (None for sources and bare operators).
+identity, parallelism and metric group; keyed state through
+``state(descriptor)`` (scoped to the current key, ``with_key`` swaps it);
+``device``, the answer of the job's device provider (None: the model
+runner resolves the GPU); and ``wakeup``, which breaks the subtask loop's
+wait when a model runner's results land (None for sources and bare
+operators).
 """
 
 from __future__ import annotations
 
+import contextlib
 import typing
 
+from flink_tensorflow_tpu_torch.core.state import KeyedStateStore, StateDescriptor, ValueState
 from flink_tensorflow_tpu_torch.metrics.registry import MetricGroup
 
 
 class RuntimeContext:
     def __init__(self, task_name: str, subtask_index: int = 0, parallelism: int = 1,
                  metric_group: typing.Optional[MetricGroup] = None,
-                 device: typing.Any = None):
+                 device: typing.Any = None,
+                 keyed_state: typing.Optional[KeyedStateStore] = None):
         self.task_name = task_name
         self.subtask_index = subtask_index
         self.parallelism = parallelism
         self.metrics = metric_group or MetricGroup(f"{task_name}.{subtask_index}")
         self.device = device
+        self._keyed_state = keyed_state if keyed_state is not None else KeyedStateStore()
         self.wakeup: typing.Optional[typing.Callable[[], None]] = None
+
+    def state(self, descriptor: StateDescriptor) -> ValueState:
+        return self._keyed_state.value_state(descriptor)
+
+    @contextlib.contextmanager
+    def with_key(self, key):
+        """Scope keyed-state access to ``key`` outside the per-element
+        window (end-of-input flushes, timer callbacks across keys)."""
+        prev = self._keyed_state.current_key
+        self._keyed_state.current_key = key
+        try:
+            yield
+        finally:
+            self._keyed_state.current_key = prev

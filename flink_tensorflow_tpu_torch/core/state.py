@@ -18,6 +18,25 @@ class StateDescriptor:
     default_factory: typing.Optional[typing.Callable[[], typing.Any]] = None
 
 
+class ValueState:
+    """Single-value keyed state, scoped to the store's current key."""
+
+    __slots__ = ("_store", "_descriptor")
+
+    def __init__(self, store: "KeyedStateStore", descriptor: StateDescriptor):
+        self._store = store
+        self._descriptor = descriptor
+
+    def value(self) -> typing.Any:
+        return self._store.get(self._descriptor)
+
+    def update(self, value: typing.Any) -> None:
+        self._store.put(self._descriptor, value)
+
+    def clear(self) -> None:
+        self._store.remove(self._descriptor)
+
+
 class KeyedStateStore:
     """Per-subtask store: {state_name: {key: value}}."""
 
@@ -42,6 +61,9 @@ class KeyedStateStore:
         table = self._tables.get(descriptor.name)
         if table is not None:
             table.pop(self.current_key, None)
+
+    def value_state(self, descriptor: StateDescriptor) -> ValueState:
+        return ValueState(self, descriptor)
 
     def snapshot(self) -> typing.Dict[str, typing.Dict[typing.Any, typing.Any]]:
         """Shallow-copy all tables (values are treated as immutable)."""

@@ -1,9 +1,10 @@
 """DataStream API — the user-facing fluent stream-building layer.
 
 Port of ``flink_tensorflow_tpu/core/stream.py``: ``DataStream`` (``:130``)
-with ``map``, ``filter``, ``rebalance`` (``:212``), ``count_window``
-(``:290``), ``add_sink``, ``sink_to_callable`` (``:316``) and
-``sink_to_list`` (``:319``), and ``WindowedStream.apply`` (``:533``).
+with ``map``, ``filter``, ``key_by`` (``:209``), ``rebalance`` (``:212``),
+``count_window`` (``:290``), ``add_sink``, ``sink_to_callable`` (``:316``)
+and ``sink_to_list`` (``:319``); ``KeyedStream`` (``:344``) with
+``process``; and ``WindowedStream.apply`` (``:533``).
 """
 
 from __future__ import annotations
@@ -16,11 +17,13 @@ from flink_tensorflow_tpu_torch.core.graph import Edge, Transformation
 from flink_tensorflow_tpu_torch.core.operators import (
     FilterOperator,
     MapOperator,
+    ProcessOperator,
     SinkOperator,
     WindowOperator,
 )
 from flink_tensorflow_tpu_torch.core.partitioning import (
     ForwardPartitioner,
+    HashPartitioner,
     Partitioner,
     RebalancePartitioner,
 )
@@ -105,6 +108,9 @@ class DataStream:
         return DataStream(self.env, self._add_op(name, lambda: FilterOperator(name, func),
                                                  parallelism))
 
+    def key_by(self, key_selector: typing.Callable[[typing.Any], typing.Any]) -> "KeyedStream":
+        return KeyedStream(self.env, self.transformation, key_selector)
+
     def rebalance(self) -> "DataStream":
         return DataStream(self.env, self.transformation, RebalancePartitioner())
 
@@ -129,6 +135,27 @@ class DataStream:
         out: list = []
         self.add_sink(_ListSink(out, threading.Lock()), name=name, parallelism=parallelism)
         return out
+
+
+class KeyedStream:
+    """Stream partitioned by key; downstream operators get keyed state."""
+
+    def __init__(self, env, transformation: Transformation, key_selector):
+        self.env = env
+        self.transformation = transformation
+        self.key_selector = key_selector
+
+    def _edge(self) -> Edge:
+        return Edge(self.transformation,
+                    HashPartitioner(self.key_selector, self.env.config.max_parallelism))
+
+    def process(self, f: fn.ProcessFunction, *, name="keyed_process",
+                parallelism=None) -> DataStream:
+        parallelism = parallelism or self.env.default_parallelism
+        t = self.env.graph.add(
+            name, lambda: ProcessOperator(name, f, key_selector=self.key_selector),
+            parallelism, inputs=[self._edge()])
+        return DataStream(self.env, t)
 
 
 class WindowedStream:

@@ -3,7 +3,8 @@
 A small copy of ``flink_tensorflow_tpu/metrics/registry.py``: what the
 serving operator and the model runners record (step counts, TTFT,
 prefill and decode-step seconds; records, batch and record latency,
-assemble and dispatch seconds, H2D bytes).  ``report()`` gives
+assemble and dispatch seconds, H2D bytes) and the runtime's checkpoint
+and recovery durations.  ``report()`` gives
 ``{"<scope>.<name>": value}`` as the JAX registry does, and a
 :class:`MetricRegistry` holds the groups of one job.
 """

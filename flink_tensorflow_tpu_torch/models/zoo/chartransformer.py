@@ -83,12 +83,26 @@ class CharTransformer(nn.Module):
         self.ln_f = nn.Parameter(torch.ones(d))
         self.layers = nn.ModuleList(_Block(d, mlp_ratio * d) for _ in range(num_layers))
 
+    def _logits(self, h):
+        return _rms_norm(h, self.ln_f) @ self.head
+
     def _next_token(self, h):
-        logits = _rms_norm(h, self.ln_f) @ self.head
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return torch.argmax(self._logits(h), dim=-1).to(torch.int32)
 
     @torch.no_grad()
     def prefill(self, inputs):
+        h_last, ks, vs = self._prefill_states(inputs)
+        return {"next_token": self._next_token(h_last),
+                "k_cache": torch.stack(ks, dim=1),
+                "v_cache": torch.stack(vs, dim=1)}
+
+    @torch.no_grad()
+    def last_logits(self, inputs):
+        """``[B, vocab]`` logits after each row's last prompt position (the
+        scores ``prefill`` takes its argmax of)."""
+        return self._logits(self._prefill_states(inputs)[0])
+
+    def _prefill_states(self, inputs):
         tokens = inputs["tokens"].long()          # [B, C] padded
         lengths = inputs["lengths"].long()        # [B] true prompt lengths
         b, c = tokens.shape
@@ -106,10 +120,7 @@ class CharTransformer(nn.Module):
             ks.append(k)
             vs.append(v)
         last = torch.clamp(lengths - 1, 0, c - 1)
-        h_last = x[torch.arange(b, device=x.device), last]
-        return {"next_token": self._next_token(h_last),
-                "k_cache": torch.stack(ks, dim=1),
-                "v_cache": torch.stack(vs, dim=1)}
+        return x[torch.arange(b, device=x.device), last], ks, vs
 
     @torch.no_grad()
     def decode_step(self, inputs):

@@ -7,7 +7,10 @@ from flink_tensorflow_tpu_torch.serving.kv_cache import (
     KVCacheState,
     SessionState,
 )
-from flink_tensorflow_tpu_torch.serving.operator import ContinuousBatchingOperator
+from flink_tensorflow_tpu_torch.serving.operator import (
+    ContinuousBatchingOperator,
+    continuous_batching,
+)
 from flink_tensorflow_tpu_torch.serving.records import GenerateRequest, TokenEvent
 from flink_tensorflow_tpu_torch.serving.scheduler import (
     ServingConfig,
@@ -17,5 +20,5 @@ from flink_tensorflow_tpu_torch.serving.scheduler import (
 __all__ = [
     "ContinuousBatchingOperator", "DeviceKVBlock", "GenerateRequest", "KVBlock",
     "KVCacheState", "ServingConfig", "SessionState", "TokenBudgetScheduler",
-    "TokenEvent",
+    "TokenEvent", "continuous_batching",
 ]

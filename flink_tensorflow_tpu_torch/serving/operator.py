@@ -1,8 +1,9 @@
 """ContinuousBatchingOperator — the serving plane's decode-step loop.
 
-Port of ``flink_tensorflow_tpu/serving/operator.py:65-612`` for the dense
-KV pool (the paged pool and session tiering are a later slice;
-``continuous_batching()`` waits for the runtime slice).
+Port of ``flink_tensorflow_tpu/serving/operator.py:65-652`` for the dense
+KV pool (the paged pool and session tiering are a later slice), with
+:func:`continuous_batching`, the entry point that puts the operator on a
+keyed stream of the port's streaming runtime.
 
 One operator instance per subtask owns a slice of the session key space,
 a :class:`~flink_tensorflow_tpu_torch.functions.runner.DecodeStepRunner`
@@ -26,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 import time
 import typing
+
+import torch
 
 from flink_tensorflow_tpu_torch.core import elements as el
 from flink_tensorflow_tpu_torch.core.operators import Operator
@@ -93,17 +96,20 @@ class ContinuousBatchingOperator(Operator):
     """Keyed continuous-batching generation operator (dense KV pool).
 
     ``device``: where the model and pool live; ``None`` means ``cuda``
-    and raises if CUDA is absent."""
+    and raises if CUDA is absent.  ``device_from_context=True`` (what
+    :func:`continuous_batching` builds) defers the choice to ``open()``:
+    the subtask's ``RuntimeContext.device`` (the job's device provider),
+    else ``cuda``, which raises there if CUDA is absent."""
 
     def __init__(self, name: str, model: "Model",
                  config: typing.Optional[ServingConfig] = None,
                  key_selector: typing.Optional[typing.Callable] = None,
-                 *, device=None):
+                 *, device=None, device_from_context: bool = False):
         super().__init__(name)
         self.model = model
         self.serving_config = config or ServingConfig()
         self.key_selector = key_selector
-        self.device = resolve_device(device)
+        self.device = None if device_from_context else resolve_device(device)
         self._sched: typing.Optional[TokenBudgetScheduler] = None
         self._runner = None
         self._cache: typing.Optional[KVCacheState] = None
@@ -118,12 +124,20 @@ class ContinuousBatchingOperator(Operator):
         from flink_tensorflow_tpu_torch.functions.runner import DecodeStepRunner
 
         cfg = self.serving_config
+        if self.device is None:
+            self.device = resolve_device(self.ctx.device if self.ctx is not None else None)
         model_cap = (self.model.metadata.get("config") or {}).get("capacity")
         if model_cap is not None and model_cap < cfg.capacity:
             raise ValueError(
                 f"serving capacity {cfg.capacity} exceeds the model's "
                 f"positional capacity {model_cap} — shrink "
                 "ServingConfig.capacity or rebuild the model")
+        grp = self.ctx.metrics if self.ctx else None
+        if grp is not None and self.device.type == "cuda":
+            # Device memory in use before this subtask's pool exists: after
+            # a restart it shows whether a failed attempt's pool lingers.
+            grp.histogram("device_bytes_at_open").record(
+                torch.cuda.memory_allocated(self.device))
         self._sched = TokenBudgetScheduler(cfg)
         self._cache = KVCacheState(self.keyed_state)
         self._runner = DecodeStepRunner(
@@ -138,7 +152,6 @@ class ContinuousBatchingOperator(Operator):
             self._runner.warmup(cfg.resolved_admit_buckets(),
                                 cfg.resolved_prompt_buckets())
         self._seq = self._restored_seq
-        grp = self.ctx.metrics if self.ctx else None
         self._grp = grp
         if grp is not None:
             sched = self._sched
@@ -187,6 +200,12 @@ class ContinuousBatchingOperator(Operator):
     def close(self) -> None:
         if self._runner is not None:
             self._runner.close()
+        # Device-resident blocks of preempted sessions go with the pool: a
+        # closed operator holds no device memory (a restarted job opens a
+        # new one while this object may still be referenced).
+        for sess in self._sessions.values():
+            if isinstance(sess.kv, DeviceKVBlock):
+                sess.kv = None
 
     # -- record path -------------------------------------------------------
     def process_record(self, record: el.StreamRecord) -> None:
@@ -365,3 +384,40 @@ class ContinuousBatchingOperator(Operator):
     def _operator_restore(self, state):
         self._restored_seq = state["seq"]
         self._seq = state["seq"]
+
+    def _rescale_operator_state(self, states, mine):
+        # The arrival counter is per-subtask but only needs to stay ahead
+        # of every restored session's seq: take the max.
+        return {"seq": max((s["seq"] for s in states if s), default=0)}
+
+
+def continuous_batching(keyed_stream, model: "Model", *,
+                        config: typing.Optional[ServingConfig] = None,
+                        name: str = "continuous_batching",
+                        parallelism: typing.Optional[int] = None):
+    """Attach a continuous-batching generation operator to a keyed stream
+    of :class:`GenerateRequest` records (key = session id)::
+
+        tokens = serving.continuous_batching(
+            requests.key_by(lambda r: r.session_id), model,
+            config=ServingConfig(max_active_seqs=8, token_budget=512))
+
+    Returns the :class:`TokenEvent` stream.  The edge hashes by session
+    id, so the KV cache rescales by key group with the rest of the job's
+    keyed state.  Each subtask runs on the job's device provider's answer
+    for it, else on ``cuda``."""
+    from flink_tensorflow_tpu_torch.core.stream import DataStream, KeyedStream
+
+    if not isinstance(keyed_stream, KeyedStream):
+        raise TypeError(
+            "continuous_batching requires a KeyedStream (key_by the session id) — "
+            "an unkeyed edge would split sessions' caches across subtasks")
+    env = keyed_stream.env
+    parallelism = parallelism or env.default_parallelism
+    selector = keyed_stream.key_selector
+    t = env.graph.add(
+        name,
+        lambda: ContinuousBatchingOperator(name, model, config, key_selector=selector,
+                                           device_from_context=True),
+        parallelism, inputs=[keyed_stream._edge()])
+    return DataStream(env, t)

@@ -1,8 +1,10 @@
 """Where the serving cell's time goes on the card.
 
-    python3 -m flink_tensorflow_tpu_torch.serving.trace_cell
+    python3 -m flink_tensorflow_tpu_torch.serving.trace_cell [--keyed]
 
-Runs the serving cell (``serving/cell.py``) three times on the GPU: once
+Runs the serving cell (``serving/cell.py``) three times on the GPU,
+through the one-subtask loop (``serve``) or, with ``--keyed``, through the
+keyed pipeline on the local executor (``serve_keyed``): once
 to warm up (kernel build, allocator, library handles), once untraced for
 the end-to-end time, and once under ``torch.profiler`` for the device
 side.  Prints one JSON object: end-to-end seconds untraced and traced,
@@ -22,7 +24,9 @@ import sys
 K1_KERNEL = "flash_fwd_kernel"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -30,17 +34,22 @@ def main() -> int:
         print("trace_cell: CUDA is not available; this script runs on the GPU",
               file=sys.stderr)
         return 2
-    from flink_tensorflow_tpu_torch.serving.cell import serve, serving_cell
+    from flink_tensorflow_tpu_torch.serving.cell import serve, serve_keyed, serving_cell
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--keyed", action="store_true",
+                        help="drive the keyed pipeline instead of one subtask loop")
+    args = parser.parse_args(argv)
+    run = serve_keyed if args.keyed else serve
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     mdef, tree, cfg, requests = serving_cell(0)
     model = mdef.to_model(tree)
-    serve(model, cfg, requests)
-    _, seconds, metrics = serve(model, cfg, requests)
+    run(model, cfg, requests)
+    _, seconds, metrics = run(model, cfg, requests)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, traced_seconds, _ = serve(model, cfg, requests)
+        _, traced_seconds, _ = run(model, cfg, requests)
 
     kernels = []
     for evt in prof.key_averages():
@@ -57,6 +66,7 @@ def main() -> int:
     decode_s = sum(metrics.histogram("decode_step_s").values)
     out = {
         "card": card,
+        "entry": "serve_keyed" if args.keyed else "serve",
         "untraced_s": seconds,
         "traced_s": traced_seconds,
         "device_kernel_ms": device_ms,

@@ -39,6 +39,21 @@ _SLICE = textwrap.dedent("""
     events = KeyedSubtask(op).run(reqs)
     assert len([e for e in events if e.finished]) == 4
 
+    import tempfile
+    from flink_tensorflow_tpu_torch import RestartStrategy
+    from flink_tensorflow_tpu_torch import StreamExecutionEnvironment as Env
+    from flink_tensorflow_tpu_torch.serving import continuous_batching
+
+    keyed_env = Env(parallelism=2)
+    keyed_env.set_device_provider(lambda task, index: "cpu")
+    keyed_env.enable_checkpointing(tempfile.mkdtemp(), every_n_records=2)
+    tokens = continuous_batching(
+        keyed_env.from_collection(reqs).key_by(lambda r: r.session_id), model,
+        config=ServingConfig(max_active_seqs=2, token_budget=64, capacity=32)).sink_to_list()
+    result = keyed_env.execute(timeout=60, restart_strategy=RestartStrategy(max_restarts=1))
+    assert result.restarts == 0
+    assert sorted(e.session_id for e in tokens if e.finished) == [0, 1, 2, 3]
+
     from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
     from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
     from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
@@ -87,6 +102,18 @@ def test_no_device_means_cuda_and_raises_without_it():
         DecodeStepRunner(model, pool_slots=2, capacity=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ContinuousBatchingOperator("cb", model)
+    # In a job, the serving subtask without a device provider takes cuda
+    # at open() and fails the job.
+    from flink_tensorflow_tpu_torch import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.core.runtime import JobFailure
+    from flink_tensorflow_tpu_torch.serving import GenerateRequest, continuous_batching
+
+    env = StreamExecutionEnvironment(parallelism=1)
+    continuous_batching(env.from_collection([GenerateRequest("s", [1, 2], 2)])
+                        .key_by(lambda r: r.session_id), model).sink_to_list()
+    with pytest.raises(JobFailure) as info:
+        env.execute(timeout=60)
+    assert "CUDA is not available" in str(info.value.__cause__)
     inception = get_model_def("inception_v3", num_classes=4, image_size=75)
     runner = CompiledMethodRunner(inception.to_model(inception.init_params(0)))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
