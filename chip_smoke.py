@@ -43,7 +43,29 @@ Phases (any failure exits non-zero and prints no result line):
    (c) the same crash at parallelism 2 without a restart strategy, then a
    restore of the latest checkpoint at parallelism 3: the union of both
    runs' tokens equal to (a);
-7. print one ``kernels`` JSON line, the card line, and the final
+7. train on the stream (``functions/train_cell.py``; no TPU kernel lies on
+   this path, K1 must launch 0 times in it):
+   resnet-train, ResNet-50 at full width (224 px, 1000 classes, stages
+   (3, 4, 6, 3), width 64, bf16) through ``count_window(32) ->
+   DPTrainWindowFunction(adam(1e-3))`` on a ``{"data": 1}`` mesh, 24
+   steps: (a) its losses and final params equal to a direct loop of
+   ``make_dp_train_step`` over the same batches on the card, bit for bit;
+   one SGD step at batch 4, its gradient and statistics' update on the
+   card against the CPU's plain path in f32 (TF32 off) and in bf16;
+   records/s, step time, losses, peak device memory, and the profiler's
+   busy share and launches per step; widedeep-online, Wide&Deep on
+   ``key_by(user) -> OnlineTrainFunction(adam(1e-2), mini_batch=32,
+   steps_per_dispatch=16)`` over 8192 events: (b) the loss falls within
+   each user's run of steps on average, the step count is the sum over
+   users of ceil(n / 32), and with checkpoints every 1024 events the
+   first 16 losses and checkpoint 1's TrainState equal a CPU run's; (c) with
+   checkpoints every 1024 events and a tap that raises once after 3000
+   events (and checkpoint 2) under ``RestartStrategy(max_restarts=1)``:
+   one restart, the final TrainState equal to the same job checkpointed
+   without the crash, the step count equal to (b)'s, host tensors only in
+   the checkpoint, and the restart opening with the failed attempt's
+   device memory released;
+8. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -100,6 +122,66 @@ INCEPTION_BF16_TOL = 3e-2
 # on the card, same batches: the same cuDNN algorithms (chosen once per
 # shape) on the same inputs must give the same bits.
 INCEPTION_SCORE_TOL = 0.0
+# resnet-train (a): the gang against a direct loop of its step on the card
+# must give equal bits: both run the same cuDNN algorithms (heuristic
+# choice, benchmark off) on the same batches in the same order.
+#
+# One step at full width, batch 4, from the cell's initial state, card
+# against the CPU plain path.  The step is SGD with lr 1e6: (p0 - p1) / 1e6
+# is the gradient to within ulp(p0) / 1e6 (with lr 1 the f32 rounding of
+# p0 ~ 1 alone is 2e-3 of the largest gradient).  What is compared is what
+# the step changed: the gradient, and the update of each running
+# statistic, s1 - s0, each by its norm (||card - cpu|| / ||cpu||).  A step
+# that changed nothing reads 1 on both.  At the initial state every
+# block's last batch norm has scale 0, so its convs get no gradient; the
+# stem, the projections, the batch norms' scales and biases and the head
+# do, through the whole forward.  (With every scale near 1 the 16-block
+# net at batch 4 amplifies f32 rounding in its gradient to percents, and
+# bf16's past its own size, so no comparison can hold it; the CPU twins
+# hold such states at the tiny size.)
+#   f32 (TF32 off): the loss to 1e-5 relative.  A gradient is not
+# continuous where a pre-activation sits within f32 rounding of 0: two
+# correct f32 paths can put it on either side of its ReLU.  The card showed
+# one such element (-6.7e-7 before the ReLU that ends block 7); flipping
+# it alone on the CPU moved the gradients of blocks 7-12 by 2.27e-3 of the
+# largest gradient and 4.0e-4 of their norm, exactly the card's reading.
+# So the gradients are held to 2e-3 of their norm (a few such flips; an
+# error in the backward is of order 1) and each element to 1e-2 of the
+# largest.  The statistics' update to 1e-5 (the card read 7.0e-7).
+#   bf16, the cell's precision: the loss and the statistics' update to
+# 3e-2 (every conv rounds its output to bf16 after summing in another
+# order).  A gradient keeps few correct bits at bf16 (a batch-norm
+# gradient is a sum with heavy cancellation; the CPU tests read 4-28% by
+# norm between the JAX package's bf16 step and the f32 one), so the card's
+# bf16 gradient is held by the CPU's own bf16 error: it may be at most
+# RESNET_BF16_NOISE_FACTOR times as far from the CPU's bf16 gradient as
+# that is from the CPU's f32 one (two independent bf16 roundings of one
+# gradient are sqrt(2) times as far apart as each is from it; the card
+# read 0.021 against 0.055, 0.38 times).  That error must stay below
+# 1 / RESNET_BF16_NOISE_FACTOR, so a step that changed nothing fails.
+RESNET_F32_TOL = {"loss": 1e-5, "grads_norm": 2e-3, "grads_max": 1e-2, "stats_update": 1e-5}
+RESNET_BF16_TOL = {"loss": 3e-2, "stats_update": 3e-2}
+RESNET_BF16_NOISE_FACTOR = 1.5
+GRAD_LR = 1e6
+# widedeep-online (b): the card against a CPU run of the same job, both
+# checkpointed every 1024 events, bf16 compute on both: the first 16
+# losses to 1e-5 relative (the card read 1.8e-7), and the TrainState of
+# checkpoint 1 (23 steps), what training changed, by its norm: params -
+# init, and adam's mu and nu, to 1e-5 (the card read 3.1e-8, 8.5e-8 and
+# 8.0e-8; an untrained state reads 1).  Not
+# the final state: one model shared by 16 users' label rules, adam at eps
+# 1e-8 and lr 1e-2 make the job chaotic past its first checkpoint.  A CPU
+# run from params moved by 1e-7 relative agrees with the unmoved one at
+# checkpoint 1 and ends far from it (tests/test_torch_training.py::
+# test_widedeep_cell_is_chaotic_past_its_first_checkpoint), and the card's
+# rounding differs from the CPU's by about that much per step.
+WIDEDEEP_CPU_TOL = {"losses": 1e-5, "params_update": 1e-5, "mu": 1e-5, "nu": 1e-5}
+# (c): the restarted job against the same job without the crash: equal
+# bits are expected (the state crosses card -> host -> card exactly and
+# the same steps run in the same order); else params within 1e-5 of the
+# largest |param|.
+WIDEDEEP_RESTART_TOL = 1e-5
+DEVICE_BYTES_SLACK = 100_000
 
 
 def fail(msg: str) -> None:
@@ -343,22 +425,29 @@ def check_inception(card: str, torch):
     return row
 
 
-def crash_once(at: int):
-    """A tap on the token events that raises once, at the ``at``-th event;
-    the one instance is shared by every subtask and restart."""
+def crash_once(at: int, directory=None, min_checkpoint: int = 1):
+    """A tap on the events that raises once, at the ``at``-th event (with
+    ``directory``: the first one from there on that finds checkpoint
+    ``min_checkpoint`` or a later one completed there); the one instance is
+    shared by every subtask and restart."""
+    from flink_tensorflow_tpu_torch.checkpoint.store import latest_checkpoint_id
     from flink_tensorflow_tpu_torch.core import functions as fn
 
     class CrashOnce(fn.MapFunction):
         def __init__(self):
             self.at, self.seen, self.crashed = at, 0, False
+            #: ``seen`` when it raised (``seen`` counts both attempts).
+            self.crashed_at = None
 
         def clone(self):
             return self
 
         def map(self, value):
             self.seen += 1
-            if not self.crashed and self.seen >= self.at:
-                self.crashed = True
+            if not self.crashed and self.seen >= self.at and (
+                    directory is None
+                    or (latest_checkpoint_id(directory) or 0) >= min_checkpoint):
+                self.crashed, self.crashed_at = True, self.seen
                 raise RuntimeError("injected mid-generation crash")
             return value
 
@@ -522,6 +611,297 @@ def check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, want, phase
     return {"serving_pipeline": launches_a, "serving_failover": launches_b}
 
 
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        elif hasattr(v, "device"):
+            out[prefix + k] = v
+    return out
+
+
+def _tree_err(got, want) -> float:
+    """max |got - want| over a tree of tensors, over the largest |want|."""
+    got, want = _flat(got), _flat(want)
+    if set(got) != set(want):
+        fail(f"train state trees differ in names: {sorted(set(got) ^ set(want))[:4]}")
+    peak = max(float(w.float().abs().max()) for w in want.values())
+    diff = max(float((got[k].float().cpu() - want[k].float().cpu()).abs().max()) for k in want)
+    return diff / peak if peak else diff
+
+
+def _norm_err(got, want, start=None) -> float:
+    """||got - want|| over ||want - start|| (``start`` 0 by default), each
+    tree taken as one vector: with ``start`` the state both ran from, the
+    error of what they changed."""
+    got, want = _flat(got), _flat(want)
+    start = _flat(start) if start is not None else {}
+    diff = sum(float((got[k].double().cpu() - want[k].double().cpu()).square().sum())
+               for k in want)
+    size = sum(float((w.double().cpu() - (start[k].double().cpu() if k in start else 0))
+                     .square().sum()) for k, w in want.items())
+    return (diff / size) ** 0.5
+
+
+def _bit_equal(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return set(fa) == set(fb) and all(torch_equal(fa[k], fb[k]) for k in fa)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def resnet_one_step(torch, mdef, records, schema, compute_dtype, device):
+    """One SGD step (lr ``GRAD_LR``) of the cell's model at batch 4 from
+    its initial state, on ``device`` (the card) and on the CPU's plain
+    path: ``{where: (loss, gradients, statistics' update)}``."""
+    from flink_tensorflow_tpu_torch.functions.training_function import _train_batch_arrays
+    from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+    from flink_tensorflow_tpu_torch.parallel import dp
+    from flink_tensorflow_tpu_torch.parallel.optim import sgd
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+
+    mdef = get_model_def("resnet50", **{**mdef.config, "compute_dtype": compute_dtype})
+    optimizer = sgd(GRAD_LR)
+    host = dp.init_train_state(mdef, optimizer, SEED)
+    start = host["variables"]
+    _, arrays = _train_batch_arrays(records[:4], schema, BucketPolicy(fixed_batch=4))
+    step = dp.make_train_step(mdef, optimizer)
+    out = {}
+    for where, device in (("card", device), ("cpu", "cpu")):
+        state = {**host, "variables": _to(start, device), "opt_state": _to(host["opt_state"], device),
+                 "step": host["step"].to(device)}
+        batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        new, metrics = step(state, batch, 0)
+        new = _to(new["variables"], "cpu")
+        grads = {n: (start["params"][n] - t) / GRAD_LR for n, t in new["params"].items()}
+        stats = {n: t - start["batch_stats"][n] for n, t in new["batch_stats"].items()}
+        out[where] = (float(metrics["loss"]), grads, stats)
+        del state, new
+    return out
+
+
+def one_step_errs(out, with_max: bool):
+    """The card's one step against the CPU's (``resnet_one_step``)."""
+    (loss, grads, stats), (want_loss, want_grads, want_stats) = out["card"], out["cpu"]
+    errs = {"loss": abs(loss - want_loss) / abs(want_loss),
+            "grads_norm": _norm_err(grads, want_grads)}
+    if with_max:
+        errs["grads_max"] = _tree_err(grads, want_grads)
+    errs["stats_update"] = _norm_err(stats, want_stats)
+    return errs
+
+
+def _to(tree, device):
+    if hasattr(tree, "to"):
+        return tree.to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree
+
+
+def check_training(card: str, torch, fa):
+    """Phase 7: the two training cells on the card, and their checks."""
+    import tempfile
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.checkpoint.store import latest_checkpoint_id, read_checkpoint
+    from flink_tensorflow_tpu_torch.functions import train_cell as cell
+    from flink_tensorflow_tpu_torch.functions.runner import (
+        hold_cudnn_heuristics,
+        release_cudnn_heuristics,
+    )
+    from flink_tensorflow_tpu_torch.functions.train_trace import profile
+    from flink_tensorflow_tpu_torch.functions.training_function import _train_batch_arrays
+    from flink_tensorflow_tpu_torch.parallel import dp
+    from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+    from flink_tensorflow_tpu_torch.parallel.optim import adam
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+
+    fa.flash_attention.launches = 0
+    # -- resnet-train -----------------------------------------------------
+    t0 = time.monotonic()
+    mdef, schema, records = cell.resnet_cell()
+    build_s = time.monotonic() - t0
+    mesh = make_mesh({"data": 1})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = cell.run_resnet(mdef, schema, records, mesh)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    losses = [float(r["loss"]) for r in run.results]
+    if [int(r["step"]) for r in run.results] != list(range(1, cell.RESNET_STEPS + 1)):
+        fail(f"resnet-train: steps {[int(r['step']) for r in run.results]}")
+    if not all(np.isfinite(losses)):
+        fail(f"resnet-train: non-finite loss {losses}")
+    final = run.function.current_params()
+
+    # (a) a direct loop of the gang's step over the same 24 batches.
+    opt = adam(cell.RESNET_LR)
+    state = replicate(mesh, dp.init_train_state(mdef, opt, 0))
+    step = dp.make_dp_train_step(mdef, opt, mesh)
+    policy = BucketPolicy(fixed_batch=cell.RESNET_BATCH)
+    loop = []
+    hold_cudnn_heuristics()
+    try:
+        for i in range(cell.RESNET_STEPS):
+            batch = records[i * cell.RESNET_BATCH:(i + 1) * cell.RESNET_BATCH]
+            _, arrays = _train_batch_arrays(batch, schema, policy)
+            state, metrics = step(state, shard_batch(mesh, arrays), i)
+            loop.append(metrics["loss"])
+        loop = [float(x) for x in loop]
+    finally:
+        release_cudnn_heuristics()
+    loop_bits = loop == losses and _bit_equal(final, state["variables"])
+    del state, step
+    if not loop_bits:
+        fail(f"resnet-train: the gang differs from a direct loop: losses equal {loop == losses}, "
+             f"largest loss difference {max(abs(a - b) for a, b in zip(losses, loop))}")
+
+    # One SGD step, card against the CPU plain path, at f32 and at bf16.
+    t_cpu = time.monotonic()
+    f32 = resnet_one_step(torch, mdef, records, schema, "float32", mesh.device)
+    bf16 = resnet_one_step(torch, mdef, records, schema, "bfloat16", mesh.device)
+    cpu_steps_s = time.monotonic() - t_cpu
+    f32_errs = one_step_errs(f32, with_max=True)
+    bf16_errs = one_step_errs(bf16, with_max=False)
+    # The CPU's bf16 gradient against its f32 one: what bf16 costs.
+    bf16_errs["cpu_bf16_vs_f32"] = _norm_err(bf16["cpu"][1], f32["cpu"][1])
+    del f32, bf16
+    print("resnet one step, card vs cpu", json.dumps({"float32": f32_errs, "bfloat16": bf16_errs}),
+          flush=True)
+    for name, errs, tol in (("f32", f32_errs, RESNET_F32_TOL), ("bf16", bf16_errs,
+                                                                 RESNET_BF16_TOL)):
+        if not all(errs[k] <= tol[k] for k in tol):
+            fail(f"resnet-train: the card's {name} step differs from the CPU's: {errs} "
+                 f"(tolerance {tol})")
+    noise = bf16_errs["cpu_bf16_vs_f32"]
+    if not (RESNET_BF16_NOISE_FACTOR * noise < 1
+            and bf16_errs["grads_norm"] <= RESNET_BF16_NOISE_FACTOR * noise):
+        fail(f"resnet-train: the card's bf16 gradient is {bf16_errs['grads_norm']} from the "
+             f"CPU's, which is {noise} from its f32 one (factor {RESNET_BF16_NOISE_FACTOR})")
+
+    trace = profile(torch, lambda: cell.run_resnet(mdef, schema, records, mesh),
+                    cell.RESNET_STEPS)
+    gaps = np.diff(run.arrivals) * 1e3
+    dispatch = run.env.metric_registry.group("dp_train.0").histogram("step_dispatch_s")
+    resnet_row = {
+        "records": len(records), "batch": cell.RESNET_BATCH, "steps": len(losses),
+        "records_per_s": cell.rate(run.arrivals, cell.RESNET_BATCH),
+        "job_seconds": run.seconds, "job_records_per_s": len(records) / run.seconds,
+        "step_ms_p50": float(np.percentile(gaps, 50)),
+        "step_ms_p95": float(np.percentile(gaps, 95)),
+        "host_dispatch_ms_p50": dispatch.percentile(50) * 1e3,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "peak_device_bytes": peak_bytes,
+        "busy_share_of_job": trace["device_busy_share_of_job"],
+        "busy_share_of_active_span": trace["device_busy_share_of_active_span"],
+        "kernel_launches_per_step": trace["kernel_launches_per_step"],
+        "copy_launches_per_step": trace["copy_launches_per_step"],
+        "device_kernel_ms_per_step": trace["device_kernel_ms"] / cell.RESNET_STEPS,
+        "traced_s": trace["traced_s"], "top_kernels": trace["top_kernels"][:6],
+        "loop_bit_equal": loop_bits, "f32_vs_cpu": f32_errs, "bf16_vs_cpu": bf16_errs,
+        "cpu_reference_steps_s": cpu_steps_s, "records_build_s": build_s, "card": card,
+    }
+    print("resnet_train", json.dumps(resnet_row), flush=True)
+    for key in ("records_per_s", "step_ms_p50", "step_ms_p95", "loss_first", "loss_last",
+                "peak_device_bytes", "busy_share_of_job", "kernel_launches_per_step"):
+        print(f"resnet-train {key}: {resnet_row[key]} | card: {card}", flush=True)
+
+    # -- widedeep-online --------------------------------------------------
+    wdef, wschema, events = cell.widedeep_cell()
+    b = cell.run_widedeep(wdef, wschema, events)
+    wl = [float(r["loss"]) for r in b.results]
+    want_steps = cell.expected_steps(events)
+    fifth = max(1, len(wl) // 5)
+    if len(wl) != want_steps or int(b.function._state["step"]) != want_steps:
+        fail(f"widedeep-online: {len(wl)} steps emitted, state step "
+             f"{int(b.function._state['step'])}, want {want_steps}")
+    # The model is shared by 16 users whose label rules differ (label =
+    # wide[user] > 0.5, the user is no input) and steps come in runs of
+    # one user's mini-batches, so the job-wide loss stays near ln 2.  Learning
+    # shows within each user's run of steps: on average over the users,
+    # the loss of a user's last 4 steps is below that of its first 4.
+    by_user = {}
+    for r in b.results:
+        by_user.setdefault(r.meta["key"], []).append(float(r["loss"]))
+    user_drop = float(np.mean([np.mean(v[:4]) - np.mean(v[-4:]) for v in by_user.values()]))
+    if not user_drop > 0:
+        fail(f"widedeep-online: the loss does not fall within the users' runs ({user_drop})")
+    # Checkpointed every 1024 events: on the card and on the CPU for (b),
+    # then (c) on the card with a crash.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train") as d:
+        plain = cell.run_widedeep(wdef, wschema, events, checkpoint_dir=os.path.join(d, "a"))
+        cpu = cell.run_widedeep(wdef, wschema, events, checkpoint_dir=os.path.join(d, "cpu"),
+                                device_provider=lambda task, index: "cpu")
+        got, ref = (read_checkpoint(os.path.join(d, w), 1)[1]["online_train"][0]["function"]
+                    ["state"] for w in ("a", "cpu"))
+        init = dp.init_train_state(wdef, adam(cell.WIDEDEEP_LR), dp.fold_in(SEED, 0))
+        pl, cl = ([float(r["loss"]) for r in run.results] for run in (plain, cpu))
+        cpu_errs = {"losses": max(abs(a - c) / abs(c) for a, c in zip(pl[:16], cl[:16])),
+                    "checkpoint_1_step": int(got["step"]),
+                    "params_update": _norm_err(got["variables"]["params"],
+                                               ref["variables"]["params"],
+                                               init["variables"]["params"]),
+                    "mu": _norm_err(got["opt_state"]["mu"], ref["opt_state"]["mu"]),
+                    "nu": _norm_err(got["opt_state"]["nu"], ref["opt_state"]["nu"])}
+        print("widedeep-online card vs cpu", json.dumps(cpu_errs), flush=True)
+        if int(got["step"]) != int(ref["step"]) or not all(
+                cpu_errs[k] <= WIDEDEEP_CPU_TOL[k] for k in WIDEDEEP_CPU_TOL):
+            fail(f"widedeep-online: the card differs from a CPU run: {cpu_errs}, CPU step "
+                 f"{int(ref['step'])} (tolerance {WIDEDEEP_CPU_TOL})")
+        # Paced, and the tap waits for checkpoint 2 (2048 events), so the
+        # restart restores a state that has trained.
+        tap = crash_once(3000, os.path.join(d, "b"), 2)
+        crashed = cell.run_widedeep(wdef, wschema, events, checkpoint_dir=os.path.join(d, "b"),
+                                    tap=tap, max_restarts=1, throttle_s=1e-4)
+        cid = latest_checkpoint_id(os.path.join(d, "b"))
+        _, snaps = read_checkpoint(os.path.join(d, "b"), cid)
+    restarts = crashed.env.metric_registry.report()["recovery.restarts_total"]
+    if restarts != 1 or not tap.crashed:
+        fail(f"widedeep-online: {restarts} restarts (crashed: {tap.crashed}), want 1")
+    ckpt_state = snaps["online_train"][0]["function"]["state"]
+    on_device = [k for k, t in _flat(ckpt_state).items() if t.device.type != "cpu"]
+    if on_device:
+        fail(f"widedeep-online: the checkpoint holds device tensors {on_device[:3]}")
+    got, ref = crashed.function._state, plain.function._state
+    restart_bits = _bit_equal(got, ref)
+    restart_err = _tree_err(got["variables"], ref["variables"])
+    if int(got["step"]) != want_steps or int(ref["step"]) != want_steps:
+        fail(f"widedeep-online: steps after the restart {int(got['step'])}, checkpointed "
+             f"{int(ref['step'])}, uninterrupted {want_steps}")
+    if not restart_bits and restart_err > WIDEDEEP_RESTART_TOL:
+        fail(f"widedeep-online: the restarted state differs by {restart_err}")
+    at_open = crashed.env.metric_registry.group("online_train.0").histogram(
+        "device_bytes_at_open").values
+    if len(at_open) != 2 or abs(at_open[1] - at_open[0]) > DEVICE_BYTES_SLACK:
+        fail(f"widedeep-online: device bytes at each open {at_open}: the failed attempt's "
+             "state must be released before the restart opens")
+    widedeep_row = {
+        "events": len(events), "steps": len(wl), "expected_steps": want_steps,
+        "steps_per_s": cell.rate(b.arrivals), "records_per_s": len(events) / b.seconds,
+        "job_seconds": b.seconds,
+        "loss_first_fifth": float(np.mean(wl[:fifth])),
+        "loss_last_fifth": float(np.mean(wl[-fifth:])), "mean_drop_within_user": user_drop,
+        "vs_cpu": cpu_errs, "cpu_job_seconds": cpu.seconds,
+        "checkpointed_job_seconds": plain.seconds, "restart_job_seconds": crashed.seconds,
+        "restarts": restarts, "crash_at_event": tap.crashed_at, "last_checkpoint_id": cid,
+        "restart_bit_equal": restart_bits,
+        "restart_param_err": restart_err, "device_bytes_at_open": at_open, "card": card,
+    }
+    print("widedeep_online", json.dumps(widedeep_row), flush=True)
+    for key in ("steps_per_s", "records_per_s", "loss_first_fifth", "loss_last_fifth",
+                "mean_drop_within_user"):
+        print(f"widedeep-online {key}: {widedeep_row[key]} | card: {card}", flush=True)
+    if fa.flash_attention.launches != 0:
+        fail(f"training launched K1 {fa.flash_attention.launches} times, want 0")
+    return {"resnet_train": 0, "widedeep_online": 0}
+
+
 def main() -> int:
     import torch
 
@@ -601,6 +981,8 @@ def main() -> int:
     keyed_launches = check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, got,
                                          serving_row)
 
+    training_launches = check_training(card, torch, fa)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -614,7 +996,8 @@ def main() -> int:
         "bound_ms": serving_k1["bound_ms"],
         "bound_by": serving_k1["bound_by"],
         "library_ms": serving_k1["library_ms"],
-        "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches},
+        "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
+                             **training_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

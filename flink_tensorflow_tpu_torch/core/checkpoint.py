@@ -245,10 +245,16 @@ class CheckpointCoordinator:
 
     def subtask_finished(self, subtask: "_Subtask") -> None:
         """A subtask ended: its final snapshot acks every pending
-        checkpoint it had not acked, and every later one."""
+        checkpoint it had not acked, and every later one.  A subtask of a
+        cancelled or failed attempt acks nothing: it left its loop without
+        finishing its input, so what it holds after ``close()`` is no state
+        a checkpoint may contain (its records replay from the last
+        completed checkpoint)."""
+        if self.executor.cancelled.is_set():
+            return
         try:
             snap = store.to_host(subtask.operator.snapshot())
-        except Exception:  # noqa: BLE001 - state already released (failed or cancelled)
+        except Exception:  # noqa: BLE001 - the subtask must still count as finished
             snap = None
         key = (subtask.t.name, subtask.index)
         with self._lock:

@@ -2,7 +2,8 @@
 
 Port of ``flink_tensorflow_tpu/core/config.py``: ``CheckpointConfig``
 (``:27``) and ``JobConfig`` (``:85``) with the fields the ported runtime
-reads.  The port always runs with chaining off — the reference's
+reads, the gang operators' ``mesh`` (``:224``) among them.  The port
+always runs with chaining off — the reference's
 ``JobConfig(chaining=False)`` layout: one thread and one input gate per
 operator subtask.
 """
@@ -74,6 +75,9 @@ class JobConfig:
     #: a ``torch.device``).  None: model subtasks take
     #: ``utils.device.resolve_device(None)`` — the GPU, or an error.
     device_provider: typing.Optional[typing.Callable[[str, int], typing.Any]] = None
+    #: ``parallel.mesh.Mesh`` shared with gang operators (the DP trainer);
+    #: ``env.set_mesh``.
+    mesh: typing.Optional[typing.Any] = None
     #: Aligned snapshots: directory, trigger mode, retention.
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
 
@@ -88,5 +92,9 @@ class JobConfig:
             raise ValueError(f"source_throttle_s must be >= 0, got {self.source_throttle_s}")
         if self.device_provider is not None and not callable(self.device_provider):
             raise ValueError("device_provider must be callable (task, idx) -> device")
+        if self.mesh is not None and not (hasattr(self.mesh, "shape")
+                                          and hasattr(self.mesh, "devices")):
+            raise ValueError("mesh must be a parallel.mesh.Mesh (make_mesh), got "
+                             f"{type(self.mesh).__name__}")
         self.checkpoint.validate()
         return self

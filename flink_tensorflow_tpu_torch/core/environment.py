@@ -3,8 +3,9 @@
 Port of ``flink_tensorflow_tpu/core/environment.py``:
 ``StreamExecutionEnvironment`` (``:153``) with ``from_collection``
 (``:301``), ``enable_checkpointing`` (``:174``), ``set_device_provider``
-(``:193``), ``execute`` with restore and restart (``:439-543``) and
-``execute_async`` (``:544``); ``RestartStrategy`` (``:33``), ``JobHandle``
+(``:193``), ``execute`` with restore and restart (``:439-543``),
+``execute_async`` (``:544``) and ``set_mesh`` / ``mesh`` (``:199``,
+``:268``); ``RestartStrategy`` (``:33``), ``JobHandle``
 (``:69``) and ``JobResult`` (``:27``).  The job builds a graph;
 ``execute()`` runs it on the local executor, one thread per operator
 subtask.
@@ -123,6 +124,14 @@ class StreamExecutionEnvironment:
         """Assign a device per ``(task_name, subtask_index)``."""
         return self.configure(device_provider=provider)
 
+    def set_mesh(self, mesh) -> "StreamExecutionEnvironment":
+        """Share a ``parallel.mesh.Mesh`` with gang operators (DP training)."""
+        return self.configure(mesh=mesh)
+
+    @property
+    def mesh(self):
+        return self.config.mesh
+
     @property
     def default_parallelism(self) -> int:
         return self.config.parallelism
@@ -220,7 +229,7 @@ class StreamExecutionEnvironment:
             checkpoint_every_n=cfg.checkpoint.every_n_records,
             checkpoint_timeout_s=cfg.checkpoint.timeout_s,
             checkpoint_retain_last=cfg.checkpoint.retain_last,
-            max_parallelism=cfg.max_parallelism)
+            max_parallelism=cfg.max_parallelism, mesh=cfg.mesh)
         executor.checkpoint_interval_s = cfg.checkpoint.interval_s
         if restore_from is not None:
             cid, snapshots = store.read_checkpoint(restore_from, restore_checkpoint_id)

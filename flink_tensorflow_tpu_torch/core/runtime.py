@@ -310,8 +310,10 @@ class LocalExecutor:
                  checkpoint_every_n: typing.Optional[int] = None,
                  checkpoint_timeout_s: float = 60.0,
                  checkpoint_retain_last: typing.Optional[int] = None,
-                 max_parallelism: int = 128):
+                 max_parallelism: int = 128,
+                 mesh: typing.Any = None):
         self.graph = graph
+        self.mesh = mesh
         self.channel_capacity = channel_capacity
         self.metrics = metric_registry or MetricRegistry()
         self.device_provider = device_provider
@@ -397,7 +399,7 @@ class LocalExecutor:
                 st.alignment = grp.histogram("checkpoint_alignment_s")
                 state = KeyedStateStore()
                 ctx = RuntimeContext(t.name, st.index, t.parallelism, grp, device=device,
-                                     keyed_state=state)
+                                     keyed_state=state, mesh=self.mesh)
                 if st.gate is not None:
                     ctx.wakeup = st.gate.wake
                 st.operator.setup(ctx, Output(edges), state)

@@ -4,7 +4,9 @@ Port of ``flink_tensorflow_tpu/core/runtime_context.py``: the subtask's
 identity, parallelism and metric group; keyed state through
 ``state(descriptor)`` (scoped to the current key, ``with_key`` swaps it);
 ``device``, the answer of the job's device provider (None: the model
-runner resolves the GPU); and ``wakeup``, which breaks the subtask loop's
+runner resolves the GPU); ``mesh``, the job's mesh for gang operators,
+and ``num_processes``, the processes of the cohort (always 1: the port
+runs one process); and ``wakeup``, which breaks the subtask loop's
 wait when a model runner's results land (None for sources and bare
 operators).
 """
@@ -22,12 +24,16 @@ class RuntimeContext:
     def __init__(self, task_name: str, subtask_index: int = 0, parallelism: int = 1,
                  metric_group: typing.Optional[MetricGroup] = None,
                  device: typing.Any = None,
-                 keyed_state: typing.Optional[KeyedStateStore] = None):
+                 keyed_state: typing.Optional[KeyedStateStore] = None,
+                 mesh: typing.Any = None, num_processes: int = 1):
         self.task_name = task_name
         self.subtask_index = subtask_index
         self.parallelism = parallelism
         self.metrics = metric_group or MetricGroup(f"{task_name}.{subtask_index}")
         self.device = device
+        #: Shared ``parallel.mesh.Mesh`` for gang operators (DP training).
+        self.mesh = mesh
+        self.num_processes = num_processes
         self._keyed_state = keyed_state if keyed_state is not None else KeyedStateStore()
         self.wakeup: typing.Optional[typing.Callable[[], None]] = None
 

@@ -33,7 +33,6 @@ flax ``variables`` carried across by ``models/convert.py``.
 from __future__ import annotations
 
 import copy
-import math
 import typing
 
 import numpy as np
@@ -42,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from flink_tensorflow_tpu_torch.models.base import ModelMethod
+from flink_tensorflow_tpu_torch.models.zoo._common import lecun_normal_
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef, register_model_def
 from flink_tensorflow_tpu_torch.ops.preprocessing import inception_normalize
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
@@ -236,25 +236,14 @@ class InceptionV3(nn.Module):
         return self.head(feats.float())
 
 
-def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    """flax's default kernel init (``lecun_normal``: a normal truncated at
-    two standard deviations, variance 1/fan_in), drawn by inverse CDF."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
-    u = torch.rand(t.shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
-    z = torch.erfinv(u).mul_(math.sqrt(2)).clamp_(-2.0, 2.0)
-    with torch.no_grad():
-        t.copy_((z * std).to(t.dtype))
-
-
 def init_inception(module: InceptionV3, generator: torch.Generator) -> InceptionV3:
     """The port's initialiser: flax's init distributions (lecun-normal
     kernels, zero biases, identity batch norm) from ``generator``."""
     for m in module.modules():
         if isinstance(m, ConvBN):
             o, i, kh, kw = m.weight.shape
-            _lecun_normal_(m.weight, i * kh * kw, generator)
-    _lecun_normal_(module.head.weight, module.head.in_features, generator)
+            lecun_normal_(m.weight, i * kh * kw, generator)
+    lecun_normal_(module.head.weight, module.head.in_features, generator)
     with torch.no_grad():
         module.head.bias.zero_()
     return module

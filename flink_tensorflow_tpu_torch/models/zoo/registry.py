@@ -32,6 +32,18 @@ class ModelDef:
     #: ``params -> nn.Module``; None loads ``module(**config)`` from a
     #: numpy tree through ``params_from_jax``.
     load_fn: typing.Optional[typing.Callable[[typing.Any], typing.Any]] = None
+    #: ``loss_fn(module, batch, generator) -> (loss, (new_model_state,
+    #: metrics))`` for trainable defs (JAX ``loss_fn(variables, batch,
+    #: rng)``): ``module`` runs on the train state's tensors (the train step
+    #: calls it through ``torch.func.functional_call``), ``batch`` is a dict
+    #: of device tensors with the ``valid`` mask, ``new_model_state`` holds
+    #: the non-trained collections (``{"batch_stats": {name: tensor}}``).
+    #: None for inference-only defs.
+    loss_fn: typing.Optional[typing.Callable] = None
+    #: ``() -> nn.Module`` of this def's architecture with placeholder
+    #: weights; under ``torch.device("meta")`` it is the storage-free
+    #: skeleton a train step runs ``functional_call`` on.
+    make_module: typing.Optional[typing.Callable[[], typing.Any]] = None
 
     def init_params(self, seed) -> typing.Any:
         return self.init_fn(seed)
@@ -65,7 +77,7 @@ def register_model_def(name: str):
     return deco
 
 
-_ZOO_MODULES = ("chartransformer", "inception")
+_ZOO_MODULES = ("chartransformer", "inception", "widedeep", "resnet")
 
 
 def get_model_def(architecture: str, **config) -> ModelDef:

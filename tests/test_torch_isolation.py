@@ -1,7 +1,8 @@
-"""The port stands alone: every module of it imports with ``import jax``
-broken, the serving slice and the Quick-start job run that way, no
-module of the JAX package is loaded, and nothing falls back to the CPU
-silently."""
+"""The port stands alone: every module of it imports with ``import jax``,
+``import flax`` and ``import optax`` broken, the serving slice, the
+Quick-start job and the training path (a keyed Wide&Deep job and a ResNet
+gang) run that way, no module of the JAX package is loaded, and nothing
+falls back to the CPU silently."""
 
 import os
 import subprocess
@@ -16,6 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SLICE = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.modules["jax"] = None          # any "import jax" now raises ImportError
+    sys.modules["flax"] = None
+    sys.modules["optax"] = None
     import numpy as np
     import flink_tensorflow_tpu_torch as port
     modules = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
@@ -72,6 +75,43 @@ _SLICE = textwrap.dedent("""
            .sink_to_list())
     env.execute(timeout=60)
     assert sorted(r.meta["id"] for r in out) == [0, 1, 2]
+    from flink_tensorflow_tpu_torch.functions.training_function import (
+        DPTrainWindowFunction, OnlineTrainFunction)
+    from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from flink_tensorflow_tpu_torch.parallel.optim import adam
+    from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
+
+    widedeep = get_model_def("widedeep", hash_buckets=20, embed_dim=4, num_cat_slots=2,
+                             num_dense=3, num_wide=4, hidden=(8,))
+    wd_schema = RecordSchema({"wide": spec((4,)), "dense": spec((3,)),
+                              "cat": spec((2,), np.int32), "label": spec((), np.int32)})
+    events = [TensorValue({"wide": rng.rand(4).astype(np.float32),
+                           "dense": rng.rand(3).astype(np.float32),
+                           "cat": rng.randint(0, 20, (2,)).astype(np.int32),
+                           "label": np.int32(i % 2)}, {"user": i % 2}) for i in range(12)]
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.set_device_provider(lambda task, index: "cpu")
+    steps = (env.from_collection(events).key_by(lambda r: r.meta["user"])
+             .process(OnlineTrainFunction(widedeep, adam(1e-2), train_schema=wd_schema,
+                                          scope="key", mini_batch=4, steps_per_dispatch=2))
+             .sink_to_list())
+    env.execute(timeout=60)
+    assert sorted(int(r["step"]) for r in steps) == [1, 1, 2, 2]
+    resnet = get_model_def("resnet50", num_classes=3, image_size=16, width=4,
+                           stage_sizes=(1, 1), uint8_input=True)
+    im_schema = RecordSchema({"image": spec((16, 16, 3), np.uint8), "label": spec((), np.int32)})
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.set_mesh(make_mesh({"data": 1}, devices=["cpu"]))
+    gang = (env.from_collection([TensorValue({
+                "image": rng.randint(0, 256, (16, 16, 3)).astype(np.uint8),
+                "label": np.int32(i % 3)}) for i in range(8)])
+            .count_window(4)
+            .apply(DPTrainWindowFunction(resnet, adam(1e-3), train_schema=im_schema,
+                                         global_batch=4))
+            .sink_to_list())
+    env.execute(timeout=60)
+    assert [int(r["step"]) for r in gang] == [1, 2]
+    assert all(np.isfinite(float(r["loss"])) for r in gang)
     leaked = sorted(m for m in sys.modules
                     if m == "flink_tensorflow_tpu" or m.startswith("flink_tensorflow_tpu."))
     print("LEAKED", leaked)
