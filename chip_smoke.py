@@ -65,7 +65,25 @@ Phases (any failure exits non-zero and prints no result line):
    without the crash, the step count equal to (b)'s, host tensors only in
    the checkpoint, and the restart opening with the failed attempt's
    device memory released;
-8. print one ``kernels`` JSON line, the card line, and the final
+8. stream inference on the two other inference configurations and the
+   single-record map (no TPU kernel lies on these paths; K1 must launch 0
+   times in each): (a) mnist-lenet (``models/lenet_cell.py``: 16,384 f32
+   28x28x1 records, ``count_window(512) -> ModelWindowFunction(fixed_batch
+   512)``, LeNet in bf16); (b) bilstm (``models/bilstm_cell.py``: 4,096
+   records of 4-192 tokens, ``count_window(64)``, vocab 20,000, hidden
+   256), after timing and holding both LSTM routes (cuDNN f32 on
+   bf16-rounded weights, cuDNN bf16) against the plain step loop on the
+   card and choosing the closer one unless it is more than twice as slow;
+   (c) inception-map: phase 5's model saved as a port bundle and 1,024 of
+   its records through ``rebalance() -> map(ModelMapFunction(<bundle>,
+   micro_batch=32), parallelism=2)``, each subtask loading the bundle at
+   ``open()``.  Each: every id once, labels (and prob or score) equal to a
+   direct call of the same module on the card over the same batches, a few
+   records held to the CPU's bf16 and f32 paths; bilstm also holds a record
+   alone at its own bucket to the same record in a batch padded to 256;
+   records/s (steady and over the job), latency p50/p95, H2D bytes per
+   batch and seconds, each beside the card line;
+9. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -182,6 +200,37 @@ WIDEDEEP_CPU_TOL = {"losses": 1e-5, "params_update": 1e-5, "mu": 1e-5, "nu": 1e-
 # largest |param|.
 WIDEDEEP_RESTART_TOL = 1e-5
 DEVICE_BYTES_SLACK = 100_000
+# Phase 8.  The card's bf16 forward against the CPU's bf16 path, relative
+# to the largest |logit| (LeNet, BiLSTM and Inception; the CPU twins hold
+# the CPU paths to flax at the same tolerance): every conv, product and
+# gate rounds to bf16 after summing in another order.
+STREAM_BF16_TOL = 3e-2
+# The card's f32 forward (cuDNN and cuBLAS, TF32 off) against the CPU's
+# f32 path.  LeNet sums f32 products in another order through 5 layers.
+LENET_F32_TOL = 1e-5
+# The BiLSTM's f32 recurrence: 2 x up to 256 sequential steps, each adding
+# 384 f32 products in another order, compound their rounding through c
+# and h; an error in the recurrence (a gate order, a length) is of order 1.
+# Held with cuDNN's RNN left at PyTorch's default (TF32 allowed), as a job
+# runs it: the port turns TF32 off for its own call.
+BILSTM_F32_TOL = 1e-4
+# A BiLSTM record alone at its own bucket against it in a batch padded to
+# 256, on the card's route, final states and logits relative to the
+# record's own largest magnitude: cuDNN's f32 kernels at batch 1 and 8
+# steps sum in another order than at batch 64 and 256 steps (measured
+# 1.2e-7-2.4e-7 of the logits); a length or flip error is of order 1.
+BILSTM_PAD_TOL = 1e-5
+# The cuDNN routes are timed and held to the plain step loop on the
+# cell's first batches, this many (the route was chosen by the same
+# measurement: models/zoo/bilstm.py:CUDA_ROUTE).
+LSTM_ROUTE_BATCHES = 4
+# The rule that chose the route: the one closer to the plain loop, unless
+# it takes more than this many times the other's time.
+LSTM_ROUTE_TIME_FACTOR = 2.0
+# inception-map: the map's micro-batch and the subtasks that load the bundle.
+MAP_RECORDS = 1024
+MAP_MICRO_BATCH = 32
+MAP_PARALLELISM = 2
 
 
 def fail(msg: str) -> None:
@@ -322,6 +371,7 @@ def check_inception(card: str, torch):
     import numpy as np
 
     from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
     from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
 
     t0 = time.monotonic()
@@ -393,8 +443,8 @@ def check_inception(card: str, torch):
         fail(f"inception: card f32 logits differ from the CPU's by {f32_err} of max |logit| "
              f"> {INCEPTION_F32_TOL}")
 
-    rps, span = cell.steady_rps(arrivals, cell.RECORDS, cell.BATCH,
-                                 cell.trailing_exclude(cell.RECORDS))
+    rps, span = steady_rps(arrivals, cell.RECORDS, cell.BATCH,
+                           cell.trailing_exclude(cell.RECORDS))
     m = {k.split(".", 2)[2]: v for k, v in metrics.items() if k.startswith("inception.0.")}
     row = {
         "records": cell.RECORDS, "batch": cell.BATCH, "pipeline_depth": cell.DEPTH,
@@ -422,7 +472,7 @@ def check_inception(card: str, torch):
                 "batches", "padded_records", "init_s", "warmup_s"):
         print(f"inception {key}: {row[key]} | card: {card}", flush=True)
     print("inception", json.dumps(row), flush=True)
-    return row
+    return row, (mdef, model, pixels)
 
 
 def crash_once(at: int, directory=None, min_checkpoint: int = 1):
@@ -902,6 +952,354 @@ def check_training(card: str, torch, fa):
     return {"resnet_train": 0, "widedeep_online": 0}
 
 
+def stream_row(card, name, run, records, first_batch, *extra_keys, **extra):
+    """The cell's numbers from one run (``stream_cell.CellRun``), printed
+    beside the card line; ``name`` is the operator's name, whose subtasks'
+    metrics are summed (counters) or listed (latency percentiles)."""
+    from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
+
+    subtasks = sorted({k.split(".")[1] for k in run.metrics if k.startswith(name + ".")})
+    m = [{k.split(".", 2)[2]: v for k, v in run.metrics.items()
+          if k.startswith(f"{name}.{i}.")} for i in subtasks]
+    rps, span = steady_rps(run.arrivals, records, first_batch)
+    batches = sum(x["batches"] for x in m)
+    row = {
+        "records": records, "records_per_s": rps, "steady_span_s": span,
+        "job_seconds": run.seconds, "job_records_per_s": records / run.seconds,
+        "record_latency_p50_ms": [x["record_latency_s"]["p50"] * 1e3 for x in m],
+        "record_latency_p95_ms": [x["record_latency_s"]["p95"] * 1e3 for x in m],
+        "batch_latency_p50_ms": [x["batch_latency_s"]["p50"] * 1e3 for x in m],
+        "h2d_bytes_per_batch": sum(x["h2d_bytes"] for x in m) / batches,
+        "batches": batches, "padded_records": sum(x["padded_records"] for x in m),
+        "pinned_allocations": sum(x["pinned_allocations"] for x in m),
+        "warmup_s": [x["warmup_s"]["p50"] for x in m if "warmup_s" in x],
+        "assemble_p50_ms": [x["assemble_s"]["p50"] * 1e3 for x in m],
+        "dispatch_p50_ms": [x["dispatch_s"]["p50"] * 1e3 for x in m],
+        "fetch_wait_p50_ms": [x["fetch_wait_s"]["p50"] * 1e3 for x in m],
+        **extra, "card": card,
+    }
+    for key in ("records_per_s", "job_records_per_s", "record_latency_p50_ms",
+                "record_latency_p95_ms", "h2d_bytes_per_batch", "batches", "padded_records",
+                "pinned_allocations", "warmup_s", *extra_keys):
+        print(f"{name} {key}: {row[key]} | card: {card}", flush=True)
+    return row
+
+
+def rel(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def check_ids(what, results, n):
+    ids = [int(r.meta["id"]) for r in results]
+    if sorted(ids) != list(range(n)):
+        fail(f"{what}: {len(ids)} results, {len(set(ids))} distinct ids, want each of {n} once")
+
+
+def check_lenet(card: str, torch):
+    """Phase 8 (a): the mnist-lenet cell on the card, and its checks."""
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import lenet_cell as cell
+    from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+
+    t0 = time.monotonic()
+    mdef, model, images, records = cell.lenet_cell(SEED)
+    run = cell.run_cell(model, records)
+    check_ids("mnist-lenet", run.results, cell.RECORDS)
+    m = run.metrics
+    if m["lenet.0.batches"] != cell.RECORDS // cell.BATCH or m["lenet.0.padded_records"]:
+        fail(f"mnist-lenet: {m['lenet.0.batches']} batches, {m['lenet.0.padded_records']} "
+             "padded records: the windows were not the arrival order's 512s")
+    got = np.empty(cell.RECORDS, np.int32)
+    for r in run.results:
+        got[r.meta["id"]] = r["label"]
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(model.params).to("cuda")
+    want = np.empty_like(got)
+    with torch.inference_mode():
+        for lo in range(0, cell.RECORDS, cell.BATCH):
+            out = serve(module, {"image": torch.from_numpy(images[lo:lo + cell.BATCH]).cuda()})
+            want[lo:lo + cell.BATCH] = out["label"].cpu().numpy()
+            if lo == 0:
+                card_bf16 = out["logits"][:4].cpu().numpy()
+    if not np.array_equal(got, want):
+        bad = np.nonzero(got != want)[0]
+        fail(f"mnist-lenet: {len(bad)} labels differ from the direct call, first id {bad[0]}")
+    x = torch.from_numpy(images[:4].copy())
+    with torch.inference_mode():
+        cpu_bf16 = serve(model.params, {"image": x})["logits"].numpy()
+        f32 = get_model_def("lenet", compute_dtype="float32")
+        f32_module = f32.to_model(model.params).params
+        cpu_f32 = f32.methods["serve"].fn(f32_module, {"image": x})["logits"].numpy()
+        card_f32 = f32.methods["serve"].fn(copy.deepcopy(f32_module).to("cuda"),
+                                           {"image": x.cuda()})["logits"].cpu().numpy()
+    bf16_err, f32_err = rel(card_bf16, cpu_bf16), rel(card_f32, cpu_f32)
+    if not (np.isfinite(card_bf16).all() and bf16_err <= STREAM_BF16_TOL):
+        fail(f"mnist-lenet: card bf16 logits differ from the CPU's by {bf16_err} of max |logit|")
+    if not (np.isfinite(card_f32).all() and f32_err <= LENET_F32_TOL):
+        fail(f"mnist-lenet: card f32 logits differ from the CPU's by {f32_err} of max |logit|")
+    return stream_row(card, "lenet", run, cell.RECORDS, cell.BATCH, "phase_seconds",
+                      batch=cell.BATCH, bf16_rel_err_vs_cpu=bf16_err,
+                      bf16_tolerance=STREAM_BF16_TOL, f32_rel_err_vs_cpu=f32_err,
+                      f32_tolerance=LENET_F32_TOL,
+                      phase_seconds=time.monotonic() - t0)
+
+
+def lstm_routes(card: str, torch, model, batches):
+    """Both cuDNN routes of the BiLSTM against its plain step loop on the
+    card, on ``batches`` (``(tokens, lengths)`` on the card): the largest
+    error of the final hidden states (the recurrence's own error, before
+    the bf16 Dense rounds it) and of the logits, each relative to the
+    plain path's largest magnitude; ms per call on the first batch (CUDA
+    events); and the three costliest kernels (to show which library ran).
+    The cell runs the default route (``CUDA_ROUTE``); the rule that chose
+    it is re-read here and printed, not applied.  Returns ``{route: row}``."""
+    import copy
+
+    from flink_tensorflow_tpu_torch.models.zoo.bilstm import CUDA_ROUTE
+
+    module = copy.deepcopy(model.params).to("cuda")
+    with torch.inference_mode():
+        plain = [(module.states(x, n, route="plain").cpu().numpy(),
+                  module(x, n, route="plain").cpu().numpy()) for x, n in batches]
+        x0, n0 = batches[0]
+        plain_ms = time_ms(lambda: module(x0, n0, route="plain"), 2)
+    rows = {}
+    for route in ("cudnn_f32", "cudnn_bf16"):
+        try:
+            with torch.inference_mode():
+                got = [(module.states(x, n, route=route).cpu().numpy(),
+                        module(x, n, route=route).cpu().numpy()) for x, n in batches]
+                ms = time_ms(lambda: module(x0, n0, route=route), 20)
+                activities = [torch.profiler.ProfilerActivity.CPU,
+                              torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=activities) as prof:
+                    module(x0, n0, route=route)
+                    torch.cuda.synchronize()
+        except RuntimeError as exc:   # this build's cuDNN RNN may refuse bf16
+            if route == CUDA_ROUTE:
+                raise
+            rows[route] = {"supported": False, "error": str(exc)[:300]}
+            continue
+        kernels = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:3]
+        rows[route] = {
+            "supported": True,
+            "states_rel_err_vs_plain": max(rel(g[0], p[0]) for g, p in zip(got, plain)),
+            "logits_rel_err_vs_plain": max(rel(g[1], p[1]) for g, p in zip(got, plain)),
+            "ms": ms, "top_kernels": [e.key[:80] for e in kernels]}
+    ok = [r for r in rows if rows[r]["supported"]]
+    closer = min(ok, key=lambda r: rows[r]["states_rel_err_vs_plain"])
+    other = [r for r in ok if r != closer]
+    if other and rows[closer]["ms"] > LSTM_ROUTE_TIME_FACTOR * rows[other[0]]["ms"]:
+        closer = other[0]
+    rows["plain"] = {"ms": plain_ms, "batches_compared": len(batches)}
+    for route, row in rows.items():
+        print(f"bilstm route {route}: {json.dumps(row)} | card: {card}", flush=True)
+    print(f"bilstm route run: {CUDA_ROUTE} (the default); the rule picks {closer} in this "
+          f"run | card: {card}", flush=True)
+    return rows
+
+
+def check_bilstm(card: str, torch):
+    """Phase 8 (b): the bilstm cell on the card, its LSTM routes, and its
+    checks."""
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import bilstm_cell as cell
+    from flink_tensorflow_tpu_torch.models.zoo.bilstm import CUDA_ROUTE
+    from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy, assemble
+
+    t0 = time.monotonic()
+    mdef, model, records = cell.bilstm_cell(SEED)
+    batches = [assemble(records[lo:lo + cell.BATCH], mdef.input_schema, BucketPolicy())
+               for lo in range(0, cell.RECORDS, cell.BATCH)]
+    first = batches[0]
+    routes = lstm_routes(card, torch, model, [
+        (torch.from_numpy(b.arrays["tokens"].copy()).cuda(),
+         torch.from_numpy(b.lengths["tokens"].copy()).cuda()) for b in batches[:LSTM_ROUTE_BATCHES]])
+
+    run = cell.run_cell(model, records)
+    check_ids("bilstm", run.results, cell.RECORDS)
+    if run.metrics["bilstm.0.batches"] != len(batches):
+        fail(f"bilstm: {run.metrics['bilstm.0.batches']} batches: the windows were not "
+             "the arrival order's 64s")
+    got = {r.meta["id"]: r for r in run.results}
+    module = copy.deepcopy(model.params).to("cuda")
+    serve = mdef.methods["serve"].fn
+    with torch.inference_mode():
+        for k, batch in enumerate(batches):
+            out = serve(module, {"tokens": torch.from_numpy(batch.arrays["tokens"]).cuda()},
+                        {"tokens": torch.from_numpy(batch.lengths["tokens"]).cuda()})
+            label, prob = out["label"].cpu().numpy(), out["prob"].cpu().numpy()
+            for j in range(cell.BATCH):
+                r = got[k * cell.BATCH + j]
+                if int(r["label"]) != label[j] or not np.array_equal(r["prob"], prob[j]):
+                    fail(f"bilstm: record {k * cell.BATCH + j} differs from the direct call")
+            if k == 0:
+                card_logits = out["logits"].cpu().numpy()
+                card_states = module.states(
+                    torch.from_numpy(batch.arrays["tokens"]).cuda(),
+                    torch.from_numpy(batch.lengths["tokens"]).cuda()).cpu().numpy()
+
+    # A record alone at its own bucket against the same record in the
+    # first batch, padded to 256.
+    j = int(np.argmin(first.lengths["tokens"]))
+    alone = assemble([records[j]], mdef.input_schema, BucketPolicy())
+    with torch.inference_mode():
+        x1 = torch.from_numpy(alone.arrays["tokens"]).cuda()
+        n1 = torch.from_numpy(alone.lengths["tokens"]).cuda()
+        alone_logits = module(x1, n1).cpu().numpy()
+        alone_states = module.states(x1, n1).cpu().numpy()
+    pad_err = rel(alone_logits[0], card_logits[j])
+    pad_states_err = rel(alone_states[0], card_states[j])
+    pad_abs = float(np.abs(alone_logits[0] - card_logits[j]).max())
+    if not (pad_err <= BILSTM_PAD_TOL and pad_states_err <= BILSTM_PAD_TOL):
+        fail(f"bilstm: record {j} alone (bucket {alone.arrays['tokens'].shape[1]}) differs "
+             f"from it in a batch padded to {first.arrays['tokens'].shape[1]} by {pad_err} "
+             f"(logits), {pad_states_err} (final states) > {BILSTM_PAD_TOL}")
+
+    # 4 records of the first batch through the CPU's plain bf16 and f32 paths.
+    few = assemble(records[:4], mdef.input_schema, BucketPolicy())
+    x = torch.from_numpy(few.arrays["tokens"].copy())
+    n = torch.from_numpy(few.lengths["tokens"].copy())
+    # The card's f32 forward is the cuDNN f32 route on unrounded weights,
+    # with cuDNN's RNN at PyTorch's default (TF32 allowed), as a job runs
+    # it: the port's own call must keep TF32 off.
+    f32 = get_model_def("bilstm", vocab_size=cell.VOCAB, embed_dim=128, hidden_dim=cell.HIDDEN,
+                        num_classes=2, compute_dtype="float32")
+    f32_module = f32.to_model(model.params).params
+    with torch.inference_mode():
+        card_bf16 = module(x.cuda(), n.cuda()).cpu().numpy()
+        cpu_bf16 = model.params(x, n).numpy()
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            card_f32 = copy.deepcopy(f32_module).to("cuda")(x.cuda(), n.cuda()).cpu().numpy()
+            tf32_kept = torch._C._get_cudnn_allow_tf32()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        cpu_f32 = f32_module(x, n).numpy()
+    if not tf32_kept:
+        fail("bilstm: the f32 route did not give the caller's TF32 setting back")
+    bf16_err, f32_err = rel(card_bf16, cpu_bf16), rel(card_f32, cpu_f32)
+    if not (np.isfinite(card_bf16).all() and bf16_err <= STREAM_BF16_TOL):
+        fail(f"bilstm: card bf16 logits differ from the CPU's by {bf16_err} of max |logit|")
+    if not (np.isfinite(card_f32).all() and f32_err <= BILSTM_F32_TOL):
+        fail(f"bilstm: card f32 logits differ from the CPU's by {f32_err} of max |logit| "
+             f"> {BILSTM_F32_TOL}")
+    return stream_row(card, "bilstm", run, cell.RECORDS, cell.BATCH, "lstm_route",
+                      "padding_rel_err", "padding_states_rel_err", "f32_rel_err_vs_cpu",
+                      "phase_seconds",
+                      batch=cell.BATCH, lstm_route=CUDA_ROUTE, lstm_routes=routes,
+                      padding_rel_err=pad_err, padding_states_rel_err=pad_states_err,
+                      padding_tolerance=BILSTM_PAD_TOL, padding_exact=pad_abs == 0.0,
+                      padding_lengths=[int(first.lengths["tokens"][j]),
+                                       int(alone.arrays["tokens"].shape[1]),
+                                       int(first.arrays["tokens"].shape[1])],
+                      bf16_rel_err_vs_cpu=bf16_err, bf16_tolerance=STREAM_BF16_TOL,
+                      f32_rel_err_vs_cpu=f32_err, f32_tolerance=BILSTM_F32_TOL,
+                      phase_seconds=time.monotonic() - t0)
+
+
+def check_inception_map(card: str, torch, inception):
+    """Phase 8 (c): phase 5's Inception saved as a bundle and served per
+    record by ``ModelMapFunction`` at parallelism 2, and its checks."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelMapFunction
+    from flink_tensorflow_tpu_torch.models.loaders import SavedModelLoader, save_bundle
+    from flink_tensorflow_tpu_torch.models.stream_cell import run_job
+    from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    t0 = time.monotonic()
+    mdef, model, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(MAP_RECORDS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "inception")
+        save_bundle(mdef, model.params, bundle)
+        save_s = time.monotonic() - t0
+        # idle_flush_s=1.0: the source never idles for a second, so every
+        # micro-batch is a subtask's next 32 records and the direct call
+        # below runs the same batches.
+        fn = ModelMapFunction(bundle, micro_batch=MAP_MICRO_BATCH, idle_flush_s=1.0,
+                              warmup_batches=(MAP_MICRO_BATCH,), outputs=("label", "score"))
+        run = run_job(records, lambda s: s.rebalance().map(fn, name="inception_map",
+                                                            parallelism=MAP_PARALLELISM))
+        loaded = SavedModelLoader(bundle).load()
+    check_ids("inception-map", run.results, MAP_RECORDS)
+    per_subtask = MAP_RECORDS // MAP_PARALLELISM
+    for i in range(MAP_PARALLELISM):
+        b = run.metrics[f"inception_map.{i}.batches"]
+        if b != per_subtask // MAP_MICRO_BATCH or run.metrics[f"inception_map.{i}.padded_records"]:
+            fail(f"inception-map: subtask {i} ran {b} batches: not its arrival order's 32s")
+    for name, p in model.params.state_dict().items():
+        if not torch.equal(loaded.params.state_dict()[name], p):
+            fail(f"inception-map: the bundle's {name} differs from the saved module's")
+    got = {r.meta["id"]: r for r in run.results}
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(loaded.params).to("cuda")
+    with torch.inference_mode():
+        for i in range(MAP_PARALLELISM):
+            ids = np.arange(i, MAP_RECORDS, MAP_PARALLELISM)
+            for lo in range(0, per_subtask, MAP_MICRO_BATCH):
+                batch = ids[lo:lo + MAP_MICRO_BATCH]
+                out = serve(module, {"image": torch.from_numpy(pixels[batch]).cuda()})
+                label, score = out["label"].cpu().numpy(), out["score"].cpu().numpy()
+                for j, rid in enumerate(batch):
+                    if int(got[rid]["label"]) != label[j] or float(got[rid]["score"]) != score[j]:
+                        fail(f"inception-map: record {rid} differs from the direct call")
+                if i == 0 and lo == 0:
+                    card_bf16 = out["logits"][:2].float().cpu().numpy()
+    # Records 0 and 2 (subtask 0's first two) through the CPU's paths.
+    x = torch.from_numpy(pixels[[0, 2]].copy())
+    f32 = get_model_def("inception_v3", num_classes=mdef.config["num_classes"],
+                        image_size=mdef.config["image_size"], uint8_input=True,
+                        compute_dtype="float32")
+    f32_module = f32.to_model(loaded.params).params
+    with torch.inference_mode():
+        cpu_bf16 = serve(loaded.params, {"image": x})["logits"].float().numpy()
+        cpu_f32 = f32.methods["serve"].fn(f32_module, {"image": x})["logits"].numpy()
+        card_f32 = f32.methods["serve"].fn(copy.deepcopy(f32_module).to("cuda"),
+                                           {"image": x.cuda()})["logits"].cpu().numpy()
+    bf16_err, f32_err = rel(card_bf16, cpu_bf16), rel(card_f32, cpu_f32)
+    if not (np.isfinite(card_bf16).all() and bf16_err <= INCEPTION_BF16_TOL):
+        fail(f"inception-map: card bf16 logits differ from the CPU's by {bf16_err}")
+    if not (np.isfinite(card_f32).all() and f32_err <= INCEPTION_F32_TOL):
+        fail(f"inception-map: card f32 logits differ from the CPU's by {f32_err}")
+    return stream_row(card, "inception_map", run, MAP_RECORDS,
+                      MAP_MICRO_BATCH * MAP_PARALLELISM, "phase_seconds",
+                      micro_batch=MAP_MICRO_BATCH, parallelism=MAP_PARALLELISM,
+                      bundle_save_s=save_s, bf16_rel_err_vs_cpu=bf16_err,
+                      bf16_tolerance=INCEPTION_BF16_TOL, f32_rel_err_vs_cpu=f32_err,
+                      f32_tolerance=INCEPTION_F32_TOL, phase_seconds=time.monotonic() - t0)
+
+
+def check_stream_models(card: str, torch, fa, inception):
+    """Phase 8: the three jobs, K1's launches counted on each."""
+    launches = {}
+    for path, check in (("mnist_lenet", lambda: check_lenet(card, torch)),
+                        ("bilstm", lambda: check_bilstm(card, torch)),
+                        ("inception_map", lambda: check_inception_map(card, torch, inception))):
+        fa.flash_attention.launches = 0
+        row = check()
+        launches[path] = fa.flash_attention.launches
+        if launches[path] != 0:
+            fail(f"{path} launched K1 {launches[path]} times, want 0")
+        print(path, json.dumps(row), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -976,12 +1374,14 @@ def main() -> int:
     }
     print("serving", json.dumps(serving_row), flush=True)
 
-    check_inception(card, torch)
+    _, inception = check_inception(card, torch)
 
     keyed_launches = check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, got,
                                          serving_row)
 
     training_launches = check_training(card, torch, fa)
+
+    stream_launches = check_stream_models(card, torch, fa, inception)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
@@ -997,7 +1397,7 @@ def main() -> int:
         "bound_by": serving_k1["bound_by"],
         "library_ms": serving_k1["library_ms"],
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
-                             **training_launches},
+                             **training_launches, **stream_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

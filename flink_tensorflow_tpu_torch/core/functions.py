@@ -1,7 +1,7 @@
 """User-function interfaces for the streaming layer.
 
 Copy of ``flink_tensorflow_tpu/core/functions.py`` (``Function`` ...
-``ProcessFunction`` ``:123``, ``WindowFunction`` ``:154``,
+``AsyncMapFunction`` ``:71``, ``ProcessFunction`` ``:123``, ``WindowFunction`` ``:154``,
 ``SourceFunction`` ``:220``, ``SinkFunction`` ``:227``), cut to the
 functions the ported path hosts.  ``open()`` is
 where a model function builds its runner and moves its weights to the
@@ -49,6 +49,36 @@ class RichFunction(Function):
 class MapFunction(RichFunction, abc.ABC):
     @abc.abstractmethod
     def map(self, value: typing.Any) -> typing.Any: ...
+
+
+class AsyncMapFunction(RichFunction, abc.ABC):
+    """One-in/one-out map whose results may be emitted later.
+
+    ``stream.map(f)`` hosts it like a :class:`MapFunction`, but hands
+    ``map_async`` a collector instead of taking a return value, so the
+    function may buffer the record (into an in-flight device batch) and
+    emit its result on a later call.  The contract the operator relies on:
+
+    - **FIFO**: results are collected in arrival order (result i is for
+      record i); the operator re-attaches record timestamps by position;
+    - ``flush(out)`` emits everything buffered or in flight; it is called
+      at end of input and before every state snapshot, so no result is in
+      limbo across a barrier;
+    - ``next_deadline`` / ``fire_due`` bound a record's wait in a lull
+      (the idle flush), as the window-function hooks do.
+    """
+
+    @abc.abstractmethod
+    def map_async(self, value: typing.Any, out: "Collector") -> None: ...
+
+    def flush(self, out: "Collector") -> None:  # noqa: B027
+        """Emit every buffered and in-flight result now."""
+
+    def next_deadline(self) -> typing.Optional[float]:
+        return None
+
+    def fire_due(self, now: float) -> None:  # noqa: B027
+        pass
 
 
 class FilterFunction(RichFunction, abc.ABC):

@@ -5,7 +5,8 @@ Port of ``flink_tensorflow_tpu/core/operators.py``: ``Output`` and
 ``Operator`` (``:48-271``, with the snapshot, checkpoint-notification and
 key-group rescale protocol), ``StateNotRescalable`` (``:110``),
 ``_FunctionOperator`` (``:274``), ``MapOperator`` (``:319``, synchronous
-maps), ``FilterOperator``, ``ProcessOperator`` (``:417``, keyed state and
+maps and the async branch an ``AsyncMapFunction`` needs; no watermarks
+yet, so no ``process_watermark``), ``FilterOperator``, ``ProcessOperator`` (``:417``, keyed state and
 timers), ``WindowOperator`` (``:587``, per-subtask count windows with the
 ``ingest_element`` / ``next_deadline`` / ``fire_due`` hooks a model
 function uses), ``SinkOperator`` (``:772``) and ``SourceOperator``
@@ -16,6 +17,7 @@ takes part in snapshots.
 
 from __future__ import annotations
 
+import collections
 import typing
 
 from flink_tensorflow_tpu_torch.core import elements as el
@@ -93,6 +95,14 @@ class Operator:
 
     def fire_due(self, now: float) -> None:  # noqa: B027
         """Called by the subtask loop when ``next_deadline`` has passed."""
+
+    @property
+    def uses_timers(self) -> bool:
+        """Whether this operator may declare a wall-clock deadline
+        (``next_deadline`` / ``fire_due``).  Only the async map says so
+        yet; the reference's chaining pass reads it, and the port has no
+        chaining."""
+        return False
 
     # -- snapshot protocol ----------------------------------------------
     def snapshot(self, checkpoint_id: typing.Optional[int] = None) -> typing.Dict[str, typing.Any]:
@@ -212,10 +222,59 @@ class _FunctionOperator(Operator):
 
 
 class MapOperator(_FunctionOperator):
-    """Hosts a MapFunction (one result per record)."""
+    """Hosts a MapFunction, or an AsyncMapFunction whose results surface
+    later.
+
+    For an async function the operator keeps a FIFO of input timestamps
+    and re-attaches them by position as results surface (the function's
+    FIFO contract), flushes in-flight work at end of input and before
+    every barrier (``_function_snapshot``), and forwards the idle-flush
+    timer hooks."""
+
+    def __init__(self, name, function):
+        super().__init__(name, function)
+        self._async = isinstance(self.function, fn.AsyncMapFunction)
+        self._collector: typing.Optional[fn.Collector] = None
+        self._ts_fifo: typing.Deque[typing.Optional[float]] = collections.deque()
+
+    def open(self) -> None:
+        if self._async:
+            def emit(value, _ts):
+                fifo = self._ts_fifo
+                self.output.emit(value, fifo.popleft() if fifo else None)
+
+            self._collector = fn.Collector(emit)
+        super().open()
 
     def process_record(self, record):
-        self.output.emit(self.function.map(record.value), record.timestamp)
+        if self._async:
+            self._ts_fifo.append(record.timestamp)
+            self.function.map_async(record.value, self._collector)
+        else:
+            self.output.emit(self.function.map(record.value), record.timestamp)
+
+    def finish(self):
+        if self._async:
+            self.function.flush(self._collector)
+
+    def _function_snapshot(self, checkpoint_id=None):
+        # The barrier contract, held at the operator: everything in flight
+        # is emitted before the snapshot, so the timestamp FIFO is empty
+        # and no operator-side state is left to snapshot.
+        if self._async:
+            self.function.flush(self._collector)
+        return super()._function_snapshot(checkpoint_id)
+
+    def next_deadline(self):
+        return self.function.next_deadline() if self._async else None
+
+    def fire_due(self, now):
+        if self._async:
+            self.function.fire_due(now)
+
+    @property
+    def uses_timers(self):
+        return self._async
 
 
 class FilterOperator(_FunctionOperator):

@@ -97,9 +97,12 @@ class DataStream:
         parallelism = parallelism or self.env.default_parallelism
         return self.env.graph.add(name, factory, parallelism, inputs=[self._edge(parallelism)])
 
-    def map(self, f: typing.Union[fn.MapFunction, typing.Callable], *, name="map",
-            parallelism=None) -> "DataStream":
-        func = f if isinstance(f, fn.MapFunction) else _LambdaMap(f)
+    def map(self, f: typing.Union[fn.MapFunction, fn.AsyncMapFunction, typing.Callable], *,
+            name="map", parallelism=None) -> "DataStream":
+        """One result per record: a ``MapFunction``, a plain callable, or
+        an ``AsyncMapFunction`` (results in arrival order, possibly later,
+        e.g. ``ModelMapFunction``)."""
+        func = f if isinstance(f, (fn.MapFunction, fn.AsyncMapFunction)) else _LambdaMap(f)
         return DataStream(self.env, self._add_op(name, lambda: MapOperator(name, func),
                                                  parallelism))
 

@@ -1,9 +1,13 @@
-"""ModelWindowFunction — a model as a windowed stream operator.
+"""ModelWindowFunction and ModelMapFunction — models as stream operators.
 
-Port of ``flink_tensorflow_tpu/functions/model_function.py``:
-``_ModelFunctionBase`` (``:60``, ``open`` ``:239``) and
+Port of ``flink_tensorflow_tpu/functions/model_function.py``: the model
+source resolver (``_resolve``, ``:48-58``), ``_ModelFunctionBase``
+(``:60``, ``open`` ``:239``), ``ModelMapFunction`` (``:282-430``) and
 ``ModelWindowFunction`` (``:442``) on the list path (``process_window``
-``:607``, timer hooks ``:689-716``).  ``open()`` builds a
+``:607``, timer hooks ``:689-716``).  A model source is a ``Model``, a
+bundle path, a ``SavedModelLoader`` or a zero-argument callable; each
+subtask resolves it at ``open()``, so a bundle is loaded once per
+subtask (one model replica each).  ``open()`` builds a
 :class:`~flink_tensorflow_tpu_torch.functions.runner.CompiledMethodRunner`
 on the subtask's device (the job's device provider, else the GPU) and
 runs the warmup batches; a fired window becomes one device call per
@@ -11,6 +15,12 @@ runs the warmup batches; a fired window becomes one device call per
 batches in flight, so the transfer and launch of window k+1 overlap the
 compute of window k.  In-flight batches are flushed at end of input and
 before every state snapshot.
+
+Both functions poll for finished batches on a timer while batches are in
+flight.  Unlike the reference (``:420``), a fire that only drains a
+completed batch (a completion wake, deadline 0.0) does not restart that
+timer: only the idle deadline proper does, so completions in a lull never
+push out the dispatch of a buffered partial micro-batch.
 
 Options of the reference that this port does not have yet raise
 ``NotImplementedError`` instead of being ignored: the zero-copy
@@ -26,7 +36,22 @@ import typing
 from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.functions.runner import CompiledMethodRunner
 from flink_tensorflow_tpu_torch.models.base import Model
-from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+from flink_tensorflow_tpu_torch.models.loaders import SavedModelLoader
+from flink_tensorflow_tpu_torch.tensors.batching import BucketLadder, BucketPolicy
+
+ModelSource = typing.Union[Model, str, SavedModelLoader, typing.Callable[[], Model]]
+
+
+def _resolve(source: ModelSource) -> Model:
+    if isinstance(source, Model):
+        return source
+    if isinstance(source, str):
+        return SavedModelLoader(source).load()
+    if isinstance(source, SavedModelLoader):
+        return source.load()
+    if callable(source):
+        return source()
+    raise TypeError(f"cannot resolve model source {type(source).__name__}")
 
 
 def _not_ported(option: str, reason: str) -> NotImplementedError:
@@ -36,7 +61,7 @@ def _not_ported(option: str, reason: str) -> NotImplementedError:
 class _ModelFunctionBase(fn.RichFunction):
     def __init__(
         self,
-        model: typing.Union[Model, typing.Callable[[], Model]],
+        model: ModelSource,
         method: str = "serve",
         *,
         policy: typing.Optional[BucketPolicy] = None,
@@ -84,7 +109,7 @@ class _ModelFunctionBase(fn.RichFunction):
             self._out.collect(record)
 
     def open(self, ctx) -> None:
-        model = self._source if isinstance(self._source, Model) else self._source()
+        model = _resolve(self._source)
         self.runner = CompiledMethodRunner(model, self._method_name, policy=self._policy,
                                            output_names=self._outputs)
         self.runner.open(ctx)
@@ -97,6 +122,108 @@ class _ModelFunctionBase(fn.RichFunction):
         if self.runner is not None:
             self.runner.close()
             self.runner = None
+
+
+class ModelMapFunction(_ModelFunctionBase, fn.AsyncMapFunction):
+    """Per-record inference: ``stream.map(ModelMapFunction(bundle))``.
+
+    Arriving records gather into a micro-batch of at most ``micro_batch``
+    that dispatches the moment it fills, and up to ``pipeline_depth``
+    batches ride the runner's pipeline at once, so the transfer of batch
+    k+1 overlaps the compute of batch k.  Results surface in arrival
+    order.  In a lull the partial micro-batch dispatches ``idle_flush_s``
+    after the last record; ``MapOperator`` flushes everything in flight
+    at end of input and before every snapshot barrier.  ``micro_batch=1``
+    is strict per-record dispatch, still pipelined.
+
+    The default policy is ``BucketLadder.up_to(micro_batch)`` (1, 2, 4,
+    ..., ``micro_batch``): a partial flush pads to the smallest bucket
+    that holds it."""
+
+    def __init__(self, model: ModelSource, method: str = "serve", *,
+                 micro_batch: int = 8,
+                 pipeline_depth: typing.Optional[int] = None,
+                 idle_flush_s: float = 0.01, **kw):
+        if micro_batch < 1:
+            raise ValueError(f"micro_batch must be >= 1, got {micro_batch}")
+        if "policy" not in kw:
+            kw["policy"] = BucketPolicy(batch=BucketLadder.up_to(micro_batch))
+        super().__init__(model, method, **kw)
+        if pipeline_depth is None:
+            pipeline_depth = 2
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        self._micro_batch = micro_batch
+        self._max_in_flight = pipeline_depth - 1
+        self._idle_flush_s = idle_flush_s
+        self._buf: typing.List[typing.Any] = []
+        self._last_activity: typing.Optional[float] = None
+        self._last_poll: typing.Optional[float] = None
+
+    def clone(self) -> "fn.Function":
+        dup = super().clone()
+        dup._buf = []
+        dup._last_activity = None
+        dup._last_poll = None
+        return dup
+
+    def map_async(self, value, out: fn.Collector):
+        self._out = out
+        self._buf.append(value)
+        if len(self._buf) >= self._micro_batch:
+            self._dispatch_buf()
+        self._last_activity = time.monotonic()
+        for record in self.runner.collect_progress(self._max_in_flight):
+            out.collect(record)
+
+    def _dispatch_buf(self) -> None:
+        if self._buf:
+            self.runner.dispatch(self._buf)
+            self._buf = []
+
+    def flush(self, out: fn.Collector):
+        """Everything buffered or in flight, emitted now; ``MapOperator``
+        calls it at end of input and before every snapshot."""
+        if self.runner is None:
+            return
+        self._dispatch_buf()
+        for record in self.runner.flush():
+            out.collect(record)
+
+    # -- the latency bound in a lull (MapOperator timer hooks) ------------
+    def _idle_deadline(self) -> typing.Optional[float]:
+        """The idle deadline proper: when the buffered partial micro-batch
+        dispatches (and the in-flight ones are polled)."""
+        if self._last_activity is None:
+            return None
+        if not self._buf and not (self.runner is not None and self.runner.in_flight):
+            return None
+        base = self._last_activity
+        if self._last_poll is not None and self._last_poll > base:
+            base = self._last_poll
+        return base + self._idle_flush_s
+
+    def next_deadline(self) -> typing.Optional[float]:
+        if self.runner is not None and self.runner.has_completed():
+            # Fetched results waiting: due at once (0.0 is in the past on
+            # the monotonic clock, so the caller's earlier `now` passes).
+            return 0.0
+        return self._idle_deadline()
+
+    def fire_due(self, now: float) -> None:
+        d = self.next_deadline()
+        if d is None or now < d:
+            return
+        # A completion wake (deadline 0.0) drains results only.  The
+        # partial buffer dispatches, and the idle timer restarts, only
+        # when the idle deadline proper expired: restarting it on every
+        # completion would push the partial's dispatch out by
+        # idle_flush_s per completed batch in a lull.
+        idle = self._idle_deadline()
+        if idle is not None and now >= idle:
+            self._dispatch_buf()
+            self._last_poll = now
+        self._poll_collect()
 
 
 class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
@@ -137,25 +264,32 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
     # Timer hooks (WindowOperator.next_deadline / fire_due): while batches
     # are in flight, poll every idle_flush_s and emit what is ready
     # without blocking the subtask thread.
-    def next_deadline(self) -> typing.Optional[float]:
-        if self.runner is None:
-            return None
-        if self.runner.has_completed():
-            # Due at once: 0.0 is in the past on the monotonic clock.
-            return 0.0
-        if not self.runner.in_flight or self._last_dispatch is None:
+    def _poll_deadline(self) -> typing.Optional[float]:
+        """The backstop poll: ``idle_flush_s`` after the last dispatch or
+        the last poll, while batches are in flight."""
+        if self.runner is None or not self.runner.in_flight or self._last_dispatch is None:
             return None
         base = self._last_dispatch
         if self._last_poll is not None and self._last_poll > base:
             base = self._last_poll
         return base + self._idle_flush_s
 
+    def next_deadline(self) -> typing.Optional[float]:
+        if self.runner is not None and self.runner.has_completed():
+            # Due at once: 0.0 is in the past on the monotonic clock.
+            return 0.0
+        return self._poll_deadline()
+
     def fire_due(self, now: float) -> None:
         d = self.next_deadline()
         if d is None or now < d:
             return
+        # Only the poll deadline proper restarts the poll timer; a
+        # completion wake drains results and leaves it where it was.
+        poll = self._poll_deadline()
         self._poll_collect()
-        self._last_poll = now
+        if poll is not None and now >= poll:
+            self._last_poll = now
 
     def on_finish(self, out: fn.Collector):
         for record in self.runner.flush():

@@ -5,7 +5,9 @@ Port of two runners of ``flink_tensorflow_tpu/functions/runner.py``:
 :class:`CompiledMethodRunner` (``:1011``) runs one model method on
 micro-batches for the model functions (``functions/model_function.py``):
 the module goes to the device once at ``open``; ``dispatch`` assembles a
-batch into a pinned staging buffer, ships it and launches the method on
+batch into a pinned staging buffer, ships it (with the ``[B]`` lengths of
+dynamic fields, which a ``needs_lengths`` method takes as its third
+argument, JAX ``:1157-1162``, ``:1353-1357``) and launches the method on
 the runner's compute stream without waiting; a fetch thread waits on each
 batch's own event, in dispatch order, and hands per-record results to the
 collecting (subtask) thread.  On the card every call runs under
@@ -337,12 +339,15 @@ class CompiledMethodRunner:
         schema = method.input_schema
         restore = {n: torch_dtype(schema[n].dtype) for n in schema.names}
 
-        def call(inputs):
+        def call(inputs, lengths):
             # Dtype restore: a field that arrives in another dtype is cast
             # back to the schema's as the first op of the call.
             inputs = {k: (v.to(restore[k]) if k in restore and v.dtype != restore[k] else v)
                       for k, v in inputs.items()}
-            outputs = method.fn(self._module, inputs)
+            if method.needs_lengths:
+                outputs = method.fn(self._module, inputs, lengths)
+            else:
+                outputs = method.fn(self._module, inputs)
             if select is None:
                 return outputs
             missing = set(select) - set(outputs)
@@ -363,17 +368,20 @@ class CompiledMethodRunner:
             self._metrics = ctx.metrics
 
     def warmup(self, batch_sizes: typing.Iterable[int], length_bucket: int = 128) -> None:
-        """Run each batch bucket once on every dispatch lane before the
-        first live window: the first calls' one-time costs (cuDNN's
-        algorithm choice and plans, which PyTorch keeps per thread;
-        allocator growth; pinned staging buffers) stay out of the live
-        windows and out of the metrics."""
+        """Run each batch bucket on every dispatch lane, and through every
+        staging slot, before the first live window: the first calls'
+        one-time costs (cuDNN's algorithm choice and plans, which PyTorch
+        keeps per thread; allocator growth; pinned staging buffers, sized
+        here by the largest bucket and ``length_bucket``) stay out of the
+        live windows and out of the metrics."""
         schema = self.method.input_schema
         shapes = schema.resolve_dynamic(length_bucket)
         metrics, self._metrics = self._metrics, None
         # Each lane task waits for all the others, so every lane thread
-        # takes exactly one of them.
+        # takes exactly one of them; as many rounds as it takes for the
+        # staging slots (taken in turn) to all be used.
         barrier = threading.Barrier(LANES)
+        rounds = max(1, -(-self._transfer.slots // LANES))
 
         def on_each_lane(records, t0):
             barrier.wait(timeout=600)
@@ -384,7 +392,7 @@ class CompiledMethodRunner:
             for b in batch_sizes:
                 fields = {n: np.zeros(shapes[n], schema[n].dtype) for n in schema.names}
                 records = [TensorValue(fields)] * b
-                for _ in range(LANES):
+                for _ in range(rounds * LANES):
                     self._enqueue(self._pool.submit(on_each_lane, records, time.monotonic()))
                 self.flush()
         finally:
@@ -439,11 +447,12 @@ class CompiledMethodRunner:
                   else contextlib.nullcontext())
         t_b = time.monotonic()
         with stream, torch.inference_mode():
-            batch, inputs, h2d_bytes, assemble_s = self._transfer.assemble_and_ship(
+            shipped = self._transfer.assemble_and_ship(
                 records, self.method.input_schema, self.policy)
             t_h2d = time.monotonic()
-            handle = self._transfer.start_fetch(self._call(inputs))
+            handle = self._transfer.start_fetch(self._call(shipped.inputs, shipped.lengths))
         t_c = time.monotonic()
+        assemble_s = shipped.assemble_s
         timings = {
             "t0": t0,
             "assemble_s": assemble_s,
@@ -451,9 +460,10 @@ class CompiledMethodRunner:
             # queued D2H (staging wait + H2D enqueue + kernel launches).
             "dispatch_s": t_c - t_b - assemble_s,
             "h2d_s": t_h2d - t_b - assemble_s,
-            "h2d_bytes": h2d_bytes,
+            "h2d_bytes": shipped.h2d_bytes,
+            "pinned_allocations": shipped.pinned_allocations,
         }
-        return batch, handle, timings
+        return shipped.batch, handle, timings
 
     # -- background fetch ---------------------------------------------------
     def _fetch_loop(self) -> None:
@@ -498,6 +508,7 @@ class CompiledMethodRunner:
             # Compute wait + D2H: the fetch thread's wait on the event.
             m.histogram("fetch_wait_s").record(t_done - t_fetch)
             m.counter("h2d_bytes").inc(timings["h2d_bytes"])
+            m.counter("pinned_allocations").inc(timings["pinned_allocations"])
             m.counter("batches").inc()
             m.counter("padded_records").inc(batch.padded_size - batch.num_records)
         return results

@@ -19,12 +19,19 @@ ApplyFn = typing.Callable[..., typing.Dict[str, typing.Any]]
 
 @dataclasses.dataclass(frozen=True)
 class ModelMethod:
-    """One named, typed entry point of a model."""
+    """One named, typed entry point of a model.
+
+    ``fn(module, inputs)`` takes the batched inputs (field -> ``[B, ...]``
+    tensor) and returns a dict of named ``[B, ...]`` outputs.  A method
+    with ``needs_lengths`` is called ``fn(module, inputs, lengths)``:
+    ``lengths`` maps each field with a dynamic dim to its ``[B]`` int32
+    true lengths, on the inputs' device (JAX ``models/base.py:32-40``)."""
 
     name: str
     input_schema: RecordSchema
     output_names: typing.Tuple[str, ...]
     fn: ApplyFn
+    needs_lengths: bool = False
 
 
 class Model:

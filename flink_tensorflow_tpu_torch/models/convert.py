@@ -18,6 +18,16 @@ reach both packages as numpy.
   (:func:`widedeep_from_flax`) follow the same rules; an ``nn.Embed``
   table is carried as it is, and ``batch_stats`` land in the running
   buffers.
+- LeNet (:func:`lenet_from_flax`): conv kernels HWIO -> OIHW, Dense
+  kernels transposed; the module flattens in flax's (H, W, C) order, so
+  ``Dense_0``'s rows carry over unpermuted.
+- BiLSTM (:func:`bilstm_from_flax`): flax's per-gate kernels ``ii, if,
+  ig, io`` (``[E, H]``, no bias) and ``hi, hf, hg, ho`` (``[H, H]``, with
+  bias) are concatenated in gate order i, f, g, o and transposed into
+  ``nn.LSTM``'s ``weight_ih_l0`` / ``weight_hh_l0``; flax's hidden-side
+  bias is ``bias_hh_l0`` and ``bias_ih_l0`` is zero.  The bf16 embedding
+  reaches numpy as ml_dtypes bf16, goes through f32 (exact) and is stored
+  back in the module's dtype.
 - A whole JAX train state (variables, an optax adam or sgd state, the
   step) becomes the port's with :func:`train_state_from_jax`, so both
   packages continue from the same step.
@@ -133,6 +143,40 @@ def widedeep_from_flax(variables: typing.Mapping[str, typing.Any], module):
     for i in range(n):
         _dense(state, f"hidden.{i}", params[f"Dense_{i}"])
     _dense(state, "out", params[f"Dense_{n}"])
+    module.load_state_dict(state)
+    return module
+
+
+def lenet_from_flax(variables: typing.Mapping[str, typing.Any], module):
+    """Load flax LeNet ``variables`` into ``module`` (a
+    ``models.zoo.lenet.LeNet``)."""
+    params = variables["params"]
+    state: typing.Dict[str, torch.Tensor] = {}
+    for name, flax_name in (("conv1", "Conv_0"), ("conv2", "Conv_1")):
+        state[f"{name}.weight"] = _np(params[flax_name]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        state[f"{name}.bias"] = _np(params[flax_name]["bias"])
+    for name, flax_name in (("fc1", "Dense_0"), ("fc2", "Dense_1"), ("head", "Dense_2")):
+        _dense(state, name, params[flax_name])
+    module.load_state_dict(state)
+    return module
+
+
+def bilstm_from_flax(variables: typing.Mapping[str, typing.Any], module):
+    """Load flax BiLSTM ``variables`` into ``module`` (a
+    ``models.zoo.bilstm.BiLSTMClassifier``)."""
+    params = variables["params"]
+    state: typing.Dict[str, torch.Tensor] = {
+        "embed.weight": _np(params["Embed_0"]["embedding"]).to(module.embed.weight.dtype)}
+    for name, flax_name in (("fwd", "OptimizedLSTMCell_0"), ("bwd", "OptimizedLSTMCell_1")):
+        cell = params[flax_name]
+        state[f"{name}.weight_ih_l0"] = torch.cat(
+            [_np(cell[f"i{g}"]["kernel"]) for g in "ifgo"], dim=1).T.contiguous()
+        state[f"{name}.weight_hh_l0"] = torch.cat(
+            [_np(cell[f"h{g}"]["kernel"]) for g in "ifgo"], dim=1).T.contiguous()
+        state[f"{name}.bias_hh_l0"] = torch.cat([_np(cell[f"h{g}"]["bias"]) for g in "ifgo"])
+        state[f"{name}.bias_ih_l0"] = torch.zeros_like(state[f"{name}.bias_hh_l0"])
+    _dense(state, "hidden", params["Dense_0"])
+    _dense(state, "head", params["Dense_1"])
     module.load_state_dict(state)
     return module
 

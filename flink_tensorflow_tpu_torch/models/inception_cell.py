@@ -12,13 +12,12 @@ port's initialiser's, from ``torch.Generator`` seed ``seed``.
 
 from __future__ import annotations
 
-import time
 import typing
 
 import numpy as np
 
-from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
 from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
+from flink_tensorflow_tpu_torch.models.stream_cell import run_job
 from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
 from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
@@ -48,42 +47,13 @@ def run_cell(model, records: typing.Sequence[TensorValue], *, device_provider=No
              warmup: bool = True, timeout: float = 600.0):
     """Run the cell's job once.  Returns ``(results, sink arrival times,
     metric report, seconds of execute())``."""
-    env = StreamExecutionEnvironment(parallelism=1)
-    if device_provider is not None:
-        env.set_device_provider(device_provider)
-    results: typing.List[TensorValue] = []
-    arrivals: typing.List[float] = []
-
-    def sink(record):
-        results.append(record)
-        arrivals.append(time.monotonic())
-
     fn = ModelWindowFunction(model, policy=BucketPolicy(fixed_batch=BATCH),
                              warmup_batches=(BATCH,) if warmup else (),
                              outputs=("label", "score"), pipeline_depth=DEPTH)
-    (env.from_collection(records, parallelism=1)
-     .count_window(BATCH, timeout_s=TIMEOUT_S)
-     .apply(fn, name="inception")
-     .sink_to_callable(sink))
-    t0 = time.monotonic()
-    job = env.execute(timeout=timeout)
-    return results, arrivals, job.metrics, time.monotonic() - t0
-
-
-def steady_rps(arrivals: typing.Sequence[float], total_records: int, first_batch: int,
-               trailing_exclude: int) -> typing.Tuple[float, float]:
-    """Steady-state records/s as ``bench.py:_steady_rps`` (``:674``)
-    computes it on one chip: first sink arrival -> the last counted one,
-    with the first window and the ``trailing_exclude`` records of the
-    end-of-input flush burst left out.  Returns ``(rate, span seconds)``."""
-    if total_records <= first_batch + trailing_exclude:
-        raise ValueError("need more windows to measure steady-state throughput")
-    last = len(arrivals) - 1 - trailing_exclude
-    if last < 1:
-        raise ValueError("arrivals shorter than the records the exclusions assume")
-    span = arrivals[last] - arrivals[0]
-    steady = total_records - first_batch - trailing_exclude
-    return (steady / span if span > 0 else float("nan")), span
+    run = run_job(records, lambda s: s.count_window(BATCH, timeout_s=TIMEOUT_S)
+                  .apply(fn, name="inception"),
+                  device_provider=device_provider, timeout=timeout)
+    return run.results, run.arrivals, run.metrics, run.seconds
 
 
 def trailing_exclude(records: int = RECORDS) -> int:

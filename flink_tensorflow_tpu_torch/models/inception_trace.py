@@ -41,6 +41,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -76,8 +77,8 @@ def main() -> int:
         h = metrics[f"inception.0.{name}"]
         return float(h["count"] * h["mean"])
 
-    rps, span = cell.steady_rps(arrivals, cell.RECORDS, cell.BATCH,
-                                cell.trailing_exclude(cell.RECORDS))
+    rps, span = steady_rps(arrivals, cell.RECORDS, cell.BATCH,
+                           cell.trailing_exclude(cell.RECORDS))
     out = {
         "card": card,
         "untraced_s": seconds,

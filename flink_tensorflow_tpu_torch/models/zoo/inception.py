@@ -272,9 +272,12 @@ def build(num_classes: int = 1000, image_size: int = 299, uint8_input: bool = Fa
                 "label": torch.argmax(logits, dim=-1).to(torch.int32),
                 "score": prob.max(dim=-1).values}
 
+    def make_module() -> InceptionV3:
+        return InceptionV3(num_classes, dtype)
+
     def init_fn(seed) -> InceptionV3:
         gen = torch.Generator().manual_seed(int(seed))
-        return init_inception(InceptionV3(num_classes, dtype), gen)
+        return init_inception(make_module(), gen)
 
     def load_fn(params) -> InceptionV3:
         if isinstance(params, InceptionV3):
@@ -297,4 +300,5 @@ def build(num_classes: int = 1000, image_size: int = 299, uint8_input: bool = Fa
                                       output_names=("logits", "label", "score"), fn=serve)},
         init_fn=init_fn,
         load_fn=load_fn,
+        make_module=make_module,
     )

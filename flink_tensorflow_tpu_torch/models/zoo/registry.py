@@ -77,7 +77,7 @@ def register_model_def(name: str):
     return deco
 
 
-_ZOO_MODULES = ("chartransformer", "inception", "widedeep", "resnet")
+_ZOO_MODULES = ("chartransformer", "inception", "widedeep", "resnet", "lenet", "bilstm")
 
 
 def get_model_def(architecture: str, **config) -> ModelDef:

@@ -8,7 +8,8 @@ real rows and ``unbatch`` drops the rest.
 
 ``assemble`` takes an optional ``alloc(name, shape, dtype)``: the model
 runner passes one that hands out views of a pinned staging buffer, so the
-stacking copy IS the fill of the host side of the transfer.
+stacking copy IS the fill of the host side of the transfer.  The lengths
+of a dynamic field come from the same allocator (``length_key``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 
 Alloc = typing.Callable[[str, typing.Tuple[int, ...], np.dtype], np.ndarray]
+
+
+def length_key(name: str) -> str:
+    """The ``alloc`` name of a dynamic field's ``[B]`` lengths."""
+    return f"{name}:lengths"
 
 
 class BucketLadder:
@@ -45,6 +51,19 @@ class BucketLadder:
         if i == len(self.sizes):
             raise ValueError(f"size {n} exceeds largest bucket {self.sizes[-1]}")
         return self.sizes[i]
+
+    @classmethod
+    def up_to(cls, cap: int) -> "BucketLadder":
+        """Powers of two below ``cap``, then ``cap`` itself as the top rung
+        (the micro-batch ladder of ``ModelMapFunction``)."""
+        if cap < 1:
+            raise ValueError(f"cap must be >= 1, got {cap}")
+        sizes, s = [], 1
+        while s < cap:
+            sizes.append(s)
+            s *= 2
+        sizes.append(cap)
+        return cls(sizes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,9 +143,10 @@ def assemble(
             target = list(parts[0].shape)
             for ax in dyn_axes:
                 target[ax] = policy.lengths.round_up(max(p.shape[ax] for p in parts))
-            pad_len = parts[0].shape[dyn_axes[0]]
-            lengths[name] = np.array(
-                [p.shape[dyn_axes[0]] for p in parts] + [pad_len] * (b - n), dtype=np.int32)
+            lens = alloc(length_key(name), (b,), np.int32)
+            lens[:n] = [p.shape[dyn_axes[0]] for p in parts]
+            lens[n:] = lens[0]   # pad rows replay record 0's length
+            lengths[name] = lens
             out = alloc(name, (b, *target), spec.dtype)
             out[...] = 0
             for i, p in enumerate(parts):

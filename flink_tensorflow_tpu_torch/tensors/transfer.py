@@ -6,8 +6,10 @@ fetches with one ``jax.device_get``; on a CUDA card the same contract is
 kept with explicit streams and events:
 
 - one **pinned staging slot per in-flight batch**: ``assemble`` writes the
-  records straight into the slot's page-locked buffers (``alloc``), so
-  the stacking copy is the only host copy;
+  records (and the ``[B]`` lengths of dynamic fields) straight into the
+  slot's page-locked buffers (``alloc``), so the stacking copy is the only
+  host copy; a slot's buffers grow to the largest batch and are reused
+  as views, so length buckets allocate nothing in the steady state;
 - one ``non_blocking`` H2D per field, on the transfer's own **side
   stream**, followed by an event; the compute stream waits on that event
   (the host never blocks on the copy), and the device tensors are marked
@@ -34,7 +36,7 @@ import typing
 import numpy as np
 import torch
 
-from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketPolicy, assemble
+from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketPolicy, assemble, length_key
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 
@@ -46,24 +48,51 @@ def torch_dtype(dtype) -> torch.dtype:
 class StagingSlot:
     """Pinned host buffers for one in-flight batch, the event of the H2D
     copy that last read them, and the lock its user holds from assembly
-    until that copy is enqueued."""
+    until that copy is enqueued.
 
-    __slots__ = ("tensors", "copied", "lock")
+    Each field keeps one flat pinned buffer, grown to the largest batch
+    seen, and a batch takes a view of its front: length buckets change a
+    batch's shape on most windows, and a pinned allocation per new shape
+    would stay in the steady state.  ``allocations`` counts the pinned
+    allocations made."""
+
+    __slots__ = ("buffers", "tensors", "copied", "lock", "allocations")
 
     def __init__(self) -> None:
+        self.buffers: typing.Dict[str, torch.Tensor] = {}
+        #: The current batch's views of ``buffers``, by field.
         self.tensors: typing.Dict[str, torch.Tensor] = {}
         self.copied: typing.Optional[torch.cuda.Event] = None
         self.lock = threading.Lock()
+        self.allocations = 0
 
     def alloc(self, name: str, shape, dtype) -> np.ndarray:
-        """``assemble``'s allocator: a numpy view of a pinned buffer of
-        this shape and dtype (allocated once, then reused)."""
-        t = self.tensors.get(name)
+        """``assemble``'s allocator: a numpy view, of this shape and dtype,
+        of the field's pinned buffer (grown when it is too small)."""
+        shape = tuple(shape)
         tdt = torch_dtype(dtype)
-        if t is None or tuple(t.shape) != tuple(shape) or t.dtype != tdt:
-            t = torch.empty(tuple(shape), dtype=tdt, pin_memory=True)
-            self.tensors[name] = t
-        return t.numpy()
+        numel = int(np.prod(shape))
+        buf = self.buffers.get(name)
+        if buf is None or buf.dtype != tdt or buf.numel() < numel:
+            buf = torch.empty((numel,), dtype=tdt, pin_memory=True)
+            self.buffers[name] = buf
+            self.allocations += 1
+        view = buf[:numel].view(shape)
+        self.tensors[name] = view
+        return view.numpy()
+
+
+class Shipped(typing.NamedTuple):
+    """One batch on its way to the device."""
+
+    batch: Batch
+    inputs: typing.Dict[str, torch.Tensor]
+    #: ``[B]`` int32 true lengths per dynamic field, on the device.
+    lengths: typing.Dict[str, torch.Tensor]
+    h2d_bytes: int
+    assemble_s: float
+    #: Pinned staging buffers this batch had to allocate (grow).
+    pinned_allocations: int
 
 
 class FetchHandle:
@@ -107,39 +136,55 @@ class DeviceTransfer:
             slot.copied.synchronize()
         return slot
 
+    @property
+    def slots(self) -> int:
+        """Pinned staging slots (0 on the CPU)."""
+        return len(self._slots)
+
+    @property
+    def pinned_allocations(self) -> int:
+        """Pinned staging buffers allocated so far (all slots)."""
+        return sum(slot.allocations for slot in self._slots)
+
     def assemble_and_ship(self, records: typing.Sequence[TensorValue], schema: RecordSchema,
-                          policy: BucketPolicy
-                          ) -> typing.Tuple[Batch, typing.Dict[str, torch.Tensor], int, float]:
-        """Assemble ``records`` straight into a staging slot and ship it;
-        returns ``(batch, device tensors, h2d_bytes, assemble_s)``."""
+                          policy: BucketPolicy) -> Shipped:
+        """Assemble ``records`` straight into a staging slot and ship it.
+        The lengths (``[B]`` int32 per dynamic field) ride the same slot
+        and copy stream as the fields, and count in ``h2d_bytes``."""
         slot = self._acquire()
         try:
+            allocations = slot.allocations if slot else 0
             t0 = time.monotonic()
             batch = assemble(records, schema, policy, alloc=slot.alloc if slot else None)
             assemble_s = time.monotonic() - t0
-            dev, nbytes = self._ship(batch, slot)
+            dev, lengths, nbytes = self._ship(batch, slot)
+            allocations = (slot.allocations if slot else 0) - allocations
         finally:
             if slot is not None:
                 slot.lock.release()
-        return batch, dev, nbytes, assemble_s
+        return Shipped(batch, dev, lengths, nbytes, assemble_s, allocations)
 
-    def _ship(self, batch: Batch, slot: typing.Optional[StagingSlot]
-              ) -> typing.Tuple[typing.Dict[str, torch.Tensor], int]:
+    def _ship(self, batch: Batch, slot: typing.Optional[StagingSlot]):
         """The H2D of a batch assembled into ``slot``, on the side stream;
-        the CALLER's current stream (the compute stream) waits for it."""
+        the CALLER's current stream (the compute stream) waits for it.
+        Returns ``(device tensors, device lengths, bytes)``."""
         nbytes = sum(a.nbytes for a in batch.arrays.values())
+        nbytes += sum(a.nbytes for a in batch.lengths.values())
         if slot is None:
-            return {n: torch.from_numpy(a) for n, a in batch.arrays.items()}, nbytes
+            return ({n: torch.from_numpy(a) for n, a in batch.arrays.items()},
+                    {n: torch.from_numpy(a) for n, a in batch.lengths.items()}, nbytes)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
             dev = {n: slot.tensors[n].to(self.device, non_blocking=True) for n in batch.arrays}
+            lengths = {n: slot.tensors[length_key(n)].to(self.device, non_blocking=True)
+                       for n in batch.lengths}
             copied = torch.cuda.Event()
             copied.record(self._stream)
         slot.copied = copied
         compute.wait_event(copied)
-        for t in dev.values():
+        for t in (*dev.values(), *lengths.values()):
             t.record_stream(compute)
-        return dev, nbytes
+        return dev, lengths, nbytes
 
     def start_fetch(self, outputs: typing.Mapping[str, torch.Tensor]) -> FetchHandle:
         """Enqueue the D2H of ``outputs`` on the caller's current stream,

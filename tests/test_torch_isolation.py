@@ -1,8 +1,9 @@
 """The port stands alone: every module of it imports with ``import jax``,
 ``import flax`` and ``import optax`` broken, the serving slice, the
-Quick-start job and the training path (a keyed Wide&Deep job and a ResNet
-gang) run that way, no module of the JAX package is loaded, and nothing
-falls back to the CPU silently."""
+Quick-start job, the training path (a keyed Wide&Deep job and a ResNet
+gang), a LeNet and a BiLSTM window job and a ``ModelMapFunction`` job
+from a port bundle run that way, no module of the JAX package is loaded,
+and nothing falls back to the CPU silently."""
 
 import os
 import subprocess
@@ -112,6 +113,26 @@ _SLICE = textwrap.dedent("""
     env.execute(timeout=60)
     assert [int(r["step"]) for r in gang] == [1, 2]
     assert all(np.isfinite(float(r["loss"])) for r in gang)
+
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelMapFunction
+    from flink_tensorflow_tpu_torch.models import bilstm_cell, lenet_cell
+    from flink_tensorflow_tpu_torch.models.loaders import save_bundle
+
+    cpu = lambda task, index: "cpu"
+    lenet_def, lenet, _, digits = lenet_cell.lenet_cell(0, records=12)
+    run = lenet_cell.run_cell(lenet, digits, batch=4, device_provider=cpu, timeout=60)
+    assert sorted(r.meta["id"] for r in run.results) == list(range(12))
+    _, bilstm, texts = bilstm_cell.bilstm_cell(0, records=6)
+    run = bilstm_cell.run_cell(bilstm, texts, batch=4, device_provider=cpu, timeout=60)
+    assert sorted(r.meta["id"] for r in run.results) == list(range(6))
+    bundle = tempfile.mkdtemp() + "/lenet"
+    save_bundle(lenet_def, lenet.params, bundle)
+    env = StreamExecutionEnvironment(parallelism=2)
+    env.set_device_provider(cpu)
+    mapped = (env.from_collection(digits, parallelism=1).rebalance()
+              .map(ModelMapFunction(bundle, micro_batch=4), parallelism=2).sink_to_list())
+    env.execute(timeout=60)
+    assert sorted(r.meta["id"] for r in mapped) == list(range(12))
     leaked = sorted(m for m in sys.modules
                     if m == "flink_tensorflow_tpu" or m.startswith("flink_tensorflow_tpu."))
     print("LEAKED", leaked)

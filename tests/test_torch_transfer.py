@@ -18,7 +18,12 @@ import torch
 from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
 from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
 from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
-from flink_tensorflow_tpu_torch.tensors.batching import BucketLadder, BucketPolicy, assemble
+from flink_tensorflow_tpu_torch.tensors.batching import (
+    BucketLadder,
+    BucketPolicy,
+    assemble,
+    length_key,
+)
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
 from flink_tensorflow_tpu_torch.tensors.transfer import DeviceTransfer
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
@@ -76,7 +81,10 @@ def test_assemble_pads_by_replaying_the_first_record_into_the_given_buffers():
         return made[name]
 
     batch = assemble(recs, SCHEMA, BucketPolicy(fixed_batch=4), alloc=alloc)
-    assert all(batch.arrays[n] is made[n] for n in made)
+    assert all(batch.arrays[n] is made[n] for n in batch.arrays)
+    # The dynamic field's lengths come from the same allocator.
+    assert batch.lengths["tokens"] is made[length_key("tokens")]
+    assert set(made) == {"image", "tokens", length_key("tokens")}
     np.testing.assert_array_equal(batch.arrays["image"][3], recs[0]["image"])
     assert batch.num_records == 3 and batch.padded_size == 4
     out = batch.unbatch({"y": np.arange(4)})
@@ -88,8 +96,11 @@ def test_assemble_pads_by_replaying_the_first_record_into_the_given_buffers():
 
 def test_cpu_transfer_shares_memory_and_fetches_read_only_arrays():
     transfer = DeviceTransfer(torch.device("cpu"))
-    batch, dev, nbytes, _ = transfer.assemble_and_ship(records(2), SCHEMA, BucketPolicy())
-    assert nbytes == sum(a.nbytes for a in batch.arrays.values())
+    shipped = transfer.assemble_and_ship(records(2), SCHEMA, BucketPolicy())
+    batch, dev = shipped.batch, shipped.inputs
+    # The [B] int32 lengths of the dynamic field cross with the fields.
+    assert shipped.h2d_bytes == sum(a.nbytes for a in batch.arrays.values()) + 2 * 4
+    np.testing.assert_array_equal(shipped.lengths["tokens"].numpy(), batch.lengths["tokens"])
     assert dev["image"].data_ptr() == batch.arrays["image"].ctypes.data
     host = transfer.finish_fetch(transfer.start_fetch({"y": dev["tokens"] * 2}))
     assert not host["y"].flags.writeable
@@ -138,7 +149,7 @@ def test_staging_slots_survive_many_batches_in_flight():
         for k in range(20):
             vals = [TensorValue({"x": np.full((1 << 16,), 4 * k + j, np.float32)})
                     for j in range(4)]
-            _, dev, _, _ = transfer.assemble_and_ship(vals, schema, BucketPolicy(fixed_batch=4))
+            dev = transfer.assemble_and_ship(vals, schema, BucketPolicy(fixed_batch=4)).inputs
             torch.cuda._sleep(200_000)                    # keep the compute stream busy
             handles.append(transfer.start_fetch({"s": dev["x"].sum(dim=1)}))
             wants.append([4 * k + j for j in range(4)])
@@ -175,3 +186,92 @@ def test_quick_start_job_on_the_card_equals_direct_calls():
             want = serve(module, {"image": torch.from_numpy(images[lo:lo + 4]).cuda()})
             for j in range(4):
                 assert got[lo + j] == (int(want["label"][j]), float(want["score"][j]))
+
+
+@pytest.mark.cuda
+def test_lengths_ride_the_pinned_staging_slot_without_new_allocations():
+    """Batches of changing length buckets through 2 staging slots: the
+    lengths reach the card with the fields, and once each slot has held
+    the largest batch, smaller buckets are views of its buffers (no
+    pinned allocation in the steady state)."""
+    needs_cuda()
+    device = torch.device("cuda")
+    transfer = DeviceTransfer(device, slots=2)
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        for _ in range(2):   # the largest batch, once per slot
+            big = records(4, seed=9)
+            big[0] = TensorValue({"image": big[0]["image"], "tokens": np.ones(64, np.int32)})
+            transfer.assemble_and_ship(big, SCHEMA, BucketPolicy())
+        warm = transfer.pinned_allocations
+        for k in range(12):
+            shipped = transfer.assemble_and_ship(records(1 + k % 4, seed=k), SCHEMA,
+                                                 BucketPolicy())
+            tokens = shipped.inputs["tokens"].cpu().numpy()
+            lengths = shipped.lengths["tokens"]
+            assert lengths.device.type == "cuda" and lengths.dtype == torch.int32
+            np.testing.assert_array_equal(lengths.cpu().numpy(), shipped.batch.lengths["tokens"])
+            for row, n in zip(tokens, shipped.batch.lengths["tokens"]):
+                assert not row[n:].any()
+    assert transfer.pinned_allocations == warm
+    assert shipped.pinned_allocations == 0
+
+
+@pytest.mark.cuda
+def test_bilstm_window_job_on_the_card_equals_direct_calls():
+    """Variable-length records through count_window(8) on the card: each
+    record's logits equal a direct call of the same module on the same
+    padded batch and lengths."""
+    needs_cuda()
+    mdef = get_model_def("bilstm", vocab_size=100, embed_dim=16, hidden_dim=32)
+    model = mdef.to_model(mdef.init_params(0))
+    rng = np.random.RandomState(5)
+    recs = [TensorValue({"tokens": rng.randint(0, 100, (int(rng.randint(1, 40)),))
+                         .astype(np.int32)}, {"i": i}) for i in range(16)]
+    env = StreamExecutionEnvironment(parallelism=1)
+    out = (env.from_collection(recs).count_window(8)
+           .apply(ModelWindowFunction(model, warmup_batches=(8,), warmup_length_bucket=64))
+           .sink_to_list())
+    result = env.execute(timeout=300)
+    assert sorted(r.meta["i"] for r in out) == list(range(16))
+    assert result.metrics["window.0.pinned_allocations"] == 0
+    got = {r.meta["i"]: r["logits"] for r in out}
+    module = copy.deepcopy(model.params).to("cuda")
+    with torch.inference_mode():
+        for lo in (0, 8):
+            batch = assemble(recs[lo:lo + 8], mdef.input_schema, BucketPolicy())
+            want = module(torch.from_numpy(batch.arrays["tokens"]).cuda(),
+                          torch.from_numpy(batch.lengths["tokens"]).cuda()).cpu().numpy()
+            for j in range(8):
+                np.testing.assert_array_equal(got[lo + j], want[j])
+
+
+@pytest.mark.cuda
+def test_bundle_loaded_by_a_map_on_the_card_equals_direct_calls(tmp_path):
+    """A port bundle loaded at open() by ModelMapFunction on the card: 12
+    records in micro-batches of 4 (no lull, so the batches are the
+    arrival order's fours) equal direct calls of the loaded module."""
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelMapFunction
+    from flink_tensorflow_tpu_torch.models.loaders import SavedModelLoader, save_bundle
+
+    needs_cuda()
+    mdef = get_model_def("lenet")
+    path = str(tmp_path / "lenet")
+    save_bundle(mdef, mdef.init_params(0), path)
+    images = np.random.RandomState(2).rand(12, 28, 28, 1).astype(np.float32)
+    env = StreamExecutionEnvironment(parallelism=1)
+    out = (env.from_collection([TensorValue({"image": im}, {"i": i})
+                                for i, im in enumerate(images)])
+           .map(ModelMapFunction(path, micro_batch=4, idle_flush_s=5.0), name="map")
+           .sink_to_list())
+    result = env.execute(timeout=300)
+    assert [r.meta["i"] for r in out] == list(range(12))
+    assert result.metrics["map.0.batches"] == 3
+    module = copy.deepcopy(SavedModelLoader(path).load().params).to("cuda")
+    with torch.inference_mode():
+        for lo in range(0, 12, 4):
+            want = mdef.methods["serve"].fn(module, {"image": torch.from_numpy(
+                images[lo:lo + 4]).cuda()})
+            for j in range(4):
+                np.testing.assert_array_equal(out[lo + j]["logits"],
+                                              want["logits"][j].cpu().numpy())
