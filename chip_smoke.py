@@ -83,7 +83,26 @@ Phases (any failure exits non-zero and prints no result line):
    alone at its own bucket to the same record in a batch padded to 256;
    records/s (steady and over the job), latency p50/p95, H2D bytes per
    batch and seconds, each beside the card line;
-9. print one ``kernels`` JSON line, the card line, and the final
+9. chaining and device-resident dataflow (no TPU kernel on these paths;
+   K1 must launch 0 times), each comparison run A B B A in one process:
+   (a) phase 5's cell chained (the default: the sink fused behind the
+   window, 2 threads and 1 gate) and with ``configure(chaining=False)``
+   (3 and 2), labels and scores equal bit for bit to phase 5's direct
+   calls in every run, no queue puts on a fused edge, records/s side by
+   side; (b) phase 8 (c)'s bundle at parallelism 1 with no
+   ``rebalance()``, chained (the sink behind the map, which is cut from
+   the source) and unchained, equal to direct calls over the same 32s;
+   (c) ``map(ModelMapFunction(inception, outputs=("logits",))) =>
+   map(DeviceMapFunction(softmax + top-1)) -> sink`` with
+   ``device_resident`` on and off: on, one H2D (the model's) and one D2H
+   (at the sink) per micro-batch and ``fetch_elided_batches`` equal to
+   the batches; labels equal, scores within ``CHAIN_SCORE_TOL``, and on
+   equal to direct calls; (d) ``bench.py:bench_deviceres`` non-smoke
+   (resmlp, dim 4096 f32, 512 records, micro-batch 8, two chained models)
+   on and off: one H2D and one D2H per micro-batch on, two off, outputs
+   equal bit for bit and to the CPU's f32; H2D/D2H counts and bytes and
+   e2e latency p50/p95 of each arm printed;
+10. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -231,6 +250,20 @@ LSTM_ROUTE_TIME_FACTOR = 2.0
 MAP_RECORDS = 1024
 MAP_MICRO_BATCH = 32
 MAP_PARALLELISM = 2
+# Phase 9 (c): the device-resident arm's scores (softmax over a
+# micro-batch's [32, 1000] logits on the card) against the host arm's (the
+# same softmax on each record lifted to [1, 1000]).  Equal bits are
+# expected: PyTorch reduces each row of at most 1024 elements within one
+# warp whatever the row count.  One f32 ulp of 1 is allowed in case
+# another row count takes another kernel and sums the row in another order.
+CHAIN_SCORE_TOL = 2 ** -23
+# Phase 9 (d): bench.py:bench_deviceres at its full size.  The card's f32
+# (TF32 off) against the CPU's: two f32 products of 4096 terms each,
+# summed in another order (order 1e-7 of the largest |x|).
+RESMLP_DIM = 4096
+RESMLP_RECORDS = 512
+RESMLP_MICRO = 8
+RESMLP_F32_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -472,7 +505,7 @@ def check_inception(card: str, torch):
                 "batches", "padded_records", "init_s", "warmup_s"):
         print(f"inception {key}: {row[key]} | card: {card}", flush=True)
     print("inception", json.dumps(row), flush=True)
-    return row, (mdef, model, pixels)
+    return row, (mdef, model, pixels), (want_label, want_score)
 
 
 def crash_once(at: int, directory=None, min_checkpoint: int = 1):
@@ -1300,6 +1333,382 @@ def check_stream_models(card: str, torch, fa, inception):
     return launches
 
 
+def fused_edge_puts(run) -> dict:
+    """Queue-put gauges on the edges the plan fused: none may exist (a
+    fused edge has no channel)."""
+    fused = []
+    for line in run.plan.splitlines():
+        members = re.split(r" -> | => ", line.split(": ", 1)[1])
+        fused += list(zip(members, members[1:]))
+    return {k: v for k, v in run.metrics.items()
+            if any(k.startswith(f"{d}.") and k.endswith(f"_{u}_queue_puts") for u, d in fused)}
+
+
+#: The order of the two arms of a phase 9 comparison, A B B A: host time
+#: drifts within a call, and the first run in a process pays lazy loads.
+ABBA = (True, False, False, True)
+
+
+def check_layouts(card, what, runs, want):
+    """Print each run's layout and fail unless (threads, gates) is ``want``
+    for it; no queue traffic on a fused edge."""
+    for chaining, run in runs:
+        layout = "chained" if chaining else "unchained"
+        puts = fused_edge_puts(run)
+        print(f"{what} {layout} plan:\n" + "\n".join("  " + x for x in run.plan.splitlines()),
+              flush=True)
+        print(f"{what} {layout}: threads {run.threads}, gates {run.gates}, "
+              f"queue puts on fused edges {puts or 'none'} | card: {card}", flush=True)
+        if (run.threads, run.gates) != want[chaining] or puts:
+            fail(f"{what} {layout}: {run.threads} threads, {run.gates} gates, fused-edge "
+                 f"puts {puts}; want {want[chaining]} and none")
+
+
+def labels_scores(results, n):
+    import numpy as np
+
+    label = np.empty(n, np.int32)
+    score = np.empty(n, np.float32)
+    for r in results:
+        label[r.meta["id"]] = r["label"]
+        score[r.meta["id"]] = r["score"]
+    return label, score
+
+
+def check_chained_inception_stream(card, torch, inception, direct):
+    """Phase 9 (a): phase 5's cell chained (the default) and unchained:
+    labels and scores equal bit for bit between the two and with phase
+    5's direct calls."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    _, model, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
+    runs = [(c, cell.run_cell_job(model, records, chaining=c)) for c in ABBA]
+    check_layouts(card, "inception-stream", runs, {True: (2, 1), False: (3, 2)})
+    row = {"card": card, "order": "chained, unchained, unchained, chained",
+           "chained": [], "unchained": []}
+    for chaining, run in runs:
+        layout = "chained" if chaining else "unchained"
+        check_ids(f"inception-stream {layout}", run.results, cell.RECORDS)
+        label, score = labels_scores(run.results, cell.RECORDS)
+        if not (np.array_equal(label, direct[0]) and np.array_equal(score, direct[1])):
+            fail(f"inception-stream {layout}: labels or scores differ from the direct calls")
+        rps, span = steady_rps(run.arrivals, cell.RECORDS, cell.BATCH,
+                               cell.trailing_exclude(cell.RECORDS))
+        row[layout].append({"records_per_s": rps, "steady_span_s": span,
+                            "job_seconds": run.seconds, "threads": run.threads,
+                            "gates": run.gates})
+    print_rates(card, "inception-stream", row)
+    return row
+
+
+def print_rates(card, what, row):
+    rates = {k: [x["records_per_s"] for x in row[k]] for k in ("chained", "unchained")}
+    print(f"{what} records_per_s chained {rates['chained']} unchained {rates['unchained']} "
+          f"| card: {card}", flush=True)
+
+
+def check_chained_inception_map(card, torch, inception):
+    """Phase 9 (b): phase 8 (c)'s bundle at parallelism 1 with no
+    rebalance, chained (the sink fuses behind the timer-driven map, which
+    is cut from the source) and unchained: equal results, equal to direct
+    calls over the same micro-batches."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelMapFunction
+    from flink_tensorflow_tpu_torch.models.loaders import save_bundle
+    from flink_tensorflow_tpu_torch.models.stream_cell import run_job, steady_rps
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    mdef, model, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(MAP_RECORDS)]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "inception")
+        save_bundle(mdef, model.params, bundle)
+        for chaining in ABBA:
+            fn = ModelMapFunction(bundle, micro_batch=MAP_MICRO_BATCH, idle_flush_s=1.0,
+                                  warmup_batches=(MAP_MICRO_BATCH,), outputs=("label", "score"))
+            runs.append((chaining, run_job(records, lambda s: s.map(fn, name="inception_map"),
+                                           config={"chaining": chaining})))
+    check_layouts(card, "inception-map", runs, {True: (2, 1), False: (3, 2)})
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(model.params).to("cuda")
+    want_label = np.empty(MAP_RECORDS, np.int32)
+    want_score = np.empty(MAP_RECORDS, np.float32)
+    with torch.inference_mode():
+        for lo in range(0, MAP_RECORDS, MAP_MICRO_BATCH):
+            out = serve(module, {"image": torch.from_numpy(
+                pixels[lo:lo + MAP_MICRO_BATCH].copy()).cuda()})
+            want_label[lo:lo + MAP_MICRO_BATCH] = out["label"].cpu().numpy()
+            want_score[lo:lo + MAP_MICRO_BATCH] = out["score"].cpu().numpy()
+    del module
+    row = {"card": card, "records": MAP_RECORDS, "micro_batch": MAP_MICRO_BATCH,
+           "order": "chained, unchained, unchained, chained", "chained": [], "unchained": []}
+    for chaining, run in runs:
+        layout = "chained" if chaining else "unchained"
+        check_ids(f"inception-map {layout}", run.results, MAP_RECORDS)
+        m = run.metrics
+        if (m["inception_map.0.batches"] != MAP_RECORDS // MAP_MICRO_BATCH
+                or m["inception_map.0.padded_records"]):
+            fail(f"inception-map {layout}: {m['inception_map.0.batches']} batches: not the "
+                 "arrival order's 32s")
+        label, score = labels_scores(run.results, MAP_RECORDS)
+        if not (np.array_equal(label, want_label) and np.array_equal(score, want_score)):
+            fail(f"inception-map {layout}: labels or scores differ from the direct calls")
+        rps, span = steady_rps(run.arrivals, MAP_RECORDS, MAP_MICRO_BATCH)
+        row[layout].append({"records_per_s": rps, "steady_span_s": span,
+                            "job_seconds": run.seconds, "threads": run.threads,
+                            "gates": run.gates})
+    print_rates(card, "inception-map", row)
+    return row
+
+
+def run_resident(records, build, device_resident: bool):
+    """``from_collection(records) -> build(stream) -> sink`` with
+    ``device_resident`` on or off; the source stamps each record's
+    emission, the sink its arrival.  Returns ``(results, end-to-end
+    seconds per record, metric report, plan, seconds)``."""
+    from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.io.sources import CollectionSource
+
+    stamps = {}
+
+    class StampedCollection(CollectionSource):
+        def clone(self):
+            return self
+
+        def run(self):
+            for r in self.data:
+                stamps[r.meta["id"]] = time.monotonic()
+                yield r
+
+    results, latency = [], []
+
+    def sink(r):
+        latency.append(time.monotonic() - stamps[r.meta["id"]])
+        results.append(r)
+
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.configure(device_resident=device_resident)
+    build(env.from_source(StampedCollection(records), name="collection")).sink_to_callable(sink)
+    plan = env.describe()
+    t0 = time.monotonic()
+    metrics = env.execute(timeout=600).metrics
+    return results, latency, metrics, plan, time.monotonic() - t0
+
+
+def transfer_counts(metrics) -> dict:
+    """H2D and D2H batches and bytes summed over the job's operators."""
+    return {key: sum(v for k, v in metrics.items() if k.endswith("." + key))
+            for key in ("h2d_batches", "h2d_bytes", "d2h_batches", "d2h_bytes",
+                        "fetch_elided_batches", "h2d_elided_batches")}
+
+
+def arm_row(card, what, arm, latency, metrics, seconds):
+    import numpy as np
+
+    row = {**transfer_counts(metrics), "e2e_p50_ms": float(np.percentile(latency, 50)) * 1e3,
+           "e2e_p95_ms": float(np.percentile(latency, 95)) * 1e3, "job_seconds": seconds}
+    print(f"{what} device_resident={arm}: " + ", ".join(f"{k} {v}" for k, v in row.items())
+          + f" | card: {card}", flush=True)
+    return row
+
+
+def softmax_top1(t):
+    """The elementwise link of phase 9 (c), on the logits where they lie."""
+    import torch
+
+    score, label = torch.softmax(t["logits"], dim=-1).max(dim=-1)
+    return {"label": label.to(torch.int32), "score": score}
+
+
+def check_resident_inception(card, torch, inception):
+    """Phase 9 (c): ``map(ModelMapFunction(inception, outputs=logits)) =>
+    map(DeviceMapFunction(softmax + top-1)) -> sink`` with residency on
+    and off."""
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.functions.model_function import (
+        DeviceMapFunction,
+        ModelMapFunction,
+    )
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    mdef, model, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(MAP_RECORDS)]
+    batches = MAP_RECORDS // MAP_MICRO_BATCH
+
+    def build(s):
+        return (s.map(ModelMapFunction(model, outputs=("logits",), micro_batch=MAP_MICRO_BATCH,
+                                       idle_flush_s=1.0, warmup_batches=(MAP_MICRO_BATCH,)),
+                      name="inception_map")
+                .map(DeviceMapFunction(softmax_top1), name="softmax"))
+
+    arms = [(on, run_resident(records, build, on)) for on in ABBA]
+    plan = arms[0][1][3]
+    print("inception-resident plan:\n" + "\n".join("  " + x for x in plan.splitlines()),
+          flush=True)
+    if "inception_map => softmax -> sink" not in plan:
+        fail(f"inception-resident: the model and the map did not fuse on the device: {plan}")
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(model.params).to("cuda")
+    want_label = np.empty(MAP_RECORDS, np.int32)
+    want_score = np.empty(MAP_RECORDS, np.float32)
+    with torch.inference_mode():
+        for lo in range(0, MAP_RECORDS, MAP_MICRO_BATCH):
+            logits = serve(module, {"image": torch.from_numpy(
+                pixels[lo:lo + MAP_MICRO_BATCH].copy()).cuda()})["logits"]
+            out = softmax_top1({"logits": logits})
+            want_label[lo:lo + MAP_MICRO_BATCH] = out["label"].cpu().numpy()
+            want_score[lo:lo + MAP_MICRO_BATCH] = out["score"].cpu().numpy()
+    del module
+    row = {"card": card, "records": MAP_RECORDS, "micro_batch": MAP_MICRO_BATCH,
+           "order": "on, off, off, on", "score_tolerance_off_vs_on": CHAIN_SCORE_TOL,
+           "on": [], "off": []}
+    got = {}
+    for on, (results, latency, metrics, _, seconds) in arms:
+        check_ids(f"inception-resident device_resident={on}", results, MAP_RECORDS)
+        got[on] = labels_scores(results, MAP_RECORDS)
+        counts = arm_row(card, "inception-resident", on, latency, metrics, seconds)
+        row["on" if on else "off"].append(counts)
+        if on and not (metrics["inception_map.0.fetch_elided_batches"]
+                       == metrics["inception_map.0.batches"] == batches
+                       and counts["h2d_batches"] == counts["d2h_batches"] == batches
+                       and metrics["softmax.0.d2h_batches"] == batches):
+            fail(f"inception-resident on: {counts}; want {batches} batches with one H2D (the "
+                 "model's) and one D2H (at the sink) each")
+        if not on and not (counts["fetch_elided_batches"] == 0
+                           and counts["d2h_batches"] == batches + MAP_RECORDS):
+            fail(f"inception-resident off: {counts}; want the model's D2H per batch and the "
+                 "map's per record")
+        if on and not (np.array_equal(got[on][0], want_label)
+                       and np.array_equal(got[on][1], want_score)):
+            fail("inception-resident on: labels or scores differ from the direct calls")
+    score_err = float(np.abs(got[False][1] - got[True][1]).max())
+    row["score_max_abs_err_off_vs_on"] = score_err
+    row["scores_bit_equal"] = bool(np.array_equal(got[False][1], got[True][1]))
+    if not np.array_equal(got[False][0], got[True][0]) or score_err > CHAIN_SCORE_TOL:
+        fail(f"inception-resident: the arms' labels differ or their scores by {score_err}")
+    return row
+
+
+def resmlp_model(torch, rng):
+    """``bench.py:bench_deviceres``'s model at its full size: ``tanh(x @ w)
+    + x`` over a 4096-wide f32 record, ``w`` from ``RandomState(7)``."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models.base import Model, ModelMethod
+    from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
+
+    class ResMLP(torch.nn.Module):
+        def __init__(self, w):
+            super().__init__()
+            self.register_buffer("w", torch.from_numpy(w))
+
+    def serve(module, inputs):
+        return {"x": torch.tanh(inputs["x"] @ module.w) + inputs["x"]}
+
+    # As the bench: f32 draws over sqrt(dim) in f64, stored as f32.
+    w = (rng.randn(RESMLP_DIM, RESMLP_DIM).astype(np.float32)
+         / np.sqrt(RESMLP_DIM)).astype(np.float32)
+    schema = RecordSchema({"x": spec((RESMLP_DIM,), np.float32)})
+    return Model("resmlp", ResMLP(w), {"serve": ModelMethod("serve", schema, ("x",), serve)})
+
+
+def check_resident_resmlp(card, torch):
+    """Phase 9 (d): two chained ``ModelMapFunction``s over resmlp, 512
+    records in micro-batches of 8, residency on and off."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelMapFunction
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketLadder
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    rng = np.random.RandomState(7)
+    model = resmlp_model(torch, rng)
+    records = [TensorValue({"x": rng.rand(RESMLP_DIM).astype(np.float32)}, {"id": i})
+               for i in range(RESMLP_RECORDS)]
+    batches = RESMLP_RECORDS // RESMLP_MICRO
+
+    def build(s):
+        return (s.map(ModelMapFunction(model, micro_batch=RESMLP_MICRO, idle_flush_s=1.0,
+                                       warmup_batches=tuple(BucketLadder.up_to(RESMLP_MICRO).sizes)),
+                      name="model_a")
+                .map(ModelMapFunction(model, micro_batch=RESMLP_MICRO, idle_flush_s=1.0),
+                     name="model_b"))
+
+    arms = [(on, run_resident(records, build, on)) for on in ABBA]
+    plan = arms[0][1][3]
+    print("resmlp-resident plan:\n" + "\n".join("  " + x for x in plan.splitlines()), flush=True)
+    if "model_a => model_b -> sink" not in plan:
+        fail(f"resmlp-resident: the two models did not fuse on the device: {plan}")
+    row = {"card": card, "records": RESMLP_RECORDS, "dim": RESMLP_DIM,
+           "micro_batch": RESMLP_MICRO, "source": "from_collection (PacedSource not ported)",
+           "order": "on, off, off, on", "on": [], "off": []}
+    out = {}
+    for on, (results, latency, metrics, _, seconds) in arms:
+        check_ids(f"resmlp-resident device_resident={on}", results, RESMLP_RECORDS)
+        x = np.empty((RESMLP_RECORDS, RESMLP_DIM), np.float32)
+        for r in results:
+            x[r.meta["id"]] = r["x"]
+        if on in out and not np.array_equal(out[on], x):
+            fail(f"resmlp-resident device_resident={on}: two runs of the arm differ")
+        out[on] = x
+        counts = arm_row(card, "resmlp-resident", on, latency, metrics, seconds)
+        row["on" if on else "off"].append(counts)
+        if on and not (counts["h2d_batches"] == counts["d2h_batches"]
+                       == counts["fetch_elided_batches"] == counts["h2d_elided_batches"]
+                       == batches):
+            fail(f"resmlp-resident on: {counts}; want one H2D and one D2H per micro-batch "
+                 f"({batches})")
+        if not on and not (counts["h2d_batches"] == counts["d2h_batches"] == 2 * batches
+                           and counts["fetch_elided_batches"] == 0):
+            fail(f"resmlp-resident off: {counts}; want two H2Ds and two D2Hs per micro-batch")
+    if not np.array_equal(out[True], out[False]):
+        fail(f"resmlp-resident: the arms differ by {np.abs(out[True] - out[False]).max()}")
+    on, off = row["on"][0], row["off"][0]
+    x = torch.from_numpy(np.stack([r["x"] for r in records[:RESMLP_MICRO]]))
+    with torch.inference_mode():
+        cpu = model.method("serve").fn(model.params, {"x": model.method("serve").fn(
+            model.params, {"x": x})["x"]})["x"].numpy()
+    err = rel(out[True][:RESMLP_MICRO], cpu)
+    row["f32_rel_err_vs_cpu"], row["f32_tolerance"] = err, RESMLP_F32_TOL
+    row["h2d_bytes_on_over_off"] = on["h2d_bytes"] / off["h2d_bytes"]
+    if not (np.isfinite(out[True]).all() and err <= RESMLP_F32_TOL):
+        fail(f"resmlp-resident: card f32 differs from the CPU's by {err} of max |x|")
+    print(f"resmlp-resident h2d_bytes on {on['h2d_bytes']} off {off['h2d_bytes']} "
+          f"| card: {card}", flush=True)
+    return row
+
+
+def check_chaining(card, torch, fa, inception, direct):
+    """Phase 9: the chained layout and device-resident chains at full
+    width; K1 must launch 0 times (no attention on these paths)."""
+    t0 = time.monotonic()
+    fa.flash_attention.launches = 0
+    rows = {"inception_stream": check_chained_inception_stream(card, torch, inception, direct),
+            "inception_map": check_chained_inception_map(card, torch, inception),
+            "inception_resident": check_resident_inception(card, torch, inception),
+            "resmlp_resident": check_resident_resmlp(card, torch)}
+    launches = fa.flash_attention.launches
+    if launches != 0:
+        fail(f"phase 9 launched K1 {launches} times, want 0")
+    for name, row in rows.items():
+        print(f"chaining {name}", json.dumps(row), flush=True)
+    print(f"chaining phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return {"chaining_phase9": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1374,7 +1783,7 @@ def main() -> int:
     }
     print("serving", json.dumps(serving_row), flush=True)
 
-    _, inception = check_inception(card, torch)
+    _, inception, direct = check_inception(card, torch)
 
     keyed_launches = check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, got,
                                          serving_row)
@@ -1382,6 +1791,8 @@ def main() -> int:
     training_launches = check_training(card, torch, fa)
 
     stream_launches = check_stream_models(card, torch, fa, inception)
+
+    chain_launches = check_chaining(card, torch, fa, inception, direct)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
@@ -1397,7 +1808,7 @@ def main() -> int:
         "bound_by": serving_k1["bound_by"],
         "library_ms": serving_k1["library_ms"],
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
-                             **training_launches, **stream_launches},
+                             **training_launches, **stream_launches, **chain_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

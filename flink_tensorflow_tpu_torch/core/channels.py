@@ -36,6 +36,8 @@ class InputGate:
             collections.deque() for _ in range(num_channels)]
         self._replay: typing.Deque[typing.Tuple[int, el.StreamElement]] = collections.deque()
         self._blocked: typing.List[bool] = [False] * num_channels
+        #: Elements put per channel (the runtime's per-edge queue gauges).
+        self.puts_per_channel: typing.List[int] = [0] * num_channels
         self._closed = False
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
@@ -49,6 +51,7 @@ class InputGate:
             if self._closed:
                 return  # gate torn down (job cancelled): drop
             self._queue.append((channel_idx, element))
+            self.puts_per_channel[channel_idx] += 1
             self._not_empty.notify()
 
     def wake(self) -> None:

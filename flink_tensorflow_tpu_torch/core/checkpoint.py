@@ -252,20 +252,23 @@ class CheckpointCoordinator:
         completed checkpoint)."""
         if self.executor.cancelled.is_set():
             return
-        try:
-            snap = store.to_host(subtask.operator.snapshot())
-        except Exception:  # noqa: BLE001 - the subtask must still count as finished
-            snap = None
-        key = (subtask.t.name, subtask.index)
-        with self._lock:
-            self._final_snapshots[key] = snap
-            for cid, pending in list(self._pending.items()):
-                if subtask.index in pending.snapshots.get(subtask.t.name, {}):
-                    continue
-                if pending.add(subtask.t.name, subtask.index, snap) and pending.source_initiated:
-                    del self._pending[cid]
-                    if not pending.failed:
-                        self._complete_locked(pending)
+        # One final snapshot per logical operator: a chain's subtask runs
+        # several, each with its own (task, index) identity.
+        for unit in subtask.units:
+            try:
+                snap = store.to_host(unit.operator.snapshot())
+            except Exception:  # noqa: BLE001 - the subtask must still count as finished
+                snap = None
+            task, index = unit.t.name, unit.index
+            with self._lock:
+                self._final_snapshots[(task, index)] = snap
+                for cid, pending in list(self._pending.items()):
+                    if index in pending.snapshots.get(task, {}):
+                        continue
+                    if pending.add(task, index, snap) and pending.source_initiated:
+                        del self._pending[cid]
+                        if not pending.failed:
+                            self._complete_locked(pending)
 
     def cancel_pending(self) -> None:
         with self._lock:

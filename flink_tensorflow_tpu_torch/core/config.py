@@ -2,10 +2,9 @@
 
 Port of ``flink_tensorflow_tpu/core/config.py``: ``CheckpointConfig``
 (``:27``) and ``JobConfig`` (``:85``) with the fields the ported runtime
-reads, the gang operators' ``mesh`` (``:224``) among them.  The port
-always runs with chaining off — the reference's
-``JobConfig(chaining=False)`` layout: one thread and one input gate per
-operator subtask.
+reads, the gang operators' ``mesh`` (``:224``) among them, operator
+``chaining`` (``:101-107``) and ``device_resident`` (``:153-162``) with
+the reference's defaults.
 """
 
 from __future__ import annotations
@@ -69,6 +68,20 @@ class JobConfig:
     max_parallelism: int = 128
     #: Bounded capacity of inter-subtask channels (records).
     channel_capacity: int = 1024
+    #: Operator chaining (``analysis/chaining.py``): forward neighbours at
+    #: equal parallelism fuse into one subtask thread and records pass by
+    #: direct call instead of a queue hop.  False is the comparison
+    #: layout: one thread and one input gate per operator subtask.
+    #: Per-operator opt-outs: ``stream.start_new_chain()`` /
+    #: ``stream.disable_chaining()``.
+    chaining: bool = True
+    #: Device-resident dataflow (``tensors/transfer.py:DeviceBatch``): a
+    #: model fused ahead of an operator that consumes device batches
+    #: (another model, a ``DeviceMapFunction``) hands it the batch on the
+    #: card, with no D2H and no H2D in between; the first host-only
+    #: consumer materializes it once.  Per-function override:
+    #: ``ModelMapFunction(device_resident=True/False)``.
+    device_resident: bool = False
     #: Sleep between source emissions — test/backpressure pacing.
     source_throttle_s: float = 0.0
     #: ``(task_name, subtask_index) -> device`` (``"cpu"``, ``"cuda:0"``,
@@ -88,6 +101,9 @@ class JobConfig:
             raise ValueError(f"max_parallelism must be >= 1, got {self.max_parallelism}")
         if self.channel_capacity < 1:
             raise ValueError(f"channel_capacity must be >= 1, got {self.channel_capacity}")
+        for flag in ("chaining", "device_resident"):
+            if not isinstance(getattr(self, flag), bool):
+                raise ValueError(f"{flag} must be a bool, got {getattr(self, flag)!r}")
         if self.source_throttle_s < 0:
             raise ValueError(f"source_throttle_s must be >= 0, got {self.source_throttle_s}")
         if self.device_provider is not None and not callable(self.device_provider):

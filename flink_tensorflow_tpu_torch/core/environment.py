@@ -7,8 +7,9 @@ Port of ``flink_tensorflow_tpu/core/environment.py``:
 ``execute_async`` (``:544``) and ``set_mesh`` / ``mesh`` (``:199``,
 ``:268``); ``RestartStrategy`` (``:33``), ``JobHandle``
 (``:69``) and ``JobResult`` (``:27``).  The job builds a graph;
-``execute()`` runs it on the local executor, one thread per operator
-subtask.
+``execute()`` runs it on the local executor (``:416``), one thread per
+chain of fused operators (``JobConfig.chaining``), and ``describe()``
+prints the chain plan.
 
 Devices: a model subtask runs on what the device provider returns for
 ``(task_name, subtask_index)``.  Without a provider it runs on
@@ -22,6 +23,7 @@ import random
 import time
 import typing
 
+from flink_tensorflow_tpu_torch.analysis.chaining import compute_chains
 from flink_tensorflow_tpu_torch.checkpoint import store
 from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.core.config import JobConfig
@@ -148,6 +150,12 @@ class StreamExecutionEnvironment:
     def checkpoint_dir(self) -> typing.Optional[str]:
         return self.config.checkpoint.dir
 
+    def describe(self) -> str:
+        """The job's chain plan as the executor will run it: one line per
+        chain, ``->`` a host hop, ``=>`` a fused hop that stays on the
+        device under ``device_resident``."""
+        return compute_chains(self.graph, enabled=self.config.chaining).describe()
+
     def from_collection(self, data: typing.Sequence[typing.Any], *, name="collection",
                         parallelism: int = 1) -> DataStream:
         return self.from_source(CollectionSource(data), name=name, parallelism=parallelism)
@@ -229,7 +237,8 @@ class StreamExecutionEnvironment:
             checkpoint_every_n=cfg.checkpoint.every_n_records,
             checkpoint_timeout_s=cfg.checkpoint.timeout_s,
             checkpoint_retain_last=cfg.checkpoint.retain_last,
-            max_parallelism=cfg.max_parallelism, mesh=cfg.mesh)
+            max_parallelism=cfg.max_parallelism, mesh=cfg.mesh,
+            chaining=cfg.chaining, device_resident=cfg.device_resident)
         executor.checkpoint_interval_s = cfg.checkpoint.interval_s
         if restore_from is not None:
             cid, snapshots = store.read_checkpoint(restore_from, restore_checkpoint_id)

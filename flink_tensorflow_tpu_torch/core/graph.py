@@ -2,8 +2,9 @@
 
 Copy of ``flink_tensorflow_tpu/core/graph.py`` (``DataflowGraph`` ``:73``)
 without the plan-analysis fields: transformations record an operator
-factory, a parallelism and input edges; the executor instantiates one
-operator per subtask and wires channels per partitioner.
+factory, a parallelism, input edges and the two chaining opt-outs; the
+executor instantiates one operator per subtask, fuses chains
+(``analysis/chaining.py``) and wires channels per partitioner.
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ class Transformation:
     parallelism: int
     inputs: typing.List[Edge] = dataclasses.field(default_factory=list)
     is_source: bool = False
+    #: Chaining opt-outs (Flink's startNewChain / disableChaining):
+    #: ``chain_start`` pins this operator as the head of a new chain (its
+    #: input edge never fuses); ``chainable=False`` keeps it out of
+    #: chains on both sides.
+    chain_start: bool = False
+    chainable: bool = True
 
     def __hash__(self) -> int:
         return self.id

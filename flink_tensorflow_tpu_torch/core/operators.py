@@ -12,7 +12,11 @@ timers), ``WindowOperator`` (``:587``, per-subtask count windows with the
 function uses), ``SinkOperator`` (``:772``) and ``SourceOperator``
 (``:787``, a replayable offset).  Operators are host-side control code:
 each instance runs on one subtask thread, processes stream elements and
-takes part in snapshots.
+takes part in snapshots.  ``Output`` is a host boundary (``:68``): a
+``DeviceBatch`` emitted into a channel materializes there, once, and
+leaves as per-record host values.  ``uses_timers`` marks the operators
+the chaining pass keeps out of source chains: async maps, process
+functions, and windows whose trigger or function declares deadlines.
 """
 
 from __future__ import annotations
@@ -30,16 +34,28 @@ if typing.TYPE_CHECKING:
 
 
 class Output:
-    """Downstream emitter for one subtask.
+    """Downstream emitter for one subtask (the tail of its chain).
 
     ``edges`` is a list of ``(partitioner, writers)``: the partitioner's
     ``select(value, n)`` names the writer indices, and each writer's
-    ``write(element)`` takes the element."""
+    ``write(element)`` takes the element.  ``meter`` (optional) counts the
+    records emitted."""
 
-    def __init__(self, edges):
+    def __init__(self, edges, meter=None):
         self._edges = edges
+        self._meter = meter
 
     def emit(self, value: typing.Any, timestamp: typing.Optional[float] = None) -> None:
+        if getattr(value, "is_device_batch", False):
+            # A channel is a host boundary: keyed routing needs per-record
+            # keys and a checkpoint needs host objects, so the batch's D2H
+            # runs here, once, and its records leave one by one.
+            ts = timestamp if timestamp is not None else value.timestamp
+            for tv in value.materialize():
+                self.emit(tv, ts)
+            return
+        if self._meter is not None:
+            self._meter.mark()
         record = el.StreamRecord(value, timestamp)
         for partitioner, writers in self._edges:
             for idx in partitioner.select(value, len(writers)):
@@ -98,10 +114,11 @@ class Operator:
 
     @property
     def uses_timers(self) -> bool:
-        """Whether this operator may declare a wall-clock deadline
-        (``next_deadline`` / ``fire_due``).  Only the async map says so
-        yet; the reference's chaining pass reads it, and the port has no
-        chaining."""
+        """Whether this operator may ever declare a wall-clock deadline
+        (``next_deadline`` / ``fire_due``).  The chaining pass never fuses
+        such an operator into a source chain: a source loop blocks in the
+        user's iterator and cannot serve deadlines, while a worker chain
+        waits until the chain's earliest one."""
         return False
 
     # -- snapshot protocol ----------------------------------------------
@@ -241,15 +258,30 @@ class MapOperator(_FunctionOperator):
         if self._async:
             def emit(value, _ts):
                 fifo = self._ts_fifo
-                self.output.emit(value, fifo.popleft() if fifo else None)
+                ts = fifo.popleft() if fifo else None
+                if getattr(value, "is_device_batch", False):
+                    # One emission answers num_records inputs: consume
+                    # their timestamps and stamp the batch with the
+                    # oldest (its records leave under it).
+                    for _ in range(value.num_records - 1):
+                        if fifo:
+                            fifo.popleft()
+                    value.timestamp = ts
+                self.output.emit(value, ts)
 
             self._collector = fn.Collector(emit)
         super().open()
 
     def process_record(self, record):
         if self._async:
-            self._ts_fifo.append(record.timestamp)
-            self.function.map_async(record.value, self._collector)
+            value = record.value
+            if getattr(value, "is_device_batch", False):
+                # A device batch is num_records inputs: keep the FIFO of
+                # timestamps one per record.
+                self._ts_fifo.extend([record.timestamp] * value.num_records)
+            else:
+                self._ts_fifo.append(record.timestamp)
+            self.function.map_async(value, self._collector)
         else:
             self.output.emit(self.function.map(record.value), record.timestamp)
 
@@ -315,6 +347,10 @@ class ProcessOperator(_FunctionOperator):
 
     def finish(self):
         self.function.on_finish(self._collector)
+
+    @property
+    def uses_timers(self):
+        return True  # the ProcessContext may register a timer at any record
 
     def next_deadline(self):
         if not self._timers:
@@ -383,6 +419,11 @@ class WindowOperator(_FunctionOperator):
         buf, self._buffer = self._buffer, None
         self._seq += 1
         self.function.process_window(None, buf.window, buf.elements, self._collector)
+
+    @property
+    def uses_timers(self):
+        return (self.trigger.has_deadlines()
+                or getattr(self.function, "next_deadline", None) is not None)
 
     def next_deadline(self):
         deadlines = []

@@ -7,18 +7,23 @@ Port of ``flink_tensorflow_tpu/core/runtime.py``:
   with ``fire_due`` whenever ``next_deadline()`` is due -> ``finish`` ->
   ``close``, with the output collected in a list and snapshots taken by
   :meth:`KeyedSubtask.snapshot` between records (the serving phase).
-- :class:`LocalExecutor` (``:692``) runs a whole dataflow graph: one
-  thread per operator subtask (:class:`_Subtask`, ``:166``), one input
-  gate per non-source subtask, outputs routed by each edge's
-  partitioner.  This is the reference's ``JobConfig(chaining=False)``
-  layout, with the same outputs as the chained one.  Aligned checkpoints
-  run through it: sources cut barriers on request or every N records
-  (``run_source``, ``:349``), workers align them across their channels,
-  snapshot and ack (``run_worker``, ``:541``), the
+- :class:`LocalExecutor` (``:692``) runs a whole dataflow graph: the
+  chaining pass (``analysis/chaining.py``) groups its operators into
+  chains, and each chain subtask is one thread (:class:`_Subtask`,
+  ``:166-330``) with one input gate (none for a source chain), outputs
+  routed by each edge's partitioner.  Inside a chain the records pass by
+  direct call (:class:`ChainedOutput`, ``:87-165``); every logical
+  operator keeps its metric scope and checkpoint identity
+  (:class:`_ChainedUnit`, ``:64``).  ``chaining=False`` gives the
+  one-thread-per-operator layout, with the same outputs.  Aligned
+  checkpoints run through it: sources cut barriers on request or every N
+  records (``run_source``, ``:349``), workers align them across their
+  channels (``run_worker``, ``:541``), the barrier snapshots each chain
+  member head to tail, the
   :class:`~flink_tensorflow_tpu_torch.core.checkpoint.CheckpointCoordinator`
   persists and announces them, and :meth:`LocalExecutor.restore`
-  (``:1247``) loads a checkpoint, redistributing keyed state by key group
-  when a parallelism changed.
+  (``:1247``) loads a checkpoint by logical operator, in either layout,
+  redistributing keyed state by key group when a parallelism changed.
 """
 
 from __future__ import annotations
@@ -29,6 +34,11 @@ import threading
 import time
 import typing
 
+from flink_tensorflow_tpu_torch.analysis.chaining import (
+    accepts_device_op,
+    compute_chains,
+    device_capable_op,
+)
 from flink_tensorflow_tpu_torch.checkpoint.store import to_host
 from flink_tensorflow_tpu_torch.core import elements as el
 from flink_tensorflow_tpu_torch.core.channels import ChannelWriter, InputGate
@@ -126,22 +136,91 @@ class JobTimeout(JobFailure):
     """join() deadline expired — not an operator failure; restart
     strategies propagate it instead of replaying a healthy job."""
 
+class _ChainedUnit:
+    """One logical operator inside a chain's subtask.  It keeps its own
+    metric scope and its own checkpoint identity ``(t.name, index)``,
+    whether or not it shares a thread with its neighbours."""
 
-class _Subtask:
-    """One executor thread running one operator subtask."""
+    __slots__ = ("t", "index", "operator", "output", "records_in", "records_out")
 
-    def __init__(self, executor: "LocalExecutor", t: Transformation, index: int,
-                 operator: Operator, gate: typing.Optional[InputGate], num_input_channels: int):
-        self.executor = executor
+    def __init__(self, t: Transformation, index: int, operator: Operator):
         self.t = t
         self.index = index
         self.operator = operator
+        self.output: typing.Any = None
+        self.records_in = None   # Meter
+        self.records_out = None  # Meter
+
+    @property
+    def scope(self) -> str:
+        return f"{self.t.name}.{self.index}"
+
+
+class ChainedOutput:
+    """Output of a chain member that is not the tail: it calls the next
+    member on the same thread, with no queue.
+
+    - a record goes straight into the next operator's ``process_record``;
+      a ``DeviceBatch`` does too when that operator consumes device
+      batches (``accepts_device``), and otherwise materializes here, once,
+      and goes on record by record (the host boundary);
+    - a barrier snapshots and acks the next member before it moves on,
+      so each member's snapshot follows everything it processed;
+    - end of partition runs the next member's ``finish()``, then moves on.
+    """
+
+    __slots__ = ("_subtask", "_unit", "_records_out", "_accepts_device")
+
+    def __init__(self, subtask: "_Subtask", unit: _ChainedUnit, records_out,
+                 accepts_device: bool = False):
+        self._subtask = subtask
+        self._unit = unit
+        self._records_out = records_out
+        self._accepts_device = accepts_device
+
+    def emit(self, value: typing.Any, timestamp: typing.Optional[float] = None) -> None:
+        n = 1
+        if getattr(value, "is_device_batch", False):
+            if not self._accepts_device:
+                ts = timestamp if timestamp is not None else value.timestamp
+                for tv in value.materialize():
+                    self.emit(tv, ts)
+                return
+            n = value.num_records  # meters count records under fusion too
+        self._records_out.mark(n)
+        self._unit.records_in.mark(n)
+        self._unit.operator.process_record(el.StreamRecord(value, timestamp))
+
+    def broadcast_element(self, element: el.StreamElement) -> None:
+        unit = self._unit
+        if isinstance(element, el.CheckpointBarrier):
+            self._subtask.snapshot_unit(unit, element.checkpoint_id)
+        elif isinstance(element, el.EndOfPartition):
+            unit.operator.finish()
+        unit.output.broadcast_element(element)
+
+
+class _Subtask:
+    """One executor thread running a chain of operator subtasks behind
+    one input gate (none for a source chain).  ``units`` hold the fused
+    members head first; a chain of one is an unchained subtask.  ``t``,
+    ``operator`` and ``output`` are the head's: the thread feeds the head
+    and the chain passes everything on by direct call."""
+
+    def __init__(self, executor: "LocalExecutor", chain: typing.Sequence[Transformation],
+                 index: int, operators: typing.Sequence[Operator],
+                 gate: typing.Optional[InputGate], num_input_channels: int):
+        self.executor = executor
+        self.units = [_ChainedUnit(t, index, op) for t, op in zip(chain, operators)]
+        self.t = chain[0]
+        self.index = index
+        self.operator = operators[0]
         self.gate = gate
         self.num_input_channels = num_input_channels
         self.thread: typing.Optional[threading.Thread] = None
         self.finished = threading.Event()
         #: Checkpoint ids a trigger asked this SOURCE to cut, and the
-        #: completed ids to announce to the operator on its own thread.
+        #: completed ids to announce to the operators on their own thread.
         self._control: typing.List[int] = []
         self._notifications: typing.List[int] = []
         self._control_lock = threading.Lock()
@@ -151,6 +230,11 @@ class _Subtask:
     @property
     def scope(self) -> str:
         return f"{self.t.name}.{self.index}"
+
+    @property
+    def output(self):
+        """The head's output (a :class:`ChainedOutput` when fused)."""
+        return self.units[0].output
 
     # -- control from other threads -----------------------------------------
     def request_checkpoint(self, checkpoint_id: int) -> None:
@@ -170,25 +254,47 @@ class _Subtask:
         with self._control_lock:
             pending, self._notifications = self._notifications, []
         for cid in pending:
-            self.operator.notify_checkpoint_complete(cid)
+            for unit in self.units:
+                unit.operator.notify_checkpoint_complete(cid)
 
-    # -- thread bodies ---------------------------------------------------------
-    def _fire_due(self) -> None:
-        deadline = self.operator.next_deadline()
-        now = time.monotonic()
-        if deadline is not None and now >= deadline:
-            self.operator.fire_due(now)
+    # -- the chain --------------------------------------------------------------
+    def _open_chain(self) -> None:
+        """Tail first, so every member's downstream is live before its
+        first record."""
+        for unit in reversed(self.units):
+            unit.operator.open()
+
+    def _close_chain(self) -> None:
+        for unit in self.units:
+            unit.operator.close()
+
+    def _chain_next_deadline(self) -> typing.Optional[float]:
+        deadlines = [d for d in (u.operator.next_deadline() for u in self.units)
+                     if d is not None]
+        return min(deadlines) if deadlines else None
+
+    def _chain_fire_due(self, now: float) -> None:
+        for unit in self.units:
+            d = unit.operator.next_deadline()
+            if d is not None and now >= d:
+                unit.operator.fire_due(now)
+
+    def snapshot_unit(self, unit: _ChainedUnit, checkpoint_id: int) -> None:
+        """Snapshot and ack one logical operator.  Device tensors leave for
+        the host here, on the thread that owns them: the coordinator and
+        its persist thread see host objects only."""
+        snapshot = to_host(unit.operator.snapshot(checkpoint_id))
+        self.executor.coordinator.ack(checkpoint_id, unit.t.name, unit.index, snapshot)
 
     def _snapshot_and_ack(self, checkpoint_id: int) -> None:
-        # Device tensors leave for the host here, on the thread that owns
-        # them: the coordinator and its persist thread see host objects only.
-        snapshot = to_host(self.operator.snapshot(checkpoint_id))
-        self.executor.coordinator.ack(checkpoint_id, self.t.name, self.index, snapshot)
+        self.snapshot_unit(self.units[0], checkpoint_id)
 
+    # -- thread bodies ---------------------------------------------------------
     def _source_barrier(self, checkpoint_id: int) -> None:
-        """Cut this source's stream: snapshot + ack, then the barrier."""
+        """Cut this source's stream: snapshot + ack, then the barrier
+        (which snapshots each fused member in turn)."""
         self._snapshot_and_ack(checkpoint_id)
-        self.operator.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
+        self.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
 
     def run_source(self) -> None:
         op = typing.cast(SourceOperator, self.operator)
@@ -196,14 +302,14 @@ class _Subtask:
         throttle = executor.source_throttle_s
         every_n = executor.checkpoint_every_n
         try:
-            op.open()
+            self._open_chain()
             for value in op.iterate():
                 if executor.cancelled.is_set():
                     break
                 self.deliver_notifications()
                 for cid in self._drain_control():
                     self._source_barrier(cid)
-                op.output.emit(value)
+                self.output.emit(value)
                 op.record_emitted()
                 # Count-based barriers: checkpoint k cuts the stream after
                 # this subtask's k*N-th record, a deterministic position.
@@ -218,8 +324,8 @@ class _Subtask:
                 for cid in self._drain_control():
                     self._source_barrier(cid)
                 op.finish()
-                op.output.broadcast_element(el.EndOfPartition())
-            op.close()
+                self.output.broadcast_element(el.EndOfPartition())
+            self._close_chain()
         except BaseException as exc:  # noqa: BLE001 - reported through join()
             self._fail(exc)
         finally:
@@ -230,6 +336,7 @@ class _Subtask:
         op = self.operator
         gate = self.gate
         executor = self.executor
+        records_in = self.units[0].records_in
         n = self.num_input_channels
         eop = [False] * n
         #: checkpoint id -> channels whose barrier arrived, and the time
@@ -243,25 +350,26 @@ class _Subtask:
                 return
             self.alignment.record(time.monotonic() - barrier_t0.pop(cid))
             self._snapshot_and_ack(cid)
-            op.output.broadcast_element(el.CheckpointBarrier(cid))
+            self.output.broadcast_element(el.CheckpointBarrier(cid))
             del barrier_seen[cid]
             gate.unblock_all()
 
         try:
-            op.open()
+            self._open_chain()
             active = n
             while active > 0 and not executor.cancelled.is_set():
-                # Event-driven wait: a put / wake / close, or the
-                # operator's earliest deadline.
-                deadline = op.next_deadline()
+                # Event-driven wait: a put / wake / close, or the chain's
+                # earliest deadline.
+                deadline = self._chain_next_deadline()
                 timeout = None if deadline is None else max(0.0, deadline - time.monotonic())
                 item = gate.poll(timeout=timeout)
                 self.deliver_notifications()
-                self._fire_due()
+                self._chain_fire_due(time.monotonic())
                 if item is None:
                     continue
                 idx, element = item
                 if isinstance(element, el.StreamRecord):
+                    records_in.mark()
                     op.process_record(element)
                 elif isinstance(element, el.CheckpointBarrier):
                     cid = element.checkpoint_id
@@ -281,8 +389,8 @@ class _Subtask:
                             align(cid)
             if not executor.cancelled.is_set():
                 op.finish()
-                op.output.broadcast_element(el.EndOfPartition())
-            op.close()
+                self.output.broadcast_element(el.EndOfPartition())
+            self._close_chain()
         except BaseException as exc:  # noqa: BLE001 - reported through join()
             self._fail(exc)
         finally:
@@ -291,12 +399,13 @@ class _Subtask:
 
     def _fail(self, exc: BaseException) -> None:
         self.executor.fail(self, exc)
-        try:
-            # Release what open() acquired (a model runner's threads and
-            # device memory); the first error is the one reported.
-            self.operator.close()
-        except Exception:  # noqa: BLE001
-            logger.warning("close after failure of %s failed", self.scope, exc_info=True)
+        for unit in self.units:
+            try:
+                # Release what open() acquired (a model runner's threads and
+                # device memory); the first error is the one reported.
+                unit.operator.close()
+            except Exception:  # noqa: BLE001
+                logger.warning("close after failure of %s failed", unit.scope, exc_info=True)
 
 
 class LocalExecutor:
@@ -311,7 +420,9 @@ class LocalExecutor:
                  checkpoint_timeout_s: float = 60.0,
                  checkpoint_retain_last: typing.Optional[int] = None,
                  max_parallelism: int = 128,
-                 mesh: typing.Any = None):
+                 mesh: typing.Any = None,
+                 chaining: bool = True,
+                 device_resident: bool = False):
         self.graph = graph
         self.mesh = mesh
         self.channel_capacity = channel_capacity
@@ -322,13 +433,18 @@ class LocalExecutor:
         self.checkpoint_timeout_s = checkpoint_timeout_s
         self.checkpoint_retain_last = checkpoint_retain_last
         self.max_parallelism = max_parallelism
+        self.chaining = chaining
+        self.device_resident = device_resident
         #: Periodic trigger interval (set by the environment before start).
         self.checkpoint_interval_s: typing.Optional[float] = None
         self.cancelled = threading.Event()
         self._error: typing.Optional[BaseException] = None
         self._error_lock = threading.Lock()
+        #: One per chain and parallel index: the threads of the job.
         self.subtasks: typing.List[_Subtask] = []
         self._gates: typing.List[InputGate] = []
+        #: The chaining decision (``analysis.chaining.ChainPlan``).
+        self.chain_plan = None
         self.coordinator = CheckpointCoordinator(self, checkpoint_dir)
         self._finished_count = 0
         self._all_done = threading.Event()
@@ -344,11 +460,17 @@ class LocalExecutor:
                     f"keyed operator {t.name!r} parallelism {t.parallelism} exceeds "
                     f"max_parallelism {self.max_parallelism} — key groups would starve "
                     "the subtasks above the bound; raise JobConfig.max_parallelism")
-        # Channel layout per transformation: a forward edge contributes one
-        # channel to each gate, any other edge one per upstream subtask.
+        plan = compute_chains(self.graph, enabled=self.chaining)
+        self.chain_plan = plan
+        chain_by_head = {chain[0].id: chain for chain in plan.chains}
+        heads = [t for t in order if t.id in chain_by_head]
+
+        # Channel layout per chain head (a fused edge has no channel): a
+        # forward edge contributes one channel to each gate, any other
+        # edge one per upstream subtask.
         channel_base: typing.Dict[typing.Tuple[int, int], int] = {}
         gate_size: typing.Dict[int, int] = {}
-        for t in order:
+        for t in heads:
             base = 0
             for edge_idx, edge in enumerate(t.inputs):
                 channel_base[(t.id, edge_idx)] = base
@@ -362,9 +484,12 @@ class LocalExecutor:
                     base += edge.upstream.parallelism
             gate_size[t.id] = base
 
+        # One subtask per chain per parallel index; members share their
+        # head's index (fusion needs equal parallelism).
         gates: typing.Dict[typing.Tuple[int, int], InputGate] = {}
-        by_t: typing.Dict[int, typing.List[_Subtask]] = {}
-        for t in order:
+        by_head: typing.Dict[int, typing.List[_Subtask]] = {}
+        for t in heads:
+            chain = chain_by_head[t.id]
             subtasks = []
             for i in range(t.parallelism):
                 gate = None
@@ -372,16 +497,19 @@ class LocalExecutor:
                     gate = InputGate(gate_size[t.id], capacity=self.channel_capacity)
                     gates[(t.id, i)] = gate
                     self._gates.append(gate)
-                subtasks.append(_Subtask(self, t, i, t.operator_factory(), gate,
-                                         gate_size[t.id]))
-            by_t[t.id] = subtasks
+                operators = [member.operator_factory() for member in chain]
+                subtasks.append(_Subtask(self, chain, i, operators, gate, gate_size[t.id]))
+            by_head[t.id] = subtasks
 
-        for t in order:
+        # Only a chain's tail writes to channels: every edge out of it
+        # targets another chain's head gate.
+        for t in heads:
+            tail = chain_by_head[t.id][-1]
             downstream = [(d, edge_idx, edge)
                           for d in self.graph.transformations
                           for edge_idx, edge in enumerate(d.inputs)
-                          if edge.upstream.id == t.id]
-            for st in by_t[t.id]:
+                          if edge.upstream.id == tail.id]
+            for st in by_head[t.id]:
                 edges = []
                 for d, edge_idx, edge in downstream:
                     base = channel_base[(d.id, edge_idx)]
@@ -393,24 +521,61 @@ class LocalExecutor:
                     # Stateful partitioners (rebalance's round robin) are
                     # per upstream subtask.
                     edges.append((copy.deepcopy(edge.partitioner), writers))
-                device = (self.device_provider(t.name, st.index)
-                          if self.device_provider is not None else None)
-                grp = self.metrics.group(st.scope)
-                st.alignment = grp.histogram("checkpoint_alignment_s")
-                state = KeyedStateStore()
-                ctx = RuntimeContext(t.name, st.index, t.parallelism, grp, device=device,
-                                     keyed_state=state, mesh=self.mesh)
-                if st.gate is not None:
-                    ctx.wakeup = st.gate.wake
-                st.operator.setup(ctx, Output(edges), state)
+                self._wire(st, edges, channel_base)
                 self.subtasks.append(st)
+
+    def _wire(self, st: _Subtask, edges, channel_base) -> None:
+        """Outputs, metrics, runtime contexts and ``setup`` of one chain's
+        members: the tail writes to ``edges``, every other member calls
+        the next through a :class:`ChainedOutput`."""
+        chain_len = len(st.units)
+        for unit in st.units:
+            grp = self.metrics.group(unit.scope)
+            unit.records_in = grp.meter("records_in")
+            unit.records_out = grp.meter("records_out")
+            grp.gauge("chained_edges", lambda n=chain_len - 1: n)
+        st.alignment = self.metrics.group(st.scope).histogram("checkpoint_alignment_s")
+        st.units[-1].output = Output(edges, meter=st.units[-1].records_out)
+        for k in range(chain_len - 1):
+            unit, nxt = st.units[k], st.units[k + 1]
+            accepts = accepts_device_op(nxt.operator)
+            unit.output = ChainedOutput(st, nxt, unit.records_out, accepts_device=accepts)
+            if accepts and self.device_resident and device_capable_op(unit.operator):
+                # The next member consumes device batches: this member's
+                # function may keep its results on the card.
+                unit.operator.function._device_chain_hint = True
+        if st.gate is not None:
+            grp = self.metrics.group(st.scope)
+            # Per-edge queue gauges exist on real channels only: a fused
+            # edge has none, which is what shows it carries no queue.
+            for edge_idx, edge in enumerate(st.t.inputs):
+                span = (1 if isinstance(edge.partitioner, ForwardPartitioner)
+                        else edge.upstream.parallelism)
+                lo = channel_base[(st.t.id, edge_idx)]
+                grp.gauge(f"edge{edge_idx}_{edge.upstream.name}_queue_puts",
+                          lambda g=st.gate, a=lo, b=lo + span: sum(g.puts_per_channel[a:b]))
+        for unit in st.units:
+            device = (self.device_provider(unit.t.name, unit.index)
+                      if self.device_provider is not None else None)
+            state = KeyedStateStore()
+            ctx = RuntimeContext(unit.t.name, unit.index, unit.t.parallelism,
+                                 self.metrics.group(unit.scope), device=device,
+                                 keyed_state=state, mesh=self.mesh)
+            ctx.device_resident = self.device_resident
+            if st.gate is not None:
+                # A runner's fetch thread wakes the one thread that runs
+                # the whole chain, whichever member it belongs to.
+                ctx.wakeup = st.gate.wake
+            unit.operator.setup(ctx, unit.output, state)
 
     # -- restore ---------------------------------------------------------------
     def restore(self, snapshots: typing.Dict[str, typing.Dict[int, typing.Any]],
                 from_checkpoint_id: typing.Optional[int] = None) -> None:
         """Load ``{task: {subtask: snapshot}}`` into the operators before
-        :meth:`start`.  A task whose parallelism changed gets its keyed
-        state redistributed by key group (``Operator.rescale``)."""
+        :meth:`start`.  Snapshots are keyed by logical operator, so a job
+        snapshotted in one chaining layout restores in another.  A task
+        whose parallelism changed gets its keyed state redistributed by
+        key group (``Operator.rescale``)."""
         if from_checkpoint_id is not None:
             # New checkpoints must never overwrite the restore point.
             self.coordinator.resume_from(from_checkpoint_id)
@@ -422,22 +587,23 @@ class LocalExecutor:
                     f"checkpoint was taken with max_parallelism={pinned}; this job uses "
                     f"{self.max_parallelism} — the key-group routing would change and "
                     "orphan keyed state. Restore with the original max_parallelism.")
-        by_task: typing.Dict[str, typing.List[_Subtask]] = {}
+        by_task: typing.Dict[str, typing.List[_ChainedUnit]] = {}
         for st in self.subtasks:
-            by_task.setdefault(st.t.name, []).append(st)
-        for task, subtasks in by_task.items():
+            for unit in st.units:
+                by_task.setdefault(unit.t.name, []).append(unit)
+        for task, units in by_task.items():
             task_snaps = snapshots.get(task)
             if task_snaps is None:
                 continue
-            parallelism = subtasks[0].t.parallelism
-            for st in subtasks:
+            parallelism = units[0].t.parallelism
+            for unit in units:
                 if len(task_snaps) == parallelism:
-                    snap = task_snaps.get(st.index)
+                    snap = task_snaps.get(unit.index)
                     if snap is not None:
-                        st.operator.restore(snap)
+                        unit.operator.restore(snap)
                 else:
-                    st.operator.restore(st.operator.rescale(
-                        task_snaps, st.index, parallelism, self.max_parallelism))
+                    unit.operator.restore(unit.operator.rescale(
+                        task_snaps, unit.index, parallelism, self.max_parallelism))
 
     # -- execution -------------------------------------------------------------
     def start(self) -> None:
@@ -524,5 +690,7 @@ class LocalExecutor:
 
     @property
     def total_subtasks(self) -> int:
-        """The checkpoint coordinator expects one ack per subtask."""
-        return len(self.subtasks)
+        """Logical subtasks, one per operator per parallel index: the
+        checkpoint coordinator expects one ack from each, however chains
+        pack them onto threads."""
+        return sum(len(st.units) for st in self.subtasks)

@@ -6,9 +6,10 @@ identity, parallelism and metric group; keyed state through
 ``device``, the answer of the job's device provider (None: the model
 runner resolves the GPU); ``mesh``, the job's mesh for gang operators,
 and ``num_processes``, the processes of the cohort (always 1: the port
-runs one process); and ``wakeup``, which breaks the subtask loop's
-wait when a model runner's results land (None for sources and bare
-operators).
+runs one process); ``wakeup``, which breaks the subtask loop's
+wait when a model runner's results land (the chain head's gate, shared by
+every member of a worker chain; None for source chains and bare
+operators); and ``device_resident``, the job's residency mode.
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ class RuntimeContext:
         self.num_processes = num_processes
         self._keyed_state = keyed_state if keyed_state is not None else KeyedStateStore()
         self.wakeup: typing.Optional[typing.Callable[[], None]] = None
+        #: ``JobConfig.device_resident``: model functions read it at
+        #: ``open()`` to choose their emission.
+        self.device_resident = False
 
     def state(self, descriptor: StateDescriptor) -> ValueState:
         return self._keyed_state.value_state(descriptor)

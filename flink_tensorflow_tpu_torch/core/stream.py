@@ -2,8 +2,9 @@
 
 Port of ``flink_tensorflow_tpu/core/stream.py``: ``DataStream`` (``:130``)
 with ``map``, ``filter``, ``key_by`` (``:209``), ``rebalance`` (``:212``),
-``count_window`` (``:290``), ``add_sink``, ``sink_to_callable`` (``:316``)
-and ``sink_to_list`` (``:319``); ``KeyedStream`` (``:344``) with
+``count_window`` (``:290``), ``add_sink``, ``sink_to_callable`` (``:316``),
+``sink_to_list`` (``:319``) and the chaining opt-outs
+``start_new_chain`` / ``disable_chaining`` (``:191-205``); ``KeyedStream`` (``:344``) with
 ``process``; and ``WindowedStream.apply`` (``:533``).
 """
 
@@ -110,6 +111,18 @@ class DataStream:
         func = f if isinstance(f, fn.FilterFunction) else _LambdaFilter(f)
         return DataStream(self.env, self._add_op(name, lambda: FilterOperator(name, func),
                                                  parallelism))
+
+    def start_new_chain(self) -> "DataStream":
+        """Pin this operator as the head of a new chain: it never fuses
+        with its upstream, though it may still fuse with what follows."""
+        self.transformation.chain_start = True
+        return self
+
+    def disable_chaining(self) -> "DataStream":
+        """Keep this operator out of chains on both sides: it runs on its
+        own thread behind its own input gate."""
+        self.transformation.chainable = False
+        return self
 
     def key_by(self, key_selector: typing.Callable[[typing.Any], typing.Any]) -> "KeyedStream":
         return KeyedStream(self.env, self.transformation, key_selector)

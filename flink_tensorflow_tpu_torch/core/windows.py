@@ -31,6 +31,12 @@ class Trigger:
         """Processing-time deadline at which the window must flush, or None."""
         return None
 
+    def has_deadlines(self) -> bool:
+        """Whether this trigger can ever declare a wall-clock deadline:
+        arrival-driven triggers keep the base ``deadline`` and say no, so
+        their windows may fuse into a source chain."""
+        return type(self).deadline is not Trigger.deadline
+
 
 class CountTrigger(Trigger):
     def __init__(self, count: int):

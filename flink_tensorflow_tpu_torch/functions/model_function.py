@@ -22,22 +22,39 @@ completed batch (a completion wake, deadline 0.0) does not restart that
 timer: only the idle deadline proper does, so completions in a lull never
 push out the dispatch of a buffered partial micro-batch.
 
+Device-resident dataflow (``:69-70``, ``:259-265``, ``:345``): both
+functions can leave a batch's outputs on the device as one
+``DeviceBatch`` when the next fused operator consumes it
+(``device_resident``: True forces it, False forbids it, None follows
+``JobConfig.device_resident`` where the executor marked such a
+consumer), and ``ModelMapFunction`` feeds an upstream ``DeviceBatch``
+straight to its method.  :class:`DeviceMapFunction` (``:890-944``) is the
+elementwise link of such a chain: a torch ``dict -> dict`` callable
+applied to the batch on its device.
+
 Options of the reference that this port does not have yet raise
 ``NotImplementedError`` instead of being ignored: the zero-copy
 ``TensorRing`` path (``use_ring=True``), ``transfer_lanes > 1``,
-``wire_dtype``, ``device_resident`` and ``stamp_stages``.
+``wire_dtype`` and ``stamp_stages``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import typing
+
+import numpy as np
+import torch
 
 from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.functions.runner import CompiledMethodRunner
 from flink_tensorflow_tpu_torch.models.base import Model
 from flink_tensorflow_tpu_torch.models.loaders import SavedModelLoader
 from flink_tensorflow_tpu_torch.tensors.batching import BucketLadder, BucketPolicy
+from flink_tensorflow_tpu_torch.tensors.transfer import DeviceBatch
+from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
 ModelSource = typing.Union[Model, str, SavedModelLoader, typing.Callable[[], Model]]
 
@@ -59,6 +76,11 @@ def _not_ported(option: str, reason: str) -> NotImplementedError:
 
 
 class _ModelFunctionBase(fn.RichFunction):
+    #: Residency markers (``analysis/chaining.py`` and the executor): the
+    #: function can produce device batches, and consume them.
+    device_capable = True
+    accepts_device_batches = True
+
     def __init__(
         self,
         model: ModelSource,
@@ -77,8 +99,6 @@ class _ModelFunctionBase(fn.RichFunction):
             raise _not_ported("transfer_lanes > 1", "the runner has one transfer lane pair")
         if stamp_stages:
             raise _not_ported("stamp_stages", "per-record stage stamps are not recorded")
-        if device_resident:
-            raise _not_ported("device_resident", "results always return to the host")
         if wire_dtype is not None:
             raise _not_ported("wire_dtype", "the H2D ships the schema's dtype")
         self._source = model
@@ -87,6 +107,12 @@ class _ModelFunctionBase(fn.RichFunction):
         self._warmup = tuple(warmup_batches)
         self._warmup_length_bucket = warmup_length_bucket
         self._outputs = outputs
+        #: True forces device-batch output, False forbids it, None follows
+        #: JobConfig.device_resident where the next fused operator
+        #: consumes device batches (``_device_chain_hint``, set by the
+        #: executor).
+        self._device_resident = device_resident
+        self._device_chain_hint = False
         self.runner: typing.Optional[CompiledMethodRunner] = None
         self._out: typing.Optional[fn.Collector] = None
 
@@ -113,6 +139,14 @@ class _ModelFunctionBase(fn.RichFunction):
         self.runner = CompiledMethodRunner(model, self._method_name, policy=self._policy,
                                            output_names=self._outputs)
         self.runner.open(ctx)
+        # Leaving results on the device pays only where the next fused
+        # operator consumes them: into a host consumer it would move the
+        # same D2H onto the subtask thread.
+        if self._device_resident is not None:
+            self.runner.emit_device_batches = self._device_resident
+        else:
+            self.runner.emit_device_batches = bool(
+                getattr(ctx, "device_resident", False) and self._device_chain_hint)
         # Completed results wake the subtask loop at once.
         self.runner.on_results_ready = getattr(ctx, "wakeup", None)
         if self._warmup:
@@ -169,9 +203,22 @@ class ModelMapFunction(_ModelFunctionBase, fn.AsyncMapFunction):
 
     def map_async(self, value, out: fn.Collector):
         self._out = out
-        self._buf.append(value)
-        if len(self._buf) >= self._micro_batch:
+        if getattr(value, "is_device_batch", False):
+            # A batch on the device from the fused upstream model: it
+            # skips the micro-batch buffer and feeds the method as it is
+            # (no D2H upstream, no H2D here).  The buffer goes first, so
+            # results keep arrival order.
             self._dispatch_buf()
+            if not self.runner.dispatch_device(value):
+                # Not the method's schema: the D2H runs here, and the
+                # records take the host path in micro-batches.
+                records = value.materialize()
+                for i in range(0, len(records), self._micro_batch):
+                    self.runner.dispatch(records[i:i + self._micro_batch])
+        else:
+            self._buf.append(value)
+            if len(self._buf) >= self._micro_batch:
+                self._dispatch_buf()
         self._last_activity = time.monotonic()
         for record in self.runner.collect_progress(self._max_in_flight):
             out.collect(record)
@@ -229,6 +276,11 @@ class ModelMapFunction(_ModelFunctionBase, fn.AsyncMapFunction):
 class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
     """Micro-batch inference: one device call per fired window (chunked
     when the window exceeds the policy's biggest bucket)."""
+
+    #: A window counts elements: a device batch would count as one, so
+    #: device batches materialize before they enter a window.  The
+    #: function still produces them for a consumer fused behind it.
+    accepts_device_batches = False
 
     def __init__(self, model, method: str = "serve", *,
                  pipeline_depth: typing.Optional[int] = None,
@@ -301,3 +353,74 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
             for record in self.runner.flush():
                 self._out.collect(record)
         return None
+
+
+class DeviceMapFunction(fn.MapFunction):
+    """Elementwise map on the device: the resident link of a chain.
+
+    Wraps a torch ``dict -> dict`` callable over ``[B, ...]`` tensors.
+    Fed a :class:`~flink_tensorflow_tpu_torch.tensors.transfer.DeviceBatch`
+    (fused behind a device-resident model), it runs on the batch where it
+    lies, on its own stream after the producer's, and passes a
+    DeviceBatch on: the hop moves no bytes across the bus.  Fed a host
+    record, it lifts the record to a batch of one on its device and
+    returns a host record (counted as one ``h2d_batches`` and one
+    ``d2h_batches``): the same answer, another residency.  The callable
+    runs as written, under ``inference_mode``; it must not keep state."""
+
+    device_capable = True
+    accepts_device_batches = True
+
+    def __init__(self, tensor_fn: typing.Callable[[typing.Mapping[str, torch.Tensor]],
+                                                  typing.Mapping[str, torch.Tensor]]):
+        self._fn = tensor_fn
+        self.device: typing.Optional[torch.device] = None
+        self._stream: typing.Optional[torch.cuda.Stream] = None
+        self._metrics = None
+
+    def clone(self) -> "fn.Function":
+        import copy
+
+        dup = copy.copy(self)
+        dup._stream = None
+        return dup
+
+    def open(self, ctx) -> None:
+        self.device = resolve_device(getattr(ctx, "device", None))
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+        self._metrics = getattr(ctx, "metrics", None)
+
+    def close(self) -> None:
+        self._stream = None
+
+    def map(self, value):
+        if getattr(value, "is_device_batch", False):
+            return self._map_batch(value)
+        if not isinstance(value, TensorValue):
+            raise TypeError(f"DeviceMapFunction maps tensor records, got {type(value).__name__}")
+        lifted = {n: torch.from_numpy(np.array(a)[None]).to(self.device)
+                  for n, a in value.fields.items()}
+        with torch.inference_mode():
+            out = self._fn(lifted)
+        host = {n: t[0].detach().cpu().numpy() for n, t in out.items()}
+        m = self._metrics
+        if m is not None:
+            m.counter("h2d_batches").inc()
+            m.counter("h2d_bytes").inc(sum(a.nbytes for a in value.fields.values()))
+            m.counter("d2h_batches").inc()
+            m.counter("d2h_bytes").inc(sum(a.nbytes for a in host.values()))
+        return TensorValue(host, value.meta)
+
+    def _map_batch(self, batch: DeviceBatch) -> DeviceBatch:
+        stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext())
+        ready = None
+        with stream, torch.inference_mode():
+            batch.wait_on(self._stream)
+            out = self._fn({n: t.to(self.device) for n, t in batch.tensors.items()})
+            if self._stream is not None:
+                ready = torch.cuda.Event(blocking=True)
+                ready.record(self._stream)
+        return DeviceBatch(out, batch.valid, batch.metas, timestamp=batch.timestamp,
+                           ready=ready, metrics=self._metrics)

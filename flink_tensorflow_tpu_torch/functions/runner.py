@@ -12,7 +12,13 @@ the runner's compute stream without waiting; a fetch thread waits on each
 batch's own event, in dispatch order, and hands per-record results to the
 collecting (subtask) thread.  On the card every call runs under
 ``inference_mode``, and ``warmup`` runs on every dispatch lane, so cuDNN's
-algorithm choice and plans are made before the first live window.
+algorithm choice and plans are made before the first live window.  With
+``emit_device_batches`` (``:1049``) a batch's outputs stay on the device:
+the fetch thread waits for the compute only and hands out one
+:class:`~flink_tensorflow_tpu_torch.tensors.transfer.DeviceBatch`, and
+``dispatch_device`` (``:1411``) feeds an upstream one straight to the
+method, with no H2D.  Per batch the runner counts ``h2d_batches`` or
+``h2d_elided_batches``, and ``d2h_batches`` or ``fetch_elided_batches``.
 
 :class:`DecodeStepRunner` is the serving plane's decode dispatch (and
 what ``_build_decode_calls`` compiled for it):
@@ -49,7 +55,13 @@ import torch
 from flink_tensorflow_tpu_torch.models.base import Model
 from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
-from flink_tensorflow_tpu_torch.tensors.transfer import DeviceTransfer, torch_dtype
+from flink_tensorflow_tpu_torch.tensors.batching import Batch
+from flink_tensorflow_tpu_torch.tensors.transfer import (
+    DeviceBatch,
+    DeviceTransfer,
+    FetchHandle,
+    torch_dtype,
+)
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
@@ -217,7 +229,11 @@ class DecodeStepRunner:
             self.device_block_moves += 1
             return self._kc[slot].clone(), self._vc[slot].clone()
         self.block_d2h_events += 1
-        return self._kc[slot].cpu().numpy(), self._vc[slot].cpu().numpy()
+        # A copy even when the pool is on the CPU (where ``.cpu()`` returns
+        # the pool's own view): a snapshot or a preempted block must not
+        # change when the slot is written again.
+        return (self._kc[slot].to("cpu", copy=True).numpy(),
+                self._vc[slot].to("cpu", copy=True).numpy())
 
     def insert_block(self, slot: int, k, v) -> None:
         """One session's cache back into the pool.  Host arrays pay the
@@ -264,6 +280,14 @@ def release_cudnn_heuristics() -> None:
             torch.backends.cudnn.benchmark = _cudnn_saved_benchmark
 
 
+def _on_device(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` lies on ``device``; a device without an index
+    (``cuda``) stands for the card tensors land on by default."""
+    if t.device.type != device.type:
+        return False
+    return device.index is None or t.device.index == device.index
+
+
 class _FetchError:
     """Completed-queue marker for a batch whose lane work or fetch failed;
     the exception re-raises on the collecting thread."""
@@ -296,6 +320,9 @@ class CompiledMethodRunner:
         self.policy = policy or BucketPolicy()
         self.device = device
         self.output_names = tuple(output_names) if output_names is not None else None
+        #: Leave each batch's outputs on the device as one DeviceBatch
+        #: (no D2H); set by the model function at open().
+        self.emit_device_batches = False
         self._module = None
         self._call = None
         self._stream: typing.Optional[torch.cuda.Stream] = None
@@ -450,7 +477,7 @@ class CompiledMethodRunner:
             shipped = self._transfer.assemble_and_ship(
                 records, self.method.input_schema, self.policy)
             t_h2d = time.monotonic()
-            handle = self._transfer.start_fetch(self._call(shipped.inputs, shipped.lengths))
+            handle = self._finish_launch(self._call(shipped.inputs, shipped.lengths))
         t_c = time.monotonic()
         assemble_s = shipped.assemble_s
         timings = {
@@ -464,6 +491,63 @@ class CompiledMethodRunner:
             "pinned_allocations": shipped.pinned_allocations,
         }
         return shipped.batch, handle, timings
+
+    def _finish_launch(self, outputs) -> FetchHandle:
+        if self.emit_device_batches:
+            return self._transfer.keep_on_device(outputs)
+        return self._transfer.start_fetch(outputs)
+
+    # -- device-resident input ---------------------------------------------
+    def can_accept_device(self, dbatch: DeviceBatch) -> bool:
+        """Whether an upstream DeviceBatch can feed the method as it is:
+        every schema field among its tensors, on this runner's device,
+        with the schema's static trailing shape.  A dtype may differ (the
+        call casts it first).  A method that takes per-record lengths
+        stays on the host path."""
+        if self.method.needs_lengths:
+            return False
+        schema = self.method.input_schema
+        for name in schema.names:
+            t = dbatch.tensors.get(name)
+            if t is None or not _on_device(t, self.device):
+                return False
+            want = schema[name].shape
+            got = tuple(t.shape[1:])
+            if len(got) != len(want) or any(d is not None and d != g
+                                            for d, g in zip(want, got)):
+                return False
+        return True
+
+    def dispatch_device(self, dbatch: DeviceBatch) -> bool:
+        """Launch the method on an upstream DeviceBatch with no H2D.
+        Returns False, and counts ``device_batch_host_fallbacks``, when
+        the batch does not fit the schema: the caller then materializes
+        it and takes the host path."""
+        if self._call is None:
+            raise RuntimeError("runner not opened")
+        if not self.can_accept_device(dbatch):
+            if self._metrics is not None:
+                self._metrics.counter("device_batch_host_fallbacks").inc()
+            return False
+        self._enqueue(self._pool.submit(self._launch_device, dbatch, time.monotonic()))
+        return True
+
+    def _launch_device(self, dbatch: DeviceBatch, t0: float):
+        """The lane work of :meth:`dispatch_device`: the compute stream
+        waits for the producer, then the method runs on its tensors."""
+        stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext())
+        t_b = time.monotonic()
+        with stream, torch.inference_mode():
+            dbatch.wait_on(self._stream)
+            inputs = {n: dbatch.tensors[n] for n in self.method.input_schema.names}
+            handle = self._finish_launch(self._call(inputs, {}))
+        timings = {
+            "t0": t0, "assemble_s": 0.0, "dispatch_s": time.monotonic() - t_b,
+            "h2d_s": 0.0, "h2d_bytes": 0, "pinned_allocations": 0, "h2d_elided": True,
+        }
+        shell = Batch(arrays={}, valid=dbatch.valid, lengths={}, metas=dbatch.metas)
+        return shell, handle, timings
 
     # -- background fetch ---------------------------------------------------
     def _fetch_loop(self) -> None:
@@ -493,15 +577,35 @@ class CompiledMethodRunner:
     def _process_item(self, item: concurrent.futures.Future) -> typing.List[TensorValue]:
         batch, handle, timings = item.result()  # re-raises lane-thread failures here
         t_fetch = time.monotonic()
-        host = self._transfer.finish_fetch(handle)   # this batch's event only
+        if handle.on_device:
+            # The compute's event is the pipeline-depth barrier the D2H
+            # gave; the outputs leave as one batch, still on the device.
+            if handle.done is not None:
+                handle.done.synchronize()
+            results = [DeviceBatch(handle.host, batch.valid, batch.metas,
+                                   ready=handle.done, metrics=self._metrics)]
+            d2h_bytes = None
+        else:
+            host = self._transfer.finish_fetch(handle)   # this batch's event only
+            results = batch.unbatch(host)
+            d2h_bytes = sum(a.nbytes for a in host.values())
         t_done = time.monotonic()
-        results = batch.unbatch(host)
         dt = t_done - timings["t0"]
         m = self._metrics
         if m is not None:
-            m.meter("records").mark(len(results))
+            if timings.get("h2d_elided"):
+                m.counter("h2d_elided_batches").inc()
+            else:
+                m.counter("h2d_batches").inc()
+            if d2h_bytes is None:
+                m.counter("fetch_elided_batches").inc()
+            else:
+                m.counter("d2h_batches").inc()
+                m.counter("d2h_bytes").inc(d2h_bytes)
+            n = batch.num_records
+            m.meter("records").mark(n)
             m.histogram("batch_latency_s").record(dt)
-            m.histogram("record_latency_s").record(dt / max(1, len(results)))
+            m.histogram("record_latency_s").record(dt / max(1, n))
             m.histogram("assemble_s").record(timings["assemble_s"])
             m.histogram("dispatch_s").record(timings["dispatch_s"])
             m.histogram("h2d_s").record(timings["h2d_s"])

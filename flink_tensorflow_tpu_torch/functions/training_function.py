@@ -374,6 +374,10 @@ class DPTrainWindowFunction(fn.WindowFunction):
     mesh's data axis must divide).  The state is updated in place on the
     mesh device (the reference donates it)."""
 
+    #: The gang owns the mesh and blocks in its step: the chaining pass
+    #: never fuses it with a neighbour (``analysis/chaining.py``).
+    is_gang = True
+
     def __init__(self, model_def: ModelDef, optimizer=None, *, train_schema: RecordSchema,
                  global_batch: int, seed: int = 0, pipeline_depth: int = 2):
         if pipeline_depth < 1:

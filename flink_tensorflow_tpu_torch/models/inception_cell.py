@@ -45,15 +45,26 @@ def inception_cell(seed: int = 0, records: int = RECORDS):
 
 def run_cell(model, records: typing.Sequence[TensorValue], *, device_provider=None,
              warmup: bool = True, timeout: float = 600.0):
-    """Run the cell's job once.  Returns ``(results, sink arrival times,
-    metric report, seconds of execute())``."""
+    """Run the cell's job once in the default layout.  Returns
+    ``(results, sink arrival times, metric report, seconds of
+    execute())``; :func:`run_cell_job` returns the whole ``CellRun`` and
+    picks the layout."""
+    run = run_cell_job(model, records, device_provider=device_provider, warmup=warmup,
+                       timeout=timeout)
+    return run.results, run.arrivals, run.metrics, run.seconds
+
+
+def run_cell_job(model, records: typing.Sequence[TensorValue], *, device_provider=None,
+                 warmup: bool = True, timeout: float = 600.0, chaining: bool = True):
+    """Run the cell's job once (``chaining=False``: one thread per
+    operator) and return its ``CellRun``."""
     fn = ModelWindowFunction(model, policy=BucketPolicy(fixed_batch=BATCH),
                              warmup_batches=(BATCH,) if warmup else (),
                              outputs=("label", "score"), pipeline_depth=DEPTH)
-    run = run_job(records, lambda s: s.count_window(BATCH, timeout_s=TIMEOUT_S)
-                  .apply(fn, name="inception"),
-                  device_provider=device_provider, timeout=timeout)
-    return run.results, run.arrivals, run.metrics, run.seconds
+    return run_job(records, lambda s: s.count_window(BATCH, timeout_s=TIMEOUT_S)
+                   .apply(fn, name="inception"),
+                   device_provider=device_provider, timeout=timeout,
+                   config={"chaining": chaining})
 
 
 def trailing_exclude(records: int = RECORDS) -> int:

@@ -21,20 +21,27 @@ from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 @dataclasses.dataclass
 class CellRun:
     """One run of a cell's job: results in sink order, their sink arrival
-    times, the job's metric report and the seconds ``execute()`` took."""
+    times, the job's metric report, the seconds ``execute()`` took, and
+    its layout: subtask threads, input gates and the chain plan."""
 
     results: typing.List[TensorValue]
     arrivals: typing.List[float]
     metrics: typing.Dict[str, typing.Any]
     seconds: float
+    threads: int = 0
+    gates: int = 0
+    plan: str = ""
 
 
 def run_job(records: typing.Sequence[TensorValue],
             build: typing.Callable[[DataStream], DataStream], *,
-            device_provider=None, timeout: float = 600.0) -> CellRun:
+            device_provider=None, timeout: float = 600.0,
+            config: typing.Optional[typing.Dict[str, typing.Any]] = None) -> CellRun:
     """``from_collection(records) -> build(stream) -> timed sink``, run
-    once (sources and sink at parallelism 1)."""
+    once (sources and sink at parallelism 1); ``config`` holds
+    ``JobConfig`` fields (``chaining``, ``device_resident``)."""
     env = StreamExecutionEnvironment(parallelism=1)
+    env.configure(**(config or {}))
     if device_provider is not None:
         env.set_device_provider(device_provider)
     results: typing.List[TensorValue] = []
@@ -46,8 +53,11 @@ def run_job(records: typing.Sequence[TensorValue],
 
     build(env.from_collection(records, parallelism=1)).sink_to_callable(sink)
     t0 = time.monotonic()
-    job = env.execute(timeout=timeout)
-    return CellRun(results, arrivals, job.metrics, time.monotonic() - t0)
+    handle = env.execute_async()
+    job = handle.wait(timeout)
+    ex = handle.executor
+    return CellRun(results, arrivals, job.metrics, time.monotonic() - t0,
+                   len(ex.subtasks), len(ex._gates), ex.chain_plan.describe())
 
 
 def steady_rps(arrivals: typing.Sequence[float], total_records: int, first_batch: int,

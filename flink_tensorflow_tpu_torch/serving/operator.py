@@ -233,6 +233,10 @@ class ContinuousBatchingOperator(Operator):
         self._sched.enqueue(key)
 
     # -- timer-driven step loop -------------------------------------------
+    @property
+    def uses_timers(self) -> bool:
+        return True
+
     def next_deadline(self) -> typing.Optional[float]:
         # Epoch-zero deadline = fire on the very next loop iteration.
         return 0.0 if (self._sched is not None and self._sched.has_work) else None

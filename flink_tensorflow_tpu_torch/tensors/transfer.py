@@ -25,6 +25,12 @@ kept with explicit streams and events:
 On the CPU (a provider that returns ``cpu``) the same calls run the
 plain path: the staging buffers are ordinary numpy arrays shared with the
 tensors, and the fetch is a conversion.
+
+:class:`DeviceBatch` (JAX ``:192-300``) is a batch of outputs left on the
+device for the next fused operator (``JobConfig.device_resident``): its
+consumer waits on the producer's event and marks the tensors as used on
+its own stream before it launches, and the first host-only consumer
+materializes it, once.
 """
 
 from __future__ import annotations
@@ -97,14 +103,112 @@ class Shipped(typing.NamedTuple):
 
 class FetchHandle:
     """Outputs on their way to the host: pinned buffers and the event
-    recorded after their copies (None on the CPU)."""
+    recorded after their copies (None on the CPU).  With ``on_device``
+    the tensors are the outputs themselves, left on the device, and the
+    event marks the end of the computation that wrote them."""
 
-    __slots__ = ("host", "done")
+    __slots__ = ("host", "done", "on_device")
 
     def __init__(self, host: typing.Dict[str, torch.Tensor],
-                 done: typing.Optional[torch.cuda.Event]):
+                 done: typing.Optional[torch.cuda.Event], on_device: bool = False):
         self.host = host
         self.done = done
+        self.on_device = on_device
+
+
+class DeviceBatch:
+    """A micro-batch of outputs left on the producer's device, riding the
+    chain as one record.
+
+    ``tensors`` are ``[B, ...]`` tensors written on the producer's stream;
+    ``ready`` is the event recorded after that work (None on the CPU).
+    ``valid`` and ``metas`` are the batch's bookkeeping: pad rows and each
+    record's metadata.  A fused operator that declares
+    ``accepts_device_batches`` consumes the tensors in place: it calls
+    :meth:`wait_on` with its own stream first, so its kernels run after
+    the producer's and the caching allocator keeps the blocks until its
+    own work on them is done.  Any other consumer gets host records: the
+    runtime calls :meth:`materialize` at the boundary, and the D2H runs
+    there once (counted as ``d2h_batches`` / ``d2h_bytes`` in ``metrics``,
+    the producing operator's metric group).  Pickling raises: a channel
+    or a checkpoint is a host boundary and materializes first."""
+
+    #: Marker the runtime tests (no import of this module needed).
+    is_device_batch = True
+
+    __slots__ = ("tensors", "valid", "metas", "timestamp", "ready", "_metrics",
+                 "_host", "_lock")
+
+    def __init__(self, tensors: typing.Mapping[str, torch.Tensor], valid: np.ndarray,
+                 metas: typing.Sequence[typing.Mapping[str, typing.Any]], *,
+                 timestamp: typing.Optional[float] = None,
+                 ready: typing.Optional[torch.cuda.Event] = None, metrics=None):
+        self.tensors = dict(tensors)
+        self.valid = valid
+        self.metas = list(metas)
+        #: Timestamp shared by the batch's records.
+        self.timestamp = timestamp
+        self.ready = ready
+        self._metrics = metrics
+        self._host: typing.Optional[typing.List[TensorValue]] = None
+        self._lock = threading.Lock()
+
+    @property
+    def num_records(self) -> int:
+        return int(self.valid.sum())
+
+    @property
+    def padded_size(self) -> int:
+        return int(self.valid.shape[0])
+
+    @property
+    def materialized(self) -> bool:
+        return self._host is not None
+
+    def wait_on(self, stream: typing.Optional[torch.cuda.Stream]) -> None:
+        """Make ``stream`` (a consumer's) wait for the producer's work, and
+        keep the tensors' blocks from reuse until ``stream``'s work that
+        is queued when they are freed has run."""
+        if stream is None:
+            return
+        if self.ready is not None:
+            stream.wait_event(self.ready)
+        for t in self.tensors.values():
+            t.record_stream(stream)
+
+    def materialize(self) -> typing.List[TensorValue]:
+        """The host records, fetched on the first call only: the D2H waits
+        for the producer's event, then copies every tensor to the host."""
+        with self._lock:
+            if self._host is None:
+                if self.ready is not None:
+                    self.ready.synchronize()
+                host = {}
+                for n, t in self.tensors.items():
+                    a = t.detach().cpu().numpy()
+                    a.setflags(write=False)
+                    host[n] = a
+                if self._metrics is not None:
+                    self._metrics.counter("d2h_batches").inc()
+                    self._metrics.counter("d2h_bytes").inc(sum(a.nbytes for a in host.values()))
+                records = []
+                for i in range(self.padded_size):
+                    if self.valid[i]:
+                        records.append(TensorValue({n: a[i] for n, a in host.items()},
+                                                   self.metas[len(records)]))
+                self._host = records
+            return self._host
+
+    def __repr__(self) -> str:
+        inner = ", ".join(f"{k}: {tuple(t.shape)}/{t.dtype}" for k, t in self.tensors.items())
+        state = "materialized" if self._host is not None else "device"
+        return f"DeviceBatch({inner}; n={self.num_records}, {state})"
+
+    def __reduce__(self):
+        raise TypeError(
+            "DeviceBatch is device-resident and never crosses a pickle boundary: "
+            "the runtime materializes it at channels and checkpoints; call "
+            "materialize() for host records")
 
 
 class DeviceTransfer:
@@ -201,6 +305,15 @@ class DeviceTransfer:
         done = torch.cuda.Event(blocking=True)
         done.record(torch.cuda.current_stream(self.device))
         return FetchHandle(host, done)
+
+    def keep_on_device(self, outputs: typing.Mapping[str, torch.Tensor]) -> FetchHandle:
+        """No D2H: record the event after the work queued on the caller's
+        current stream (the computation of ``outputs``)."""
+        done = None
+        if self.cuda:
+            done = torch.cuda.Event(blocking=True)
+            done.record(torch.cuda.current_stream(self.device))
+        return FetchHandle(dict(outputs), done, on_device=True)
 
     @staticmethod
     def finish_fetch(handle: FetchHandle) -> typing.Dict[str, np.ndarray]:

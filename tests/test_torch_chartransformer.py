@@ -127,3 +127,22 @@ def test_runner_matches_jax_runner(models):
         np.testing.assert_allclose(vp, np.asarray(vj), atol=1e-5)
     assert pr.step_h2d_bytes == jr.step_h2d_bytes
     assert pr.block_d2h_events == jr.block_d2h_events == 3
+
+
+def test_host_block_is_not_a_view_of_the_pool(models):
+    """A host block taken from a CPU pool (barrier snapshot, host-mode
+    preemption) keeps its bytes when the slot is written again: a new
+    session prefilled into the slot must not change a pending snapshot."""
+    port, _, _ = models
+    pr = DecodeStepRunner(port, device="cpu", pool_slots=2, capacity=CFG["capacity"],
+                          prompt_buckets=(16,))
+    pr.open()
+    rng = np.random.RandomState(3)
+    first, second = (rng.randint(1, 48, (n,)).astype(np.int32) for n in (7, 9))
+    pr.prefill([first], [7], [0], batch_bucket=1)
+    k, v = pr.extract_block(0, 7, host=True)
+    k_saved, v_saved = k.copy(), v.copy()
+    pr.prefill([second], [9], [0], batch_bucket=1)
+    assert not np.array_equal(pr._kc[0].numpy(), k_saved)
+    np.testing.assert_array_equal(k, k_saved)
+    np.testing.assert_array_equal(v, v_saved)
