@@ -102,7 +102,26 @@ Phases (any failure exits non-zero and prints no result line):
    on and off: one H2D and one D2H per micro-batch on, two off, outputs
    equal bit for bit and to the CPU's f32; H2D/D2H counts and bytes and
    e2e latency p50/p95 of each arm printed;
-10. print one ``kernels`` JSON line, the card line, and the final
+10. paged KV serving (``serving/cell.py:paged_cell``) through the keyed
+   pipeline at the serving cell's full width, every pool on the card and
+   every run's K1 launches equal to layers x (prefill batches + warmup
+   prefills): (a) ``paged_kv=True, page_tokens=16`` with the default 32
+   pages against the dense keyed arm, A B B A, tokens equal to phase 4's,
+   the step H2D within the token, length and table vectors; (b) the
+   oversubscription ladder, 4 seats and a 64-token budget, ``hbm_pages =
+   max(4, demand // f)`` for f in 8, 16, 32, every demotion spilled to
+   disk, each rung's tokens equal to a dense-roomy arm (same seats and
+   buckets, equal to phase 4's), the 8x rung spilling and reviving from
+   disk; (c) prefix sharing on and off on two fleets (a shared 32-token
+   prefix; one 24-token prompt at 2 seats, which must split a page),
+   tokens equal; (d) ``TestPagedFailover``'s schedule at full width (a
+   crash at the 120th event under ``RestartStrategy(max_restarts=2)``,
+   checkpoints every 4 records, tokens equal to the uninterrupted paged
+   run, itself equal to a dense run, and a revival from disk), then
+   phase 6 (c)'s 2 -> 3 rescale with (a)'s config, tokens equal to phase
+   4's; tokens/s, TTFT and decode-step p50/p95, ``step_h2d_bytes`` and
+   every ``kv_*`` counter printed per run;
+11. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -605,6 +624,9 @@ def check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, want, phase
              "subtask_loop_tokens_per_s": phase4["tokens_per_s"],
              "prefill_batches": prefills_a, "k1_launches": launches_a, "card": card}
     print("keyed_serving", json.dumps(row_a), flush=True)
+    dense_keyed = {"tokens_per_s": row_a["tokens_per_s"],
+                   "decode_step_p50_ms": grp.histogram("decode_step_s").percentile(50) * 1e3,
+                   "ttft_p50_ms": grp.histogram("ttft_s").percentile(50) * 1e3}
 
     # (b) failover: count-based checkpoints, one crash, one restart.
     pool_bytes = 2 * 4 * cfg.max_active_seqs * layers * cfg.capacity * mdef.config["embed_dim"]
@@ -691,7 +713,7 @@ def check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, want, phase
                 "cache_sync_max_ms", "recovery_duration_s", "device_bytes_before",
                 "device_bytes_after_failure", "device_bytes_after_restart"):
         print(f"keyed failover {key}: {row_b[key]} | card: {card}")
-    return {"serving_pipeline": launches_a, "serving_failover": launches_b}
+    return {"serving_pipeline": launches_a, "serving_failover": launches_b}, dense_keyed
 
 
 def _flat(tree, prefix=""):
@@ -1709,6 +1731,350 @@ def check_chaining(card, torch, fa, inception, direct):
     return {"chaining_phase9": launches}
 
 
+KV_COUNTERS = ("kv_pages_total", "kv_pages_free", "kv_page_occupancy_pct", "kv_pages_shared",
+               "kv_cow_splits", "kv_indexed_pages", "kv_demoted_sessions",
+               "kv_spilled_sessions", "kv_revived_warm", "kv_revived_cold", "kv_tier_moves")
+
+
+def serving_operators(handle):
+    """The continuous-batching operators of a finished job's executor."""
+    from flink_tensorflow_tpu_torch.serving.operator import ContinuousBatchingOperator
+
+    return [u.operator for st in handle.executor.subtasks for u in st.units
+            if isinstance(u.operator, ContinuousBatchingOperator)]
+
+
+def keyed_arm(torch, fa, model, cfg, requests, name, *, parallelism=1, tap=None,
+              checkpoint_dir=None, every_n=None, restore=None, restart=None,
+              arrivals_out=False):
+    """One run of the keyed serving pipeline (``serving/cell.py:keyed_job``)
+    on the card.  Returns its row: tokens by session, seconds from the
+    first event at the sink to the last, K1's launches, the serving
+    subtask 0's metrics, and the devices of every serving subtask's pool.
+    At parallelism 1 K1 must launch once per layer for every prefill batch
+    and warmup prefill (of every attempt)."""
+    from flink_tensorflow_tpu_torch.functions.runner import PagedDecodeStepRunner
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job
+
+    env, arrivals = keyed_job(model, cfg, requests, parallelism=parallelism, tap=tap)
+    if checkpoint_dir is not None:
+        env.enable_checkpointing(checkpoint_dir, every_n_records=every_n)
+    if tap is not None and restart is not None:
+        env.source_throttle_s = 0.01   # as TestPagedFailover: the crash lands mid-stream
+    fa.flash_attention.launches = 0
+    pools = []
+    if restart is not None:
+        result = env.execute(name, timeout=600, restart_strategy=restart)
+    else:
+        kw = {} if restore is None else {"restore_from": restore[0],
+                                         "restore_checkpoint_id": restore[1]}
+        handle = env.execute_async(name, **kw)
+        result = handle.wait(600)
+        for op in serving_operators(handle):
+            runner = op._runner
+            paged = isinstance(runner, PagedDecodeStepRunner)
+            if paged != cfg.paged_kv:
+                fail(f"{name}: the serving operator ran {type(runner).__name__}")
+            pools.append(runner.device.type)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    rep = env.metric_registry.report()
+    grp = env.metric_registry.group("continuous_batching.0")
+    events = [ev for _, ev in arrivals]
+    seconds = arrivals[-1][0] - arrivals[0][0] if arrivals else 0.0
+    got = tokens_checked(events)
+    ttft, step = grp.histogram("ttft_s"), grp.histogram("decode_step_s")
+    row = {"tokens": sum(len(v) for v in got.values()), "seconds": seconds,
+           "tokens_per_s": sum(len(v) for v in got.values()) / seconds if seconds else None,
+           "ttft_p50_ms": ttft.percentile(50) * 1e3, "ttft_p95_ms": ttft.percentile(95) * 1e3,
+           "decode_step_p50_ms": step.percentile(50) * 1e3,
+           "decode_step_p95_ms": step.percentile(95) * 1e3,
+           "decode_steps": grp.counter("decode_steps").count,
+           "prefill_batches": grp.counter("prefill_batches").count,
+           "step_h2d_bytes": rep.get("continuous_batching.0.step_h2d_bytes"),
+           "k1_launches": launches, "pool_devices": pools,
+           "restarts": getattr(result, "restarts", 0)}
+    if arrivals_out:
+        row["events"] = events
+    for key in KV_COUNTERS:
+        if f"continuous_batching.0.{key}" in rep:
+            row[key] = rep[f"continuous_batching.0.{key}"]
+    if parallelism == 1:
+        warm = (len(cfg.resolved_admit_buckets()) * len(cfg.resolved_prompt_buckets())
+                if cfg.warmup_compile else 0)
+        want = len(model.params.layers) * (row["prefill_batches"] + warm * (row["restarts"] + 1))
+        if launches != want:
+            fail(f"{name}: K1 launches {launches} != {want} (layers x (prefill batches "
+                 f"+ warmup prefills per attempt))")
+    return got, row
+
+
+def decode_step_costs(torch, model, cfg, paged_cfg, requests):
+    """Phase 10 (a): one decode step of the dense and the paged runner at
+    the serving shape (8 slots, 8 sessions prefilled), each from its own
+    runner on the card: kernels and copies per step and their summed
+    device ms from the profiler, and host ms per step (median of 50); the
+    step's H2D bytes from the runner's ``step_h2d_bytes`` across each of
+    five decode steps (the paged step's must be exactly the token, length
+    and table vectors), and the profiler's host-to-device copies and
+    their bytes; and the paged step's tables H2D + gathers + scatters
+    alone, the same two ways."""
+    import statistics
+    import tempfile
+
+    from flink_tensorflow_tpu_torch.functions.runner import (
+        DecodeStepRunner,
+        PagedDecodeStepRunner,
+    )
+    from flink_tensorflow_tpu_torch.ops.paged_attention import gather_pages, scatter_pages
+
+    slots = cfg.max_active_seqs
+    batch = requests[:slots]
+    prompts = [r.prompt for r in batch]
+    lens = [len(p) for p in prompts]
+    runners = {
+        "dense": DecodeStepRunner(model, pool_slots=slots, capacity=cfg.capacity,
+                                  prompt_buckets=cfg.resolved_prompt_buckets(), device="cuda"),
+        "paged": PagedDecodeStepRunner(model, pool_slots=slots, capacity=cfg.capacity,
+                                       page_tokens=paged_cfg.page_tokens,
+                                       num_pages=paged_cfg.resolved_hbm_pages(),
+                                       prompt_buckets=cfg.resolved_prompt_buckets(),
+                                       device="cuda")}
+    row = {}
+
+    def profiled(fn):
+        """Device events of one call of ``fn`` (kernels, copies).  A first
+        call runs as the profiler's warmup: after an earlier profiler
+        session in the process, the first events of a fresh window are
+        lost (measured: the step's first host-to-device copy)."""
+        torch.cuda.synchronize()
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=schedule) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        copies = [e for e in device if "Memcpy" in e.name or "Memset" in e.name]
+        h2d = [e for e in device if "HtoD" in e.name]
+        # Copy sizes are only in the exported trace's event arguments.
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace") as d:
+            prof.export_chrome_trace(os.path.join(d, "step.json"))
+            with open(os.path.join(d, "step.json")) as f:
+                trace = json.load(f)["traceEvents"]
+        sizes = [e.get("args", {}).get("bytes") for e in trace
+                 if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+        h2d_bytes = sum(sizes) if sizes and None not in sizes else None
+        return (device, copies, sum(e.time_range.elapsed_us() for e in device) / 1e3,
+                (len(h2d), len(sizes), h2d_bytes))
+
+    def host_ms(fn):
+        ms = []
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    for name, runner in runners.items():
+        runner.open()
+        first = runner.prefill(prompts, lens, list(range(slots)), batch_bucket=slots)
+        toks = [int(t) for t in first]
+
+        def step(toks=toks, runner=runner, paged=(name == "paged")):
+            if paged:
+                for s in range(slots):
+                    runner.ensure_writable(s, lens[s])
+            return runner.decode_step(toks, lens, list(range(slots)))
+
+        per_step = []
+        for _ in range(5):
+            before = runner.step_h2d_bytes
+            step()
+            per_step.append(runner.step_h2d_bytes - before)
+        if len(set(per_step)) != 1:
+            fail(f"{name} decode step: H2D bytes vary from step to step: {per_step}")
+        device, copies, device_ms, (h2d_copies, traced, h2d_bytes) = profiled(step)
+        row[f"{name}_decode_step_h2d_bytes"] = per_step[0]
+        row[f"{name}_h2d_copies_per_step"] = h2d_copies
+        row[f"{name}_h2d_copies_in_trace"] = traced
+        row[f"{name}_h2d_copy_bytes_per_step"] = h2d_bytes
+        row[f"{name}_kernels_per_step"] = len(device) - len(copies)
+        row[f"{name}_copies_per_step"] = len(copies)
+        row[f"{name}_step_device_ms"] = device_ms
+        row[f"{name}_step_host_ms"] = host_ms(step)
+        if name == "paged":
+            tables = runner.step_tables()
+
+            def gather_scatter(runner=runner):
+                tab = torch.from_numpy(tables).to("cuda").long()
+                kc, vc = gather_pages(runner._kc, tab), gather_pages(runner._vc, tab)
+                scatter_pages(runner._kc, tab, kc, runner.page_tokens)
+                scatter_pages(runner._vc, tab, vc, runner.page_tokens)
+
+            device, copies, device_ms, _ = profiled(gather_scatter)
+            row["gather_scatter_kernels"] = len(device) - len(copies)
+            row["gather_scatter_device_ms"] = device_ms
+            row["gather_scatter_host_ms"] = host_ms(gather_scatter)
+        runner.close()
+    # Per paged decode step: tokens and lengths [S] and tables [S, C/pt],
+    # int32.  Held on the runner's counter; the profiler's copies are
+    # printed beside it but not held, since a profiler window has been
+    # seen to lose events on this card.
+    want = slots * 4 * (2 + cfg.capacity // paged_cfg.page_tokens)
+    if row["paged_decode_step_h2d_bytes"] != want:
+        fail(f"paged decode step: {row['paged_decode_step_h2d_bytes']} B of H2D per step, "
+             f"want {want}: the token, length and table vectors only")
+    row["extra_kernels_per_step"] = row["paged_kernels_per_step"] - row["dense_kernels_per_step"]
+    return row
+
+
+def check_paged_serving(card, torch, fa, model, cfg, requests, want, dense_keyed):
+    """Phase 10: the paged KV pool under ``serving.continuous_batching()``
+    at the serving cell's full width: (a) paged against dense, A B B A;
+    (b) the oversubscription ladder at 8x/16x/32x against a dense-roomy
+    arm; (c) prefix sharing on against off on two fleets; (d) failover
+    with spilled sessions, and a 2 -> 3 rescale.  Returns K1's launches."""
+    import dataclasses
+    import tempfile
+
+    from flink_tensorflow_tpu_torch import RestartStrategy
+    from flink_tensorflow_tpu_torch.checkpoint.store import latest_checkpoint_id
+    from flink_tensorflow_tpu_torch.core.runtime import JobFailure
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job, paged_cell
+
+    t_phase = time.monotonic()
+    launches = {}
+    slots = cfg.max_active_seqs
+    spill_root = tempfile.mkdtemp(prefix="chip_smoke_spill")
+    cell = paged_cell(requests, cfg, spill_root=spill_root)
+
+    def print_row(what, row):
+        print(f"paged {what}", json.dumps({**row, "card": card}), flush=True)
+
+    # (a) serving-paged against the dense keyed arm, A B B A.
+    rows = {"dense": [], "paged": []}
+    for arm in ("dense", "paged", "paged", "dense"):
+        arm_cfg = cell.serving if arm == "paged" else cfg
+        got, row = keyed_arm(torch, fa, model, arm_cfg, requests, f"serving-{arm}")
+        hold_tokens(f"serving-{arm}", got, want, requests, model, torch)
+        if row["pool_devices"] != ["cuda"]:
+            fail(f"serving-{arm}: pools on {row['pool_devices']}, want ['cuda']")
+        rows[arm].append(row)
+    for row in rows["paged"]:
+        n = cell.serving.capacity // cell.serving.page_tokens
+        # Per decode step: tokens, lengths and tables, int32; per prefill
+        # batch at most the largest admit bucket's tokens, lengths and tables.
+        b, t = max(cfg.resolved_admit_buckets()), max(cfg.resolved_prompt_buckets())
+        bound = (row["decode_steps"] * slots * 4 * (2 + n)
+                 + row["prefill_batches"] * b * 4 * (t + 1 + n))
+        row["step_h2d_bound"] = bound
+        row["hbm_pages"] = cell.serving.resolved_hbm_pages()
+        row["demand_pages"] = cell.demand_pages
+        if row["step_h2d_bytes"] > bound:
+            fail(f"serving-paged: step_h2d_bytes {row['step_h2d_bytes']} above the "
+                 f"token, length and table vectors' {bound}")
+    launches["serving_paged"] = rows["paged"][0]["k1_launches"]
+    fa.flash_attention.launches = 0
+    costs = decode_step_costs(torch, model, cfg, cell.serving, requests)
+    launches["paged_step_costs"] = fa.flash_attention.launches
+    for row in rows["paged"]:
+        row["decode_step_h2d_bytes"] = costs["paged_decode_step_h2d_bytes"]
+    print_row("(a) decode step costs", costs)
+    for arm in ("dense", "paged"):
+        for i, row in enumerate(rows[arm]):
+            print_row(f"(a) {arm} run {i + 1}", row)
+    for key in ("tokens_per_s", "decode_step_p50_ms", "ttft_p50_ms"):
+        print(f"paged (a) {key}: paged {[r[key] for r in rows['paged']]} "
+              f"dense {[r[key] for r in rows['dense']]} "
+              f"(phase 6 (a) {dense_keyed.get(key)}) | card: {card}", flush=True)
+
+    # (b) the oversubscription ladder against a dense-roomy arm.
+    roomy, row = keyed_arm(torch, fa, model, cell.dense_roomy, requests, "dense-roomy")
+    hold_tokens("dense-roomy", roomy, want, requests, model, torch)
+    print_row("(b) dense-roomy", row)
+    for factor, rung in cell.ladder:
+        got, row = keyed_arm(torch, fa, model, rung, requests, f"paged-{factor}x")
+        hold_tokens(f"paged-{factor}x", got, roomy, requests, model, torch)
+        row.update(oversubscription=f"{factor}x", hbm_pages=rung.hbm_pages,
+                   demand_pages=cell.demand_pages)
+        print_row(f"(b) {factor}x", row)
+        if factor == 8 and (row["kv_spilled_sessions"] < 1 or row["kv_revived_cold"] < 1):
+            fail(f"paged-8x: spilled {row['kv_spilled_sessions']}, revived from disk "
+                 f"{row['kv_revived_cold']}; the ladder never reached the disk")
+        launches[f"paged_{factor}x"] = row["k1_launches"]
+
+    # (c) prefix sharing on against off.
+    for name, fleet, share_cfg, adoptable in cell.prefix:
+        on, row_on = keyed_arm(torch, fa, model, share_cfg, fleet, f"{name}-on")
+        off, row_off = keyed_arm(torch, fa, model,
+                                 dataclasses.replace(share_cfg, prefix_sharing=False),
+                                 fleet, f"{name}-off")
+        if on != off or len(on) != len(fleet):
+            fail(f"prefix {name}: tokens with sharing differ from without")
+        row_on["share_ratio"] = row_on["kv_pages_shared"] / ((len(fleet) - 1) * adoptable)
+        row_on["adoptable_pages_per_session"] = adoptable
+        print_row(f"(c) {name} on", row_on)
+        print_row(f"(c) {name} off", row_off)
+        if name == "one-prompt" and row_on["kv_cow_splits"] < 1:
+            fail("prefix one-prompt: no copy-on-write split")
+        launches[f"prefix_{name}"] = row_on["k1_launches"] + row_off["k1_launches"]
+
+    # (d) failover with sessions on every rung, then a 2 -> 3 rescale.
+    fo_reqs, fo_cfg = cell.failover_requests, cell.failover
+    ref, row = keyed_arm(torch, fa, model, fo_cfg, fo_reqs, "failover-ref")
+    dense_ref, _ = keyed_arm(torch, fa, model, dataclasses.replace(fo_cfg, paged_kv=False),
+                             fo_reqs, "failover-dense")
+    hold_tokens("failover-ref against dense", ref, dense_ref, fo_reqs, model, torch)
+    if not all(len(v) == 24 for v in ref.values()):
+        fail("failover-ref: a session ended early")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_paged_chk") as d:
+        tap = crash_once(120)
+        got, row = keyed_arm(torch, fa, model, fo_cfg, fo_reqs, "failover", tap=tap,
+                             checkpoint_dir=d, every_n=4,
+                             restart=RestartStrategy(max_restarts=2))
+    if row["restarts"] != 1 or not tap.crashed:
+        fail(f"paged failover: {row['restarts']} restarts (crashed: {tap.crashed}), want 1")
+    hold_tokens("paged failover", got, ref, fo_reqs, model, torch)
+    if row["kv_revived_cold"] < 1:
+        fail("paged failover: no session revived from disk")
+    print_row("(d) failover", row)
+    launches["paged_failover"] = row["k1_launches"]
+
+    # Phase 6 (c)'s rescale with (a)'s paged config: sessions cross
+    # subtasks as host blocks, pages never do.
+    total = sum(len(v) for v in want.values())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_paged_rescale") as d:
+        env1, arrivals1 = keyed_job(model, cell.serving, requests, parallelism=2,
+                                    tap=crash_once(total // 2))
+        env1.enable_checkpointing(d, every_n_records=8)
+        fa.flash_attention.launches = 0
+        try:
+            env1.execute("paged-rescale-1", timeout=600)
+            fail("paged rescale: the first run did not crash")
+        except JobFailure:
+            pass
+        cid = latest_checkpoint_id(d)
+        if cid is None:
+            fail("paged rescale: no checkpoint completed before the crash")
+        restored, row = keyed_arm(torch, fa, model, cell.serving, requests, "paged-rescale-2",
+                                  parallelism=3, restore=(d, cid), arrivals_out=True)
+    if row["pool_devices"] != ["cuda"] * 3:
+        fail(f"paged rescale: pools on {row['pool_devices']}")
+    union = tokens_checked([ev for _, ev in arrivals1] + row.pop("events"))
+    hold_tokens("paged rescale 2->3", union, want, requests, model, torch)
+    if not restored:
+        fail("paged rescale: the restored run emitted no session")
+    print_row("(d) rescale 2->3 restored run", {**row, "restored_from": cid})
+    launches["paged_rescale"] = row["k1_launches"]
+    phase_s = time.monotonic() - t_phase
+    print(f"paged phase_seconds: {phase_s} | card: {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1785,14 +2151,16 @@ def main() -> int:
 
     _, inception, direct = check_inception(card, torch)
 
-    keyed_launches = check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, got,
-                                         serving_row)
+    keyed_launches, dense_keyed = check_keyed_serving(card, torch, fa, mdef, model, cfg,
+                                                      requests, got, serving_row)
 
     training_launches = check_training(card, torch, fa)
 
     stream_launches = check_stream_models(card, torch, fa, inception)
 
     chain_launches = check_chaining(card, torch, fa, inception, direct)
+
+    paged_launches = check_paged_serving(card, torch, fa, model, cfg, requests, got, dense_keyed)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
@@ -1808,7 +2176,8 @@ def main() -> int:
         "bound_by": serving_k1["bound_by"],
         "library_ms": serving_k1["library_ms"],
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
-                             **training_launches, **stream_launches, **chain_launches},
+                             **training_launches, **stream_launches, **chain_launches,
+                             **paged_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

@@ -16,11 +16,12 @@ Ported so far:
   -> ``sink_to_list``, on the port's local executor, with
   ``functions.runner.CompiledMethodRunner``, ``tensors.transfer`` and
   Inception-v3 (``models.zoo.inception``);
-- LLM serving over the dense KV pool: the char transformer,
-  ``DecodeStepRunner``, ``ContinuousBatchingOperator`` and
-  ``serving.continuous_batching`` on a keyed stream (or one keyed subtask
-  driven directly, ``core.runtime.KeyedSubtask``).  The prefill's flash
-  attention is a hand-written CUDA kernel (``csrc/flash_attention.cu``);
+- LLM serving: the char transformer, ``DecodeStepRunner`` (dense KV
+  pool) or ``PagedDecodeStepRunner`` (paged pool, radix prefix sharing,
+  device -> host -> disk session tiering), ``ContinuousBatchingOperator``
+  and ``serving.continuous_batching`` on a keyed stream (or one keyed
+  subtask driven directly, ``core.runtime.KeyedSubtask``).  The prefill's
+  flash attention is a hand-written CUDA kernel (``csrc/flash_attention.cu``);
 - keyed streams and exactly-once state: ``key_by().process()``, keyed
   state, aligned checkpoints (``core.checkpoint``, ``checkpoint.store``),
   restore, restart (``RestartStrategy``) and rescale by key group.

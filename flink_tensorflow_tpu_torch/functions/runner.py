@@ -35,8 +35,14 @@ what ``_build_decode_calls`` compiled for it):
 - per-session blocks cross the pool boundary only at admission
   (``insert_block``) and extraction (``extract_block``).
 
-The decode step always runs the full pool ``[S]`` (inactive rows
-masked), and prefill shapes quantize to the admit x prompt-length grid.
+With ``padding_buckets`` (the default) the decode step always runs the
+full pool ``[S]`` (inactive rows masked) and prefill shapes quantize to
+the admit x prompt-length grid; without it every step runs at its own
+shape (the active rows only, the exact prompt length).
+
+:class:`PagedDecodeStepRunner` (JAX ``_build_paged_calls`` ``:486`` and
+``PagedDecodeStepRunner`` ``:547``) keeps the cache as pages with a block
+table per slot; see its docstring.
 """
 
 from __future__ import annotations
@@ -53,6 +59,13 @@ import numpy as np
 import torch
 
 from flink_tensorflow_tpu_torch.models.base import Model
+from flink_tensorflow_tpu_torch.ops.paged_attention import (
+    dense_to_pages,
+    gather_pages,
+    pages_per_session,
+    pages_to_dense,
+    scatter_pages,
+)
 from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
 from flink_tensorflow_tpu_torch.tensors.batching import Batch
@@ -67,6 +80,8 @@ from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
 if typing.TYPE_CHECKING:
     from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
+    from flink_tensorflow_tpu_torch.serving.kv_cache import KVBlock
+    from flink_tensorflow_tpu_torch.serving.paged import PagedKVHandle
 
 
 class DecodeStepRunner:
@@ -84,12 +99,14 @@ class DecodeStepRunner:
         *,
         pool_slots: int,
         capacity: int,
+        padding_buckets: bool = True,
         prompt_buckets: typing.Optional[typing.Sequence[int]] = None,
         device=None,
     ):
         self.model = model
         self.pool_slots = pool_slots
         self.capacity = capacity
+        self.padding_buckets = padding_buckets
         self.prompt_buckets = tuple(prompt_buckets or ())
         self.device = resolve_device(device)
         self._prefill = model.method("prefill")
@@ -113,11 +130,16 @@ class DecodeStepRunner:
             # (already PyTorch's default; set so no caller's flag leaks in).
             torch.backends.cuda.matmul.allow_tf32 = False
         self._module = copy.deepcopy(self.model.params).to(self.device)
+        self._ensure_pool()
+
+    def _ensure_pool(self) -> None:
+        """Allocate the pool, shaped after the model, zero-filled: masked
+        positions weigh exactly 0 in the attention, and 0 x NaN from
+        uninitialised memory would be NaN."""
         m = self._module
         shape = (self.pool_slots, len(m.layers), self.capacity, m.heads, m.head_dim)
-        dtype = m.emb.dtype
-        self._kc = torch.zeros(shape, dtype=dtype, device=self.device)
-        self._vc = torch.zeros(shape, dtype=dtype, device=self.device)
+        self._kc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
+        self._vc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
 
     def close(self) -> None:
         self._module = None
@@ -129,7 +151,11 @@ class DecodeStepRunner:
         decode step once, so the kernel build and first launches happen
         before the first live session.  Warmup rows go to the
         out-of-range slot (dropped) and the warm decode runs fully masked
-        — the pool stays clean.  Counters and metrics are suppressed."""
+        — the pool stays clean.  Counters and metrics are suppressed.
+        Without ``padding_buckets`` there is no finite set of shapes to
+        warm, and nothing runs."""
+        if not self.padding_buckets:
+            return
         metrics, self._metrics = self._metrics, None
         saved = (self.step_h2d_bytes, self.block_h2d_events,
                  self.block_d2h_events, self.device_block_moves)
@@ -150,6 +176,8 @@ class DecodeStepRunner:
 
     # -- dispatch ----------------------------------------------------------
     def _bucket_len(self, n: int) -> int:
+        if not self.padding_buckets:
+            return max(1, n)
         for b in self.prompt_buckets:
             if n <= b:
                 return b
@@ -198,20 +226,36 @@ class DecodeStepRunner:
         """One decode step over the pool.  ``tokens_by_slot`` /
         ``lengths_by_slot``: ``[S]`` host ints (inactive rows 0);
         ``active_slots``: the slots whose results matter and whose cache
-        rows are written.  Returns ``[S]`` next tokens (host int32)."""
+        rows are written.  Returns ``[S]`` next tokens (host int32).
+
+        Without ``padding_buckets`` the step runs on the active rows only:
+        they are copied out of the pool, stepped and copied back."""
         if self._kc is None:
             raise RuntimeError("decode_step before open()")
         t0 = time.monotonic()
-        mask = np.zeros((self.pool_slots,), bool)
-        mask[list(active_slots)] = True
         toks = np.asarray(tokens_by_slot, np.int32)
         lens = np.asarray(lengths_by_slot, np.int32)
-        self.step_h2d_bytes += toks.nbytes + lens.nbytes + mask.nbytes
-        result = self._decode.fn(self._module, {
-            "token": self._to_device(toks), "lengths": self._to_device(lens),
-            "k_cache": self._kc, "v_cache": self._vc,
-            "active": self._to_device(mask)})
-        out = result["next_token"].cpu().numpy()
+        if self.padding_buckets:
+            mask = np.zeros((self.pool_slots,), bool)
+            mask[list(active_slots)] = True
+            self.step_h2d_bytes += toks.nbytes + lens.nbytes + mask.nbytes
+            result = self._decode.fn(self._module, {
+                "token": self._to_device(toks), "lengths": self._to_device(lens),
+                "k_cache": self._kc, "v_cache": self._vc,
+                "active": self._to_device(mask)})
+            out = result["next_token"].cpu().numpy()
+        else:
+            slots = np.asarray(sorted(active_slots), np.int64)
+            self.step_h2d_bytes += toks[slots].nbytes + lens[slots].nbytes + slots.nbytes
+            rows = self._to_device(slots)
+            kc, vc = self._kc[rows], self._vc[rows]
+            result = self._decode.fn(self._module, {
+                "token": self._to_device(toks[slots]),
+                "lengths": self._to_device(lens[slots]), "k_cache": kc, "v_cache": vc})
+            self._kc[rows] = kc
+            self._vc[rows] = vc
+            out = np.zeros((self.pool_slots,), np.int32)
+            out[slots] = result["next_token"].cpu().numpy()
         t1 = time.monotonic()
         if self._metrics is not None:
             self._metrics.histogram("decode_step_s").record(t1 - t0)
@@ -245,6 +289,332 @@ class DecodeStepRunner:
             self.block_h2d_events += 1
         else:
             self.device_block_moves += 1
+
+
+class PagedDecodeStepRunner(DecodeStepRunner):
+    """Paged variant of :class:`DecodeStepRunner`: the device pool is
+    ``num_pages`` fixed-size pages ``[P, L, page_tokens, H, Dh]`` and every
+    active slot carries a block table instead of owning a contiguous
+    ``[L, C, H, Dh]`` row.
+
+    The step is gather -> the model's dense ``decode_step`` -> scatter
+    (``ops/paged_attention.py``): the math is the dense step's over a
+    materialized dense view, which is what makes paged output
+    byte-identical to the dense pool on the same schedule.  The gathered
+    view is a new contiguous ``[S, L, C, H, Dh]`` tensor (the dense
+    pool's shape and layout), so the step writes into a copy before any
+    byte of the pool changes, and the scatter writes every page of every
+    table back.  The pool has one page more than ``num_pages``: the
+    sentinel id ``num_pages`` names that scratch page, which no table
+    reads, so sentinel entries (inactive and bucket-padding rows,
+    unallocated and prefix-SHARED pages in a prefill's table) scatter
+    into it with no host sync and no mask.  The per-step H2D is the
+    ``[S]`` token and length vectors and the ``[S, C/page_tokens]`` block
+    tables (``step_h2d_bytes``).
+
+    The host-side policy objects
+    (:class:`~flink_tensorflow_tpu_torch.serving.paged.PagedKVPool` free
+    list and refcounts, the radix prefix index) live on this runner; the
+    serving operator drives them through the block-movement methods
+    (park/attach for hot preemption, insert/extract for the warm and cold
+    tiers, ``ensure_writable`` for the copy-on-write check before each
+    step's write position).  Paged mode requires ``padding_buckets``."""
+
+    def __init__(
+        self,
+        model: Model,
+        *,
+        pool_slots: int,
+        capacity: int,
+        page_tokens: int = 16,
+        num_pages: typing.Optional[int] = None,
+        prefix_sharing: bool = True,
+        padding_buckets: bool = True,
+        prompt_buckets: typing.Optional[typing.Sequence[int]] = None,
+        device=None,
+    ):
+        if not padding_buckets:
+            raise ValueError(
+                "paged KV requires padding_buckets — the paged step has "
+                "exactly one [S, C/page_tokens] shape by design")
+        super().__init__(model, pool_slots=pool_slots, capacity=capacity,
+                         padding_buckets=padding_buckets,
+                         prompt_buckets=prompt_buckets, device=device)
+        self.page_tokens = page_tokens
+        self.table_width = pages_per_session(capacity, page_tokens)
+        self.num_pages = (num_pages if num_pages is not None
+                          else pool_slots * self.table_width)
+        if self.num_pages < self.table_width:
+            raise ValueError(
+                f"hbm_pages {self.num_pages} cannot seat even one "
+                f"full-capacity session ({self.table_width} pages) — "
+                "grow the pool or shrink capacity")
+        # The serving package owns the pool's bookkeeping; imported here so
+        # jobs that never serve do not load it.
+        from flink_tensorflow_tpu_torch.serving.paged import PagedKVPool, RadixPrefixIndex
+
+        self.pool = PagedKVPool(self.num_pages, page_tokens)
+        self.index = RadixPrefixIndex(self.pool) if prefix_sharing else None
+        #: Active slot -> block table (logical page i at position i).
+        self._tables: typing.Dict[int, typing.List[int]] = {}
+
+    def close(self) -> None:
+        super().close()
+        self._tables.clear()
+
+    # -- pool geometry -----------------------------------------------------
+    def _ensure_pool(self) -> None:
+        """``num_pages`` pages plus the scratch page, zero-filled."""
+        m = self._module
+        shape = (self.num_pages + 1, len(m.layers), self.page_tokens, m.heads, m.head_dim)
+        self._kc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
+        self._vc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
+
+    def page_nbytes(self) -> typing.Optional[int]:
+        """K+V bytes of ONE page (None before the pool is built)."""
+        if self._kc is None:
+            return None
+        return 2 * self._kc[0].numel() * self._kc.element_size()
+
+    def _alloc(self, n: int) -> typing.Optional[typing.List[int]]:
+        """Allocate ``n`` pages, evicting index-only pages LRU under
+        pressure; None when the pool is genuinely out (the caller's tier
+        machinery demotes parked sessions and retries)."""
+        if n <= 0:
+            return []
+        got = self.pool.alloc(n)
+        if got is None and self.index is not None:
+            self.index.evict_until(n)
+            got = self.pool.alloc(n)
+        return got
+
+    def free_pages_evictable(self) -> int:
+        """Free pages plus what index eviction could free — the admission
+        gate's optimistic bound."""
+        free = self.pool.free_pages
+        if self.index is not None:
+            free += sum(1 for _, _, node in self.index._leaves()
+                        if self.pool.refs[node.page] == 1)
+        return free
+
+    # -- dispatch ----------------------------------------------------------
+    def prefill(self, prompts: typing.Sequence, lengths: typing.Sequence[int],
+                slots: typing.Sequence[int],
+                *, batch_bucket: typing.Optional[int] = None) -> np.ndarray:
+        """Paged prefill: per session, adopt prefix pages from the radix
+        index (refcount bump, no compute), allocate the rest, and scatter
+        the freshly computed K/V ONLY into owned pages (the scatter table
+        carries the sentinel where pages are shared — the first writer's
+        bytes stay authoritative).  Rows whose slot is ``pool_slots``
+        (bucket padding, warmup) are all-sentinel."""
+        n = len(prompts)
+        b = batch_bucket or n
+        t = self._bucket_len(max(int(x) for x in lengths))
+        tokens = np.zeros((b, t), np.int32)
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = p
+        lens = np.zeros((b,), np.int32)
+        lens[:n] = np.asarray(lengths, np.int32)
+        scatter = np.full((b, self.table_width), self.num_pages, np.int32)
+        for i, (p, ln, slot) in enumerate(zip(prompts, lengths, slots)):
+            slot = int(slot)
+            if slot >= self.pool_slots:
+                continue  # warmup pad row: all-sentinel
+            adopted: typing.List[int] = []
+            if self.index is not None:
+                full, partial = self.index.match(p)
+                adopted = full + ([partial] if partial is not None else [])
+            own_n = self.pool.pages_for(int(ln)) - len(adopted)
+            own = self._alloc(own_n)
+            if own is None:
+                self.pool.release(adopted)
+                raise RuntimeError(
+                    f"paged KV pool exhausted at prefill: need {own_n} "
+                    f"pages, {self.pool.free_pages} free — the admission "
+                    "gate should have held this session back")
+            table = adopted + own
+            self._tables[slot] = table
+            scatter[i, len(adopted):len(table)] = table[len(adopted):]
+        t0 = time.monotonic()
+        out = self._prefill.fn(self._module, {"tokens": self._to_device(tokens),
+                                              "lengths": self._to_device(lens)})
+        tables = self._to_device(scatter).long()
+        for pool, new in ((self._kc, out["k_cache"]), (self._vc, out["v_cache"])):
+            layers, heads, hd = new.shape[1], new.shape[3], new.shape[4]
+            dense = torch.zeros((b, layers, self.capacity, heads, hd),
+                                dtype=pool.dtype, device=self.device)
+            dense[:, :, :t] = new
+            scatter_pages(pool, tables, dense, self.page_tokens)
+        host = out["next_token"].cpu().numpy()[:n]
+        t1 = time.monotonic()
+        self.step_h2d_bytes += tokens.nbytes + lens.nbytes + scatter.nbytes
+        if self._metrics is not None:
+            self._metrics.histogram("prefill_s").record(t1 - t0)
+            self._metrics.counter("prefill_batches").inc()
+        return host
+
+    def step_tables(self) -> np.ndarray:
+        """``[S, C/page_tokens]`` int32 block tables of the next step
+        (sentinel ``num_pages`` where a slot has no page)."""
+        tables = np.full((self.pool_slots, self.table_width), self.num_pages, np.int32)
+        for slot, table in self._tables.items():
+            tables[slot, :len(table)] = table
+        return tables
+
+    def decode_step(self, tokens_by_slot, lengths_by_slot, active_slots) -> np.ndarray:
+        """One paged decode step: the block tables ride the per-step H2D
+        beside the token and length vectors; rows without a table
+        (inactive, warmup) gather and scatter the scratch page only."""
+        if self._kc is None:
+            raise RuntimeError("decode_step before open()")
+        t0 = time.monotonic()
+        tables = self.step_tables()
+        toks = np.asarray(tokens_by_slot, np.int32)
+        lens = np.asarray(lengths_by_slot, np.int32)
+        self.step_h2d_bytes += toks.nbytes + lens.nbytes + tables.nbytes
+        tab = self._to_device(tables).long()
+        result = self._decode.fn(self._module, {
+            "token": self._to_device(toks), "lengths": self._to_device(lens),
+            "k_cache": gather_pages(self._kc, tab), "v_cache": gather_pages(self._vc, tab)})
+        scatter_pages(self._kc, tab, result["k_cache"], self.page_tokens)
+        scatter_pages(self._vc, tab, result["v_cache"], self.page_tokens)
+        out = result["next_token"].cpu().numpy()
+        t1 = time.monotonic()
+        if self._metrics is not None:
+            self._metrics.histogram("decode_step_s").record(t1 - t0)
+            self._metrics.counter("decode_steps").inc()
+        return out
+
+    # -- copy-on-write / growth -------------------------------------------
+    def ensure_writable(self, slot: int, length: int) -> bool:
+        """Guarantee the page holding write position ``length`` exists and
+        is exclusively owned before the step runs.  Allocates the next
+        page at a page boundary; splits a shared page (copy-on-write) when
+        the write would land in bytes the prefix index or another session
+        still references — the copy is queued on the pool's stream ahead
+        of the step.  False = the pool is out of pages even after index
+        eviction: the operator's tier machinery must free pressure and
+        retry."""
+        table = self._tables[slot]
+        li = length // self.page_tokens
+        while len(table) <= li:
+            got = self._alloc(1)
+            if got is None:
+                return False
+            table.extend(got)
+        pid = table[li]
+        if self.pool.is_shared(pid):
+            got = self._alloc(1)
+            if got is None:
+                return False
+            self.copy_page(pid, got[0])
+            self.pool.decref(pid)
+            self.pool.cow_splits += 1
+            table[li] = got[0]
+        return True
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """The copy-on-write split: duplicate one page device-side."""
+        self._kc[dst].copy_(self._kc[src])
+        self._vc[dst].copy_(self._vc[src])
+
+    # -- block movement (tier-ladder boundary) -----------------------------
+    def park(self, slot: int, length: int) -> PagedKVHandle:
+        """Hot preemption: the session's pages STAY on the device behind a
+        :class:`~flink_tensorflow_tpu_torch.serving.paged.PagedKVHandle`;
+        only the block table leaves the step batch.  No traffic."""
+        from flink_tensorflow_tpu_torch.serving.paged import PagedKVHandle
+
+        table = self._tables.pop(slot)
+        self.device_block_moves += 1
+        return PagedKVHandle(table, length)
+
+    def attach(self, slot: int, handle: PagedKVHandle) -> None:
+        """Re-admission of a hot-parked session: re-attach the table."""
+        self._tables[slot] = list(handle.pages)
+        self.device_block_moves += 1
+
+    def _gather_host(self, pages: typing.Sequence[int]):
+        """Pages -> dense host ``[L, C, H, Dh]`` K/V, zero-filled beyond
+        the given pages (positions past a session's length are masked by
+        every consumer).  New host arrays, never views of the pool, even
+        when the pool is on the CPU: the pages are written again."""
+        ids = torch.as_tensor(list(pages), dtype=torch.long).to(self.device)
+        out = []
+        for pool in (self._kc, self._vc):
+            got = pool.index_select(0, ids).cpu().numpy()      # a new tensor
+            dense = np.zeros((pool.shape[1], self.capacity, *pool.shape[3:]), got.dtype)
+            dense[:, :len(pages) * self.page_tokens] = pages_to_dense(got[None])[0]
+            out.append(dense)
+        return out[0], out[1]
+
+    def snapshot_block(self, slot: int, length: int):
+        """Barrier copy of an ACTIVE session: dense host K/V, pages
+        untouched (the pool stays authoritative)."""
+        k, v = self._gather_host(self._tables[slot])
+        self.block_d2h_events += 1
+        return k, v
+
+    def extract_host(self, slot: int, length: int):
+        """Demotion of an ACTIVE session (pressure preemption to the warm
+        tier): dense host K/V out, pages released."""
+        table = self._tables.pop(slot)
+        k, v = self._gather_host(table)
+        self.pool.release(table)
+        self.block_d2h_events += 1
+        return k, v
+
+    def demote_handle(self, handle: PagedKVHandle) -> KVBlock:
+        """Hot -> warm: a PARKED session's pages gather D2H into a host
+        :class:`~flink_tensorflow_tpu_torch.serving.kv_cache.KVBlock` and
+        free."""
+        from flink_tensorflow_tpu_torch.serving.kv_cache import KVBlock
+
+        k, v = self._gather_host(handle.pages)
+        self.pool.release(handle.pages)
+        self.block_d2h_events += 1
+        return KVBlock(k, v, handle.length)
+
+    def insert_block(self, slot: int, k, v, length: typing.Optional[int] = None) -> None:
+        """Warm/cold revival: a host block's exact bytes back into freshly
+        allocated pages (the admission gate reserved them).  ``length``
+        bounds the pages allocated — a full-capacity scatter would waste
+        pages on masked positions."""
+        if length is None:
+            length = k.shape[1]
+        n = self.pool.pages_for(int(length))
+        got = self._alloc(n)
+        if got is None:
+            raise RuntimeError(
+                f"paged KV pool exhausted at re-admission: need {n} "
+                f"pages, {self.pool.free_pages} free — the admission "
+                "gate should have held this session back")
+        self._tables[slot] = got
+        ids = torch.as_tensor(got, dtype=torch.long).to(self.device)
+        for pool, block in ((self._kc, k), (self._vc, v)):
+            pages = dense_to_pages(np.asarray(block)[None], self.page_tokens)[0][:n]
+            pool.index_copy_(0, ids, torch.from_numpy(np.ascontiguousarray(pages))
+                             .to(device=self.device, dtype=pool.dtype))
+        self.block_h2d_events += 1
+
+    def release_finished(self, slot: int, cached_tokens, length: int) -> None:
+        """A finished session leaves the pool: its FULL pages publish to
+        the prefix index (keyed by the token sequence that produced them),
+        everything else frees."""
+        table = self._tables.pop(slot)
+        if self.index is not None:
+            self.index.publish(cached_tokens, table)
+        self.pool.release(table)
+
+    def extract_block(self, slot: int, length: int, *, host: bool):
+        """The dense runner's extraction maps onto pages as a snapshot
+        (host copy, pages kept): the barrier hook's call.  A device
+        extraction is a dense-pool notion; paged preemption parks."""
+        if not host:
+            raise RuntimeError(
+                "paged preemption parks pages (park()/attach()); "
+                "device-resident extract_block is a dense-pool concept")
+        return self.snapshot_block(slot, length)
 
 
 #: Dispatch lane threads of a :class:`CompiledMethodRunner`.

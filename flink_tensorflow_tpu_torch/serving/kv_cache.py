@@ -2,13 +2,19 @@
 
 Port of ``flink_tensorflow_tpu/serving/kv_cache.py``.  One session's
 cache is a ``[L, C, H, Dh]`` K/V pair plus its valid length, in one of
-two residency forms:
+these residency forms:
 
-- :class:`KVBlock` — host numpy, picklable: the form in checkpoints.
+- :class:`KVBlock` — host numpy, picklable: the form in checkpoints (and
+  the paged pool's warm rung).
 - :class:`DeviceKVBlock` — tensors on the device: a preempted session's
-  cache between eviction and re-admission when the serving config runs
+  cache between eviction and re-admission when the dense pool runs
   device-resident.  It refuses to pickle; ``to_host()`` is the explicit
   materialization boundary.
+- with the paged pool, a :class:`~flink_tensorflow_tpu_torch.serving.paged.PagedKVHandle`
+  (parked pages, refuses to pickle like a device block) or a
+  :class:`~flink_tensorflow_tpu_torch.serving.tiering.SpilledKVBlock`
+  (a spill file's path, picklable).  The operator's snapshot hook turns
+  every form that refuses to pickle into a :class:`KVBlock` first.
 
 :class:`KVCacheState` keeps one :class:`SessionState` per session id in
 the keyed-state store, so snapshot and restore carry sessions like any
@@ -24,6 +30,10 @@ import typing
 import numpy as np
 
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore, StateDescriptor
+
+if typing.TYPE_CHECKING:
+    from flink_tensorflow_tpu_torch.serving.paged import PagedKVHandle
+    from flink_tensorflow_tpu_torch.serving.tiering import SpilledKVBlock
 
 
 class KVBlock:
@@ -88,7 +98,8 @@ class SessionState:
     status: str = WAITING
     generated: typing.Tuple[int, ...] = ()
     emitted: int = 0
-    kv: typing.Optional[typing.Union[KVBlock, DeviceKVBlock]] = None
+    kv: typing.Optional[typing.Union[KVBlock, DeviceKVBlock, "PagedKVHandle",
+                                     "SpilledKVBlock"]] = None
     meta: typing.Dict[str, typing.Any] = dataclasses.field(default_factory=dict)
 
 

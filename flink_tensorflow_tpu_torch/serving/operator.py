@@ -1,12 +1,14 @@
 """ContinuousBatchingOperator — the serving plane's decode-step loop.
 
-Port of ``flink_tensorflow_tpu/serving/operator.py:65-652`` for the dense
-KV pool (the paged pool and session tiering are a later slice), with
-:func:`continuous_batching`, the entry point that puts the operator on a
-keyed stream of the port's streaming runtime.
+Port of ``flink_tensorflow_tpu/serving/operator.py:65-652``, dense and
+paged KV pool, with :func:`continuous_batching`, the entry point that puts
+the operator on a keyed stream of the port's streaming runtime.
 
 One operator instance per subtask owns a slice of the session key space,
 a :class:`~flink_tensorflow_tpu_torch.functions.runner.DecodeStepRunner`
+(or, with ``ServingConfig.paged_kv``, a
+:class:`~flink_tensorflow_tpu_torch.functions.runner.PagedDecodeStepRunner`
+and a :class:`~flink_tensorflow_tpu_torch.serving.tiering.SessionTierManager`)
 whose KV pool stays on the device for the operator's life, and a
 :class:`~flink_tensorflow_tpu_torch.serving.scheduler.TokenBudgetScheduler`.
 The loop is timer-driven: while any session is active or waiting,
@@ -17,9 +19,11 @@ interleaved with request arrivals.
 State: the hot path mutates plain per-session records (``_Session``);
 the snapshot hook freezes every live session into keyed state as a
 :class:`SessionState` (active caches copied to host :class:`KVBlock`
-form, device-resident blocks downgraded to host form), and a restored
-operator re-admits the sessions from their blocks without re-prefill,
-continuing greedy decoding byte-identically.
+form, device-resident blocks and parked pages downgraded to host form,
+spilled sessions kept as their spill file's path), and a restored operator
+re-admits the sessions from their blocks without re-prefill, continuing
+greedy decoding byte-identically.  Pages never cross subtasks: a rescale
+moves sessions by key group as host or spilled blocks.
 """
 
 from __future__ import annotations
@@ -41,11 +45,13 @@ from flink_tensorflow_tpu_torch.serving.kv_cache import (
     KVCacheState,
     SessionState,
 )
+from flink_tensorflow_tpu_torch.serving.paged import PagedKVHandle
 from flink_tensorflow_tpu_torch.serving.records import GenerateRequest, TokenEvent
 from flink_tensorflow_tpu_torch.serving.scheduler import (
     ServingConfig,
     TokenBudgetScheduler,
 )
+from flink_tensorflow_tpu_torch.serving.tiering import SessionTierManager, SpilledKVBlock
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
 if typing.TYPE_CHECKING:
@@ -93,7 +99,8 @@ class _Session:
 
 
 class ContinuousBatchingOperator(Operator):
-    """Keyed continuous-batching generation operator (dense KV pool).
+    """Keyed continuous-batching generation operator (dense or paged KV
+    pool).
 
     ``device``: where the model and pool live; ``None`` means ``cuda``
     and raises if CUDA is absent.  ``device_from_context=True`` (what
@@ -112,6 +119,8 @@ class ContinuousBatchingOperator(Operator):
         self.device = None if device_from_context else resolve_device(device)
         self._sched: typing.Optional[TokenBudgetScheduler] = None
         self._runner = None
+        self._paged = False
+        self._tier: typing.Optional[SessionTierManager] = None
         self._cache: typing.Optional[KVCacheState] = None
         self._sessions: typing.Dict[typing.Any, _Session] = {}
         self._seq = 0
@@ -121,7 +130,10 @@ class ContinuousBatchingOperator(Operator):
 
     # -- lifecycle ---------------------------------------------------------
     def open(self) -> None:
-        from flink_tensorflow_tpu_torch.functions.runner import DecodeStepRunner
+        from flink_tensorflow_tpu_torch.functions.runner import (
+            DecodeStepRunner,
+            PagedDecodeStepRunner,
+        )
 
         cfg = self.serving_config
         if self.device is None:
@@ -140,13 +152,23 @@ class ContinuousBatchingOperator(Operator):
                 torch.cuda.memory_allocated(self.device))
         self._sched = TokenBudgetScheduler(cfg)
         self._cache = KVCacheState(self.keyed_state)
-        self._runner = DecodeStepRunner(
-            self.model,
-            pool_slots=cfg.max_active_seqs,
-            capacity=cfg.capacity,
-            prompt_buckets=cfg.resolved_prompt_buckets(),
-            device=self.device,
-        )
+        self._paged = cfg.paged_kv
+        common = dict(pool_slots=cfg.max_active_seqs, capacity=cfg.capacity,
+                      padding_buckets=cfg.padding_buckets,
+                      prompt_buckets=cfg.resolved_prompt_buckets(), device=self.device)
+        if self._paged:
+            self._runner = PagedDecodeStepRunner(
+                self.model, page_tokens=cfg.page_tokens, num_pages=cfg.resolved_hbm_pages(),
+                prefix_sharing=cfg.prefix_sharing, **common)
+            self._tier = SessionTierManager(
+                spill_dir=cfg.spill_dir,
+                host_cache_sessions=cfg.host_cache_sessions,
+                high_watermark=cfg.tier_high_watermark,
+                low_watermark=cfg.tier_low_watermark,
+                subtask_index=self.ctx.subtask_index if self.ctx else 0,
+            )
+        else:
+            self._runner = DecodeStepRunner(self.model, **common)
         self._runner.open(self.ctx)
         if cfg.warmup_compile:
             self._runner.warmup(cfg.resolved_admit_buckets(),
@@ -169,6 +191,24 @@ class ContinuousBatchingOperator(Operator):
             grp.gauge("cache_d2h_blocks", lambda r=runner: r.block_d2h_events)
             grp.gauge("cache_resident_moves",
                       lambda r=runner: r.device_block_moves)
+            if self._paged:
+                pool = runner.pool
+                tier = self._tier
+                grp.gauge("kv_pages_total", lambda p=pool: p.num_pages)
+                grp.gauge("kv_pages_free", lambda p=pool: p.free_pages)
+                grp.gauge("kv_page_occupancy_pct",
+                          lambda p=pool: 100.0 * p.occupancy_frac())
+                grp.gauge("kv_pages_shared", lambda p=pool: p.pages_shared)
+                grp.gauge("kv_cow_splits", lambda p=pool: p.cow_splits)
+                if runner.index is not None:
+                    grp.gauge("kv_indexed_pages",
+                              lambda i=runner.index: i.indexed_pages)
+                grp.gauge("kv_demoted_sessions", lambda t=tier: t.demoted)
+                grp.gauge("kv_spilled_sessions", lambda t=tier: t.spilled)
+                grp.gauge("kv_revived_warm", lambda t=tier: t.revived_warm)
+                grp.gauge("kv_revived_cold", lambda t=tier: t.revived_cold)
+                # Demote/spill/revive churn.
+                grp.gauge("kv_tier_moves", lambda t=tier: t.tier_moves)
             # Time-to-first-token: arrival -> first generated token emitted.
             self._ttft = grp.histogram("ttft_s")
         # Restore: sessions found in keyed state re-enter the waiting
@@ -184,6 +224,10 @@ class ContinuousBatchingOperator(Operator):
             if sess.status == DONE:
                 continue
             sess.status = WAITING
+            if self._tier is not None and isinstance(sess.kv, KVBlock):
+                # Restored blocks land on the warm rung: host-resident
+                # until re-admission (spilled stubs stay cold on disk).
+                self._tier.note_warm(key)
             pending.append((sess.seq, key))
         for _, key in sorted(pending):
             sess = self._sessions[key]
@@ -200,11 +244,12 @@ class ContinuousBatchingOperator(Operator):
     def close(self) -> None:
         if self._runner is not None:
             self._runner.close()
-        # Device-resident blocks of preempted sessions go with the pool: a
-        # closed operator holds no device memory (a restarted job opens a
-        # new one while this object may still be referenced).
+        # Device-resident blocks and parked pages of preempted sessions go
+        # with the pool: a closed operator holds no device memory (a
+        # restarted job opens a new one while this object may still be
+        # referenced).
         for sess in self._sessions.values():
-            if isinstance(sess.kv, DeviceKVBlock):
+            if isinstance(sess.kv, (DeviceKVBlock, PagedKVHandle)):
                 sess.kv = None
 
     # -- record path -------------------------------------------------------
@@ -281,9 +326,117 @@ class ContinuousBatchingOperator(Operator):
             return True
         return sess.eos is not None and tok == sess.eos
 
-    def _finish_session(self, key, sess: _Session) -> None:
+    def _finish_session(self, key, slot: int, sess: _Session) -> None:
+        """A session generated its last token: publish and free its pages
+        (paged) and release the scheduler slot."""
         sess.status = DONE
+        if self._paged:
+            # Cache-valid tokens: the final generated token was never fed
+            # back, so the pages hold prompt + generated[:-1].
+            cached = [int(t) for t in sess.prompt] + [int(t) for t in sess.generated[:-1]]
+            self._runner.release_finished(slot, cached, self._sched.lengths[key])
+            self._tier.note_gone(key)
         self._sched.release(key, reason="finished")
+
+    # -- paged tier machinery ---------------------------------------------
+    def _demote_parked(self, key) -> None:
+        """Hot -> warm: a parked session's pages gather D2H and free."""
+        sess = self._sessions[key]
+        sess.kv = self._runner.demote_handle(sess.kv)
+        self._tier.demoted += 1
+        self._tier.note_warm(key)
+
+    def _preempt_to_host(self, key) -> None:
+        """Pressure preemption of an ACTIVE session straight to the warm
+        tier (its pages are the ransom)."""
+        sched = self._sched
+        slot = sched.slot_of(key)
+        length = sched.lengths[key]
+        k, v = self._runner.extract_host(slot, length)
+        sess = self._sessions[key]
+        sess.kv = KVBlock(k, v, length)
+        sess.status = WAITING
+        sched.preempt(key)
+        self._tier.demoted += 1
+        self._tier.note_warm(key)
+
+    def _paged_make_room(self, pages_needed: int, *, protect=None,
+                         preempt: bool = True) -> bool:
+        """Free pages for an allocation the pool couldn't satisfy: demote
+        parked hot sessions LRU-first, then (last resort, and never during
+        admission — a just-admitted session has no block table to extract
+        yet) preempt the newest active sessions to the warm tier."""
+        pool = self._runner.pool
+        # The generator re-checks live occupancy after every demotion —
+        # iterate it directly (list() would spin on the first key).
+        for key in self._tier.demotions(
+                pool.occupancy_frac, force_pages=pages_needed,
+                free_pages=lambda: pool.free_pages):
+            self._demote_parked(key)
+        if pool.free_pages >= pages_needed:
+            return True
+        if preempt:
+            for key in reversed(list(self._sched.active)):
+                if key == protect:
+                    continue
+                self._preempt_to_host(key)
+                if pool.free_pages >= pages_needed:
+                    return True
+        return pool.free_pages >= pages_needed
+
+    def _tier_sweep(self) -> None:
+        """End-of-step watermark pass: parked sessions demote above the
+        high watermark (draining to the low one), and the warm rung spills
+        its overflow to disk."""
+        if not self.serving_config.tiering:
+            return
+        pool = self._runner.pool
+        for key in self._tier.demotions(pool.occupancy_frac):
+            self._demote_parked(key)
+        for key in self._tier.overflow_spills():
+            sess = self._sessions[key]
+            sess.kv = self._tier.spill(key, sess.kv)
+
+    def _admit_gate(self):
+        """The paged pool's page check for ``plan_admissions``: a session
+        is seated only if its pages (length + 1 positions) are free or
+        evictable from the prefix index, after demoting parked sessions;
+        pages are reserved across the sessions of one admission."""
+        sessions, runner = self._sessions, self._runner
+        pool = runner.pool
+        reserved = [0]
+
+        def admit_gate(key, length):
+            if isinstance(sessions[key].kv, PagedKVHandle):
+                return True  # hot: its pages are already held on the device
+            need = pool.pages_for(length + 1)
+            # Evictable = free + index-only pages: the allocator evicts
+            # the prefix index lazily, so counting only the free list
+            # would wedge admission behind a fully indexed pool.
+            if runner.free_pages_evictable() - reserved[0] < need:
+                self._paged_make_room(need + reserved[0], preempt=False)
+            if runner.free_pages_evictable() - reserved[0] < need:
+                return False
+            reserved[0] += need
+            return True
+
+        return admit_gate
+
+    def _revive(self, key, slot: int, sess: _Session) -> None:
+        """A resumed paged session's cache re-enters the pool: no traffic
+        for hot pages, one H2D for a warm block, a disk read and an H2D
+        for a cold one."""
+        kv, tier_from = sess.kv, None
+        if isinstance(kv, SpilledKVBlock):
+            kv = self._tier.revive(kv)
+            tier_from = "cold"
+        elif isinstance(kv, KVBlock):
+            tier_from = "warm"
+        if isinstance(kv, PagedKVHandle):
+            self._runner.attach(slot, kv)
+        else:
+            self._runner.insert_block(slot, kv.k, kv.v, length=kv.length)
+        self._tier.note_admitted(key, tier=tier_from)
 
     def _serving_step(self) -> None:
         sched = self._sched
@@ -297,12 +450,17 @@ class ContinuousBatchingOperator(Operator):
             return sess.kv.length if sess.kv is not None else len(sess.prompt)
 
         fresh: typing.List[typing.Tuple[typing.Any, int, _Session]] = []
-        for key, slot in sched.plan_admissions(length_of):
+        admit_gate = self._admit_gate() if self._paged else None
+        for key, slot in sched.plan_admissions(length_of, admit_gate):
             sess = sessions[key]
             sess.status = ACTIVE
             if sess.kv is not None:
-                # Resume: the checkpointed/preempted cache re-enters the pool.
-                self._runner.insert_block(slot, sess.kv.k, sess.kv.v)
+                # Resume: the checkpointed/preempted/tiered cache re-enters
+                # the pool (plan_admissions already booked kv.length).
+                if self._paged:
+                    self._revive(key, slot, sess)
+                else:
+                    self._runner.insert_block(slot, sess.kv.k, sess.kv.v)
                 sess.kv = None
             else:
                 fresh.append((key, slot, sess))
@@ -315,14 +473,29 @@ class ContinuousBatchingOperator(Operator):
                 [slot for _, slot, _ in fresh],
                 batch_bucket=cfg.bucket_admit(len(fresh)),
             )
-            for (key, _, sess), tok in zip(fresh, first):
+            for (key, slot, sess), tok in zip(fresh, first):
                 tok = int(tok)
                 ends = self._ends(sess, tok)
                 self._append_token(key, sess, tok, ends)
                 if ends:
-                    self._finish_session(key, sess)
+                    self._finish_session(key, slot, sess)
 
-        # 3) One decode step over the whole active set.
+        # 3) One decode step over the whole active set.  Paged: the write
+        # position must land in an exclusively owned page first —
+        # page-boundary growth allocates, shared bytes copy-on-write
+        # split, and a dry pool demotes parked sessions (or, last resort,
+        # preempts the newest active) until the write can land.
+        if self._paged:
+            for key in list(sched.active):
+                slot = sched.active.get(key)
+                if slot is None:
+                    continue  # preempted by a make_room below
+                while not self._runner.ensure_writable(slot, sched.lengths[key]):
+                    if not self._paged_make_room(1, protect=key):
+                        raise RuntimeError(
+                            f"{self.name}: cannot free a single KV page "
+                            f"for session {key!r} — pool of "
+                            f"{self._runner.num_pages} pages is pinned")
         if sched.active:
             slots = self._runner.pool_slots
             tokens = [0] * slots
@@ -341,20 +514,30 @@ class ContinuousBatchingOperator(Operator):
                 ends = self._ends(sess, tok)
                 self._append_token(key, sess, tok, ends)
                 if ends:
-                    self._finish_session(key, sess)
+                    self._finish_session(key, slot, sess)
 
         # 4) Budget enforcement: preempt the newest sessions; their cache
-        # follows them into keyed state (device-resident or host per config).
+        # follows them into keyed state.  Paged sessions PARK — pages stay
+        # on the device, the tier sweep decides if they demote; dense
+        # blocks move device-resident or to host per config.
         for key in sched.over_budget():
             slot = sched.slot_of(key)
             length = sched.lengths[key]
             sess = sessions[key]
-            k, v = self._runner.extract_block(
-                slot, length, host=not cfg.device_resident_blocks)
-            sess.kv = (DeviceKVBlock(k, v, length) if cfg.device_resident_blocks
-                       else KVBlock(k, v, length))
+            if self._paged:
+                sess.kv = self._runner.park(slot, length)
+                self._tier.note_parked(key)
+            else:
+                k, v = self._runner.extract_block(
+                    slot, length, host=not cfg.device_resident_blocks)
+                sess.kv = (DeviceKVBlock(k, v, length) if cfg.device_resident_blocks
+                           else KVBlock(k, v, length))
             sess.status = WAITING
             sched.preempt(key)
+
+        # 5) Tier ladder: watermark demotions + warm-rung disk spill.
+        if self._paged:
+            self._tier_sweep()
 
     # -- snapshot hooks ----------------------------------------------------
     def _function_snapshot(self, checkpoint_id=None):
@@ -369,7 +552,10 @@ class ContinuousBatchingOperator(Operator):
             if sess.status == ACTIVE:
                 slot = sched.active[key]
                 length = sched.lengths[key]
-                k, v = self._runner.extract_block(slot, length, host=True)
+                if self._paged:
+                    k, v = self._runner.snapshot_block(slot, length)
+                else:
+                    k, v = self._runner.extract_block(slot, length, host=True)
                 # The pool stays authoritative; the frozen copy is the
                 # restore point.
                 cache.put(key, dataclasses.replace(
@@ -377,6 +563,10 @@ class ContinuousBatchingOperator(Operator):
             else:
                 if isinstance(sess.kv, DeviceKVBlock):
                     sess.kv = sess.kv.to_host()
+                elif isinstance(sess.kv, PagedKVHandle):
+                    # Parked pages cannot cross a pickle boundary: the
+                    # barrier demotes them to a host block.
+                    self._demote_parked(key)
                 cache.put(key, sess.freeze())
         if self._grp is not None:
             self._grp.histogram("cache_sync_s").record(time.monotonic() - t0)

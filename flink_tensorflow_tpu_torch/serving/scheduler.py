@@ -1,8 +1,9 @@
 """Token-budget continuous-batching scheduler (vLLM-style).
 
-Copy of ``flink_tensorflow_tpu/serving/scheduler.py`` for the dense KV
-pool, with the options the port's serving path uses (shapes always
-bucketed, no admission hysteresis).
+Copy of ``flink_tensorflow_tpu/serving/scheduler.py``: the config of the
+serving plane (dense or paged KV pool, the tier ladder, shape buckets,
+admission hysteresis) and the scheduler with the paged pool's admission
+gate.
 
 Per decode step the scheduler decides WHO computes: waiting sessions
 admit in arrival order while slots, ``max_active_seqs`` and the token
@@ -32,19 +33,21 @@ def _pow2_buckets(cap: int) -> typing.Tuple[int, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    """Knobs of the serving plane.
+    """Knobs of the serving plane (the README documents each).
 
     ``capacity`` bounds prompt + generated tokens per session (the KV
-    pool's padded length).  ``paged_kv`` is the JAX package's paged pool;
-    the port does not have it yet and refuses it."""
+    pool's padded length).  ``padding_buckets`` off runs every distinct
+    active-set size and prompt length at its own shape."""
 
     max_active_seqs: int = 8
     token_budget: int = 512
     capacity: int = 64
-    #: Prefill shape ladders (batch x prompt-length).  ``None`` = powers
-    #: of two up to the bound.
+    #: Prefill shape ladders (batch x prompt-length), used only when
+    #: ``padding_buckets`` is on.  ``None`` = powers of two up to the
+    #: bound.
     prompt_buckets: typing.Optional[typing.Tuple[int, ...]] = None
     admit_buckets: typing.Optional[typing.Tuple[int, ...]] = None
+    padding_buckets: bool = True
     #: Preempted sessions keep their cache device-resident (slice out /
     #: copy back, zero host traffic).  Off = preemption pays a d2h and
     #: re-admission an h2d per block.
@@ -52,14 +55,52 @@ class ServingConfig:
     #: Run every prefill bucket + the decode step once at open(), so the
     #: kernel build and first launches happen before the first session.
     warmup_compile: bool = False
+    #: Admission hysteresis: with a deep backlog, hold admissions until
+    #: this many slots are free so waiting prefills batch into ONE
+    #: dispatch instead of one per freed slot.  Never delays when the
+    #: active set is empty or the backlog is shallower than the
+    #: threshold.
+    admit_hysteresis: int = 1
+    #: Paged KV economy (serving/paged.py + serving/tiering.py): the
+    #: cache pool becomes ``hbm_pages`` fixed-size pages of
+    #: ``page_tokens`` positions with a per-session block table —
+    #: admission needs free PAGES, not a contiguous slot — plus a
+    #: radix-tree prefix index (sessions sharing a prompt prefix share
+    #: pages, copy-on-write at divergence) and the device -> host -> disk
+    #: residency ladder.  Off (the default) keeps the dense
+    #: ``[S, L, C, H, Dh]`` pool.
     paged_kv: bool = False
+    page_tokens: int = 16
+    #: Device page budget.  ``None`` sizes the pool to the dense
+    #: equivalent (``max_active_seqs * capacity / page_tokens``); an
+    #: oversubscribed deployment sizes it far SMALLER than the live
+    #: session population and lets tiering absorb the difference.
+    hbm_pages: typing.Optional[int] = None
+    prefix_sharing: bool = True
+    #: The residency ladder's watermark sweep: parked (preempted-hot)
+    #: sessions demote to host blocks when pool occupancy crosses the
+    #: high watermark, draining to the low one; the warm rung spills to
+    #: ``spill_dir`` past ``host_cache_sessions``.  ``tiering=False``
+    #: keeps only pressure-forced demotion (an allocation that cannot be
+    #: satisfied any other way).
+    tiering: bool = True
+    tier_high_watermark: float = 0.90
+    tier_low_watermark: float = 0.70
+    host_cache_sessions: int = 64
+    #: Cold rung directory; ``None`` disables disk spill (warm blocks
+    #: then accumulate on the host without bound).
+    spill_dir: typing.Optional[str] = None
 
-    def __post_init__(self):
-        if self.paged_kv:
-            raise NotImplementedError(
-                "paged_kv: the paged KV pool (ops/paged_attention.py, "
-                "PagedDecodeStepRunner) is a later slice of the PyTorch port; "
-                "this slice serves from the dense pool only")
+    def resolved_hbm_pages(self) -> int:
+        if self.hbm_pages is not None:
+            return self.hbm_pages
+        return self.max_active_seqs * (self.capacity // self.page_tokens)
+
+    def page_partition(self, key_groups: int) -> typing.Tuple[int, int]:
+        """``(pages_per_group, remainder)`` when the device page pool is
+        dealt out along ``key_groups`` key groups."""
+        pages = self.resolved_hbm_pages()
+        return pages // key_groups, pages % key_groups
 
     def resolved_prompt_buckets(self) -> typing.Tuple[int, ...]:
         return self.prompt_buckets or _pow2_buckets(self.capacity)
@@ -67,11 +108,36 @@ class ServingConfig:
     def resolved_admit_buckets(self) -> typing.Tuple[int, ...]:
         return self.admit_buckets or _pow2_buckets(self.max_active_seqs)
 
+    def bucket_prompt_len(self, n: int) -> int:
+        if not self.padding_buckets:
+            return max(1, n)
+        for b in self.resolved_prompt_buckets():
+            if n <= b:
+                return b
+        return self.capacity
+
     def bucket_admit(self, n: int) -> int:
+        if not self.padding_buckets:
+            return max(1, n)
         for b in self.resolved_admit_buckets():
             if n <= b:
                 return b
         return self.max_active_seqs
+
+    def compile_signatures(
+        self,
+    ) -> typing.Optional[typing.Tuple[typing.Tuple[str, int, int], ...]]:
+        """Every distinct step shape this config can present, as ``(kind,
+        batch, length)`` tuples — the prefill admit x prompt bucket grid
+        plus the single padded decode step — or ``None`` when
+        ``padding_buckets`` is off and the set is unbounded."""
+        if not self.padding_buckets:
+            return None
+        sigs = [("prefill", b, t)
+                for b in self.resolved_admit_buckets()
+                for t in self.resolved_prompt_buckets()]
+        sigs.append(("decode", self.max_active_seqs, 1))
+        return tuple(sigs)
 
 
 @dataclasses.dataclass
@@ -114,17 +180,29 @@ class TokenBudgetScheduler:
 
     def plan_admissions(
         self, length_of: typing.Callable[[typing.Any], int],
+        admit_gate: typing.Optional[
+            typing.Callable[[typing.Any, int], bool]] = None,
     ) -> typing.List[typing.Tuple[typing.Any, int]]:
         """Pop admissible sessions off the waiting queue: ``[(key, slot)]``
         in arrival order.  ``length_of(key)`` is the cache length the
-        session occupies at admission; the budget charges length + 1."""
+        session occupies at admission; the budget charges length + 1.
+        ``admit_gate(key, length)`` is the paged pool's page check (free
+        pages instead of a contiguous slot); a False stops admission
+        FIFO-fairly — nobody jumps the queue past a session the pool
+        can't seat yet."""
         out: typing.List[typing.Tuple[typing.Any, int]] = []
+        hyst = self.config.admit_hysteresis
+        if (hyst > 1 and self.active
+                and len(self.free_slots) < min(hyst, len(self.waiting))):
+            return out  # batch the backlog's prefills into one dispatch
         while (self.waiting and self.free_slots
                and len(self.active) < self.config.max_active_seqs):
             key = self.waiting[0]
             need = length_of(key) + 1
             if self.tokens_in_use + need > self.config.token_budget and self.active:
                 break  # budget-full (never starves: an empty active set admits)
+            if admit_gate is not None and not admit_gate(key, need - 1):
+                break  # no pages free — tier pressure clears first
             self.waiting.popleft()
             slot = self.free_slots.pop()
             self.active[key] = slot

@@ -1,5 +1,6 @@
 """The port stands alone: every module of it imports with ``import jax``,
-``import flax`` and ``import optax`` broken, the serving slice, the
+``import flax`` and ``import optax`` broken, the serving slice (dense, and
+a paged, tiered keyed job that spills to disk), the
 Quick-start job, the training path (a keyed Wide&Deep job and a ResNet
 gang), a LeNet and a BiLSTM window job and a ``ModelMapFunction`` job
 from a port bundle run that way, no module of the JAX package is loaded,
@@ -57,6 +58,21 @@ _SLICE = textwrap.dedent("""
     result = keyed_env.execute(timeout=60, restart_strategy=RestartStrategy(max_restarts=1))
     assert result.restarts == 0
     assert sorted(e.session_id for e in tokens if e.finished) == [0, 1, 2, 3]
+    paged_env = Env(parallelism=2)
+    paged_env.set_device_provider(lambda task, index: "cpu")
+    paged_env.enable_checkpointing(tempfile.mkdtemp(), every_n_records=2)
+    paged = continuous_batching(
+        paged_env.from_collection(reqs).key_by(lambda r: r.session_id), model,
+        config=ServingConfig(max_active_seqs=2, token_budget=12, capacity=32, paged_kv=True,
+                             page_tokens=8, hbm_pages=4, tier_high_watermark=0.4,
+                             tier_low_watermark=0.2, host_cache_sessions=0,
+                             spill_dir=tempfile.mkdtemp())).sink_to_list()
+    result = paged_env.execute(timeout=60, restart_strategy=RestartStrategy(max_restarts=1))
+    assert result.restarts == 0
+    assert sorted((e.session_id, e.index, e.token) for e in paged) == \
+        sorted((e.session_id, e.index, e.token) for e in tokens)
+    report = paged_env.metric_registry.report()
+    assert sum(v for k, v in report.items() if k.endswith("kv_spilled_sessions")) >= 1
 
     from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
     from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction

@@ -167,11 +167,6 @@ def test_rejects_oversized_and_ignores_duplicates(model):
     assert len(tokens_by_session(events)[dup.session_id]) == 4
 
 
-def test_paged_pool_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingConfig(paged_kv=True)
-
-
 def test_host_block_pickles_device_block_refuses():
     k = np.zeros((2, 8, 2, 4), np.float32)
     rt = pickle.loads(pickle.dumps(KVBlock(k, k, 5)))
@@ -183,13 +178,39 @@ def test_host_block_pickles_device_block_refuses():
     assert isinstance(host, KVBlock) and host.length == 5
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_scheduler_matches_jax_scheduler(seed):
+def _page_gate(key, length):
+    """A stand-in for the paged pool's page check: refuses some sessions
+    (the same ones for both schedulers)."""
+    return (int(key[1:]) * 7 + length) % 4 != 0
+
+
+@pytest.mark.parametrize("seed, knobs", [
+    pytest.param(0, {}, id="0"), pytest.param(1, {}, id="1"), pytest.param(2, {}, id="2"),
+    pytest.param(0, {"admit_gate": True}, id="admit_gate-0"),
+    pytest.param(1, {"admit_gate": True}, id="admit_gate-1"),
+    pytest.param(0, {"admit_hysteresis": 2}, id="admit_hysteresis-0"),
+    pytest.param(1, {"admit_hysteresis": 3, "admit_gate": True}, id="admit_hysteresis-gate-1"),
+    pytest.param(0, {"padding_buckets": False}, id="padding_buckets-0"),
+])
+def test_scheduler_matches_jax_scheduler(seed, knobs):
     """The copied scheduler makes the same decisions as the JAX one on a
-    random sequence of arrivals, steps, finishes and preemptions."""
-    cfg = dict(max_active_seqs=3, token_budget=40, capacity=64)
-    ours = TokenBudgetScheduler(ServingConfig(**cfg))
-    theirs = jax_serving.TokenBudgetScheduler(jax_serving.ServingConfig(**cfg))
+    random sequence of arrivals, steps, finishes and preemptions, with the
+    paged pool's admission gate, admission hysteresis, and with or without
+    padding buckets (whose shape ladders, step shapes and page partitions
+    match too)."""
+    knobs = dict(knobs)
+    gate = _page_gate if knobs.pop("admit_gate", False) else None
+    cfg = dict(max_active_seqs=3, token_budget=40, capacity=64, **knobs)
+    ours_cfg, theirs_cfg = ServingConfig(**cfg), jax_serving.ServingConfig(**cfg)
+    assert ours_cfg.compile_signatures() == theirs_cfg.compile_signatures()
+    assert ours_cfg.resolved_hbm_pages() == theirs_cfg.resolved_hbm_pages()
+    for groups in (1, 2, 3, 7, 128):
+        assert ours_cfg.page_partition(groups) == theirs_cfg.page_partition(groups)
+    for n in range(0, 70, 3):
+        assert ours_cfg.bucket_prompt_len(n) == theirs_cfg.bucket_prompt_len(n)
+        assert ours_cfg.bucket_admit(n % 5) == theirs_cfg.bucket_admit(n % 5)
+    ours = TokenBudgetScheduler(ours_cfg)
+    theirs = jax_serving.TokenBudgetScheduler(theirs_cfg)
     rng = np.random.RandomState(seed)
     lengths = {}
     for step in range(60):
@@ -198,7 +219,7 @@ def test_scheduler_matches_jax_scheduler(seed):
             lengths[key] = int(rng.randint(2, 12))
             ours.enqueue(key)
             theirs.enqueue(key)
-        assert ours.plan_admissions(lengths.get) == theirs.plan_admissions(lengths.get)
+        assert ours.plan_admissions(lengths.get, gate) == theirs.plan_admissions(lengths.get, gate)
         for key in list(ours.active):
             ours.grow(key)
             theirs.grow(key)
