@@ -121,7 +121,30 @@ Phases (any failure exits non-zero and prints no result line):
    phase 6 (c)'s 2 -> 3 rescale with (a)'s config, tokens equal to phase
    4's; tokens/s, TTFT and decode-step p50/p95, ``step_h2d_bytes`` and
    every ``kv_*`` counter printed per run;
-11. print one ``kernels`` JSON line, the card line, and the final
+11. inception-event-time: phase 5's 2,048 records as 8 cameras at 32
+   frames/s (record i: camera i % 8, event time (i // 8) / 32 s),
+   shuffled within blocks of 64 (``RandomState(1)``), through
+   ``assign_timestamps(out_of_orderness_s=0.25, watermark_every=128)``
+   (no record K1 lies on this path; it must launch 0 times):
+   (a) ``key_by(camera).time_window(1.0).apply(ModelWindowFunction(
+   fixed_batch=32, pipeline_depth=3))`` (64 windows of 32), then
+   ``time_window_all(1.0)`` counting labels with ``late_tag="late"``:
+   labels and scores equal to direct calls on each window's 32 records in
+   arrival order bit for bit, every result stamped with its own window's
+   end, no late record, each histogram equal to a host recount; (b)
+   ``map(ModelMapFunction(<bundle>, micro_batch=128, idle_flush_s=1.0))
+   -> key_by(camera).time_window(1.0)`` counting top labels: each record
+   keeps its own event time, none is late, labels and scores equal to
+   direct calls on the map's micro-batches; (c) in the same job, (b)'s
+   predictions joined with a truth stream (``from_collection`` of ``(id,
+   label, event time)``, labels from those direct calls) by
+   ``join().where(id).equal_to(id).window(1.0)``, then
+   ``key_by(camera).reduce``: 2,048 pairs, every one agreeing; (d) (a)'s
+   model job into ``ExactlyOnceRecordFileSink`` with checkpoints every 256
+   records and one crash after checkpoint 2 under
+   ``RestartStrategy(max_restarts=1)``: ``read_committed`` equal to (a)'s
+   results, each record once; records/s, seconds and watermarks per arm;
+12. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -276,6 +299,19 @@ MAP_PARALLELISM = 2
 # warp whatever the row count.  One f32 ulp of 1 is allowed in case
 # another row count takes another kernel and sums the row in another order.
 CHAIN_SCORE_TOL = 2 ** -23
+# Phase 11: 8 cameras at 32 frames/s, the source order shuffled within
+# blocks of 64 records (2 s of one camera's frames span 64 records, so a
+# record trails the newest one by at most 7 / 32 s < the 0.25 s slack:
+# no source record is late), a watermark every 128 records.
+ET_CAMERAS = 8
+ET_FPS = 32
+ET_BLOCK = 64
+ET_SLACK_S = 0.25
+ET_WATERMARK_EVERY = 128
+ET_BATCH = 32
+ET_DEPTH = 3
+ET_MAP_MICRO_BATCH = 128
+ET_CHECKPOINT_EVERY = 256
 # Phase 9 (d): bench.py:bench_deviceres at its full size.  The card's f32
 # (TF32 off) against the CPU's: two f32 products of 4096 terms each,
 # summed in another order (order 1e-7 of the largest |x|).
@@ -2075,6 +2111,340 @@ def check_paged_serving(card, torch, fa, model, cfg, requests, want, dense_keyed
     return launches
 
 
+def et_records(pixels):
+    """Phase 11's records in source order: ``(records, order, event time
+    per id)``."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    n = len(pixels)
+    rng = np.random.RandomState(1)
+    order = np.concatenate([lo + rng.permutation(min(ET_BLOCK, n - lo))
+                            for lo in range(0, n, ET_BLOCK)])
+    times = (np.arange(n) // ET_CAMERAS) / ET_FPS
+    records = [TensorValue({"image": pixels[i]},
+                           {"id": int(i), "camera": int(i % ET_CAMERAS), "t": float(times[i])})
+               for i in order]
+    return records, order, times
+
+
+def et_functions():
+    """The window functions, the stamp tap and the join of phase 11."""
+    import collections
+    import threading
+
+    from flink_tensorflow_tpu_torch.core import functions as fn
+
+    class LabelHistogram(fn.WindowFunction):
+        def process_window(self, key, window, elements, out):
+            ids = sorted(int(r.meta["id"]) for r in elements)
+            counts = collections.Counter(int(r["label"]) for r in elements)
+            out.collect((window.start, ids, dict(counts)))
+
+    class TopLabel(fn.WindowFunction):
+        def process_window(self, key, window, elements, out):
+            counts = collections.Counter(int(r["label"]) for r in elements)
+            label, n = max(counts.items(), key=lambda kv: (kv[1], -kv[0]))
+            out.collect((key, window.start, len(elements), label, n))
+
+    class StampTap(fn.ProcessFunction):
+        """Records each result's event time and passes it on with it."""
+
+        def __init__(self):
+            self.stamps, self.lock = {}, threading.Lock()
+
+        def clone(self):
+            return self
+
+        def process_element(self, value, ctx, out):
+            with self.lock:
+                self.stamps[int(value.meta["id"])] = ctx.timestamp
+            out.collect(value, ctx.timestamp)
+
+    return LabelHistogram, TopLabel, StampTap
+
+
+def et_timed_sink(stream, name):
+    """A sink recording results and their arrival times."""
+    results, arrivals = [], []
+
+    def sink(record):
+        results.append(record)
+        arrivals.append(time.monotonic())
+
+    stream.sink_to_callable(sink, name=name)
+    return results, arrivals
+
+
+def et_window_fn(model):
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+
+    return ModelWindowFunction(model, outputs=("label", "score"),
+                               policy=BucketPolicy(fixed_batch=ET_BATCH),
+                               warmup_batches=(ET_BATCH,), pipeline_depth=ET_DEPTH)
+
+
+def et_source(env, records):
+    return env.from_collection(records).assign_timestamps(
+        lambda r: r.meta["t"], out_of_orderness_s=ET_SLACK_S,
+        watermark_every=ET_WATERMARK_EVERY)
+
+
+def et_arm_row(card, what, handle, seconds, n, **extra):
+    """records/s, seconds and watermark counts of one phase 11 run."""
+    metrics = handle.executor.metrics.report()
+    row = {"records": n, "seconds": seconds, "records_per_s": n / seconds,
+           "watermarks": {k: v for k, v in metrics.items() if k.endswith(".watermarks")},
+           **extra, "card": card}
+    print(f"event-time {what} records_per_s: {row['records_per_s']} | seconds: {seconds} | "
+          f"watermarks: {row['watermarks']} | card: {card}", flush=True)
+    return row, metrics
+
+
+def et_direct(torch, serve, module, pixels, ids):
+    """Labels and scores of one direct call of ``module`` on the card."""
+    import numpy as np
+
+    with torch.inference_mode():
+        out = serve(module, {"image": torch.from_numpy(np.ascontiguousarray(pixels[ids])).cuda()})
+    return out["label"].cpu().numpy(), out["score"].cpu().numpy()
+
+
+def check_event_time_windows(card, torch, inception, records, order, times):
+    """Phase 11 (a): keyed event-time windows of 32 into the model, and a
+    downstream event-time histogram."""
+    import collections
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
+
+    mdef, model, pixels = inception
+    n = len(records)
+    LabelHistogram, _, StampTap = et_functions()
+    tap = StampTap()
+    env = StreamExecutionEnvironment(parallelism=1)
+    results = (et_source(env, records).key_by(lambda r: r.meta["camera"]).time_window(1.0)
+               .apply(et_window_fn(model), name="inception_et")
+               .process(tap, name="stamps"))
+    got, arrivals = et_timed_sink(results, "sink")
+    hist = results.time_window_all(1.0).apply(LabelHistogram(), late_tag="late",
+                                              name="histogram")
+    hists = hist.sink_to_list()
+    late = hist.side_output("late").sink_to_list()
+    t0 = time.monotonic()
+    handle = env.execute_async()
+    handle.wait(600)
+    seconds = time.monotonic() - t0
+    check_ids("inception-event-time (a)", got, n)
+    label = {int(r.meta["id"]): int(r["label"]) for r in got}
+    score = {int(r.meta["id"]): float(r["score"]) for r in got}
+    second = (times // 1).astype(int)
+    for i, ts in tap.stamps.items():
+        if ts != second[i] + 1.0:
+            fail(f"inception-event-time (a): record {i} stamped {ts}, its window ends at "
+                 f"{second[i] + 1.0}")
+    if len(tap.stamps) != n:
+        fail(f"inception-event-time (a): {len(tap.stamps)} stamps for {n} results")
+    if late:
+        fail(f"inception-event-time (a): {len(late)} results late downstream")
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(model.params).to("cuda").eval()
+    windows = 0
+    for cam in range(ET_CAMERAS):
+        for sec in range(int(second.max()) + 1):
+            ids = [int(i) for i in order if i % ET_CAMERAS == cam and second[i] == sec]
+            want_label, want_score = et_direct(torch, serve, module, pixels, ids)
+            for j, i in enumerate(ids):
+                if label[i] != want_label[j] or score[i] != want_score[j]:
+                    fail(f"inception-event-time (a): record {i} differs from the direct call "
+                         f"on its window")
+            windows += 1
+    del module
+    by_end = collections.defaultdict(list)
+    for i in range(n):
+        by_end[float(second[i] + 1)].append(i)
+    if sorted(h[0] for h in hists) != sorted(by_end):
+        fail(f"inception-event-time (a): histogram windows {[h[0] for h in hists]}")
+    for start, ids, counts in hists:
+        recount = collections.Counter(label[i] for i in by_end[start])
+        if ids != sorted(by_end[start]) or counts != dict(recount):
+            fail(f"inception-event-time (a): the histogram of [{start}, {start + 1}) differs "
+                 "from the host recount")
+    row, _ = et_arm_row(card, "(a) windows", handle, seconds, n, windows=windows,
+                              batches=metrics_sum(handle, "inception_et", "batches"),
+                              padded_records=metrics_sum(handle, "inception_et",
+                                                         "padded_records"),
+                              late=len(late), histograms=len(hists))
+    return row, label, score
+
+
+def metrics_sum(handle, task, name):
+    report = handle.executor.metrics.report()
+    return sum(v for k, v in report.items()
+               if k.startswith(task + ".") and k.endswith("." + name))
+
+
+def check_event_time_map_join(card, torch, inception, records, order, times):
+    """Phase 11 (b) and (c): the per-record map into keyed event-time
+    windows, and its predictions joined with a truth stream."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelMapFunction
+    from flink_tensorflow_tpu_torch.models.loaders import SavedModelLoader, save_bundle
+
+    mdef, model, pixels = inception
+    n = len(records)
+    _, TopLabel, StampTap = et_functions()
+    serve = mdef.methods["serve"].fn
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "inception")
+        save_bundle(mdef, model.params, bundle)
+        # The truth: direct calls on the map's micro-batches (the next 128
+        # records in arrival order: a watermark follows every 128th record
+        # and the map's buffer is empty then).
+        module = copy.deepcopy(SavedModelLoader(bundle).load().params).to("cuda").eval()
+        truth_label, truth_score = {}, {}
+        for lo in range(0, n, ET_MAP_MICRO_BATCH):
+            ids = [int(i) for i in order[lo:lo + ET_MAP_MICRO_BATCH]]
+            label, score = et_direct(torch, serve, module, pixels, ids)
+            truth_label.update(zip(ids, label.tolist()))
+            truth_score.update(zip(ids, score.tolist()))
+        del module
+        tap = StampTap()
+        env = StreamExecutionEnvironment(parallelism=1)
+        preds = (et_source(env, records)
+                 .map(ModelMapFunction(bundle, micro_batch=ET_MAP_MICRO_BATCH, idle_flush_s=1.0,
+                                       warmup_batches=(ET_MAP_MICRO_BATCH,),
+                                       outputs=("label", "score")), name="inception_et_map")
+                 .process(tap, name="map_stamps"))
+        got, _ = et_timed_sink(preds, "map_sink")
+        top = (preds.key_by(lambda r: r.meta["camera"]).time_window(1.0)
+               .apply(TopLabel(), late_tag="late", name="top_label"))
+        tops = top.sink_to_list()
+        late = top.side_output("late").sink_to_list()
+        truth = (env.from_collection([(i, truth_label[i], float(times[i])) for i in range(n)],
+                                     name="truth")
+                 .assign_timestamps(lambda r: r[2], out_of_orderness_s=ET_SLACK_S,
+                                    watermark_every=ET_WATERMARK_EVERY, name="truth_timestamps"))
+        pairs = (preds.join(truth).where(lambda r: int(r.meta["id"])).equal_to(lambda r: r[0])
+                 .window(1.0)
+                 .apply(lambda p, t: (int(p.meta["id"]), int(p.meta["camera"]), int(p["label"]),
+                                      t[1]), name="join"))
+        pair_list = pairs.sink_to_list()
+        agree = (pairs.map(lambda x: (x[1], 1, int(x[2] == x[3])), name="agree")
+                 .key_by(lambda x: x[0]).reduce(lambda a, b: (a[0], a[1] + b[1], a[2] + b[2]),
+                                                 name="agree_per_camera").sink_to_list())
+        t0 = time.monotonic()
+        handle = env.execute_async()
+        handle.wait(600)
+        seconds = time.monotonic() - t0
+    check_ids("inception-event-time (b)", got, n)
+    for r in got:
+        i = int(r.meta["id"])
+        if int(r["label"]) != truth_label[i] or float(r["score"]) != truth_score[i]:
+            fail(f"inception-event-time (b): record {i} differs from the direct call on its "
+                 "micro-batch")
+    for i in range(n):
+        if tap.stamps.get(i) != float(times[i]):
+            fail(f"inception-event-time (b): record {i} carries {tap.stamps.get(i)}, its event "
+                 f"time is {times[i]}")
+    if late:
+        fail(f"inception-event-time (b): {len(late)} records late")
+    if sorted(t[2] for t in tops) != [ET_FPS] * (n // ET_FPS):
+        fail(f"inception-event-time (b): window sizes {sorted(t[2] for t in tops)}")
+    if sorted(p[0] for p in pair_list) != list(range(n)):
+        fail(f"inception-event-time (c): {len(pair_list)} pairs for {n} records")
+    disagree = [p for p in pair_list if p[2] != p[3]]
+    if disagree:
+        fail(f"inception-event-time (c): {len(disagree)} pairs disagree, first {disagree[0]}")
+    final = {}
+    for cam, count, agreeing in agree:
+        final[cam] = max(final.get(cam, (0, 0)), (count, agreeing))
+    per_camera = n // ET_CAMERAS
+    if final != {c: (per_camera, per_camera) for c in range(ET_CAMERAS)}:
+        fail(f"inception-event-time (c): per-camera (pairs, agreeing) {final}")
+    row, _ = et_arm_row(card, "(b, c) map + join", handle, seconds, n,
+                        batches=metrics_sum(handle, "inception_et_map", "batches"),
+                        padded_records=metrics_sum(handle, "inception_et_map",
+                                                   "padded_records"),
+                        late=len(late), pairs=len(pair_list), agreeing=len(pair_list))
+    return row
+
+
+def check_event_time_exactly_once(card, torch, inception, records, label, score):
+    """Phase 11 (d): (a)'s model job into the two-phase-commit sink, a
+    crash after checkpoint 2 and one restart."""
+    import tempfile
+
+    from flink_tensorflow_tpu_torch.core.environment import (
+        RestartStrategy,
+        StreamExecutionEnvironment,
+    )
+    from flink_tensorflow_tpu_torch.io.files import ExactlyOnceRecordFileSink, read_committed
+
+    _, model, _ = inception
+    n = len(records)
+    with tempfile.TemporaryDirectory() as tmp:
+        chk, out = os.path.join(tmp, "chk"), os.path.join(tmp, "out")
+        env = StreamExecutionEnvironment(parallelism=1)
+        env.enable_checkpointing(chk, every_n_records=ET_CHECKPOINT_EVERY)
+        tap = crash_once(n // 2, chk, min_checkpoint=2)
+        (et_source(env, records).key_by(lambda r: r.meta["camera"]).time_window(1.0)
+         .apply(et_window_fn(model), name="inception_et_2pc")
+         .map(tap, name="crash").add_sink(ExactlyOnceRecordFileSink(out), name="file_sink"))
+        t0 = time.monotonic()
+        result = env.execute(timeout=900, restart_strategy=RestartStrategy(max_restarts=1))
+        seconds = time.monotonic() - t0
+        committed = read_committed(out)
+        files = len(os.listdir(out))
+    if result.restarts != 1 or not tap.crashed:
+        fail(f"inception-event-time (d): {result.restarts} restarts, crashed {tap.crashed}")
+    ids = [int(r.meta["id"]) for r in committed]
+    if sorted(ids) != list(range(n)):
+        fail(f"inception-event-time (d): {len(ids)} committed, {len(set(ids))} distinct, "
+             f"want each of {n} once")
+    for r in committed:
+        i = int(r.meta["id"])
+        if int(r["label"]) != label[i] or float(r["score"]) != score[i]:
+            fail(f"inception-event-time (d): committed record {i} differs from (a)")
+    metrics = result.metrics
+    row = {"records": n, "seconds": seconds, "records_per_s": n / seconds,
+           "restarts": result.restarts, "crashed_at_result": tap.crashed_at,
+           "committed": len(ids), "part_files": files,
+           "watermarks": {k: v for k, v in metrics.items() if k.endswith(".watermarks")},
+           "checkpoints_completed": metrics.get("checkpoint.completed"), "card": card}
+    print(f"event-time (d) exactly-once records_per_s: {row['records_per_s']} | seconds: "
+          f"{seconds} | watermarks: {row['watermarks']} | card: {card}", flush=True)
+    return row
+
+
+def check_event_time(card, torch, fa, inception):
+    """Phase 11: Inception-v3 on event-time windows; K1 must launch 0 times."""
+    t0 = time.monotonic()
+    fa.flash_attention.launches = 0
+    records, order, times = et_records(inception[2])
+    row_a, label, score = check_event_time_windows(card, torch, inception, records, order, times)
+    rows = {"windows": row_a,
+            "map_join": check_event_time_map_join(card, torch, inception, records, order, times),
+            "exactly_once": check_event_time_exactly_once(card, torch, inception, records,
+                                                          label, score)}
+    launches = fa.flash_attention.launches
+    if launches != 0:
+        fail(f"phase 11 launched K1 {launches} times, want 0")
+    for name, row in rows.items():
+        print(f"event-time {name}", json.dumps(row), flush=True)
+    print(f"event-time phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return {"inception_event_time_phase11": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2162,6 +2532,8 @@ def main() -> int:
 
     paged_launches = check_paged_serving(card, torch, fa, model, cfg, requests, got, dense_keyed)
 
+    event_time_launches = check_event_time(card, torch, fa, inception)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -2177,7 +2549,7 @@ def main() -> int:
         "library_ms": serving_k1["library_ms"],
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
                              **training_launches, **stream_launches, **chain_launches,
-                             **paged_launches},
+                             **paged_launches, **event_time_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

@@ -24,7 +24,14 @@ Ported so far:
   flash attention is a hand-written CUDA kernel (``csrc/flash_attention.cu``);
 - keyed streams and exactly-once state: ``key_by().process()``, keyed
   state, aligned checkpoints (``core.checkpoint``, ``checkpoint.store``),
-  restore, restart (``RestartStrategy``) and rescale by key group.
+  restore, restart (``RestartStrategy``) and rescale by key group;
+- event time and the rest of the DataStream surface: watermarks
+  (``assign_timestamps``), tumbling, sliding and session windows with
+  late side outputs and allowed lateness (``core.event_time``), window
+  and interval joins (``core.joins``), ``connect``, ``union``,
+  ``broadcast``, ``flat_map``, ``reduce``, keyed and sliding count
+  windows; record files and the two-phase-commit
+  ``io.files.ExactlyOnceRecordFileSink``.
 """
 
 from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig

@@ -12,10 +12,14 @@ per chain, whose ``ChainedOutput`` calls the next operator directly.
 
 An edge ``u -> d`` fuses only when all of these hold:
 
-- the partitioner is a plain forward hop (keyed and rebalance edges
-  re-route records between subtasks and never fuse);
+- the partitioner is a plain forward hop (keyed, rebalance and
+  broadcast edges re-route records between subtasks and never fuse);
 - upstream and downstream parallelism are equal;
-- ``d`` has exactly one input and ``u`` exactly one outgoing edge;
+- ``d`` has exactly one input and ``u`` exactly one outgoing edge (the
+  reference's "multi-input operator aligns several channels",
+  ``:209-210``): a union, a connected stream or a join is always a chain
+  head, and a window applied with a ``late_tag``, whose main stream and
+  side-output tap both read it, always a chain tail;
 - neither side opted out (``disable_chaining()``) and ``d`` was not
   pinned as a chain head (``start_new_chain()``);
 - neither side is a gang operator (a gang owns the device mesh and

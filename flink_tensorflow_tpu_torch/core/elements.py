@@ -1,8 +1,10 @@
 """Stream elements — the wire protocol between operator subtasks.
 
-Port of ``flink_tensorflow_tpu/core/elements.py``: records, checkpoint
-barriers and end of partition (watermarks come with event time).
-Records crossing a channel or a checkpoint carry host values only.
+Port of ``flink_tensorflow_tpu/core/elements.py``: records, event-time
+watermarks (``:43``), checkpoint barriers, end of partition, and the
+``SideOutput`` envelope (``:70``) that routes a record to a named side
+stream.  Records crossing a channel or a checkpoint carry host values
+only.
 """
 
 from __future__ import annotations
@@ -17,6 +19,14 @@ class StreamRecord:
 
     value: typing.Any
     timestamp: typing.Optional[float] = None
+
+
+@dataclasses.dataclass(slots=True, frozen=True)
+class Watermark:
+    """Event-time watermark: no record with a timestamp <= ``timestamp``
+    follows on this channel."""
+
+    timestamp: float
 
 
 @dataclasses.dataclass(slots=True, frozen=True)
@@ -35,4 +45,15 @@ class EndOfPartition:
     """Sent once per output channel when an upstream subtask finishes."""
 
 
-StreamElement = typing.Union[StreamRecord, CheckpointBarrier, EndOfPartition]
+StreamElement = typing.Union[StreamRecord, Watermark, CheckpointBarrier, EndOfPartition]
+
+
+@dataclasses.dataclass(slots=True, frozen=True)
+class SideOutput:
+    """A value routed to the side output ``tag`` (late records of an
+    event-time window, Flink's ``sideOutputLateData``).  An operator
+    emits it on its regular output; ``DataStream.side_output(tag)`` taps
+    and unwraps it, and the main stream filters it out."""
+
+    tag: str
+    value: typing.Any

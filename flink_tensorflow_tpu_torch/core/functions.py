@@ -1,9 +1,11 @@
 """User-function interfaces for the streaming layer.
 
 Copy of ``flink_tensorflow_tpu/core/functions.py`` (``Function`` ...
-``AsyncMapFunction`` ``:71``, ``ProcessFunction`` ``:123``, ``WindowFunction`` ``:154``,
-``SourceFunction`` ``:220``, ``SinkFunction`` ``:227``), cut to the
-functions the ported path hosts.  ``open()`` is
+``FlatMapFunction`` ``:66``, ``AsyncMapFunction`` ``:71``,
+``ProcessFunction`` ``:123``, ``WindowFunction`` ``:154``, the two-input
+``CoMapFunction`` / ``CoFlatMapFunction`` / ``CoProcessFunction``
+``:175-212``, ``JoinFunction`` ``:213``, ``SourceFunction`` ``:220``,
+``SinkFunction`` ``:227``, ``ReduceFunction`` ``:240``).  ``open()`` is
 where a model function builds its runner and moves its weights to the
 device; ``close()`` releases them.
 """
@@ -49,6 +51,11 @@ class RichFunction(Function):
 class MapFunction(RichFunction, abc.ABC):
     @abc.abstractmethod
     def map(self, value: typing.Any) -> typing.Any: ...
+
+
+class FlatMapFunction(RichFunction, abc.ABC):
+    @abc.abstractmethod
+    def flat_map(self, value: typing.Any) -> typing.Iterable[typing.Any]: ...
 
 
 class AsyncMapFunction(RichFunction, abc.ABC):
@@ -145,6 +152,60 @@ class WindowFunction(RichFunction, abc.ABC):
     def on_finish(self, out: Collector) -> None:  # noqa: B027
         """End of input, after all remaining windows fired: flush any
         asynchronously in-flight work (pipelined model batches)."""
+
+    def flush_in_flight(self) -> None:  # noqa: B027
+        """Emit every result still in flight, each to the collector of the
+        window that produced it.  A window operator calls it before it
+        forwards a watermark, so no result trails the watermark that
+        closed its window."""
+
+
+class CoMapFunction(RichFunction, abc.ABC):
+    """Two-input map (``s1.connect(s2).map(f)``): one method per input,
+    one function state."""
+
+    @abc.abstractmethod
+    def map1(self, value: typing.Any) -> typing.Any: ...
+
+    @abc.abstractmethod
+    def map2(self, value: typing.Any) -> typing.Any: ...
+
+
+class CoFlatMapFunction(RichFunction, abc.ABC):
+    @abc.abstractmethod
+    def flat_map1(self, value: typing.Any) -> typing.Iterable[typing.Any]: ...
+
+    @abc.abstractmethod
+    def flat_map2(self, value: typing.Any) -> typing.Iterable[typing.Any]: ...
+
+
+class CoProcessFunction(RichFunction, abc.ABC):
+    """Two-input process function; keyed state and timers are shared
+    across both inputs."""
+
+    @abc.abstractmethod
+    def process_element1(self, value, ctx: "ProcessContext", out: Collector) -> None: ...
+
+    @abc.abstractmethod
+    def process_element2(self, value, ctx: "ProcessContext", out: Collector) -> None: ...
+
+    def on_timer(self, timestamp: float, ctx: "ProcessContext", out: Collector) -> None:  # noqa: B027
+        pass
+
+    def on_finish(self, out: Collector) -> None:  # noqa: B027
+        pass
+
+
+class JoinFunction(RichFunction, abc.ABC):
+    """Combines one left and one right element of a matched pair."""
+
+    @abc.abstractmethod
+    def join(self, left: typing.Any, right: typing.Any) -> typing.Any: ...
+
+
+class ReduceFunction(RichFunction, abc.ABC):
+    @abc.abstractmethod
+    def reduce(self, acc: typing.Any, value: typing.Any) -> typing.Any: ...
 
 
 class SourceFunction(RichFunction, abc.ABC):

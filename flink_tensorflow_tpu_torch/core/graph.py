@@ -4,7 +4,12 @@ Copy of ``flink_tensorflow_tpu/core/graph.py`` (``DataflowGraph`` ``:73``)
 without the plan-analysis fields: transformations record an operator
 factory, a parallelism, input edges and the two chaining opt-outs; the
 executor instantiates one operator per subtask, fuses chains
-(``analysis/chaining.py``) and wires channels per partitioner.
+(``analysis/chaining.py``) and wires channels per partitioner.  A
+transformation may have several input edges (a union, a connected
+stream, a join); the runtime hands each record to its operator with the
+index of the edge it came through.  A side output is no edge of its
+own: ``DataStream.side_output(tag)`` adds a filtering ``flat_map`` that
+reads the producing transformation.
 """
 
 from __future__ import annotations

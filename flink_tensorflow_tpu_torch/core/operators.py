@@ -1,33 +1,51 @@
 """Runtime operators — ``Output``, the ``Operator`` base, and the
-operators the Quick-start job runs.
+one- and two-input operators of the DataStream surface.
 
 Port of ``flink_tensorflow_tpu/core/operators.py``: ``Output`` and
 ``Operator`` (``:48-271``, with the snapshot, checkpoint-notification and
-key-group rescale protocol), ``StateNotRescalable`` (``:110``),
-``_FunctionOperator`` (``:274``), ``MapOperator`` (``:319``, synchronous
-maps and the async branch an ``AsyncMapFunction`` needs; no watermarks
-yet, so no ``process_watermark``), ``FilterOperator``, ``ProcessOperator`` (``:417``, keyed state and
-timers), ``WindowOperator`` (``:587``, per-subtask count windows with the
-``ingest_element`` / ``next_deadline`` / ``fire_due`` hooks a model
-function uses), ``SinkOperator`` (``:772``) and ``SourceOperator``
-(``:787``, a replayable offset).  Operators are host-side control code:
-each instance runs on one subtask thread, processes stream elements and
-takes part in snapshots.  ``Output`` is a host boundary (``:68``): a
+key-group rescale protocol, ``process_record_from`` ``:142`` for
+operators with several inputs and ``process_watermark`` ``:148``),
+``StateNotRescalable`` (``:110``), ``_FunctionOperator`` (``:274``),
+``MapOperator`` (``:319``, synchronous maps and the async branch an
+``AsyncMapFunction`` needs, which flushes its in-flight micro-batches
+before it forwards a watermark, ``:367-377``), ``FlatMapOperator``
+(``:405``), ``FilterOperator``, ``ProcessOperator`` (``:417``, keyed state
+and timers), ``CoMapOperator`` / ``CoFlatMapOperator`` /
+``CoProcessOperator`` (``:486-585``), ``WindowOperator`` (``:587``, count,
+count-or-timeout and sliding count windows per key or per subtask, with
+the ``next_deadline`` / ``fire_due`` hooks a model function uses),
+``SinkOperator`` (``:772``, where watermarks end and a transactional
+sink commits its tail at end of input) and ``SourceOperator`` (``:787``,
+a replayable offset).  Operators are host-side control code: each
+instance runs on one subtask thread, processes stream elements and takes
+part in snapshots.  ``Output`` is a host boundary (``:68``): a
 ``DeviceBatch`` emitted into a channel materializes there, once, and
 leaves as per-record host values.  ``uses_timers`` marks the operators
 the chaining pass keeps out of source chains: async maps, process
 functions, and windows whose trigger or function declares deadlines.
+
+Where the reference's ``WindowOperator`` forwards a watermark while its
+model function still has batches in flight (it inherits the base
+``process_watermark``), the port's flushes them first, as the async map
+does, so no result trails a watermark.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 import typing
 
 from flink_tensorflow_tpu_torch.core import elements as el
 from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore
-from flink_tensorflow_tpu_torch.core.windows import CountWindow, Trigger, WindowBuffer
+from flink_tensorflow_tpu_torch.core.windows import (
+    CountWindow,
+    Trigger,
+    WindowBuffer,
+    restore_buffers,
+    snapshot_buffers,
+)
 
 if typing.TYPE_CHECKING:
     from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
@@ -62,7 +80,8 @@ class Output:
                 writers[idx].write(record)
 
     def broadcast_element(self, element: el.StreamElement) -> None:
-        """Control elements (end of partition) go to every downstream channel."""
+        """Control elements (watermarks, barriers, end of partition) go to
+        every downstream channel."""
         for _, writers in self._edges:
             for w in writers:
                 w.write(element)
@@ -100,6 +119,14 @@ class Operator:
     # -- element processing -------------------------------------------
     def process_record(self, record: el.StreamRecord) -> None:
         raise NotImplementedError
+
+    def process_record_from(self, input_index: int, record: el.StreamRecord) -> None:
+        """A record with the index of the input edge it came through:
+        operators with two inputs override it, the others ignore it."""
+        self.process_record(record)
+
+    def process_watermark(self, watermark: el.Watermark) -> None:
+        self.output.broadcast_element(watermark)
 
     def finish(self) -> None:  # noqa: B027
         """End of input: flush any buffered elements."""
@@ -214,6 +241,10 @@ class _FunctionOperator(Operator):
 
     def _function_snapshot(self, checkpoint_id=None):
         if isinstance(self.function, fn.RichFunction):
+            # A two-phase-commit sink binds what it staged to the id.
+            hook = getattr(self.function, "snapshot_state_for_checkpoint", None)
+            if hook is not None:
+                return hook(checkpoint_id)
             return self.function.snapshot_state()
         return None
 
@@ -285,6 +316,14 @@ class MapOperator(_FunctionOperator):
         else:
             self.output.emit(self.function.map(record.value), record.timestamp)
 
+    def process_watermark(self, watermark):
+        # No result may trail the watermark: downstream event-time
+        # operators would take it as late.  With watermark_every smaller
+        # than the micro-batch upstream, this cuts the batches short.
+        if self._async:
+            self.function.flush(self._collector)
+        super().process_watermark(watermark)
+
     def finish(self):
         if self._async:
             self.function.flush(self._collector)
@@ -309,44 +348,27 @@ class MapOperator(_FunctionOperator):
         return self._async
 
 
+class FlatMapOperator(_FunctionOperator):
+    def process_record(self, record):
+        for out in self.function.flat_map(record.value):
+            self.output.emit(out, record.timestamp)
+
+
 class FilterOperator(_FunctionOperator):
     def process_record(self, record):
         if self.function.filter(record.value):
             self.output.emit(record.value, record.timestamp)
 
 
-class ProcessOperator(_FunctionOperator):
-    """Hosts a ProcessFunction; keyed if ``key_selector`` is set."""
-
-    def __init__(self, name, function, key_selector=None):
-        super().__init__(name, function)
-        self.key_selector = key_selector
-        self._collector: typing.Optional[fn.Collector] = None
-        self._pctx: typing.Optional[fn.ProcessContext] = None
-        self._timers: typing.Dict[typing.Tuple[typing.Any, float], None] = {}
-
-    def open(self) -> None:
-        self._collector = fn.Collector(self.output.emit)
-        self._pctx = fn.ProcessContext(self)
-        super().open()
-
-    # ProcessContext runtime hooks -------------------------------------
-    def get_value_state(self, descriptor):
-        return self.keyed_state.value_state(descriptor)
+class _TimerMixin:
+    """Processing-time timers of the process-function operators, keyed by
+    ``(key, timestamp)``; ``_key_selectors`` says whether they are keyed."""
 
     def register_timer(self, key, timestamp: float) -> None:
         self._timers[(key, timestamp)] = None
 
-    def process_record(self, record):
-        if self.key_selector is not None:
-            key = self.key_selector(record.value)
-            self.keyed_state.current_key = key
-            self._pctx.current_key = key
-        self._pctx.timestamp = record.timestamp
-        self.function.process_element(record.value, self._pctx, self._collector)
-
-    def finish(self):
-        self.function.on_finish(self._collector)
+    def get_value_state(self, descriptor):
+        return self.keyed_state.value_state(descriptor)
 
     @property
     def uses_timers(self):
@@ -377,23 +399,113 @@ class ProcessOperator(_FunctionOperator):
         for s in states:
             if s:
                 timers.extend(tuple(t) for t in s["timers"])
-        if timers and self.key_selector is None:
+        if timers and not self._keyed:
             raise StateNotRescalable(
                 f"operator {self.name!r}: non-keyed timers are per-subtask")
         return {"timers": [t for t in timers if mine(t[0])]}
 
 
+class ProcessOperator(_TimerMixin, _FunctionOperator):
+    """Hosts a ProcessFunction; keyed if ``key_selector`` is set."""
+
+    def __init__(self, name, function, key_selector=None):
+        super().__init__(name, function)
+        self.key_selector = key_selector
+        self._keyed = key_selector is not None
+        self._collector: typing.Optional[fn.Collector] = None
+        self._pctx: typing.Optional[fn.ProcessContext] = None
+        self._timers: typing.Dict[typing.Tuple[typing.Any, float], None] = {}
+
+    def open(self) -> None:
+        self._collector = fn.Collector(self.output.emit)
+        self._pctx = fn.ProcessContext(self)
+        super().open()
+
+    def process_record(self, record):
+        if self.key_selector is not None:
+            key = self.key_selector(record.value)
+            self.keyed_state.current_key = key
+            self._pctx.current_key = key
+        self._pctx.timestamp = record.timestamp
+        self.function.process_element(record.value, self._pctx, self._collector)
+
+    def finish(self):
+        self.function.on_finish(self._collector)
+
+
+class _TwoInputOperator(_FunctionOperator):
+    """An operator fed by two input edges through ``process_record_from``."""
+
+    def process_record(self, record):
+        raise RuntimeError(f"{self.name}: a two-input operator takes process_record_from")
+
+
+class CoMapOperator(_TwoInputOperator):
+    """Input 0 through ``map1``, input 1 through ``map2``."""
+
+    def process_record_from(self, input_index, record):
+        f = self.function.map1 if input_index == 0 else self.function.map2
+        self.output.emit(f(record.value), record.timestamp)
+
+
+class CoFlatMapOperator(_TwoInputOperator):
+    def process_record_from(self, input_index, record):
+        f = self.function.flat_map1 if input_index == 0 else self.function.flat_map2
+        for out in f(record.value):
+            self.output.emit(out, record.timestamp)
+
+
+class CoProcessOperator(_TimerMixin, _TwoInputOperator):
+    """Two-input process function; keyed when both key selectors are set
+    (both inputs then hash into one key space and share keyed state)."""
+
+    def __init__(self, name, function, key_selector1=None, key_selector2=None):
+        super().__init__(name, function)
+        if (key_selector1 is None) != (key_selector2 is None):
+            raise ValueError("connect: key both inputs or neither")
+        self.key_selectors = (key_selector1, key_selector2)
+        self._keyed = key_selector1 is not None
+        self._collector: typing.Optional[fn.Collector] = None
+        self._pctx: typing.Optional[fn.ProcessContext] = None
+        self._timers: typing.Dict[typing.Tuple[typing.Any, float], None] = {}
+
+    def open(self) -> None:
+        self._collector = fn.Collector(self.output.emit)
+        self._pctx = fn.ProcessContext(self)
+        super().open()
+
+    def process_record_from(self, input_index, record):
+        selector = self.key_selectors[input_index]
+        if selector is not None:
+            key = selector(record.value)
+            self.keyed_state.current_key = key
+            self._pctx.current_key = key
+        self._pctx.timestamp = record.timestamp
+        handler = (self.function.process_element1 if input_index == 0
+                   else self.function.process_element2)
+        handler(record.value, self._pctx, self._collector)
+
+    def finish(self):
+        self.function.on_finish(self._collector)
+
+
 class WindowOperator(_FunctionOperator):
-    """Count / count-or-timeout windows per subtask.
+    """Count, count-or-timeout and sliding count windows, per key (with a
+    ``key_selector``) or per subtask.
 
     This operator IS the micro-batcher: a fired window hands its elements
-    to a WindowFunction in one call — one batched device call."""
+    to a WindowFunction in one call — one batched device call.  Its
+    results carry no timestamp.  A watermark passes only after the
+    function's in-flight batches were emitted."""
 
-    def __init__(self, name, function: fn.WindowFunction, trigger: Trigger):
+    GLOBAL_KEY = "__subtask__"
+
+    def __init__(self, name, function: fn.WindowFunction, trigger: Trigger, key_selector=None):
         super().__init__(name, function)
         self.trigger = trigger
-        self._buffer: typing.Optional[WindowBuffer] = None
-        self._seq = 0
+        self.key_selector = key_selector
+        self._buffers: typing.Dict[typing.Any, WindowBuffer] = {}
+        self._window_seq: typing.Dict[typing.Any, int] = {}
         self._collector: typing.Optional[fn.Collector] = None
 
     def open(self) -> None:
@@ -401,24 +513,36 @@ class WindowOperator(_FunctionOperator):
         super().open()
 
     def process_record(self, record):
-        if self._buffer is None:
-            self._buffer = WindowBuffer(window=CountWindow(self._seq))
-        value = record.value
-        # Ingestion hook: a tensor window function may take the payload at
-        # arrival and buffer a token instead (None keeps the value).
-        ingest = getattr(self.function, "ingest_element", None)
-        if ingest is not None:
-            token = ingest(value, self._collector)
-            if token is not None:
-                value = token
-        self._buffer.add(value, record.timestamp)
-        if self.trigger.on_element(self._buffer):
-            self._fire()
+        key = self.key_selector(record.value) if self.key_selector is not None else self.GLOBAL_KEY
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = WindowBuffer(window=CountWindow(self._window_seq.get(key, 0)))
+            self._buffers[key] = buf
+        buf.add(record.value, record.timestamp)
+        if self.trigger.on_element(buf):
+            self._fire(key, buf)
 
-    def _fire(self) -> None:
-        buf, self._buffer = self._buffer, None
-        self._seq += 1
-        self.function.process_window(None, buf.window, buf.elements, self._collector)
+    def _fire(self, key, buf: WindowBuffer) -> None:
+        del self._buffers[key]
+        seq = self._window_seq.get(key, 0) + 1
+        self._window_seq[key] = seq
+        if self.key_selector is not None:
+            self.keyed_state.current_key = key
+        self.function.process_window(
+            key if self.key_selector is not None else None, buf.window,
+            self.trigger.fire_elements(buf), self._collector)
+        # A sliding window seeds the next buffer with the trailing overlap.
+        keep = self.trigger.retain_count(buf)
+        if keep:
+            nxt = WindowBuffer(window=CountWindow(seq), retained=keep)
+            nxt.elements = list(buf.elements[-keep:])
+            nxt.timestamps = list(buf.timestamps[-keep:])
+            nxt.first_element_time = time.monotonic()
+            self._buffers[key] = nxt
+
+    def process_watermark(self, watermark):
+        self.function.flush_in_flight()
+        super().process_watermark(watermark)
 
     @property
     def uses_timers(self):
@@ -426,11 +550,8 @@ class WindowOperator(_FunctionOperator):
                 or getattr(self.function, "next_deadline", None) is not None)
 
     def next_deadline(self):
-        deadlines = []
-        if self._buffer is not None:
-            d = self.trigger.deadline(self._buffer)
-            if d is not None:
-                deadlines.append(d)
+        deadlines = [d for d in (self.trigger.deadline(b) for b in self._buffers.values())
+                     if d is not None]
         # Functions with async in-flight work (pipelined model batches)
         # declare their own wake-up so results never strand in a lull.
         fn_deadline = getattr(self.function, "next_deadline", None)
@@ -439,24 +560,62 @@ class WindowOperator(_FunctionOperator):
         return min(deadlines) if deadlines else None
 
     def fire_due(self, now):
-        if self._buffer is not None:
-            d = self.trigger.deadline(self._buffer)
-            if d is not None and d <= now:
-                self._fire()
+        due = [key for key, buf in self._buffers.items()
+               if (d := self.trigger.deadline(buf)) is not None and d <= now]
+        for key in due:
+            self._fire(key, self._buffers[key])
         fn_fire = getattr(self.function, "fire_due", None)
         if fn_fire is not None:
             fn_fire(now)
 
     def finish(self):
-        if self._buffer is not None and self._buffer.elements:
-            self._fire()
-        self._buffer = None
+        for key in list(self._buffers):
+            buf = self._buffers[key]
+            # A buffer of carried-over elements only (sliding retention)
+            # emitted them all already: only new arrivals fire.
+            if len(buf.elements) > buf.retained:
+                self._fire(key, buf)
+        self._buffers.clear()
         self.function.on_finish(self._collector)
+
+    def _operator_snapshot(self):
+        return {"buffers": snapshot_buffers(self._buffers), "seq": dict(self._window_seq)}
+
+    def _operator_restore(self, state):
+        self._buffers = restore_buffers(state["buffers"])
+        self._window_seq = dict(state["seq"])
+
+    def _rescale_operator_state(self, states, mine):
+        buffers, seq = {}, {}
+        for s in states:
+            if not s:
+                continue
+            for key, payload in s["buffers"].items():
+                if key == self.GLOBAL_KEY:
+                    raise StateNotRescalable(
+                        f"operator {self.name!r}: non-keyed window buffers are per-subtask "
+                        "— restore with the original parallelism")
+                if mine(key):
+                    buffers[key] = payload
+            for key, n in s["seq"].items():
+                if key != self.GLOBAL_KEY and mine(key):
+                    seq[key] = max(seq.get(key, 0), n)
+        return {"buffers": buffers, "seq": seq}
 
 
 class SinkOperator(_FunctionOperator):
     def process_record(self, record):
         self.function.invoke(record.value)
+
+    def process_watermark(self, watermark):
+        pass  # the stream ends here
+
+    def finish(self):
+        # A transactional sink commits its tail at a clean end of input;
+        # close() alone commits nothing (it also runs on cancel).
+        hook = getattr(self.function, "finish", None)
+        if hook is not None:
+            hook()
 
 
 class SourceOperator(_FunctionOperator):

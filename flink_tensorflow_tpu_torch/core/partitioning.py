@@ -1,7 +1,7 @@
 """Stream partitioners — how records route between operator subtasks.
 
-Copy of ``flink_tensorflow_tpu/core/partitioning.py:18-98``: forward,
-rebalance and key-group hash routing.  ``_stable_hash`` is the JAX
+Copy of ``flink_tensorflow_tpu/core/partitioning.py:18-106``: forward,
+rebalance, key-group hash and broadcast routing.  ``_stable_hash`` is the JAX
 package's byte for byte, so a key lands in the same key group in both
 packages and a checkpoint's key groups mean the same thing in each.
 """
@@ -87,3 +87,10 @@ class HashPartitioner(Partitioner):
 
     def select(self, value, num_channels):
         return (subtask_for_key(self.key_selector(value), num_channels, self.max_parallelism),)
+
+
+class BroadcastPartitioner(Partitioner):
+    """Every record to every downstream subtask (control streams)."""
+
+    def select(self, value, num_channels):
+        return tuple(range(num_channels))

@@ -15,7 +15,13 @@ Port of ``flink_tensorflow_tpu/core/runtime.py``:
   direct call (:class:`ChainedOutput`, ``:87-165``); every logical
   operator keeps its metric scope and checkpoint identity
   (:class:`_ChainedUnit`, ``:64``).  ``chaining=False`` gives the
-  one-thread-per-operator layout, with the same outputs.  Aligned
+  one-thread-per-operator layout, with the same outputs.  Watermarks
+  merge per input channel (the minimum over live channels, a finished
+  channel no longer holding it back, ``:640-679``) and pass along a chain
+  through each member's ``process_watermark`` (``:150-151``); a record
+  reaches its operator with the index of its input edge
+  (``process_record_from``, ``:598``), so joins and connected streams
+  tell their inputs apart.  Aligned
   checkpoints run through it: sources cut barriers on request or every N
   records (``run_source``, ``:349``), workers align them across their
   channels (``run_worker``, ``:541``), the barrier snapshots each chain
@@ -160,10 +166,13 @@ class ChainedOutput:
     """Output of a chain member that is not the tail: it calls the next
     member on the same thread, with no queue.
 
-    - a record goes straight into the next operator's ``process_record``;
+    - a record goes straight into the next operator's
+      ``process_record_from(0, ...)`` (a fused member has one input);
       a ``DeviceBatch`` does too when that operator consumes device
       batches (``accepts_device``), and otherwise materializes here, once,
       and goes on record by record (the host boundary);
+    - a watermark goes through the next member's ``process_watermark``,
+      which flushes what it must and forwards it on its own output;
     - a barrier snapshots and acks the next member before it moves on,
       so each member's snapshot follows everything it processed;
     - end of partition runs the next member's ``finish()``, then moves on.
@@ -189,10 +198,13 @@ class ChainedOutput:
             n = value.num_records  # meters count records under fusion too
         self._records_out.mark(n)
         self._unit.records_in.mark(n)
-        self._unit.operator.process_record(el.StreamRecord(value, timestamp))
+        self._unit.operator.process_record_from(0, el.StreamRecord(value, timestamp))
 
     def broadcast_element(self, element: el.StreamElement) -> None:
         unit = self._unit
+        if isinstance(element, el.Watermark):
+            unit.operator.process_watermark(element)
+            return
         if isinstance(element, el.CheckpointBarrier):
             self._subtask.snapshot_unit(unit, element.checkpoint_id)
         elif isinstance(element, el.EndOfPartition):
@@ -209,7 +221,8 @@ class _Subtask:
 
     def __init__(self, executor: "LocalExecutor", chain: typing.Sequence[Transformation],
                  index: int, operators: typing.Sequence[Operator],
-                 gate: typing.Optional[InputGate], num_input_channels: int):
+                 gate: typing.Optional[InputGate], num_input_channels: int,
+                 edge_of_channel: typing.Sequence[int] = ()):
         self.executor = executor
         self.units = [_ChainedUnit(t, index, op) for t, op in zip(chain, operators)]
         self.t = chain[0]
@@ -217,6 +230,8 @@ class _Subtask:
         self.operator = operators[0]
         self.gate = gate
         self.num_input_channels = num_input_channels
+        #: The head's input edge of each gate channel.
+        self.edge_of_channel = list(edge_of_channel) or [0] * num_input_channels
         self.thread: typing.Optional[threading.Thread] = None
         self.finished = threading.Event()
         #: Checkpoint ids a trigger asked this SOURCE to cut, and the
@@ -338,11 +353,22 @@ class _Subtask:
         executor = self.executor
         records_in = self.units[0].records_in
         n = self.num_input_channels
+        edge_of_channel = self.edge_of_channel
         eop = [False] * n
+        watermarks = [float("-inf")] * n
+        current_wm = float("-inf")
         #: checkpoint id -> channels whose barrier arrived, and the time
         #: the first one did.
         barrier_seen: typing.Dict[int, typing.Set[int]] = {}
         barrier_t0: typing.Dict[int, float] = {}
+
+        def merge_watermarks() -> None:
+            """The head's watermark: the minimum over live channels."""
+            nonlocal current_wm
+            live = [watermarks[i] for i in range(n) if not eop[i]]
+            if live and min(live) > current_wm:
+                current_wm = min(live)
+                op.process_watermark(el.Watermark(current_wm))
 
         def align(cid: int) -> None:
             live = {i for i in range(n) if not eop[i]}
@@ -370,7 +396,10 @@ class _Subtask:
                 idx, element = item
                 if isinstance(element, el.StreamRecord):
                     records_in.mark()
-                    op.process_record(element)
+                    op.process_record_from(edge_of_channel[idx], element)
+                elif isinstance(element, el.Watermark):
+                    watermarks[idx] = element.timestamp
+                    merge_watermarks()
                 elif isinstance(element, el.CheckpointBarrier):
                     cid = element.checkpoint_id
                     seen = barrier_seen.setdefault(cid, set())
@@ -387,6 +416,9 @@ class _Subtask:
                     if active:
                         for cid in list(barrier_seen):
                             align(cid)
+                        # A finished channel no longer holds the watermark
+                        # back (Flink counts it as the maximum).
+                        merge_watermarks()
             if not executor.cancelled.is_set():
                 op.finish()
                 self.output.broadcast_element(el.EndOfPartition())
@@ -470,8 +502,10 @@ class LocalExecutor:
         # edge one per upstream subtask.
         channel_base: typing.Dict[typing.Tuple[int, int], int] = {}
         gate_size: typing.Dict[int, int] = {}
+        edge_of_channel: typing.Dict[int, typing.List[int]] = {}
         for t in heads:
             base = 0
+            channel_edges: typing.List[int] = []
             for edge_idx, edge in enumerate(t.inputs):
                 channel_base[(t.id, edge_idx)] = base
                 if isinstance(edge.partitioner, ForwardPartitioner):
@@ -479,10 +513,13 @@ class LocalExecutor:
                         raise ValueError(
                             f"forward edge {edge.upstream.name}->{t.name} requires equal "
                             f"parallelism ({edge.upstream.parallelism} vs {t.parallelism})")
-                    base += 1
+                    span = 1
                 else:
-                    base += edge.upstream.parallelism
+                    span = edge.upstream.parallelism
+                channel_edges.extend([edge_idx] * span)
+                base += span
             gate_size[t.id] = base
+            edge_of_channel[t.id] = channel_edges
 
         # One subtask per chain per parallel index; members share their
         # head's index (fusion needs equal parallelism).
@@ -498,7 +535,8 @@ class LocalExecutor:
                     gates[(t.id, i)] = gate
                     self._gates.append(gate)
                 operators = [member.operator_factory() for member in chain]
-                subtasks.append(_Subtask(self, chain, i, operators, gate, gate_size[t.id]))
+                subtasks.append(_Subtask(self, chain, i, operators, gate, gate_size[t.id],
+                                         edge_of_channel[t.id]))
             by_head[t.id] = subtasks
 
         # Only a chain's tail writes to channels: every edge out of it

@@ -1,10 +1,15 @@
-"""Count triggers and the window buffer — the micro-batching building blocks.
+"""Triggers, window identities and the window buffer — the
+micro-batching and windowing building blocks.
 
-Copy of ``flink_tensorflow_tpu/core/windows.py``: ``CountTrigger``
-(``:82``) fires at B elements; ``CountOrTimeoutTrigger`` (``:92``) fires
-at B elements or ``timeout_s`` after the first one, so a sparse stream
-never waits longer than that for a full batch; ``WindowBuffer``
-(``:252``) holds one open window.
+Copy of ``flink_tensorflow_tpu/core/windows.py``: ``CountWindow`` and
+``TimeWindow`` (``:25-35``); the ``Trigger`` protocol with its retention
+hooks for sliding windows (``:46-80``); ``CountTrigger`` (``:82``) fires
+at B elements; ``CountOrTimeoutTrigger`` (``:92``) fires at B elements or
+``timeout_s`` after the first one, so a sparse stream never waits longer
+than that for a full batch; ``SlidingCountTrigger`` (``:224``) fires every
+``slide`` elements with the last ``size``; ``WindowBuffer`` (``:252``)
+holds one open window, and ``snapshot_buffers`` / ``restore_buffers``
+(``:274-296``) carry open windows through a checkpoint.
 """
 
 from __future__ import annotations
@@ -16,13 +21,22 @@ import typing
 
 @dataclasses.dataclass(frozen=True)
 class CountWindow:
-    """Identifies the n-th tumbling count window of a subtask."""
+    """Identifies the n-th tumbling count window of a key or subtask."""
 
     index: int
 
 
+@dataclasses.dataclass(frozen=True)
+class TimeWindow:
+    """An event-time window ``[start, end)``."""
+
+    start: float
+    end: float
+
+
 class Trigger:
-    """Decides when a window fires (fire-and-purge)."""
+    """Decides when a window fires (fire-and-purge, or fire-and-retain for
+    a sliding trigger)."""
 
     def on_element(self, window_state: "WindowBuffer") -> bool:
         raise NotImplementedError
@@ -36,6 +50,18 @@ class Trigger:
         arrival-driven triggers keep the base ``deadline`` and say no, so
         their windows may fuse into a source chain."""
         return type(self).deadline is not Trigger.deadline
+
+    def retains(self) -> bool:
+        """Whether a fire carries elements over into the next window."""
+        return False
+
+    def fire_elements(self, window_state: "WindowBuffer") -> typing.List[typing.Any]:
+        """The elements a fire hands to the function."""
+        return window_state.elements
+
+    def retain_count(self, window_state: "WindowBuffer") -> int:
+        """How many trailing elements seed the next window."""
+        return 0
 
 
 class CountTrigger(Trigger):
@@ -68,6 +94,30 @@ class CountOrTimeoutTrigger(Trigger):
         return window_state.first_element_time + self.timeout_s
 
 
+class SlidingCountTrigger(Trigger):
+    """Fire every ``slide`` new elements with the last ``size`` (Flink's
+    ``countWindow(size, slide)``): the first fires are partial, and each
+    fire carries the trailing ``size - slide`` elements forward."""
+
+    def __init__(self, size: int, slide: int):
+        if size <= 0 or slide <= 0:
+            raise ValueError(f"size and slide must be positive, got {size}, {slide}")
+        self.size = size
+        self.slide = slide
+
+    def on_element(self, window_state):
+        return len(window_state.elements) - window_state.retained >= self.slide
+
+    def retains(self):
+        return True
+
+    def fire_elements(self, window_state):
+        return window_state.elements[-self.size:]
+
+    def retain_count(self, window_state):
+        return min(len(window_state.elements), max(0, self.size - self.slide))
+
+
 @dataclasses.dataclass
 class WindowBuffer:
     """Accumulating contents of one in-flight window."""
@@ -76,9 +126,41 @@ class WindowBuffer:
     elements: typing.List[typing.Any] = dataclasses.field(default_factory=list)
     timestamps: typing.List[typing.Optional[float]] = dataclasses.field(default_factory=list)
     first_element_time: float = 0.0
+    #: Leading elements carried over from the previous fire (sliding
+    #: windows): a trigger counts the arrivals past them.
+    retained: int = 0
+    #: The window fired at least once (an event-time window kept alive by
+    #: allowed lateness re-fires on a late arrival; end of input does not
+    #: fire it again).
+    fired: bool = False
 
     def add(self, value: typing.Any, timestamp: typing.Optional[float]) -> None:
         if not self.elements:
             self.first_element_time = time.monotonic()
         self.elements.append(value)
         self.timestamps.append(timestamp)
+
+
+def snapshot_buffers(buffers: typing.Mapping[typing.Any, WindowBuffer]) -> dict:
+    """Picklable snapshot of open windows (the count and the event-time
+    window operators share it), in the JAX package's layout."""
+    return {
+        key: (buf.window, list(buf.elements), list(buf.timestamps), buf.retained, buf.fired)
+        for key, buf in buffers.items()
+    }
+
+
+def restore_buffers(snap: dict) -> typing.Dict[typing.Any, WindowBuffer]:
+    out: typing.Dict[typing.Any, WindowBuffer] = {}
+    for key, (window, elements, timestamps, *rest) in snap.items():
+        # A snapshot without the retained count and fired flag restores
+        # them as 0 and False.
+        buf = WindowBuffer(window=window, retained=rest[0] if rest else 0,
+                           fired=rest[1] if len(rest) > 1 else False)
+        buf.elements = list(elements)
+        buf.timestamps = list(timestamps)
+        # A restart resets the processing-time clock: a timeout counts
+        # from the restore, not from the wall time before the crash.
+        buf.first_element_time = time.monotonic()
+        out[key] = buf
+    return out

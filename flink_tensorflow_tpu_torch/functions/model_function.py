@@ -16,6 +16,14 @@ batches in flight, so the transfer and launch of window k+1 overlap the
 compute of window k.  In-flight batches are flushed at end of input and
 before every state snapshot.
 
+``ModelWindowFunction`` emits each batch's results to the collector of
+the window that dispatched it, whichever later call drains them, and
+``flush_in_flight`` drains them all: an event-time window operator calls
+it before it forwards a watermark.  So every result carries its own
+window's end.  The reference (``:607-624``) keeps only the latest
+window's collector, so at ``pipeline_depth > 1`` an earlier window's
+results left stamped with a later window's end.
+
 Both functions poll for finished batches on a timer while batches are in
 flight.  Unlike the reference (``:420``), a fire that only drains a
 completed batch (a completion wake, deadline 0.0) does not restart that
@@ -40,6 +48,7 @@ Options of the reference that this port does not have yet raise
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 import typing
@@ -301,17 +310,42 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
         self._idle_flush_s = idle_flush_s
         self._last_dispatch: typing.Optional[float] = None
         self._last_poll: typing.Optional[float] = None
+        #: Per dispatched batch, oldest first: ``[collector, records
+        #: still owed]``.  Results go to the window that dispatched them.
+        self._routes: typing.Deque[typing.List[typing.Any]] = collections.deque()
+
+    def clone(self) -> "fn.Function":
+        dup = super().clone()
+        dup._routes = collections.deque()
+        return dup
+
+    def _emit(self, records) -> None:
+        for record in records:
+            route = self._routes[0]
+            route[0].collect(record)
+            # A device batch answers all its records at once.
+            route[1] -= record.num_records if getattr(record, "is_device_batch", False) else 1
+            if route[1] <= 0:
+                self._routes.popleft()
 
     def process_window(self, key, window, elements, out: fn.Collector):
         elements = list(elements)
-        self._out = out
         policy = self.runner.policy
         cap = policy.fixed_batch or policy.batch.sizes[-1]
         for i in range(0, len(elements), cap):
-            self.runner.dispatch(elements[i:i + cap])
-            for record in self.runner.collect_progress(self._max_in_flight):
-                out.collect(record)
+            chunk = elements[i:i + cap]
+            self.runner.dispatch(chunk)
+            self._routes.append([out, len(chunk)])
+            self._emit(self.runner.collect_progress(self._max_in_flight))
         self._last_dispatch = time.monotonic()
+
+    def _poll_collect(self) -> None:
+        if self.runner is not None:
+            self._emit(self.runner.collect_available())
+
+    def flush_in_flight(self) -> None:
+        if self.runner is not None:
+            self._emit(self.runner.flush())
 
     # Timer hooks (WindowOperator.next_deadline / fire_due): while batches
     # are in flight, poll every idle_flush_s and emit what is ready
@@ -344,14 +378,11 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
             self._last_poll = now
 
     def on_finish(self, out: fn.Collector):
-        for record in self.runner.flush():
-            out.collect(record)
+        self.flush_in_flight()
 
     def snapshot_state(self):
         # Emit everything in flight before a snapshot is taken.
-        if self.runner is not None and self._out is not None:
-            for record in self.runner.flush():
-                self._out.collect(record)
+        self.flush_in_flight()
         return None
 
 

@@ -2,9 +2,11 @@
 ``import flax`` and ``import optax`` broken, the serving slice (dense, and
 a paged, tiered keyed job that spills to disk), the
 Quick-start job, the training path (a keyed Wide&Deep job and a ResNet
-gang), a LeNet and a BiLSTM window job and a ``ModelMapFunction`` job
-from a port bundle run that way, no module of the JAX package is loaded,
-and nothing falls back to the CPU silently."""
+gang), a LeNet and a BiLSTM window job, a ``ModelMapFunction`` job
+from a port bundle, and an event-time job (LeNet on keyed time windows
+into the two-phase-commit file sink, checkpointed) run that way, no
+module of the JAX package is loaded, and nothing falls back to the CPU
+silently."""
 
 import os
 import subprocess
@@ -149,6 +151,23 @@ _SLICE = textwrap.dedent("""
               .map(ModelMapFunction(bundle, micro_batch=4), parallelism=2).sink_to_list())
     env.execute(timeout=60)
     assert sorted(r.meta["id"] for r in mapped) == list(range(12))
+
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
+    from flink_tensorflow_tpu_torch.io.files import ExactlyOnceRecordFileSink, read_committed
+
+    out_dir = tempfile.mkdtemp()
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.set_device_provider(cpu)
+    env.enable_checkpointing(tempfile.mkdtemp(), every_n_records=4)
+    windows = (env.from_collection(digits)
+               .assign_timestamps(lambda r: r.meta["id"] * 0.25, watermark_every=2)
+               .key_by(lambda r: r.meta["id"] % 2).time_window(1.0)
+               .apply(ModelWindowFunction(lenet, pipeline_depth=3), late_tag="late"))
+    windows.add_sink(ExactlyOnceRecordFileSink(out_dir))
+    late = windows.side_output("late").sink_to_list()
+    env.execute(timeout=60)
+    assert sorted(r.meta["id"] for r in read_committed(out_dir)) == list(range(12))
+    assert late == []
     leaked = sorted(m for m in sys.modules
                     if m == "flink_tensorflow_tpu" or m.startswith("flink_tensorflow_tpu."))
     print("LEAKED", leaked)
