@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. print the card's name and power limit (``nvidia-smi``); fail without CUDA;
-2. build every kernel from ``flink_tensorflow_tpu_torch/csrc`` (one nvcc
-   per source, started together) and print the build seconds;
+2. build every kernel and the ring's host code from
+   ``flink_tensorflow_tpu_torch/csrc`` (one compiler per source: nvcc
+   for a ``.cu``, the host C++ compiler for ``spsc_ring.cpp``, started
+   together) and print the build seconds;
 3. hold K1 (flash attention) against its plain PyTorch version on the
    card at the serving shape and at larger shapes, and time kernel, plain
    version and ``scaled_dot_product_attention`` (a yardstick only, where
@@ -144,7 +146,28 @@ Phases (any failure exits non-zero and prints no result line):
    records and one crash after checkpoint 2 under
    ``RestartStrategy(max_restarts=1)``: ``read_committed`` equal to (a)'s
    results, each record once; records/s, seconds and watermarks per arm;
-12. print one ``kernels`` JSON line, the card line, and the final
+12. the transfer plane (no TPU kernel lies on this path; K1 must launch 0
+   times): (a) the Inception cell (phase 5's model and records) at the
+   reference bench's settings, ``transfer_lanes=6``, through the ring
+   (the default), with ``use_ring=False``, and through the ring at one
+   lane: labels and scores equal to phase 5's direct calls bit for bit
+   in every arm, every id once, the ring arms firing all 16 batches
+   through the ring with a 274,661,376-byte page-locked arena; records/s
+   (steady and over the job), assemble and H2D seconds, ring batches,
+   wraparound copy-outs and pinned bytes per arm; (b) mnist-lenet with
+   ``wire_dtype`` f32, bf16 and int8: H2D bytes per batch exactly
+   1,605,632, 802,816 and 401,408 + 4, labels equal to a direct call on
+   the card on the inputs rounded host-side as the wire rounds them, and
+   the count of labels that differ from the f32 arm; (c) the bench's
+   open loop (``models/inception_cell.py``): capacity at windows of 2
+   over 24 windows, then a Poisson ``PacedSource`` at half of it into
+   ``count_window(16, latency_budget_s=max(0.3, 1.5 x the one-record
+   round trip)) -> ModelWindowFunction(BucketLadder.up_to(16),
+   pipeline_depth=3, idle_flush_s=0.002, stamp_stages=True)`` over 512
+   records: every id once, each batch equal to a direct call at its
+   padded bucket bit for bit, p50/p95/p99 latency from the scheduled
+   arrival, the median of each stage and the window sizes printed;
+13. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -319,6 +342,14 @@ RESMLP_DIM = 4096
 RESMLP_RECORDS = 512
 RESMLP_MICRO = 8
 RESMLP_F32_TOL = 1e-5
+# Phase 12 (a): the Inception ring at depth 6, (5 + 3) x 128 = 1,024 slots
+# of 268,224 B (one 299 x 299 x 3 record, 64-byte rounded), page-locked.
+RING_PINNED_BYTES = 1024 * 268224
+# Phase 12 (b): H2D bytes per batch of 512 LeNet records (28 x 28 x 1):
+# f32, bf16, and int8 plus its f32 scale.
+WIRE_H2D_BYTES = {"f32": 512 * 784 * 4, "bf16": 512 * 784 * 2, "int8": 512 * 784 + 4}
+# Phase 12 (c): records through the paced pass (bench.py: min(records, 512)).
+OPEN_LOOP_RECORDS = 512
 
 
 def fail(msg: str) -> None:
@@ -2445,6 +2476,199 @@ def check_event_time(card, torch, fa, inception):
     return {"inception_event_time_phase11": launches}
 
 
+def ring_arm_row(card, what, run, records):
+    """Phase 12 (a): one arm's rates, host stages and ring counters."""
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
+
+    m = {k.split(".", 2)[2]: v for k, v in run.metrics.items() if k.startswith("inception.0.")}
+    rps, span = steady_rps(run.arrivals, records, cell.BATCH, cell.trailing_exclude(records))
+    row = {
+        "records_per_s": rps, "steady_span_s": span, "job_seconds": run.seconds,
+        "job_records_per_s": records / run.seconds, "batches": m["batches"],
+        "assemble_p50_ms": m["assemble_s"]["p50"] * 1e3,
+        "assemble_sum_s": m["assemble_s"]["mean"] * m["assemble_s"]["count"],
+        "h2d_p50_ms": m["h2d_s"]["p50"] * 1e3,
+        "h2d_sum_s": m["h2d_s"]["mean"] * m["h2d_s"]["count"],
+        "dispatch_p50_ms": m["dispatch_s"]["p50"] * 1e3,
+        "fetch_wait_p50_ms": m["fetch_wait_s"]["p50"] * 1e3,
+        "record_latency_p50_ms": m["record_latency_s"]["p50"] * 1e3,
+        "h2d_bytes_per_batch": m["h2d_bytes"] / m["batches"],
+        "ring_batches": m.get("ring_batches", 0), "ring_copy_outs": m.get("ring_copy_outs", 0),
+        "ring_pinned_bytes": m.get("ring_pinned_bytes", 0),
+        "release_h2d_waits": m.get("release_h2d_waits", 0),
+        "pinned_staging_allocations": m["pinned_allocations"], "card": card,
+    }
+    for key in ("records_per_s", "job_records_per_s", "assemble_sum_s", "h2d_sum_s",
+                "ring_batches", "ring_copy_outs", "ring_pinned_bytes"):
+        print(f"ring {what} {key}: {row[key]} | card: {card}", flush=True)
+    return row
+
+
+def check_ring_arms(card, torch, inception, direct):
+    """Phase 12 (a): the Inception cell at the bench's settings through the
+    ring, the list path, and the ring at one transfer lane."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    _, model, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
+    want_label, want_score = direct
+    rows = {}
+    for what, lanes, use_ring in (("ring", cell.LANES, None), ("list", cell.LANES, False),
+                                  ("ring_lanes1", 1, None)):
+        run = cell.run_cell_job(model, records, lanes=lanes, use_ring=use_ring)
+        check_ids(f"ring {what}", run.results, cell.RECORDS)
+        label = np.empty(cell.RECORDS, np.int32)
+        score = np.empty(cell.RECORDS, np.float32)
+        for r in run.results:
+            label[r.meta["id"]] = r["label"]
+            score[r.meta["id"]] = r["score"]
+        if not (np.array_equal(label, want_label) and np.array_equal(score, want_score)):
+            fail(f"ring {what}: {int((label != want_label).sum())} labels and "
+                 f"{int((score != want_score).sum())} scores differ from the direct calls")
+        row = ring_arm_row(card, what, run, cell.RECORDS)
+        batches = cell.RECORDS // cell.BATCH
+        if use_ring is None and (row["ring_batches"] != batches or row["ring_pinned_bytes"]
+                                 != RING_PINNED_BYTES):
+            fail(f"ring {what}: {row['ring_batches']} ring batches of {batches}, "
+                 f"{row['ring_pinned_bytes']} pinned bytes (want {RING_PINNED_BYTES})")
+        if use_ring is False and row["ring_batches"]:
+            fail("ring list: the list arm fired through the ring")
+        rows[what] = {"transfer_lanes": lanes, "use_ring": use_ring, **row}
+    return rows
+
+
+def wire_reference_inputs(torch, images, wire, batch):
+    """The cell's inputs as the wire delivers them, rounded host-side."""
+    from flink_tensorflow_tpu_torch.tensors.transfer import narrow_field
+
+    x = torch.tensor(images)   # a copy: the cell's images are read-only
+    if wire == "bf16":
+        return x.to(torch.bfloat16).float()
+    if wire == "int8":
+        parts = []
+        for lo in range(0, len(images), batch):
+            q, scale = narrow_field(images[lo:lo + batch], "int8")
+            parts.append(q.float() * torch.tensor(scale))
+        return torch.cat(parts)
+    return x
+
+
+def check_wire_arms(card, torch):
+    """Phase 12 (b): mnist-lenet with wire f32, bf16 and int8."""
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import lenet_cell as cell
+
+    mdef, model, images, records = cell.lenet_cell(SEED)
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(model.params).to("cuda")
+    rows, labels = {}, {}
+    for wire in ("f32", "bf16", "int8"):
+        run = cell.run_cell(model, records, wire_dtype=wire)
+        check_ids(f"wire {wire}", run.results, cell.RECORDS)
+        m = {k.split(".", 2)[2]: v for k, v in run.metrics.items() if k.startswith("lenet.0.")}
+        per_batch = m["h2d_bytes"] / m["batches"]
+        if per_batch != WIRE_H2D_BYTES[wire]:
+            fail(f"wire {wire}: {per_batch} H2D bytes per batch, want {WIRE_H2D_BYTES[wire]}")
+        got = np.empty(cell.RECORDS, np.int32)
+        for r in run.results:
+            got[r.meta["id"]] = r["label"]
+        x = wire_reference_inputs(torch, images, wire, cell.BATCH)
+        want = np.empty_like(got)
+        with torch.inference_mode():
+            for lo in range(0, cell.RECORDS, cell.BATCH):
+                out = serve(module, {"image": x[lo:lo + cell.BATCH].cuda()})
+                want[lo:lo + cell.BATCH] = out["label"].cpu().numpy()
+        if not np.array_equal(got, want):
+            fail(f"wire {wire}: {int((got != want).sum())} labels differ from the direct "
+                 "call on the rounded inputs")
+        labels[wire] = got
+        rows[wire] = {"h2d_bytes_per_batch": per_batch,
+                      "wire_bytes_saved": m.get("wire_bytes_saved", 0),
+                      "labels_differing_from_f32": int((got != labels["f32"]).sum()),
+                      "records_per_s": cell.RECORDS / run.seconds,
+                      "h2d_p50_ms": m["h2d_s"]["p50"] * 1e3,
+                      "ring_batches": m.get("ring_batches", 0), "card": card}
+        print(f"wire {wire}", json.dumps(rows[wire]), flush=True)
+    return rows
+
+
+def check_open_loop(card, torch, inception):
+    """Phase 12 (c): the bench's open-loop pass on the card."""
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketLadder
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    mdef, model, pixels = inception
+    n = OPEN_LOOP_RECORDS
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(n)]
+    capacity, _ = cell.calibrate(model, records)
+    rtt = cell.one_record_round_trip(model, records[0])
+    budget = max(cell.BUDGET_S, 1.5 * rtt)
+    rate = cell.RATE_FRACTION * capacity
+    run = cell.run_open_loop(model, records, rate, budget)
+    check_ids("open loop", run.results, n)
+    # Every batch again as a direct call at its padded bucket (pad rows
+    # replay its first record, as assembly does): equal bits.
+    batches = []
+    for r in run.results:
+        key = r.meta["__stages__"]["t0"]
+        if not batches or batches[-1][0] != key:
+            batches.append((key, []))
+        batches[-1][1].append(r)
+    ladder = BucketLadder.up_to(cell.OL_BATCH)
+    serve = mdef.methods["serve"].fn
+    module = copy.deepcopy(model.params).to("cuda").eval()
+    with torch.inference_mode():
+        for _, rs in batches:
+            ids = [r.meta["id"] for r in rs]
+            rows = ids + [ids[0]] * (ladder.round_up(len(ids)) - len(ids))
+            out = serve(module, {"image": torch.from_numpy(pixels[rows]).cuda()})
+            label = out["label"].cpu().numpy()[:len(ids)]
+            score = out["score"].cpu().numpy()[:len(ids)]
+            if not (np.array_equal(label, [r["label"] for r in rs])
+                    and np.array_equal(score, [r["score"] for r in rs])):
+                fail(f"open loop: a batch of {len(ids)} differs from its direct call")
+    del module
+    summary = cell.open_loop_summary(run, rate)
+    return {"records": n, "calibrated_capacity_rps": capacity, "one_record_rtt_ms": rtt * 1e3,
+            "latency_budget_ms": budget * 1e3, "job_seconds": run.seconds,
+            "batches": len(batches), **summary, "card": card}
+
+
+def check_transfer_plane(card, torch, fa, inception, direct):
+    """Phase 12: the ring, transfer lanes, wire dtypes and the open loop;
+    K1 must launch 0 times."""
+    t0 = time.monotonic()
+    fa.flash_attention.launches = 0
+    rows = {"ring": check_ring_arms(card, torch, inception, direct),
+            "wire": check_wire_arms(card, torch)}
+    t_c = time.monotonic()
+    rows["open_loop"] = check_open_loop(card, torch, inception)
+    launches = fa.flash_attention.launches
+    if launches != 0:
+        fail(f"phase 12 launched K1 {launches} times, want 0")
+    for name, row in rows.items():
+        print(f"transfer-plane {name}", json.dumps(row), flush=True)
+    ol = rows["open_loop"]
+    print(f"open loop p50/p95/p99 ms: {ol['p50_ms']} / {ol['p95_ms']} / {ol['p99_ms']} "
+          f"at {ol['offered_rps']} offered, {ol['achieved_rps']} achieved records/s "
+          f"| card: {card}", flush=True)
+    print(f"transfer-plane phase_seconds: {time.monotonic() - t0} (open loop "
+          f"{time.monotonic() - t_c}) | card: {card}", flush=True)
+    return {"transfer_plane_phase12": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2534,6 +2758,8 @@ def main() -> int:
 
     event_time_launches = check_event_time(card, torch, fa, inception)
 
+    transfer_launches = check_transfer_plane(card, torch, fa, inception, direct)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -2549,7 +2775,8 @@ def main() -> int:
         "library_ms": serving_k1["library_ms"],
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
                              **training_launches, **stream_launches, **chain_launches,
-                             **paged_launches, **event_time_launches},
+                             **paged_launches, **event_time_launches,
+                             **transfer_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

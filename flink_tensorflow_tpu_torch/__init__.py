@@ -31,7 +31,13 @@ Ported so far:
   and interval joins (``core.joins``), ``connect``, ``union``,
   ``broadcast``, ``flat_map``, ``reduce``, keyed and sliding count
   windows; record files and the two-phase-commit
-  ``io.files.ExactlyOnceRecordFileSink``.
+  ``io.files.ExactlyOnceRecordFileSink``;
+- the reference bench's transfer plane: the zero-copy
+  ``native.ring.TensorRing`` (C++ counters in ``csrc/spsc_ring.cpp``)
+  under ``ModelWindowFunction``, transfer lanes, wire dtypes
+  (``JobConfig.wire_dtype``), stage stamps, and the open loop:
+  ``io.sources.PacedSource`` into ``count_window(latency_budget_s=...)``
+  (``core.windows.AdaptiveLatencyTrigger``).
 """
 
 from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig

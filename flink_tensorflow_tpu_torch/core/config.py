@@ -3,14 +3,17 @@
 Port of ``flink_tensorflow_tpu/core/config.py``: ``CheckpointConfig``
 (``:27``) and ``JobConfig`` (``:85``) with the fields the ported runtime
 reads, the gang operators' ``mesh`` (``:224``) among them, operator
-``chaining`` (``:101-107``) and ``device_resident`` (``:153-162``) with
-the reference's defaults.
+``chaining`` (``:101-107``), ``device_resident`` (``:153-162``) and
+``wire_dtype`` (``:170``, validated as ``:286-292``) with the reference's
+defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import typing
+
+from flink_tensorflow_tpu_torch.tensors.serde import WIRE_DTYPES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +85,13 @@ class JobConfig:
     #: consumer materializes it once.  Per-function override:
     #: ``ModelMapFunction(device_resident=True/False)``.
     device_resident: bool = False
+    #: Narrower H2D dtype for float fields (``"bf16"``, ``"f16"``,
+    #: ``"int8"``; None or ``"f32"`` ships them as they are): model
+    #: runners narrow host-side into the pinned staging slot and widen
+    #: back to the declared dtype as the first step of the call.  Per
+    #: function: ``ModelWindowFunction(wire_dtype=...)``.  The environment
+    #: variable ``FLINK_TPU_WIRE_DTYPE`` applies when this is None.
+    wire_dtype: typing.Optional[str] = None
     #: Sleep between source emissions — test/backpressure pacing.
     source_throttle_s: float = 0.0
     #: ``(task_name, subtask_index) -> device`` (``"cpu"``, ``"cuda:0"``,
@@ -104,6 +114,9 @@ class JobConfig:
         for flag in ("chaining", "device_resident"):
             if not isinstance(getattr(self, flag), bool):
                 raise ValueError(f"{flag} must be a bool, got {getattr(self, flag)!r}")
+        if self.wire_dtype is not None and self.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"wire_dtype must be one of {WIRE_DTYPES} or None, "
+                             f"got {self.wire_dtype!r}")
         if self.source_throttle_s < 0:
             raise ValueError(f"source_throttle_s must be >= 0, got {self.source_throttle_s}")
         if self.device_provider is not None and not callable(self.device_provider):

@@ -1,9 +1,10 @@
 """Stream elements — the wire protocol between operator subtasks.
 
 Port of ``flink_tensorflow_tpu/core/elements.py``: records, event-time
-watermarks (``:43``), checkpoint barriers, end of partition, and the
+watermarks (``:43``), checkpoint barriers, end of partition, the
 ``SideOutput`` envelope (``:70``) that routes a record to a named side
-stream.  Records crossing a channel or a checkpoint carry host values
+stream, and ``SOURCE_IDLE`` (``:83-93``), the heartbeat a waiting source
+yields.  Records crossing a channel or a checkpoint carry host values
 only.
 """
 
@@ -57,3 +58,15 @@ class SideOutput:
 
     tag: str
     value: typing.Any
+
+
+class SourceIdle:
+    """What a source function yields while it waits (a pacing sleep): no
+    record is emitted, but the source loop gets a turn to serve
+    checkpoint barriers and notifications, which it can only do between
+    yields."""
+
+    __slots__ = ()
+
+
+SOURCE_IDLE = SourceIdle()

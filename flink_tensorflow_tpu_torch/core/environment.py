@@ -238,7 +238,8 @@ class StreamExecutionEnvironment:
             checkpoint_timeout_s=cfg.checkpoint.timeout_s,
             checkpoint_retain_last=cfg.checkpoint.retain_last,
             max_parallelism=cfg.max_parallelism, mesh=cfg.mesh,
-            chaining=cfg.chaining, device_resident=cfg.device_resident)
+            chaining=cfg.chaining, device_resident=cfg.device_resident,
+            wire_dtype=cfg.wire_dtype)
         executor.checkpoint_interval_s = cfg.checkpoint.interval_s
         if restore_from is not None:
             cid, snapshots = store.read_checkpoint(restore_from, restore_checkpoint_id)

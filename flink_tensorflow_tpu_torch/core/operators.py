@@ -496,21 +496,50 @@ class WindowOperator(_FunctionOperator):
     This operator IS the micro-batcher: a fired window hands its elements
     to a WindowFunction in one call — one batched device call.  Its
     results carry no timestamp.  A watermark passes only after the
-    function's in-flight batches were emitted."""
+    function's in-flight batches were emitted.
+
+    As the reference's (JAX ``:608-661``, ``:741``): each subtask clones
+    the trigger; a trigger with ``observe_service_time`` is fed the
+    function's ``service_time_estimate`` at every arrival and timer; a
+    function with ``stamp_stages`` gets each record with its arrival time
+    here in ``meta["__arrive_ts__"]`` (on a copy of the record); on a
+    non-keyed, non-sliding window a function with ``ingest_element``
+    takes each record's payload at arrival (into its ring) and the buffer
+    keeps the token it returns; a snapshot first has the function's
+    ``materialize_tokens`` turn tokens back into records."""
 
     GLOBAL_KEY = "__subtask__"
 
     def __init__(self, name, function: fn.WindowFunction, trigger: Trigger, key_selector=None):
         super().__init__(name, function)
-        self.trigger = trigger
+        self.trigger = trigger.clone()
         self.key_selector = key_selector
         self._buffers: typing.Dict[typing.Any, WindowBuffer] = {}
         self._window_seq: typing.Dict[typing.Any, int] = {}
         self._collector: typing.Optional[fn.Collector] = None
+        self._svc_feed = None
+        self._arrival_stamp = False
+        self._ingest = None
 
     def open(self) -> None:
         self._collector = fn.Collector(self.output.emit)
         super().open()
+        observe = getattr(self.trigger, "observe_service_time", None)
+        estimate = getattr(self.function, "service_time_estimate", None)
+        self._svc_feed = ((estimate, observe)
+                          if observe is not None and estimate is not None else None)
+        self._arrival_stamp = bool(getattr(self.function, "stamp_stages", False))
+        ingest = getattr(self.function, "ingest_element", None)
+        # A token holds no payload: retained (sliding) elements must keep
+        # theirs, and a keyed window's buffers are not one FIFO.
+        if ingest is not None and self.key_selector is None and not self.trigger.retains():
+            self._ingest = ingest
+
+    def _feed_service_time(self) -> None:
+        if self._svc_feed is not None:
+            est = self._svc_feed[0]()
+            if est is not None:
+                self._svc_feed[1](est)
 
     def process_record(self, record):
         key = self.key_selector(record.value) if self.key_selector is not None else self.GLOBAL_KEY
@@ -518,7 +547,15 @@ class WindowOperator(_FunctionOperator):
         if buf is None:
             buf = WindowBuffer(window=CountWindow(self._window_seq.get(key, 0)))
             self._buffers[key] = buf
-        buf.add(record.value, record.timestamp)
+        value = record.value
+        if self._arrival_stamp and hasattr(value, "with_meta"):
+            value = value.with_meta(__arrive_ts__=time.monotonic())
+        if self._ingest is not None:
+            token = self._ingest(value, self._collector)
+            if token is not None:
+                value = token
+        buf.add(value, record.timestamp)
+        self._feed_service_time()
         if self.trigger.on_element(buf):
             self._fire(key, buf)
 
@@ -560,6 +597,7 @@ class WindowOperator(_FunctionOperator):
         return min(deadlines) if deadlines else None
 
     def fire_due(self, now):
+        self._feed_service_time()
         due = [key for key, buf in self._buffers.items()
                if (d := self.trigger.deadline(buf)) is not None and d <= now]
         for key in due:
@@ -579,6 +617,13 @@ class WindowOperator(_FunctionOperator):
         self.function.on_finish(self._collector)
 
     def _operator_snapshot(self):
+        # Ring tokens hold no payload: the buffered records are copied out
+        # of the arena first, so a checkpoint never holds a token (the run
+        # goes on with the copies; new arrivals enter the ring again).
+        materialize = getattr(self.function, "materialize_tokens", None)
+        if materialize is not None:
+            for buf in self._buffers.values():
+                buf.elements = materialize(buf.elements)
         return {"buffers": snapshot_buffers(self._buffers), "seq": dict(self._window_seq)}
 
     def _operator_restore(self, state):
@@ -632,13 +677,23 @@ class SourceOperator(_FunctionOperator):
         """Yields values; the caller calls :meth:`record_emitted` after each
         downstream emit, so a barrier between yield and emit never counts
         the in-flight record as emitted."""
-        it = self.function.run()
         # Replay: skip the records emitted before the restored snapshot.
-        skipped = 0
-        while skipped < self._restored_offset:
-            if next(it, _END) is _END:
-                break
-            skipped += 1
+        # A source that can reposition (``PacedSource``, which must not
+        # sleep through the skipped records' schedule) has ``seek``; any
+        # other is replayed by consuming its iterator (JAX ``:804-823``).
+        if self._restored_offset and hasattr(self.function, "seek"):
+            self.function.seek(self._restored_offset)
+            it = self.function.run()
+        else:
+            it = self.function.run()
+            skipped = 0
+            while skipped < self._restored_offset:
+                v = next(it, _END)
+                if v is _END:
+                    break
+                if isinstance(v, el.SourceIdle):
+                    continue  # a heartbeat, not a record
+                skipped += 1
         self.offset = self._restored_offset
         yield from it
 

@@ -55,6 +55,8 @@ from flink_tensorflow_tpu_torch.core.partitioning import ForwardPartitioner, Has
 from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore
 from flink_tensorflow_tpu_torch.metrics.registry import MetricRegistry
+from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype
+from flink_tensorflow_tpu_torch.tensors.transfer import env_device_resident, env_wire_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -324,6 +326,8 @@ class _Subtask:
                 self.deliver_notifications()
                 for cid in self._drain_control():
                     self._source_barrier(cid)
+                if isinstance(value, el.SourceIdle):
+                    continue  # a heartbeat: barriers served, no record
                 self.output.emit(value)
                 op.record_emitted()
                 # Count-based barriers: checkpoint k cuts the stream after
@@ -454,7 +458,8 @@ class LocalExecutor:
                  max_parallelism: int = 128,
                  mesh: typing.Any = None,
                  chaining: bool = True,
-                 device_resident: bool = False):
+                 device_resident: bool = False,
+                 wire_dtype: typing.Optional[str] = None):
         self.graph = graph
         self.mesh = mesh
         self.channel_capacity = channel_capacity
@@ -466,7 +471,14 @@ class LocalExecutor:
         self.checkpoint_retain_last = checkpoint_retain_last
         self.max_parallelism = max_parallelism
         self.chaining = chaining
-        self.device_resident = device_resident
+        # The environment variables of the reference's executor (JAX
+        # ``core/runtime.py:719-748``) apply where the config is unset.
+        self.device_resident = device_resident or env_device_resident()
+        #: H2D wire dtype of the model functions that set none themselves:
+        #: ``JobConfig.wire_dtype``, else ``FLINK_TPU_WIRE_DTYPE``; "f32"
+        #: is None.
+        self.wire_dtype = normalize_wire_dtype(
+            wire_dtype if wire_dtype is not None else env_wire_dtype())
         #: Periodic trigger interval (set by the environment before start).
         self.checkpoint_interval_s: typing.Optional[float] = None
         self.cancelled = threading.Event()
@@ -600,6 +612,7 @@ class LocalExecutor:
                                  self.metrics.group(unit.scope), device=device,
                                  keyed_state=state, mesh=self.mesh)
             ctx.device_resident = self.device_resident
+            ctx.wire_dtype = self.wire_dtype
             if st.gate is not None:
                 # A runner's fetch thread wakes the one thread that runs
                 # the whole chain, whichever member it belongs to.

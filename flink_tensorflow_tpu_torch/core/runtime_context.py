@@ -9,7 +9,8 @@ and ``num_processes``, the processes of the cohort (always 1: the port
 runs one process); ``wakeup``, which breaks the subtask loop's
 wait when a model runner's results land (the chain head's gate, shared by
 every member of a worker chain; None for source chains and bare
-operators); and ``device_resident``, the job's residency mode.
+operators); ``device_resident``, the job's residency mode; and
+``wire_dtype``, the job's H2D wire dtype (None: full width).
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ class RuntimeContext:
         #: ``JobConfig.device_resident``: model functions read it at
         #: ``open()`` to choose their emission.
         self.device_resident = False
+        #: The job's H2D wire dtype (``JobConfig.wire_dtype`` or
+        #: ``FLINK_TPU_WIRE_DTYPE``): model functions without their own
+        #: ``wire_dtype`` take it at ``open()``.
+        self.wire_dtype: typing.Optional[str] = None
 
     def state(self, descriptor: StateDescriptor) -> ValueState:
         return self._keyed_state.value_state(descriptor)

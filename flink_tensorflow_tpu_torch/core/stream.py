@@ -6,15 +6,13 @@ opt-outs ``start_new_chain`` / ``disable_chaining`` (``:191-205``),
 ``key_by`` (``:209``), ``rebalance``, ``broadcast``, ``union``,
 ``side_output``, ``connect``, ``join`` (``:212-255``), event time
 (``assign_timestamps``, ``time_window_all``, ``session_window_all``,
-``:257-287``), ``count_window`` with ``slide`` or ``timeout_s``
-(``:290``), and the sinks (``:313-326``); ``KeyedStream`` (``:344``) with
-``process``, ``count_window``, ``time_window``, ``session_window``,
-``connect``, ``interval_join`` and ``reduce``; ``EventTimeWindowedStream``,
+``:257-287``), ``count_window`` with ``slide``, ``timeout_s`` or
+``latency_budget_s`` (the adaptive latency trigger, ``:290``), and the
+sinks (``:313-326``); ``KeyedStream`` (``:344``) with ``process``,
+``count_window``, ``time_window``, ``session_window``, ``connect``,
+``interval_join`` and ``reduce``; ``EventTimeWindowedStream``,
 ``SessionWindowedStream``, ``WindowedStream``, ``ConnectedStreams``,
 ``JoinBuilder`` and ``IntervalJoinBuilder`` (``:453-702``).
-
-Not ported: ``count_window(latency_budget_s=...)`` (the adaptive latency
-trigger) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +43,7 @@ from flink_tensorflow_tpu_torch.core.partitioning import (
 )
 from flink_tensorflow_tpu_torch.core.state import StateDescriptor
 from flink_tensorflow_tpu_torch.core.windows import (
+    AdaptiveLatencyTrigger,
     CountOrTimeoutTrigger,
     CountTrigger,
     SlidingCountTrigger,
@@ -57,15 +56,16 @@ if typing.TYPE_CHECKING:
 
 def _count_trigger(size: int, slide: typing.Optional[int], timeout_s: typing.Optional[float],
                    latency_budget_s: typing.Optional[float]) -> Trigger:
-    if latency_budget_s is not None:
-        raise NotImplementedError(
-            "count_window(latency_budget_s=...) is not ported to the PyTorch port yet: "
-            "the adaptive latency trigger is a later slice")
     if slide is not None:
-        if timeout_s is not None:
-            raise ValueError("sliding count windows do not take timeout_s (a sliding "
-                             "fire is driven by arrivals, not deadlines)")
+        if timeout_s is not None or latency_budget_s is not None:
+            raise ValueError("sliding count windows do not take timeout_s/latency_budget_s "
+                             "(a sliding fire is driven by arrivals, not deadlines)")
         return SlidingCountTrigger(size, slide)
+    if latency_budget_s is not None:
+        if timeout_s is not None:
+            raise ValueError("pass either timeout_s (static flush deadline) or "
+                             "latency_budget_s (adaptive rate-projected flush), not both")
+        return AdaptiveLatencyTrigger(size, latency_budget_s)
     if timeout_s is not None:
         return CountOrTimeoutTrigger(size, timeout_s)
     return CountTrigger(size)
@@ -247,9 +247,10 @@ class DataStream:
                      timeout_s: typing.Optional[float] = None,
                      latency_budget_s: typing.Optional[float] = None) -> "WindowedStream":
         """Per-subtask count window (the micro-batch primitive):
-        ``timeout_s`` makes it the count-or-timeout batcher, ``slide`` a
-        sliding window that fires every ``slide`` records with the last
-        ``size``."""
+        ``timeout_s`` makes it the count-or-timeout batcher,
+        ``latency_budget_s`` the adaptive latency trigger (a partial window
+        fires once it cannot fill inside the budget), ``slide`` a sliding
+        window that fires every ``slide`` records with the last ``size``."""
         return WindowedStream(self.env, self,
                               _count_trigger(size, slide, timeout_s, latency_budget_s), None)
 

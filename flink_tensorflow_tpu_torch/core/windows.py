@@ -6,7 +6,9 @@ Copy of ``flink_tensorflow_tpu/core/windows.py``: ``CountWindow`` and
 hooks for sliding windows (``:46-80``); ``CountTrigger`` (``:82``) fires
 at B elements; ``CountOrTimeoutTrigger`` (``:92``) fires at B elements or
 ``timeout_s`` after the first one, so a sparse stream never waits longer
-than that for a full batch; ``SlidingCountTrigger`` (``:224``) fires every
+than that for a full batch; ``AdaptiveLatencyTrigger`` (``:118-223``)
+fires a partial window as soon as an EWMA of the arrival gaps says it
+cannot fill inside a latency budget; ``SlidingCountTrigger`` (``:224``) fires every
 ``slide`` elements with the last ``size``; ``WindowBuffer`` (``:252``)
 holds one open window, and ``snapshot_buffers`` / ``restore_buffers``
 (``:274-296``) carry open windows through a checkpoint.
@@ -51,6 +53,11 @@ class Trigger:
         their windows may fuse into a source chain."""
         return type(self).deadline is not Trigger.deadline
 
+    def clone(self) -> "Trigger":
+        """Per-subtask copy: stateless triggers are shared; one with
+        estimator state returns a fresh copy, so subtasks never share it."""
+        return self
+
     def retains(self) -> bool:
         """Whether a fire carries elements over into the next window."""
         return False
@@ -92,6 +99,77 @@ class CountOrTimeoutTrigger(Trigger):
         if not window_state.elements:
             return None
         return window_state.first_element_time + self.timeout_s
+
+
+class AdaptiveLatencyTrigger(Trigger):
+    """Latency-targeted batching: fire at ``count`` elements, and fire a
+    partial window early once it provably cannot fill inside
+    ``latency_budget_s``.
+
+    Per open window, with an EWMA of the inter-arrival gap:
+
+    - full (``n >= count``): fire;
+    - projected fill ``last_arrival + (count - n) * gap`` within
+      ``first_arrival + latency_budget_s``: wait for the count;
+    - otherwise fire one expected gap after the last arrival (so a burst
+      still coalesces), never after the budget.
+
+    The budget is end to end, so a service time fed back by the window
+    operator (``observe_service_time``: the model runner's per-batch EWMA)
+    pulls that deadline forward to ``hard - service``, but never before
+    one expected gap after the first arrival (windows of one record
+    would cost more calls than the offered rate allows).  The EWMA is
+    per subtask (``clone``) and pools the keys of a keyed window."""
+
+    def __init__(self, count: int, latency_budget_s: float, *, ewma_alpha: float = 0.25):
+        if count <= 0:
+            raise ValueError(f"count must be positive, got {count}")
+        if latency_budget_s <= 0:
+            raise ValueError(f"latency_budget_s must be positive, got {latency_budget_s}")
+        if not 0.0 < ewma_alpha <= 1.0:
+            raise ValueError(f"ewma_alpha must be in (0, 1], got {ewma_alpha}")
+        self.count = count
+        self.latency_budget_s = latency_budget_s
+        self.ewma_alpha = ewma_alpha
+        self._gap_ewma: typing.Optional[float] = None
+        self._last_arrival: typing.Optional[float] = None
+        self._service_ewma: typing.Optional[float] = None
+
+    def clone(self) -> "AdaptiveLatencyTrigger":
+        return AdaptiveLatencyTrigger(self.count, self.latency_budget_s,
+                                      ewma_alpha=self.ewma_alpha)
+
+    def observe_service_time(self, service_s: float) -> None:
+        """The observed per-batch service time (dispatch -> results)."""
+        self._service_ewma = service_s
+
+    def on_element(self, window_state):
+        now = time.monotonic()
+        if self._last_arrival is not None:
+            gap = now - self._last_arrival
+            self._gap_ewma = (gap if self._gap_ewma is None
+                              else (1.0 - self.ewma_alpha) * self._gap_ewma
+                              + self.ewma_alpha * gap)
+        self._last_arrival = now
+        if len(window_state.elements) >= self.count:
+            return True
+        d = self.deadline(window_state)
+        return d is not None and now >= d
+
+    def deadline(self, window_state):
+        if not window_state.elements:
+            return None
+        hard = window_state.first_element_time + self.latency_budget_s
+        if self._gap_ewma is None or self._last_arrival is None:
+            return hard  # no rate estimate yet: a plain timeout
+        remaining = self.count - len(window_state.elements)
+        if self._last_arrival + remaining * self._gap_ewma <= hard:
+            return hard  # on track to fill: the count fires it
+        d = min(hard, self._last_arrival + self._gap_ewma)
+        if self._service_ewma is not None:
+            reserved = hard - self._service_ewma
+            d = min(d, max(reserved, window_state.first_element_time + self._gap_ewma))
+        return d
 
 
 class SlidingCountTrigger(Trigger):

@@ -40,16 +40,38 @@ straight to its method.  :class:`DeviceMapFunction` (``:890-944``) is the
 elementwise link of such a chain: a torch ``dict -> dict`` callable
 applied to the batch on its device.
 
-Options of the reference that this port does not have yet raise
-``NotImplementedError`` instead of being ignored: the zero-copy
-``TensorRing`` path (``use_ring=True``), ``transfer_lanes > 1``,
-``wire_dtype`` and ``stamp_stages``.
+The transfer options (``:72-119``, ``:241-268``): ``transfer_lanes``
+dispatch lanes (``pipeline_depth`` then defaults to ``2 *
+transfer_lanes``), ``wire_dtype`` (None follows the job's, ``ctx.
+wire_dtype``) and ``stamp_stages`` (per-record stage times in
+``meta["__stages__"]``; the window operator adds ``__arrive_ts__``).
+
+**The ring** (``:478-700``): with a fully static input schema and a
+``fixed_batch`` policy (or an explicit ``ring_capacity``),
+``ModelWindowFunction`` writes each record into a
+:class:`~flink_tensorflow_tpu_torch.native.ring.TensorRing` at arrival
+(``ingest_element``; the window buffer keeps a token), and a fire claims
+contiguous ``[B, ...]`` views of the arena that ship as they lie
+(``_fire_ring`` -> ``CompiledMethodRunner.dispatch_batch``): no assemble
+copy.  On by default where eligible, as in the reference;
+``use_ring=False`` takes the list path.  The arena holds
+``(pipeline_depth + 2) * fixed_batch`` records, page-locked on the card.
+A batch's slots are released when its results are collected, in
+dispatch order, after its H2D event; a batch that would wrap around the
+arena's end is copied out instead (after every earlier batch drains); the
+last record is pushed again to pad a partial batch; and a snapshot first
+turns buffered tokens back into records (``materialize_tokens``), so a
+checkpoint never holds a token.  ``close()`` frees the arena only once
+the runner's fetch thread has ended: if it is wedged, a reaper thread
+waits for it (the reference frees the arena after a 10 s join whatever
+the thread is doing).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import threading
 import time
 import typing
 
@@ -60,7 +82,10 @@ from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.functions.runner import CompiledMethodRunner
 from flink_tensorflow_tpu_torch.models.base import Model
 from flink_tensorflow_tpu_torch.models.loaders import SavedModelLoader
-from flink_tensorflow_tpu_torch.tensors.batching import BucketLadder, BucketPolicy
+from flink_tensorflow_tpu_torch.native.ring import TensorRing
+from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketLadder, BucketPolicy
+from flink_tensorflow_tpu_torch.tensors.coercion import coerce
+from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype
 from flink_tensorflow_tpu_torch.tensors.transfer import DeviceBatch
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
@@ -78,10 +103,6 @@ def _resolve(source: ModelSource) -> Model:
     if callable(source):
         return source()
     raise TypeError(f"cannot resolve model source {type(source).__name__}")
-
-
-def _not_ported(option: str, reason: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported to the PyTorch port yet: {reason}")
 
 
 class _ModelFunctionBase(fn.RichFunction):
@@ -104,18 +125,22 @@ class _ModelFunctionBase(fn.RichFunction):
         device_resident: typing.Optional[bool] = None,
         wire_dtype: typing.Optional[str] = None,
     ):
-        if transfer_lanes != 1:
-            raise _not_ported("transfer_lanes > 1", "the runner has one transfer lane pair")
-        if stamp_stages:
-            raise _not_ported("stamp_stages", "per-record stage stamps are not recorded")
-        if wire_dtype is not None:
-            raise _not_ported("wire_dtype", "the H2D ships the schema's dtype")
+        if transfer_lanes < 1:
+            raise ValueError(f"transfer_lanes must be >= 1, got {transfer_lanes}")
         self._source = model
         self._method_name = method
         self._policy = policy
         self._warmup = tuple(warmup_batches)
         self._warmup_length_bucket = warmup_length_bucket
         self._outputs = outputs
+        self._transfer_lanes = transfer_lanes
+        #: Stamp per-record stage times into ``meta["__stages__"]`` (the
+        #: window operator reads it to stamp ``__arrive_ts__``).
+        self.stamp_stages = stamp_stages
+        #: The H2D wire dtype; None follows the job's (``ctx.wire_dtype``),
+        #: and "f32" ships full width whatever the job's is.
+        normalize_wire_dtype(wire_dtype)
+        self._wire_dtype = wire_dtype
         #: True forces device-batch output, False forbids it, None follows
         #: JobConfig.device_resident where the next fused operator
         #: consumes device batches (``_device_chain_hint``, set by the
@@ -143,10 +168,19 @@ class _ModelFunctionBase(fn.RichFunction):
         for record in self.runner.collect_available():
             self._out.collect(record)
 
+    def service_time_estimate(self) -> typing.Optional[float]:
+        """The runner's EWMA of dispatch -> results per batch: a latency
+        budget trigger reserves it (``WindowOperator`` feeds it)."""
+        return self.runner.service_ewma_s if self.runner is not None else None
+
     def open(self, ctx) -> None:
         model = _resolve(self._source)
+        wire = (self._wire_dtype if self._wire_dtype is not None
+                else getattr(ctx, "wire_dtype", None))
         self.runner = CompiledMethodRunner(model, self._method_name, policy=self._policy,
-                                           output_names=self._outputs)
+                                           output_names=self._outputs,
+                                           dispatch_lanes=self._transfer_lanes,
+                                           wire_dtype=wire)
         self.runner.open(ctx)
         # Leaving results on the device pays only where the next fused
         # operator consumes them: into a host consumer it would move the
@@ -156,6 +190,9 @@ class _ModelFunctionBase(fn.RichFunction):
         else:
             self.runner.emit_device_batches = bool(
                 getattr(ctx, "device_resident", False) and self._device_chain_hint)
+        # Stage stamps ride per-record host metadata, which a batch left on
+        # the device does not have here.
+        self.runner.stamp_stages = self.stamp_stages and not self.runner.emit_device_batches
         # Completed results wake the subtask loop at once.
         self.runner.on_results_ready = getattr(ctx, "wakeup", None)
         if self._warmup:
@@ -193,7 +230,7 @@ class ModelMapFunction(_ModelFunctionBase, fn.AsyncMapFunction):
             kw["policy"] = BucketPolicy(batch=BucketLadder.up_to(micro_batch))
         super().__init__(model, method, **kw)
         if pipeline_depth is None:
-            pipeline_depth = 2
+            pipeline_depth = max(2, 2 * self._transfer_lanes)
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
         self._micro_batch = micro_batch
@@ -282,9 +319,25 @@ class ModelMapFunction(_ModelFunctionBase, fn.AsyncMapFunction):
         self._poll_collect()
 
 
+class _RingToken:
+    """A window buffer's placeholder for a record whose payload is in the
+    ring's arena: its metadata only."""
+
+    __slots__ = ("meta",)
+
+    def __init__(self, meta):
+        self.meta = meta
+
+
+def _close_ring_after(thread: threading.Thread, ring: TensorRing) -> None:
+    thread.join()
+    ring.close()
+
+
 class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
     """Micro-batch inference: one device call per fired window (chunked
-    when the window exceeds the policy's biggest bucket)."""
+    when the window exceeds the policy's biggest bucket); through the
+    ring where eligible (``use_ring``, see the module docstring)."""
 
     #: A window counts elements: a device batch would count as one, so
     #: device batches materialize before they enter a window.  The
@@ -296,14 +349,9 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
                  idle_flush_s: float = 0.05,
                  use_ring: typing.Optional[bool] = None,
                  ring_capacity: typing.Optional[int] = None, **kw):
-        if use_ring:
-            raise _not_ported("use_ring=True", "the zero-copy TensorRing path is a later "
-                              "slice; the list path (use_ring=None or False) is the one ported")
-        if ring_capacity is not None:
-            raise _not_ported("ring_capacity", "the TensorRing path is a later slice")
         super().__init__(model, method, **kw)
         if pipeline_depth is None:
-            pipeline_depth = 2
+            pipeline_depth = 2 * self._transfer_lanes
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
         self._max_in_flight = pipeline_depth - 1
@@ -313,12 +361,118 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
         #: Per dispatched batch, oldest first: ``[collector, records
         #: still owed]``.  Results go to the window that dispatched them.
         self._routes: typing.Deque[typing.List[typing.Any]] = collections.deque()
+        self._use_ring = use_ring
+        self._ring_capacity = ring_capacity
+        self._ring: typing.Optional[TensorRing] = None
+        self._last_ingested: typing.Optional[TensorValue] = None
+        self._metrics = None
 
     def clone(self) -> "fn.Function":
         dup = super().clone()
         dup._routes = collections.deque()
+        dup._ring = None
+        dup._last_ingested = None
         return dup
 
+    # -- ring lifecycle ----------------------------------------------------
+    def open(self, ctx) -> None:
+        super().open(ctx)
+        self._metrics = getattr(ctx, "metrics", None)
+        if self._use_ring is False:
+            return
+        method = self.runner.method
+        schema = method.input_schema
+        eligible = (all(d is not None for n in schema.names for d in schema[n].shape)
+                    and not method.needs_lengths)
+        capacity = self._ring_capacity
+        fixed = self.runner.policy.fixed_batch
+        if capacity is None and fixed is not None:
+            # A slot set per batch in flight, plus the window filling.
+            capacity = (self._max_in_flight + 3) * fixed
+        if self._use_ring and not eligible:
+            raise ValueError("use_ring=True requires a fully static input schema "
+                             "(dynamic-length fields batch through the list path)")
+        if self._use_ring and capacity is None:
+            raise ValueError("use_ring=True without fixed_batch needs ring_capacity")
+        if eligible and capacity is not None:
+            self._ring = TensorRing(schema, capacity,
+                                    pinned=self.runner.device.type == "cuda")
+            if self._metrics is not None:
+                self._metrics.gauge("ring_pinned_bytes", lambda r=self._ring: r.pinned_bytes)
+
+    def close(self) -> None:
+        runner = self.runner
+        super().close()
+        ring, self._ring = self._ring, None
+        if ring is None:
+            return
+        wedged = runner.wedged_fetcher if runner is not None else None
+        if wedged is not None:
+            # A batch may still read the arena: free it only after the
+            # fetch thread ends.
+            threading.Thread(target=_close_ring_after, args=(wedged, ring),
+                             name="ring-reaper", daemon=True).start()
+            return
+        if ring.pinned_bytes:
+            # No copy may still read the arena when it is freed.
+            torch.cuda.synchronize(runner.device)
+        ring.close()
+
+    def _count(self, name: str) -> None:
+        if self._metrics is not None:
+            self._metrics.counter(name).inc()
+
+    # -- per-element ingestion (WindowOperator hook) -----------------------
+    def ingest_element(self, value, out: fn.Collector):
+        """Write one record into the ring at arrival; the buffer token, or
+        None to buffer the value itself (no ring, or the window alone
+        fills it)."""
+        if self._ring is None:
+            return None
+        tv = value if isinstance(value, TensorValue) else coerce(
+            value, self.runner.method.input_schema)
+        while not self._ring.try_push(tv.fields):
+            # Full: completed batches hold slots until collected, so
+            # collect them; else wait for the oldest batch in flight.
+            drained = self.runner.collect_available()
+            if drained:
+                self._emit(drained)
+                continue
+            if not self.runner.in_flight:
+                self._count("ring_list_buffered")
+                return None
+            self._emit(self.runner.collect_ready(self.runner.in_flight - 1))
+        self._last_ingested = tv
+        return _RingToken(tv.meta)
+
+    def materialize_tokens(self, elements):
+        """Tokens copied out of the ring into records (before a snapshot,
+        and for a window that mixes tokens and records).  Every batch in
+        flight drains first, so the ring's oldest slot is the first
+        token's."""
+        tokens = [e for e in elements if isinstance(e, _RingToken)]
+        if not tokens:
+            return list(elements)
+        if self.runner is not None and (self.runner.in_flight or self.runner.has_completed()):
+            self._emit(self.runner.flush())
+        values = []
+        while len(values) < len(tokens):
+            views, n = self._ring.claim_batch(len(tokens) - len(values))
+            if n == 0:
+                raise RuntimeError("ring out of sync with the window buffer")
+            for i in range(n):
+                row = {}
+                for f, v in views.items():
+                    a = np.array(v[i])
+                    a.setflags(write=False)
+                    row[f] = a
+                values.append(row)
+            self._ring.release(n)
+        it = iter(values)
+        return [TensorValue(next(it), e.meta) if isinstance(e, _RingToken) else e
+                for e in elements]
+
+    # -- firing ------------------------------------------------------------
     def _emit(self, records) -> None:
         for record in records:
             route = self._routes[0]
@@ -330,14 +484,76 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
 
     def process_window(self, key, window, elements, out: fn.Collector):
         elements = list(elements)
-        policy = self.runner.policy
-        cap = policy.fixed_batch or policy.batch.sizes[-1]
-        for i in range(0, len(elements), cap):
-            chunk = elements[i:i + cap]
-            self.runner.dispatch(chunk)
-            self._routes.append([out, len(chunk)])
-            self._emit(self.runner.collect_progress(self._max_in_flight))
+        if (elements and self._ring is not None
+                and all(isinstance(e, _RingToken) for e in elements)):
+            self._fire_ring(elements, out)
+        else:
+            if any(isinstance(e, _RingToken) for e in elements):
+                # Restored records and fresh tokens: this window takes the
+                # list path.
+                elements = self.materialize_tokens(elements)
+            policy = self.runner.policy
+            cap = policy.fixed_batch or policy.batch.sizes[-1]
+            for i in range(0, len(elements), cap):
+                chunk = elements[i:i + cap]
+                self.runner.dispatch(chunk)
+                self._routes.append([out, len(chunk)])
+                self._emit(self.runner.collect_progress(self._max_in_flight))
         self._last_dispatch = time.monotonic()
+
+    def _fire_ring(self, tokens, out: fn.Collector) -> None:
+        """Claim each chunk's contiguous views of the arena and dispatch
+        them as they lie (JAX ``_fire_ring``, ``:626``)."""
+        policy = self.runner.policy
+        ring = self._ring
+        cap = policy.fixed_batch or policy.batch.sizes[-1]
+        for start in range(0, len(tokens), cap):
+            chunk = tokens[start:start + cap]
+            n = len(chunk)
+            b = policy.batch_bucket(n)
+            # Pad rows replay the last record; they follow the chunk.
+            for _ in range(b - n):
+                if not ring.try_push(self._last_ingested.fields):
+                    self._emit(self.runner.flush())
+                    if not ring.try_push(self._last_ingested.fields):
+                        raise RuntimeError("ring cannot hold batch padding; "
+                                           "raise ring_capacity")
+            views, got = ring.claim_batch(b, wait=False)
+            if got < b:
+                # The batch wraps around the arena's end: copy it out.
+                # Releases free the oldest claims first, so every earlier
+                # batch drains before this one's slots are released.
+                if self.runner.in_flight or self.runner.has_completed():
+                    self._emit(self.runner.flush())
+                t0 = time.monotonic()
+                ring.wait_copied(ring.claimed)
+                arrays = {f: np.empty((b, *v.shape[1:]), v.dtype) for f, v in views.items()}
+                filled = 0
+                while filled < b:
+                    if filled:
+                        views, got = ring.claim_batch(b - filled)
+                        if got == 0:
+                            raise RuntimeError("ring out of sync with the window buffer")
+                    for f, v in views.items():
+                        arrays[f][filled:filled + got] = v[:got]
+                    ring.release(got)
+                    filled += got
+                copy_s = time.monotonic() - t0
+                release = ready = None
+                self._count("ring_copy_outs")
+            else:
+                arrays, copy_s = views, 0.0
+                release = (lambda nn=b: ring.release(nn))
+                # The ring's copier may still be writing the batch's rows:
+                # the lane waits for them before the H2D reads them.
+                ready = (lambda upto=ring.claimed: ring.wait_copied(upto))
+            valid = np.zeros((b,), dtype=bool)
+            valid[:n] = True
+            batch = Batch(arrays=arrays, valid=valid, lengths={}, metas=[t.meta for t in chunk])
+            self.runner.dispatch_batch(batch, assemble_s=copy_s, on_done=release, ready=ready)
+            self._routes.append([out, n])
+            self._count("ring_batches")
+            self._emit(self.runner.collect_progress(self._max_in_flight))
 
     def _poll_collect(self) -> None:
         if self.runner is not None:

@@ -5,7 +5,8 @@ Port of two runners of ``flink_tensorflow_tpu/functions/runner.py``:
 :class:`CompiledMethodRunner` (``:1011``) runs one model method on
 micro-batches for the model functions (``functions/model_function.py``):
 the module goes to the device once at ``open``; ``dispatch`` assembles a
-batch into a pinned staging buffer, ships it (with the ``[B]`` lengths of
+batch into a pinned staging buffer (``dispatch_batch``, ``:1304``, takes
+one assembled elsewhere: the ring's views), ships it (with the ``[B]`` lengths of
 dynamic fields, which a ``needs_lengths`` method takes as its third
 argument, JAX ``:1157-1162``, ``:1353-1357``) and launches the method on
 the runner's compute stream without waiting; a fetch thread waits on each
@@ -69,10 +70,13 @@ from flink_tensorflow_tpu_torch.ops.paged_attention import (
 from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
 from flink_tensorflow_tpu_torch.tensors.batching import Batch
+from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype
 from flink_tensorflow_tpu_torch.tensors.transfer import (
     DeviceBatch,
     DeviceTransfer,
     FetchHandle,
+    is_scale_key,
+    scale_key,
     torch_dtype,
 )
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
@@ -617,8 +621,14 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         return self.snapshot_block(slot, length)
 
 
-#: Dispatch lane threads of a :class:`CompiledMethodRunner`.
+#: Dispatch lane threads of a :class:`CompiledMethodRunner` at the least:
+#: with one transfer lane the runner still double-buffers on two, as the
+#: reference does (JAX ``:1169-1185``).
 LANES = 2
+#: Seconds ``close()`` lets in-flight batches drain through the fetch
+#: thread, then waits for the thread to end (JAX ``:1239-1280``).
+CLOSE_DRAIN_S = 60.0
+FETCH_JOIN_S = 10.0
 
 _cudnn_lock = threading.Lock()
 _cudnn_holders = 0
@@ -673,8 +683,23 @@ class CompiledMethodRunner:
 
     ``output_names`` selects the outputs the job consumes: the others are
     dropped on the device, so the D2H moves only these.  Assemble + H2D +
-    launch run on ``LANES`` lane threads, so the host work of batch N+1
-    overlaps batch N and the subtask thread never pays it."""
+    launch run on ``max(LANES, dispatch_lanes)`` lane threads, so the host
+    work of batch N+1 overlaps batch N and the subtask thread never pays
+    it; results still leave in dispatch order.  ``wire_dtype`` narrows
+    float fields on the H2D, and the call widens them back (``x.to(the
+    declared dtype)``, then ``* scale`` for int8) before the method runs.
+    With ``stamp_stages`` each result carries ``meta["__stages__"]``: the
+    reference's stage boundaries of its batch (``t0`` dispatch call,
+    ``t_lane_start`` a lane took it and assembled it, ``t_dispatched``
+    H2D and launch enqueued, ``t_fetch_start`` the fetch thread reached
+    it, ``t_done`` results on the host; ``lane_wait_s``, ``assemble_s``,
+    ``dispatch_s``, ``batch_n``).  ``service_ewma_s`` is the EWMA of
+    dispatch -> results per batch, which latency-budget triggers reserve.
+
+    :meth:`dispatch_batch` ships a batch assembled elsewhere (the ring's
+    views) with no assemble copy; its ``on_done`` runs when the batch's
+    results are collected, on the collecting thread, in dispatch order,
+    after the batch's H2D event has completed."""
 
     def __init__(
         self,
@@ -684,15 +709,28 @@ class CompiledMethodRunner:
         policy: typing.Optional[BucketPolicy] = None,
         device=None,
         output_names: typing.Optional[typing.Sequence[str]] = None,
+        dispatch_lanes: int = 1,
+        wire_dtype: typing.Optional[str] = None,
     ):
+        if dispatch_lanes < 1:
+            raise ValueError("dispatch_lanes must be >= 1")
         self.model = model
         self.method = model.method(method_name)
         self.policy = policy or BucketPolicy()
         self.device = device
         self.output_names = tuple(output_names) if output_names is not None else None
+        self.dispatch_lanes = dispatch_lanes
+        #: Lane threads: at least LANES, so one transfer lane still overlaps.
+        self.lanes = max(LANES, dispatch_lanes)
+        self.wire_dtype = normalize_wire_dtype(wire_dtype)
         #: Leave each batch's outputs on the device as one DeviceBatch
         #: (no D2H); set by the model function at open().
         self.emit_device_batches = False
+        self.stamp_stages = False
+        self.service_ewma_s: typing.Optional[float] = None
+        #: The fetch thread, when ``close()`` gave up joining it: memory
+        #: its batches read must outlive it (``wedged_fetcher.join()``).
+        self.wedged_fetcher: typing.Optional[threading.Thread] = None
         self._module = None
         self._call = None
         self._stream: typing.Optional[torch.cuda.Stream] = None
@@ -700,12 +738,12 @@ class CompiledMethodRunner:
         self._pool: typing.Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._holds_cudnn = False
         self._metrics = None
-        #: In-flight batches (lane futures), in dispatch order; appended
-        #: by the dispatching thread, consumed FIFO by the fetch thread;
-        #: guarded by ``_lock``.
+        #: In-flight batches, ``(lane future, on_done)`` in dispatch order;
+        #: appended by the dispatching thread, consumed FIFO by the fetch
+        #: thread; guarded by ``_lock``.
         self._pending: collections.deque = collections.deque()
-        #: Fetched and unbatched results waiting for the subtask thread
-        #: (lists of TensorValues, or a :class:`_FetchError`).
+        #: Fetched batches waiting for the collecting thread: ``(results,
+        #: on_done, H2D event)`` or a :class:`_FetchError`.
         self._completed: collections.deque = collections.deque()
         self._lock = threading.Lock()
         self._work_cv = threading.Condition(self._lock)
@@ -729,18 +767,33 @@ class CompiledMethodRunner:
             self._stream = torch.cuda.Stream(self.device)
         # Params to the device once.
         self._module = copy.deepcopy(self.model.params).to(self.device).eval()
-        self._transfer = DeviceTransfer(self.device, slots=LANES + 2)
+        self._transfer = DeviceTransfer(self.device, slots=self.lanes + 2,
+                                        wire_dtype=self.wire_dtype)
 
         method = self.method
         select = self.output_names
         schema = method.input_schema
         restore = {n: torch_dtype(schema[n].dtype) for n in schema.names}
 
+        def widen(inputs):
+            # A field that arrives in another dtype (narrowed on the wire,
+            # or an upstream device batch's) is cast back to the schema's
+            # as the first step; an int8 one also takes its scale back.
+            out = {}
+            for k, v in inputs.items():
+                if is_scale_key(k):
+                    continue
+                want = restore.get(k)
+                if want is not None and v.dtype != want:
+                    v = v.to(want)
+                    scale = inputs.get(scale_key(k))
+                    if scale is not None:
+                        v = v * scale
+                out[k] = v
+            return out
+
         def call(inputs, lengths):
-            # Dtype restore: a field that arrives in another dtype is cast
-            # back to the schema's as the first op of the call.
-            inputs = {k: (v.to(restore[k]) if k in restore and v.dtype != restore[k] else v)
-                      for k, v in inputs.items()}
+            inputs = widen(inputs)
             if method.needs_lengths:
                 outputs = method.fn(self._module, inputs, lengths)
             else:
@@ -755,7 +808,7 @@ class CompiledMethodRunner:
         self._call = call
         if self._pool is None:
             self._pool = concurrent.futures.ThreadPoolExecutor(
-                max_workers=LANES, thread_name_prefix=f"{self.model.name}-dispatch")
+                max_workers=self.lanes, thread_name_prefix=f"{self.model.name}-dispatch")
         if self._fetcher is None:
             self._fetch_stop = False
             self._fetcher = threading.Thread(target=self._fetch_loop,
@@ -770,15 +823,16 @@ class CompiledMethodRunner:
         one-time costs (cuDNN's algorithm choice and plans, which PyTorch
         keeps per thread; allocator growth; pinned staging buffers, sized
         here by the largest bucket and ``length_bucket``) stay out of the
-        live windows and out of the metrics."""
+        live windows, the metrics and the service-time EWMA."""
         schema = self.method.input_schema
         shapes = schema.resolve_dynamic(length_bucket)
         metrics, self._metrics = self._metrics, None
+        lanes = self.lanes
         # Each lane task waits for all the others, so every lane thread
         # takes exactly one of them; as many rounds as it takes for the
         # staging slots (taken in turn) to all be used.
-        barrier = threading.Barrier(LANES)
-        rounds = max(1, -(-self._transfer.slots // LANES))
+        barrier = threading.Barrier(lanes)
+        rounds = max(1, -(-self._transfer.slots // lanes))
 
         def on_each_lane(records, t0):
             barrier.wait(timeout=600)
@@ -789,28 +843,48 @@ class CompiledMethodRunner:
             for b in batch_sizes:
                 fields = {n: np.zeros(shapes[n], schema[n].dtype) for n in schema.names}
                 records = [TensorValue(fields)] * b
-                for _ in range(rounds * LANES):
+                for _ in range(rounds * lanes):
                     self._enqueue(self._pool.submit(on_each_lane, records, time.monotonic()))
                 self.flush()
         finally:
             self._metrics = metrics
+            self.service_ewma_s = None
         if metrics is not None:
             metrics.histogram("warmup_s").record(time.monotonic() - t0)
 
     def close(self) -> None:
-        # Drain dispatched work through the fetch thread before dropping
-        # the module: errors are irrelevant during teardown.
-        deadline = time.monotonic() + 60.0
+        """Drain dispatched work through the fetch thread (running the
+        ``on_done`` of every batch it completes, on this thread), then stop
+        the threads.  If the fetch thread does not end within
+        ``FETCH_JOIN_S`` it is left in ``wedged_fetcher``: the caller must
+        not free memory its batches read until it has ended."""
+        deadline = time.monotonic() + CLOSE_DRAIN_S
+        while True:
+            with self._lock:
+                entries = list(self._completed)
+                self._completed.clear()
+                if not entries:
+                    fetching = (self._pending and self._fetcher is not None
+                                and self._fetcher.is_alive())
+                    if fetching and time.monotonic() < deadline:
+                        self._done_cv.wait(timeout=0.5)
+                        continue
+            for e in entries:
+                try:
+                    self._consume(e)
+                except Exception:  # noqa: BLE001 - errors are moot at teardown
+                    pass
+            if not entries:
+                break
         with self._lock:
-            while (self._pending and self._fetcher is not None and self._fetcher.is_alive()
-                   and time.monotonic() < deadline):
-                self._done_cv.wait(timeout=0.5)
             self._fetch_stop = True
             self._pending.clear()
             self._completed.clear()
             self._work_cv.notify_all()
         if self._fetcher is not None:
-            self._fetcher.join(timeout=10.0)
+            self._fetcher.join(timeout=FETCH_JOIN_S)
+            if self._fetcher.is_alive():
+                self.wedged_fetcher = self._fetcher
             self._fetcher = None
         if self._pool is not None:
             self._pool.shutdown(wait=True, cancel_futures=True)
@@ -830,14 +904,28 @@ class CompiledMethodRunner:
             raise RuntimeError("runner not opened")
         self._enqueue(self._pool.submit(self._dispatch_work, list(records), time.monotonic()))
 
-    def _enqueue(self, item) -> None:
+    def dispatch_batch(self, batch: Batch, *, assemble_s: float = 0.0,
+                       on_done: typing.Optional[typing.Callable[[], None]] = None,
+                       ready: typing.Optional[typing.Callable[[], None]] = None) -> None:
+        """Transfer + launch a batch assembled elsewhere (JAX ``:1304-1330``),
+        from where its arrays lie: no assemble copy.  ``ready`` runs on the
+        lane first (the ring's wait for the batch's rows).  ``on_done``
+        runs when the batch's results are collected, on the collecting
+        thread and in dispatch order, once the batch's H2D has completed:
+        the ring releases the batch's slots there."""
+        if self._call is None:
+            raise RuntimeError("runner not opened")
+        self._enqueue(self._pool.submit(self._launch_batch, batch, time.monotonic(),
+                                        assemble_s, ready), on_done)
+
+    def _enqueue(self, item, on_done=None) -> None:
         with self._lock:
-            self._pending.append(item)
+            self._pending.append((item, on_done))
             self._work_cv.notify()
 
     def _dispatch_work(self, records, t0: float):
         """Assemble, H2D, launch, enqueue the D2H (on a lane thread);
-        returns ``(batch, fetch handle, timings)``."""
+        returns ``(batch, fetch handle, timings, H2D event)``."""
         records = [r if isinstance(r, TensorValue) else coerce(r, self.method.input_schema)
                    for r in records]
         stream = (torch.cuda.stream(self._stream) if self._stream is not None
@@ -848,19 +936,41 @@ class CompiledMethodRunner:
                 records, self.method.input_schema, self.policy)
             t_h2d = time.monotonic()
             handle = self._finish_launch(self._call(shipped.inputs, shipped.lengths))
+        # As the reference's stamps: the lane's wait includes the assembly.
+        return self._launched(shipped, handle, t0, t_b + shipped.assemble_s, t_h2d,
+                              shipped.assemble_s)
+
+    def _launch_batch(self, batch: Batch, t0: float, assemble_s: float, ready):
+        """The lane work of :meth:`dispatch_batch`: H2D and launch."""
+        stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext())
+        t_b = time.monotonic()
+        if ready is not None:
+            ready()
+        with stream, torch.inference_mode():
+            shipped = self._transfer.ship_batch(batch)
+            t_h2d = time.monotonic()
+            handle = self._finish_launch(self._call(shipped.inputs, shipped.lengths))
+        return self._launched(shipped, handle, t0, t_b, t_h2d, assemble_s)
+
+    @staticmethod
+    def _launched(shipped, handle: FetchHandle, t0: float, t_lane_start: float,
+                  t_h2d: float, assemble_s: float):
         t_c = time.monotonic()
-        assemble_s = shipped.assemble_s
         timings = {
             "t0": t0,
             "assemble_s": assemble_s,
-            # Host seconds from lane start to the launched call and its
-            # queued D2H (staging wait + H2D enqueue + kernel launches).
-            "dispatch_s": t_c - t_b - assemble_s,
-            "h2d_s": t_h2d - t_b - assemble_s,
+            # Host seconds from the assembled batch to the launched call
+            # and its queued D2H (staging wait + H2D enqueue + launches).
+            "dispatch_s": t_c - t_lane_start,
+            "h2d_s": t_h2d - t_lane_start,
             "h2d_bytes": shipped.h2d_bytes,
+            "wire_saved": shipped.wire_saved,
             "pinned_allocations": shipped.pinned_allocations,
+            "t_lane_start": t_lane_start,
+            "t_dispatched": t_c,
         }
-        return shipped.batch, handle, timings
+        return shipped.batch, handle, timings, shipped.copied
 
     def _finish_launch(self, outputs) -> FetchHandle:
         if self.emit_device_batches:
@@ -912,12 +1022,14 @@ class CompiledMethodRunner:
             dbatch.wait_on(self._stream)
             inputs = {n: dbatch.tensors[n] for n in self.method.input_schema.names}
             handle = self._finish_launch(self._call(inputs, {}))
+        t_c = time.monotonic()
         timings = {
-            "t0": t0, "assemble_s": 0.0, "dispatch_s": time.monotonic() - t_b,
-            "h2d_s": 0.0, "h2d_bytes": 0, "pinned_allocations": 0, "h2d_elided": True,
+            "t0": t0, "assemble_s": 0.0, "dispatch_s": t_c - t_b,
+            "h2d_s": 0.0, "h2d_bytes": 0, "wire_saved": 0, "pinned_allocations": 0,
+            "h2d_elided": True, "t_lane_start": t_b, "t_dispatched": t_c,
         }
         shell = Batch(arrays={}, valid=dbatch.valid, lengths={}, metas=dbatch.metas)
-        return shell, handle, timings
+        return shell, handle, timings, None
 
     # -- background fetch ---------------------------------------------------
     def _fetch_loop(self) -> None:
@@ -929,9 +1041,10 @@ class CompiledMethodRunner:
                     self._work_cv.wait()
                 if not self._pending:
                     return  # stop requested and queue drained
-                item = self._pending[0]
+                item, on_done = self._pending[0]
             try:
-                entry = self._process_item(item)
+                results, copied = self._process_item(item)
+                entry = (results, on_done, copied)
             except BaseException as exc:  # noqa: BLE001 - re-raised on collect
                 entry = _FetchError(exc)
             with self._lock:
@@ -944,8 +1057,9 @@ class CompiledMethodRunner:
             if cb is not None:
                 cb()
 
-    def _process_item(self, item: concurrent.futures.Future) -> typing.List[TensorValue]:
-        batch, handle, timings = item.result()  # re-raises lane-thread failures here
+    def _process_item(self, item: concurrent.futures.Future):
+        batch, handle, timings, copied = item.result()  # re-raises lane failures here
+        # After the lane's future: a wait for the lane belongs before it.
         t_fetch = time.monotonic()
         if handle.on_device:
             # The compute's event is the pipeline-depth barrier the D2H
@@ -961,6 +1075,22 @@ class CompiledMethodRunner:
             d2h_bytes = sum(a.nbytes for a in host.values())
         t_done = time.monotonic()
         dt = t_done - timings["t0"]
+        self.service_ewma_s = dt if self.service_ewma_s is None else (
+            0.75 * self.service_ewma_s + 0.25 * dt)
+        if self.stamp_stages and d2h_bytes is not None:
+            stages = {
+                "t0": timings["t0"],
+                "lane_wait_s": timings["t_lane_start"] - timings["t0"],
+                "assemble_s": timings["assemble_s"],
+                "dispatch_s": timings["dispatch_s"],
+                "t_lane_start": timings["t_lane_start"],
+                "t_dispatched": timings["t_dispatched"],
+                "t_fetch_start": t_fetch,
+                "t_done": t_done,
+                "batch_n": len(results),
+            }
+            for r in results:
+                r.meta["__stages__"] = dict(stages)   # each record its own copy
         m = self._metrics
         if m is not None:
             if timings.get("h2d_elided"):
@@ -982,15 +1112,26 @@ class CompiledMethodRunner:
             # Compute wait + D2H: the fetch thread's wait on the event.
             m.histogram("fetch_wait_s").record(t_done - t_fetch)
             m.counter("h2d_bytes").inc(timings["h2d_bytes"])
+            if timings["wire_saved"]:
+                m.counter("wire_bytes_saved").inc(timings["wire_saved"])
             m.counter("pinned_allocations").inc(timings["pinned_allocations"])
             m.counter("batches").inc()
             m.counter("padded_records").inc(batch.padded_size - batch.num_records)
-        return results
+        return results, copied
 
     def _consume(self, entry) -> typing.List[TensorValue]:
         if isinstance(entry, _FetchError):
             raise entry.exc
-        return entry
+        results, on_done, copied = entry
+        if on_done is not None:
+            if copied is not None and not copied.query():
+                # Counted: the fetch waits on the compute, which waited on
+                # this copy, so a wait here means that order broke.
+                if self._metrics is not None:
+                    self._metrics.counter("release_h2d_waits").inc()
+                copied.synchronize()
+            on_done()
+        return results
 
     def has_completed(self) -> bool:
         return bool(self._completed)

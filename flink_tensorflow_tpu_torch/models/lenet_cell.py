@@ -40,10 +40,13 @@ def lenet_cell(seed: int = 0, records: int = RECORDS):
 
 
 def run_cell(model, records: typing.Sequence[TensorValue], *, batch: int = BATCH,
-             device_provider=None, warmup: bool = True, timeout: float = 600.0) -> CellRun:
-    """Run the cell's job once."""
+             device_provider=None, warmup: bool = True, timeout: float = 600.0,
+             **options) -> CellRun:
+    """Run the cell's job once; ``options`` go to the window function
+    (``wire_dtype``, ``use_ring``, ...)."""
     fn = ModelWindowFunction(model, policy=BucketPolicy(fixed_batch=batch),
-                             warmup_batches=(batch,) if warmup else (), outputs=("label",))
+                             warmup_batches=(batch,) if warmup else (), outputs=("label",),
+                             **options)
     return run_job(records, lambda s: s.count_window(batch, timeout_s=TIMEOUT_S)
                    .apply(fn, name=NAME),
                    device_provider=device_provider, timeout=timeout)

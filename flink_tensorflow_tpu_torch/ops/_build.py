@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code.
 
-Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
+Each ``csrc/*.cu`` source (a CUDA kernel) compiles with ``nvcc`` for
+``sm_90a``, and each ``csrc/*.cpp`` source (host code: the ring's SPSC
+counters) with the host C++ compiler (``$CXX``, else ``c++``), into a
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
 happen at first use, into ``flink_tensorflow_tpu_torch/_build/`` (listed
 in ``.gitignore``), under a name that carries a hash of the source, so an
-edited source never loads a stale library.  Nothing here runs at import.
+edited source never loads a stale library.  A failed build raises; there
+is no fallback.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -37,6 +41,20 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX") or "c++")
+    if found:
+        return found
+    raise RuntimeError("no host C++ compiler ($CXX or c++) to build the port's "
+                       "native ring")
+
+
+def _compiler(source: str) -> typing.List[str]:
+    if source.endswith(".cu"):
+        return [_nvcc(), *NVCC_FLAGS]
+    return [_cxx(), *CXX_FLAGS]
+
+
 def _lib_path(source: str) -> str:
     with open(os.path.join(CSRC, source), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
@@ -45,27 +63,42 @@ def _lib_path(source: str) -> str:
 
 
 def _start(source: str) -> typing.Optional[typing.Tuple[subprocess.Popen, str, str]]:
-    """Start one nvcc; None when the library is already built."""
+    """Start one compiler; None when the library is already built."""
     out = _lib_path(source)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        proc = subprocess.Popen(
+            [*_compiler(source), "-o", tmp, os.path.join(CSRC, source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        os.unlink(tmp)
+        raise
     return proc, tmp, out
 
 
 def build_all(sources: typing.Optional[typing.Sequence[str]] = None) -> typing.Dict[str, str]:
-    """Compile every source (default: all of ``csrc/*.cu``), one ``nvcc``
-    per source, all started together.  Returns ``{source: compiler
-    output}`` (ptxas register/shared-memory report) for the ones built
-    now; raises with the compiler's output on the first failure."""
+    """Compile every source (default: all of ``csrc/*.cu`` and
+    ``csrc/*.cpp``), one compiler per source, all started together.
+    Returns ``{source: compiler output}`` (for a kernel, ptxas's
+    register/shared-memory report) for the ones built now; raises with
+    the compiler's output on the first failure."""
     if sources is None:
-        sources = sorted(s for s in os.listdir(CSRC) if s.endswith(".cu"))
-    started = {s: _start(s) for s in sources}
+        sources = sorted(s for s in os.listdir(CSRC) if s.endswith((".cu", ".cpp")))
+    started: typing.Dict[str, typing.Any] = {}
+    try:
+        for source in sources:
+            started[source] = _start(source)
+    except BaseException:
+        for job in started.values():
+            if job is not None:
+                job[0].kill()
+                job[0].wait()
+                os.unlink(job[1])
+        raise
     logs: typing.Dict[str, str] = {}
     failed = []
     for source, job in started.items():
@@ -80,12 +113,14 @@ def build_all(sources: typing.Optional[typing.Sequence[str]] = None) -> typing.D
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return logs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(source: str) -> ctypes.CDLL:
-    """The built library of ``source``, building it first if needed."""
+def load_library(source: str, hold_gil: bool = False) -> ctypes.CDLL:
+    """The built library of ``source``, building it first if needed.
+    ``hold_gil`` loads it as a ``ctypes.PyDLL``: its calls keep the
+    interpreter lock (for calls shorter than the lock's hand-over)."""
     build_all([source])
-    return ctypes.CDLL(_lib_path(source))
+    return (ctypes.PyDLL if hold_gil else ctypes.CDLL)(_lib_path(source))

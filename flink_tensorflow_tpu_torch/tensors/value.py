@@ -56,6 +56,13 @@ class TensorValue:
     def names(self) -> typing.List[str]:
         return list(self._fields.keys())
 
+    def with_meta(self, **meta) -> "TensorValue":
+        """The same fields (shared: they are read-only) with ``meta``
+        merged into a copy of this record's metadata."""
+        merged = dict(self._meta)
+        merged.update(meta)
+        return TensorValue(self._fields, merged)
+
     def __repr__(self) -> str:
         inner = ", ".join(f"{k}: {v.shape}/{v.dtype}" for k, v in self._fields.items())
         return f"TensorValue({inner})"

@@ -65,12 +65,16 @@ def test_scalar_fields_and_empty_meta_round_trip():
 
 
 def test_object_fields_and_narrowed_frames_are_refused():
+    """Object fields and a bad magic are refused; a narrowed frame, refused
+    before wire dtypes were ported, now reads back as the JAX package reads
+    it (``tests/test_torch_wire.py`` holds every wire dtype)."""
     with pytest.raises(TypeError, match="object dtype"):
         serde.encode_record(TensorValue({"o": np.array([object()], dtype=object)}))
-    narrowed = jax_serde.encode_record(JaxTensorValue({"x": np.ones(4, np.float32)}),
-                                       wire_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="wire dtype"):
-        serde.decode_record(narrowed)
+    x = np.linspace(-2, 2, 4, dtype=np.float32)
+    narrowed = jax_serde.encode_record(JaxTensorValue({"x": x}), wire_dtype="bf16")
+    back = serde.decode_record(narrowed)
+    assert back["x"].dtype == np.float32
+    np.testing.assert_array_equal(back["x"], jax_serde.decode_record(narrowed)["x"])
     with pytest.raises(ValueError, match="magic"):
         serde.decode_record(b"\0" * 12)
 

@@ -3,12 +3,16 @@
 a paged, tiered keyed job that spills to disk), the
 Quick-start job, the training path (a keyed Wide&Deep job and a ResNet
 gang), a LeNet and a BiLSTM window job, a ``ModelMapFunction`` job
-from a port bundle, and an event-time job (LeNet on keyed time windows
-into the two-phase-commit file sink, checkpointed) run that way, no
-module of the JAX package is loaded, and nothing falls back to the CPU
-silently."""
+from a port bundle, an event-time job (LeNet on keyed time windows
+into the two-phase-commit file sink, checkpointed) and the transfer
+plane (the ring, lanes, a wire dtype, stage stamps, a paced source into
+a latency-budget window) run that way, no module of the JAX package is
+loaded, and nothing falls back to the CPU silently.  No source of the
+port (its C++ included) names the JAX package, ``jax`` or the
+reference's ``native/`` directory."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -168,6 +172,25 @@ _SLICE = textwrap.dedent("""
     env.execute(timeout=60)
     assert sorted(r.meta["id"] for r in read_committed(out_dir)) == list(range(12))
     assert late == []
+
+    # The transfer plane: the ring (C++ counters built here), three
+    # lanes, a bf16 wire, stage stamps, and the open loop's paced source
+    # into a latency-budget window.
+    from flink_tensorflow_tpu_torch.io.sources import PacedSource
+
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.set_device_provider(cpu)
+    env.configure(wire_dtype="bf16")
+    paced = (env.from_source(PacedSource(digits, 200.0, seed=1))
+             .count_window(4, latency_budget_s=0.05)
+             .apply(ModelWindowFunction(lenet, transfer_lanes=3, stamp_stages=True,
+                                        ring_capacity=16), name="ol")
+             .sink_to_list())
+    result = env.execute(timeout=60)
+    assert sorted(r.meta["id"] for r in paced) == list(range(12))
+    assert all("__stages__" in r.meta and "sched_ts" in r.meta for r in paced)
+    assert result.metrics["ol.0.ring_batches"] == result.metrics["ol.0.batches"]
+    assert result.metrics["ol.0.wire_bytes_saved"] > 0
     leaked = sorted(m for m in sys.modules
                     if m == "flink_tensorflow_tpu" or m.startswith("flink_tensorflow_tpu."))
     print("LEAKED", leaked)
@@ -182,6 +205,23 @@ def test_cpu_slice_runs_without_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "OK" in proc.stdout
+
+
+def test_no_port_source_names_jax_the_jax_package_or_native():
+    port = os.path.join(REPO, "flink_tensorflow_tpu_torch")
+    sources = []
+    for root, _, files in os.walk(port):
+        if "_build" in root or "__pycache__" in root:
+            continue
+        sources += [os.path.join(root, f) for f in files if f.endswith((".py", ".cpp", ".cu"))]
+    assert any(p.endswith("spsc_ring.cpp") for p in sources)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|flink_tensorflow_tpu)\b"
+                         r"(?!_torch)|native/lib|libftt_native|#include\s+[\"<].*native/",
+                         re.MULTILINE)
+    for path in sources:
+        with open(path) as f:
+            hits = pattern.findall(f.read())
+        assert not hits, (path, hits)
 
 
 def test_no_device_means_cuda_and_raises_without_it():

@@ -121,18 +121,30 @@ def test_quick_start_form(model, pixels, jax_labels):
     {"device_resident": True}, {"stamp_stages": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(model, kwargs):
-    if "device_resident" in kwargs:
-        # Ported since: the option is taken, and it makes the runner leave
-        # each batch on the device (tests/test_torch_device_resident.py).
-        f = ModelWindowFunction(model, **kwargs)
-        f.open(type("Ctx", (), {"device": "cpu", "metrics": None})())
-        try:
-            assert f.runner.emit_device_batches
-        finally:
-            f.close()
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ModelWindowFunction(model, **kwargs)
+    """Every option of the reference is ported now: each is taken and
+    does what it says on an opened function (the ring, the lanes, the
+    wire dtype: tests/test_torch_{ring,wire}.py; residency:
+    tests/test_torch_device_resident.py; stamps:
+    tests/test_torch_open_loop.py)."""
+    kw = dict(kwargs)
+    if "use_ring" in kw:
+        kw["policy"] = BucketPolicy(fixed_batch=4)
+    f = ModelWindowFunction(model, **kw)
+    f.open(type("Ctx", (), {"device": "cpu", "metrics": None})())
+    try:
+        r = f.runner
+        if "use_ring" in kw:
+            assert f._ring is not None and f._ring.capacity == 16
+        if "transfer_lanes" in kw:
+            assert r.dispatch_lanes == 2 and f._max_in_flight == 3
+        if "wire_dtype" in kw:
+            assert r.wire_dtype == "bf16"
+        if "device_resident" in kw:
+            assert r.emit_device_batches
+        if "stamp_stages" in kw:
+            assert r.stamp_stages
+    finally:
+        f.close()
 
 
 def test_no_device_provider_means_the_gpu(model, pixels):

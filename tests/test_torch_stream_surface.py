@@ -418,9 +418,14 @@ def test_count_window_validation(package):
 
 
 def test_adaptive_latency_trigger_is_refused_until_ported():
+    """Ported now: the budget builds the adaptive latency trigger, one per
+    subtask (``tests/test_torch_open_loop.py`` holds it to the JAX one)."""
+    from flink_tensorflow_tpu_torch.core.windows import AdaptiveLatencyTrigger
+
     env = StreamExecutionEnvironment(parallelism=1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        env.from_collection([1]).count_window(4, latency_budget_s=0.1)
+    windowed = env.from_collection([1]).count_window(4, latency_budget_s=0.1)
+    assert isinstance(windowed.trigger, AdaptiveLatencyTrigger)
+    assert windowed.trigger.latency_budget_s == 0.1
 
 
 def test_keyed_count_windows_rescale_two_to_three(tmp_path):
