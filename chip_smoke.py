@@ -167,7 +167,36 @@ Phases (any failure exits non-zero and prints no result line):
    records: every id once, each batch equal to a direct call at its
    padded bucket bit for bit, p50/p95/p99 latency from the scheduled
    arrival, the median of each stage and the window sizes printed;
-13. print one ``kernels`` JSON line, the card line, and the final
+13. parallelism and frozen graphs (``parallel/``, ``models/loaders.py``):
+   (a) resnet-train (phase 7's cell) through ``DPTrainWindowFunction`` on
+   ``{"data": 1}`` over a real NCCL group of one
+   (``multihost.initialize``): losses and final params equal to phase 7
+   (a)'s bit for bit, all-reduces per step counted (2 + 2 per batch
+   norm), step time and records/s beside phase 7's; (b) two processes
+   (``functions/train_cell.py --backend gloo``) sharing ``cuda:0``, 16
+   records each per step: 8 steps held to (a)'s first 8 (losses 1e-2
+   relative; what the steps changed, by norm, within 1.5x the one-card
+   noise floor of the same steps on reordered rows), and 1 step held to
+   (a)'s first (losses, 2e-3 absolute on the running statistics, and
+   1.5x the noise floor by norm), with a control of 1 step with batch
+   statistics local to each rank (``--local-batch-stats``) that must
+   miss the params' and the statistics' bars;
+   seconds per step, "2 ranks sharing one card, not a multi-card
+   number"; (c) ``ring_attention`` and ``ulysses_attention`` over the
+   group of one, then the ring's block step (``ring_flash_block``) for 8
+   simulated ranks fed in ring order and Ulysses' per-rank K1 call on 8
+   head slices, at B 1, H 8, T 16,384, D 64 bf16 causal and D 128 f16:
+   K1 launched exactly 36 / 64 and 8 / 8 times, every output held to the
+   plain path at phase 3's tolerances, K1's ms per block (with
+   ``return_lse``) beside the plain path's and its bound; (d) phase 5's
+   Inception frozen at batch 128 on the card (``freeze_method``), loaded
+   (``GraphLoader``), 512 of phase 5's records through ``count_window(128)
+   -> GraphWindowFunction``: labels and scores equal to phase 5's direct
+   calls bit for bit (or, if export picked other kernels, equal to the
+   program's direct calls and within the bf16 bar of the module), every
+   id once, K1 0 launches; freeze and load seconds, forward ms and job
+   records/s beside ``ModelWindowFunction``'s; the phase's seconds;
+14. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -1071,7 +1100,9 @@ def check_training(card: str, torch, fa):
         print(f"widedeep-online {key}: {widedeep_row[key]} | card: {card}", flush=True)
     if fa.flash_attention.launches != 0:
         fail(f"training launched K1 {fa.flash_attention.launches} times, want 0")
-    return {"resnet_train": 0, "widedeep_online": 0}
+    resnet_ref = {"mdef": mdef, "schema": schema, "records": records, "losses": losses,
+                  "final": final, "row": resnet_row}
+    return {"resnet_train": 0, "widedeep_online": 0}, resnet_ref
 
 
 def stream_row(card, name, run, records, first_batch, *extra_keys, **extra):
@@ -2669,6 +2700,492 @@ def check_transfer_plane(card, torch, fa, inception, direct):
     return {"transfer_plane_phase12": launches}
 
 
+# Phase 13 (b): two gloo ranks sharing the card, 8 steps at global batch
+# 32 (16 per rank), against phase 13 (a)'s first 8 steps.  The losses are
+# held at tests/test_parallel.py:96-99's bf16 bar, 1e-2 relative.  That
+# test's params bar, 2e-3 absolute, cannot hold the params: adam's first
+# step (eps 1e-8) moves every param by lr g / (|g| + eps), about +-lr =
+# 1e-3 whatever the gradient's size, so two runs differ by at most 2 lr =
+# 2e-3 after it by construction, and a gradient near zero whose sign
+# another batch split flips then moves it the other way (up to 1.6e-2 in
+# 8 steps); a running variance of order 100 has a bf16 step of 0.5.  So
+# what the steps changed is held, by its norm (||b - a|| / ||a - start||),
+# to DP_NOISE_FACTOR times the bf16 noise floor of the same step: (a)'s
+# steps again on one card with the rows of each batch in the other order
+# (rank 1's first), the same arithmetic rounded in another order.  The
+# global batch statistics are shown at the FIRST step, where every run
+# starts from the same params: two ranks for 1 step within the factor of
+# the floor at step 1 (and the running statistics within 2e-3, which is
+# not bounded by construction), and the control, the same two ranks with
+# batch norm's moments over each rank's rows (``train_cell
+# --local-batch-stats``), must miss both the params' and the statistics'
+# bar.  The factor, 1.5, leaves room on both sides of the readings
+# (PERF.md, phase 13): two ranks land at 1.03-1.10x the floor, at step 1
+# and after 8; local statistics at 2.1-2.2x after 8 steps and 3.5x
+# (params) and 88x (statistics) at step 1.
+DP_GLOO_STEPS = 8
+DP_GLOO_LOSS_RTOL = 1e-2
+DP_GLOO_ATOL = 2e-3
+DP_NOISE_FACTOR = 1.5
+DP_RANK_TIMEOUT_S = 300
+# Phase 13 (c): the ring's block step for 8 simulated ranks, and Ulysses'
+# per-rank K1 call on each of 8 head slices: (name, B, H, T, D, dtype,
+# causal), T split 8 ways.
+SEQ_RANKS = 8
+SEQ_CASES = (("bf16_d64_causal", 1, 8, 16384, 64, "bfloat16", True),
+             ("f16_d128", 1, 8, 16384, 128, "float16", False))
+# Phase 13 (d): phase 5's records through the frozen Inception.
+GRAPH_RECORDS = 512
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def held(got, want, dtype) -> float:
+    """max(|got - want| - rtol |want|) at phase 3's tolerance for
+    ``dtype``; fails the phase above its atol."""
+    atol, rtol = TOLERANCE[dtype]
+    over = ((got.float() - want.float()).abs() - rtol * want.float().abs()).max().item()
+    if not over <= atol:
+        fail(f"{over} over phase 3's {dtype} atol {atol}")
+    return over
+
+
+def plain_rows(torch, q, k, v, offset: int, causal: bool):
+    """Plain attention of the query rows ``q`` (global positions from
+    ``offset``) over all keys: ``full_attention``'s rows, a block at a
+    time (the whole [T, T] score matrix would take tens of GB)."""
+    import math
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    if causal:
+        rows = offset + torch.arange(q.shape[1], device=q.device)[:, None]
+        s = s.masked_fill(torch.arange(k.shape[1], device=q.device)[None, :] > rows,
+                          float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def check_dp_nccl(card, torch, fa, ref):
+    """Phase 13 (a): resnet-train through the gang over a real NCCL group
+    of one, equal to phase 7 (a) bit for bit.  Returns the row, the state
+    after 8 steps of the same step (for (b)) and (a)'s losses."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.functions import train_cell as cell
+    from flink_tensorflow_tpu_torch.functions.runner import (
+        hold_cudnn_heuristics,
+        release_cudnn_heuristics,
+    )
+    from flink_tensorflow_tpu_torch.functions.training_function import _train_batch_arrays
+    from flink_tensorflow_tpu_torch.parallel import collectives, dp, multihost
+    from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+    from flink_tensorflow_tpu_torch.parallel.optim import adam
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+
+    mdef, schema, records = ref["mdef"], ref["schema"], ref["records"]
+    topo = multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    backend = torch.distributed.get_backend()
+    mesh = make_mesh({"data": 1})
+    if topo.num_processes != 1 or backend != "nccl" or not mesh.distributed:
+        fail(f"dp nccl: cohort {topo}, backend {backend}, mesh over a group {mesh.distributed}")
+    collectives.calls.clear()
+    fa.flash_attention.launches = 0
+    run = cell.run_resnet(mdef, schema, records, mesh)
+    launches = fa.flash_attention.launches
+    calls = dict(collectives.calls)
+    losses = [float(r["loss"]) for r in run.results]
+    final = run.function.current_params()
+    if not (losses == ref["losses"] and _bit_equal(final, ref["final"])):
+        fail(f"dp nccl: differs from phase 7 (a): losses equal {losses == ref['losses']}, "
+             f"largest loss difference {max(abs(a - b) for a, b in zip(losses, ref['losses']))}")
+    bns = sum(1 for n in final["batch_stats"] if n.endswith(".mean"))
+    per_step = calls.get("all_reduce", 0) / cell.RESNET_STEPS
+    if per_step != 2 + 2 * bns:
+        fail(f"dp nccl: {per_step} all-reduces per step, want 2 + 2 x {bns} batch norms")
+    if launches:
+        fail(f"dp nccl launched K1 {launches} times, want 0")
+    # The first 8 steps again as a direct loop of the gang's step over the
+    # group: (b)'s reference state.
+    opt = adam(cell.RESNET_LR)
+    state = replicate(mesh, dp.init_train_state(mdef, opt, 0))
+    step = dp.make_dp_train_step(mdef, opt, mesh)
+    policy = BucketPolicy(fixed_batch=cell.RESNET_BATCH)
+    loop = []
+    hold_cudnn_heuristics()
+    try:
+        for i in range(DP_GLOO_STEPS):
+            batch = records[i * cell.RESNET_BATCH:(i + 1) * cell.RESNET_BATCH]
+            _, arrays = _train_batch_arrays(batch, schema, policy)
+            state, metrics = step(state, shard_batch(mesh, arrays), i)
+            loop.append(metrics["loss"])
+            if i == 0:
+                ref1 = _to(state["variables"], "cpu")
+        loop = [float(x) for x in loop]
+    finally:
+        release_cudnn_heuristics()
+    if loop != losses[:DP_GLOO_STEPS]:
+        fail("dp nccl: a direct loop of the step differs from the gang's first 8 losses")
+    ref8 = _to(state["variables"], "cpu")
+    # The noise floor for (b): the same 8 steps with each batch's rows in
+    # the other order (rank 1's 16 first), the same arithmetic.
+    start = dp.init_train_state(mdef, opt, 0)
+    state = replicate(mesh, start)
+    half = cell.RESNET_BATCH // 2
+    floor_losses = []
+    hold_cudnn_heuristics()
+    try:
+        for i in range(DP_GLOO_STEPS):
+            batch = records[i * cell.RESNET_BATCH:(i + 1) * cell.RESNET_BATCH]
+            _, arrays = _train_batch_arrays(batch[half:] + batch[:half], schema, policy)
+            state, metrics = step(state, shard_batch(mesh, arrays), i)
+            floor_losses.append(metrics["loss"])
+            if i == 0:
+                floor1 = _to(state["variables"], "cpu")
+        floor_losses = [float(x) for x in floor_losses]
+    finally:
+        release_cudnn_heuristics()
+    floor = {"losses": floor_losses, "variables": _to(state["variables"], "cpu"),
+             "start": start["variables"], "variables_1": floor1, "ref_1": ref1}
+    del state, step
+    gaps = np.diff(run.arrivals) * 1e3
+    row = {"backend": backend, "world_size": 1, "steps": len(losses), "bit_equal_phase7": True,
+           "records_per_s": cell.rate(run.arrivals, cell.RESNET_BATCH),
+           "phase7_records_per_s": ref["row"]["records_per_s"],
+           "step_ms_p50": float(np.percentile(gaps, 50)),
+           "phase7_step_ms_p50": ref["row"]["step_ms_p50"],
+           "all_reduce_per_step": per_step, "batch_norms": bns,
+           "broadcasts": calls.get("broadcast", 0), "job_seconds": run.seconds, "card": card}
+    print("dp nccl w1", json.dumps(row), flush=True)
+    print(f"dp nccl w1 records/s {row['records_per_s']} (phase 7 {row['phase7_records_per_s']}), "
+          f"step ms p50 {row['step_ms_p50']} (phase 7 {row['phase7_step_ms_p50']}), "
+          f"all_reduce per step {per_step} | card: {card}", flush=True)
+    return row, ref8, losses[:DP_GLOO_STEPS], floor, launches
+
+
+def dp_errs(got, got_losses, ref8, losses8, start) -> dict:
+    """One run's 8 steps against (a)'s: loss, and per collection the
+    largest difference, it over the largest |a|, and what the steps
+    changed, by norm."""
+    errs = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got_losses, losses8))}
+    for coll in ("params", "batch_stats"):
+        g, w = _flat(got[coll]), _flat(ref8[coll])
+        diff = max(float((g[k].float() - w[k].float()).abs().max()) for k in w)
+        peak = max(float(w[k].float().abs().max()) for k in w)
+        errs[coll] = {"max_abs": diff, "max_rel": diff / peak,
+                      "over_atol": sum(int(((g[k].float() - w[k].float()).abs()
+                                            > DP_GLOO_ATOL).sum()) for k in w),
+                      "elements": sum(w[k].numel() for k in w),
+                      "update_norm": _norm_err(got[coll], ref8[coll], start[coll])}
+    return errs
+
+
+def run_ranks(cmd, what, steps, replicated=("params", "batch_stats")):
+    """Two rank processes of ``cmd`` (a list, ``--rank`` appended); their
+    output files, read back.  A rank that fails or outlives
+    ``DP_RANK_TIMEOUT_S`` fails the phase, and so do ranks whose
+    ``replicated`` collections differ."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="dp_gloo_") as out:
+        port = free_port()
+        cmd = cmd + ["--world", "2", "--port", str(port), "--steps", str(steps),
+                     "--out", out, "--backend", "gloo"]
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=REPO, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            fail(f"{what}: the ranks outlived {DP_RANK_TIMEOUT_S} s")
+        seconds = time.monotonic() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                print(log[-6000:], file=sys.stderr)
+                fail(f"{what}: rank {r} exited {p.returncode}")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        for r in ranks:
+            if r["device"] != "cuda:0" or r["steps"] != list(range(1, steps + 1)):
+                fail(f"{what}: a rank ran on {r['device']}, steps {r['steps']}")
+        if not (ranks[0]["losses"] == ranks[1]["losses"]
+                and all(_bit_equal(ranks[0]["variables"][c], ranks[1]["variables"][c])
+                        for c in replicated)):
+            fail(f"{what}: the two ranks' {replicated} differ (they must stay replicated)")
+        return ranks, seconds
+
+
+def check_dp_gloo(card, torch, ref8, losses8, floor):
+    """Phase 13 (b): two processes, each the gang over a gloo group of two
+    sharing cuda:0 (gloo sums and broadcasts CUDA tensors; a refusal fails
+    the phase), 8 steps, held to (a)'s first 8; then 1 step, with and
+    without cross-rank batch statistics, held to (a)'s first."""
+    import numpy as np
+
+    rank_cmd = [sys.executable, "-m", "flink_tensorflow_tpu_torch.functions.train_cell"]
+    ranks, seconds = run_ranks(rank_cmd, "dp gloo", DP_GLOO_STEPS)
+    one, _ = run_ranks(rank_cmd, "dp gloo 1 step", 1)
+    # Each rank keeps its own running statistics here; the gradients are
+    # still averaged, so the params stay replicated.
+    local, _ = run_ranks(rank_cmd + ["--local-batch-stats"], "dp gloo local statistics", 1,
+                         replicated=("params",))
+    start = floor["start"]
+    ref1, losses1 = floor["ref_1"], losses8[:1]
+    errs = {"two_ranks_8": dp_errs(ranks[0]["variables"], ranks[0]["losses"], ref8, losses8,
+                                   start),
+            "noise_floor_8": dp_errs(floor["variables"], floor["losses"], ref8, losses8, start),
+            "two_ranks_1": dp_errs(one[0]["variables"], one[0]["losses"], ref1, losses1, start),
+            "noise_floor_1": dp_errs(floor["variables_1"], floor["losses"][:1], ref1, losses1,
+                                     start),
+            "local_statistics_1": dp_errs(local[0]["variables"], local[0]["losses"], ref1,
+                                          losses1, start)}
+    bars = {f"{c}_{k}": DP_NOISE_FACTOR * errs[f"noise_floor_{k}"][c]["update_norm"]
+            for c in ("params", "batch_stats") for k in (8, 1)}
+    step_ms = [float(np.median(np.diff(r["arrivals"]))) * 1e3 for r in ranks]
+    row = {"ranks": 2, "backend": "gloo", "device": "cuda:0", "steps": DP_GLOO_STEPS,
+           "errs_vs_a": errs, "loss_rtol": DP_GLOO_LOSS_RTOL, "update_norm_bars": bars,
+           "statistics_atol_step_1": DP_GLOO_ATOL, "step_ms_median": step_ms,
+           "all_reduce": ranks[0]["calls"].get("all_reduce"),
+           "k1_launches": sum(r["k1_launches"] for r in ranks + one + local),
+           "seconds": seconds, "card": card}
+    print("dp gloo 2 ranks", json.dumps(row), flush=True)
+    print(f"dp gloo seconds per step {[x / 1e3 for x in step_ms]} (2 ranks sharing one card, "
+          f"not a multi-card number) | card: {card}", flush=True)
+    # The params' max-abs at step 1 is printed only: at most 2 lr by
+    # construction (the comment above DP_GLOO_STEPS).
+    ok = [errs[f"two_ranks_{k}"]["loss_rel"] <= DP_GLOO_LOSS_RTOL for k in (8, 1)]
+    ok += [errs["two_ranks_1"]["batch_stats"]["max_abs"] <= DP_GLOO_ATOL]
+    ok += [errs[f"two_ranks_{k}"][c]["update_norm"] <= bars[f"{c}_{k}"]
+           for c in ("params", "batch_stats") for k in (8, 1)]
+    if not all(ok):
+        fail(f"dp gloo: off (a): {json.dumps({k: errs[k] for k in errs if 'two' in k})} "
+             f"(loss rtol {DP_GLOO_LOSS_RTOL}, step 1 statistics atol {DP_GLOO_ATOL}, "
+             f"update bars {bars})")
+    for c in ("params", "batch_stats"):
+        ctl = errs["local_statistics_1"][c]["update_norm"]
+        if not ctl > bars[f"{c}_1"]:
+            fail(f"dp gloo: with local batch statistics the {c} land within the bar ({ctl} <= "
+                 f"{bars[f'{c}_1']}): the check cannot tell them from global ones")
+    return row
+
+
+def check_seq_parallel(card, torch, fa):
+    """Phase 13 (c): ring and Ulysses attention on K1, through the NCCL
+    group of one and for 8 simulated ranks."""
+    from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from flink_tensorflow_tpu_torch.parallel.ring_attention import (
+        full_attention,
+        ring_attention,
+        ring_flash_block,
+    )
+    from flink_tensorflow_tpu_torch.parallel.ulysses import (
+        ulysses_attention,
+        ulysses_local_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    # Through the group of one: one K1 call each.
+    mesh = make_mesh({"seq": 1})
+    q, k, v = (torch.randn(1, 2048, 8, 64, device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+    want = full_attention(q, k, v, causal=True)
+    w1 = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        fa.flash_attention.launches = 0
+        got = fn(mesh, q, k, v, causal=True)
+        torch.cuda.synchronize()
+        w1[name] = {"launches": fa.flash_attention.launches,
+                    "over_tolerance": held(got, want, "bfloat16")}
+        if w1[name]["launches"] != 1:
+            fail(f"{name} over the group of one launched K1 {w1[name]['launches']} times")
+    rows["world_size_1"] = w1
+    n = SEQ_RANKS
+    launches = {"ring_sim8": 0, "ulysses_sim8": 0}
+    for name, b, h, t_all, d, dtype, causal in SEQ_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(b, t_all, h, d, device="cuda", generator=gen).to(dt)
+                   for _ in range(3))
+        t = t_all // n
+        blk = [slice(i * t, (i + 1) * t) for i in range(n)]
+        fa.flash_attention.launches = 0
+        outs = []
+        for me in range(n):
+            o = torch.zeros((b, t, h, d), dtype=torch.float32, device="cuda")
+            lse = torch.full((b, h, t), float("-inf"), device="cuda")
+            for step in range(n):
+                src = (me - step) % n
+                o, lse = ring_flash_block(q[:, blk[me]], k[:, blk[src]], v[:, blk[src]], o, lse,
+                                          me=me, src=src, causal=causal)
+            outs.append(o.to(dt))
+        torch.cuda.synchronize()
+        ring_launches = fa.flash_attention.launches
+        want_launches = n * (n + 1) // 2 if causal else n * n
+        if ring_launches != want_launches:
+            fail(f"ring {name}: {ring_launches} K1 launches, want {want_launches}")
+        ring_over = max(held(outs[me], plain_rows(torch, q[:, blk[me]], k, v, me * t, causal),
+                             dtype) for me in range(n))
+        hs = h // n
+        fa.flash_attention.launches = 0
+        heads = [ulysses_local_attention(q[:, :, j * hs:(j + 1) * hs],
+                                         k[:, :, j * hs:(j + 1) * hs],
+                                         v[:, :, j * hs:(j + 1) * hs], causal=causal)
+                 for j in range(n)]
+        torch.cuda.synchronize()
+        u_launches = fa.flash_attention.launches
+        if u_launches != n:
+            fail(f"ulysses {name}: {u_launches} K1 launches, want {n}")
+        u_over = max(held(heads[j], full_attention(*(x[:, :, j * hs:(j + 1) * hs].contiguous()
+                                                     for x in (q, k, v)), causal=causal), dtype)
+                     for j in range(n))
+        launches["ring_sim8"] += ring_launches
+        launches["ulysses_sim8"] += u_launches
+        # K1 per block (return_lse, as the ring calls it) beside the plain path.
+        qb, kb, vb = q[:, blk[1]], k[:, blk[0]], v[:, blk[0]]
+        kinds = {"full": False, "diagonal": True} if causal else {"full": False}
+        per_block = {}
+        for kind, c in kinds.items():
+            kk, vv = (k[:, blk[1]], v[:, blk[1]]) if c else (kb, vb)
+            k1 = time_ms(lambda: fa.flash_attention(qb, kk, vv, causal=c, return_lse=True), 20)
+            plain = time_ms(lambda: fa.flash_attention_reference(qb, kk, vv, causal=c,
+                                                                 return_lse=True), 5)
+            bound_ms, bound_by, _ = k1_bound(b, h, t, t, d, dtype, c)
+            per_block[kind] = {"k1_ms": k1, "plain_ms": plain, "bound_ms": bound_ms,
+                               "bound_by": bound_by}
+        heads_ms = time_ms(lambda: ulysses_local_attention(
+            q[:, :, :hs], k[:, :, :hs], v[:, :, :hs], causal=causal), 5)
+        rows[name] = {"B": b, "H": h, "T": t_all, "D": d, "dtype": dtype, "causal": causal,
+                      "ranks": n, "ring_launches": ring_launches, "ring_over_tolerance": ring_over,
+                      "ulysses_launches": u_launches, "ulysses_over_tolerance": u_over,
+                      "per_block": per_block, "ulysses_rank_ms": heads_ms,
+                      "tolerance": TOLERANCE[dtype], "card": card}
+        print(f"seq {name}", json.dumps(rows[name]), flush=True)
+        for kind, r in per_block.items():
+            print(f"seq {name} K1 {kind} block ms {r['k1_ms']} (plain {r['plain_ms']}, bound "
+                  f"{r['bound_ms']}) | card: {card}", flush=True)
+    return rows, launches
+
+
+def check_frozen_inception(card, torch, fa, inception, direct):
+    """Phase 13 (d): phase 5's Inception frozen at batch 128 on the card,
+    loaded, and run over 512 records through ``count_window(128) ->
+    GraphWindowFunction`` beside ``ModelWindowFunction``."""
+    import copy
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.loaders import GraphLoader, freeze_method
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    mdef, model, pixels = inception
+    n = GRAPH_RECORDS
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(n)]
+    t0 = time.monotonic()
+    frozen = freeze_method(model, batch=cell.BATCH)
+    freeze_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    program = GraphLoader(frozen).load("cuda")
+    load_s = time.monotonic() - t0
+    fa.flash_attention.launches = 0
+    graph = cell.run_graph_job(frozen, mdef.methods["serve"].input_schema, records)
+    launches = fa.flash_attention.launches
+    check_ids("graph inception", graph.results, n)
+    model_run = cell.run_cell_job(model, records)
+    check_ids("graph inception (model arm)", model_run.results, n)
+    label = np.empty(n, np.int32)
+    score = np.empty(n, np.float32)
+    for r in graph.results:
+        label[r.meta["id"]] = r["label"]
+        score[r.meta["id"]] = r["score"]
+    want_label, want_score = direct[0][:n], direct[1][:n]
+    bit_equal = np.array_equal(label, want_label) and np.array_equal(score, want_score)
+    extra = {}
+    if not bit_equal:
+        # Export may pick other kernels: the job must equal direct calls of
+        # the frozen program bit for bit, and the program the module within
+        # the bf16 bar (labels equal where the top-2 gap is clear).
+        module = copy.deepcopy(model.params).to("cuda").eval()
+        serve = mdef.methods["serve"].fn
+        worst, flips = 0.0, 0
+        with torch.inference_mode():
+            for lo in range(0, n, cell.BATCH):
+                x = torch.from_numpy(pixels[lo:lo + cell.BATCH].copy()).cuda()
+                got, ref = program({"image": x}), serve(module, {"image": x})
+                if not (np.array_equal(got["label"].cpu().numpy(), label[lo:lo + cell.BATCH])
+                        and np.array_equal(got["score"].cpu().numpy(),
+                                           score[lo:lo + cell.BATCH])):
+                    fail("graph inception: the job differs from direct calls of the program")
+                gl, rl = got["logits"].float().cpu().numpy(), ref["logits"].float().cpu().numpy()
+                peak = np.abs(rl).max()
+                worst = max(worst, float(np.abs(gl - rl).max() / peak))
+                top2 = np.sort(rl, axis=-1)[:, -2:]
+                clear = (top2[:, 1] - top2[:, 0]) > 2 * INCEPTION_BF16_TOL * peak
+                flips += int((got["label"].cpu().numpy() != ref["label"].cpu().numpy())[clear]
+                             .sum())
+        del module
+        extra = {"logits_rel_err_vs_module": worst, "tolerance": INCEPTION_BF16_TOL,
+                 "clear_label_flips": flips,
+                 "labels_differing": int((label != want_label).sum())}
+        if worst > INCEPTION_BF16_TOL or flips:
+            fail(f"graph inception: frozen logits {worst} of max |logit| from the module's, "
+                 f"{flips} clear labels flipped")
+    if launches:
+        fail(f"graph inception launched K1 {launches} times, want 0")
+    # The forward alone, a batch of 128 on the card: the program against
+    # the module it was frozen from (the jobs' rates below include each
+    # one's open: the program's load, the module's copy to the card).
+    module = copy.deepcopy(model.params).to("cuda").eval()
+    serve = mdef.methods["serve"].fn
+    x = {"image": torch.from_numpy(pixels[:cell.BATCH].copy()).cuda()}
+    with torch.inference_mode():
+        forward = {"graph_ms": time_ms(lambda: program(x), 10),
+                   "model_ms": time_ms(lambda: serve(module, x), 10)}
+    del module, program
+    # Four batches at depth 6 are all in flight at once and land in one
+    # burst, so a steady rate between results means nothing here.
+    rates = {what: {"job_records_per_s": n / run.seconds}
+             for what, run in (("graph", graph), ("model", model_run))}
+    row = {"records": n, "batch": cell.BATCH, "freeze_s": freeze_s, "load_s": load_s,
+           "artifact_bytes": len(frozen), "bit_equal_direct": bit_equal, **extra, **rates,
+           "forward_batch_ms": forward, "card": card}
+    print("graph inception", json.dumps(row), flush=True)
+    print(f"graph inception job records/s {rates['graph']['job_records_per_s']} "
+          f"(ModelWindowFunction {rates['model']['job_records_per_s']}), forward of 128 "
+          f"{forward['graph_ms']} ms (module {forward['model_ms']}), freeze {freeze_s} s, "
+          f"load {load_s} s | card: {card}", flush=True)
+    return row, launches
+
+
+def check_parallel(card, torch, fa, resnet_ref, inception, direct):
+    """Phase 13: data parallelism over NCCL and gloo, sequence parallelism
+    on K1, and the frozen Inception."""
+    from flink_tensorflow_tpu_torch.parallel import multihost
+
+    t0 = time.monotonic()
+    try:
+        _, ref8, losses8, floor, nccl_launches = check_dp_nccl(card, torch, fa, resnet_ref)
+        _, seq_launches = check_seq_parallel(card, torch, fa)
+    finally:
+        multihost.shutdown()
+    gloo_launches = check_dp_gloo(card, torch, ref8, losses8, floor)["k1_launches"]
+    _, graph_launches = check_frozen_inception(card, torch, fa, inception, direct)
+    print(f"parallel phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return {"dp_nccl_w1": nccl_launches, "dp_gloo_2rank": gloo_launches, **seq_launches,
+            "graph_inception": graph_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2748,7 +3265,7 @@ def main() -> int:
     keyed_launches, dense_keyed = check_keyed_serving(card, torch, fa, mdef, model, cfg,
                                                       requests, got, serving_row)
 
-    training_launches = check_training(card, torch, fa)
+    training_launches, resnet_ref = check_training(card, torch, fa)
 
     stream_launches = check_stream_models(card, torch, fa, inception)
 
@@ -2759,6 +3276,8 @@ def main() -> int:
     event_time_launches = check_event_time(card, torch, fa, inception)
 
     transfer_launches = check_transfer_plane(card, torch, fa, inception, direct)
+
+    parallel_launches = check_parallel(card, torch, fa, resnet_ref, inception, direct)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
@@ -2776,7 +3295,7 @@ def main() -> int:
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
                              **training_launches, **stream_launches, **chain_launches,
                              **paged_launches, **event_time_launches,
-                             **transfer_launches},
+                             **transfer_launches, **parallel_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

@@ -37,7 +37,14 @@ Ported so far:
   under ``ModelWindowFunction``, transfer lanes, wire dtypes
   (``JobConfig.wire_dtype``), stage stamps, and the open loop:
   ``io.sources.PacedSource`` into ``count_window(latency_budget_s=...)``
-  (``core.windows.AdaptiveLatencyTrigger``).
+  (``core.windows.AdaptiveLatencyTrigger``);
+- frozen graphs: ``models.loaders.freeze_method`` / ``GraphLoader``
+  (``torch.export``) and ``functions.model_function.GraphWindowFunction``
+  / ``GraphMapFunction``; the checkpoint coordinator's deadline sweeper;
+- parallelism over ``torch.distributed`` (``parallel.multihost``, one
+  device per process): the data-parallel gang across processes with
+  global batch-norm statistics, and ring and Ulysses attention over a
+  ``seq`` axis on the flash-attention kernel.
 """
 
 from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig

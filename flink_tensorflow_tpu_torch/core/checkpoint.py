@@ -1,12 +1,23 @@
 """Checkpoint coordinator — aligned snapshots, persisted and announced.
 
 Port of ``flink_tensorflow_tpu/core/checkpoint.py:24-509`` without the
-deadline sweeper (``:262-318``) and the distributed hooks.  The
+distributed hooks.  The
 coordinator collects one snapshot per operator subtask for each
 checkpoint id.  Snapshots reach it as host objects: the subtask thread
 that took one copies its tensors to the CPU before acking
 (``checkpoint.store.to_host``), so the persist thread never sees a device
 tensor.
+
+The deadline sweeper (JAX ``:262-318``): a source-initiated checkpoint
+still pending ``checkpoint_timeout_s`` after its registration is
+aborted: its id joins ``aborted_ids`` (the ``recovery.checkpoints_aborted``
+gauge), its late acks are dropped, and every subtask is told
+(``executor.notify_checkpoint_aborted``) so it drops the id's alignment,
+unblocks its gate and swallows the id's late barriers.  Sources keep
+cutting later checkpoints, which complete.  A ``trigger()`` that times
+out aborts its checkpoint the same way, then fails its caller.  The
+sweeper thread starts with the first count-based checkpoint and ends
+when the job is done or cancelled.
 
 Disk format: one directory per checkpoint (``checkpoint/store.py``).
 """
@@ -76,6 +87,10 @@ class CheckpointCoordinator:
         self._last_size_bytes: typing.Optional[int] = None
         self.metrics.gauge("last_checkpoint_id", lambda: self._last_checkpoint_id)
         self.metrics.gauge("last_size_bytes", lambda: self._last_size_bytes)
+        #: Checkpoint ids declined at their deadline, in abort order.
+        self.aborted_ids: typing.List[int] = []
+        executor.metrics.group("recovery").gauge("checkpoints_aborted",
+                                                 lambda: len(self.aborted_ids))
         self._next_id = 1
         self._lock = threading.Lock()
         #: Serializes whole trigger() calls: a manual trigger colliding
@@ -90,6 +105,10 @@ class CheckpointCoordinator:
         #: completion order, and join() drains it.
         self._persist_pool: typing.Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._persist_futures: typing.List[concurrent.futures.Future] = []
+        #: The deadline sweeper of source-initiated checkpoints, started
+        #: at the first one (a ``trigger()`` caller keeps its own timeout).
+        self._abort_thread: typing.Optional[threading.Thread] = None
+        self._abort_stop = threading.Event()
 
     def resume_from(self, checkpoint_id: int) -> None:
         """Continue numbering after a restored checkpoint so new snapshots
@@ -139,6 +158,8 @@ class CheckpointCoordinator:
         if not pending.done.wait(timeout):
             with self._lock:
                 self._pending.pop(cid, None)
+                self.aborted_ids.append(cid)
+            self._announce_abort(cid, "trigger timeout")
             raise TimeoutError(f"checkpoint {cid} did not complete within {timeout}s")
         with self._lock:
             self._pending.pop(cid, None)
@@ -169,7 +190,49 @@ class CheckpointCoordinator:
             self._pending[checkpoint_id] = pending
             self._next_id = checkpoint_id + 1
             self._seed_finished(pending)
+            self._ensure_abort_sweeper_locked()
         return True
+
+    # -- deadline abort ----------------------------------------------------
+    def _ensure_abort_sweeper_locked(self) -> None:
+        """Start the deadline sweeper once (caller holds the lock)."""
+        if self._abort_thread is not None or self._abort_stop.is_set():
+            return
+        self._abort_thread = threading.Thread(target=self._abort_loop,
+                                              name="checkpoint-abort-sweeper", daemon=True)
+        self._abort_thread.start()
+
+    def _abort_loop(self) -> None:
+        """Every ``min(timeout / 4, 1 s)`` (at least 20 ms): abort each
+        source-initiated checkpoint older than the timeout.  Ends when the
+        job is done or cancelled, or at :meth:`shutdown`."""
+        timeout = self.executor.checkpoint_timeout_s
+        interval = max(0.02, min(timeout / 4.0, 1.0))
+        executor = self.executor
+        while not self._abort_stop.wait(interval):
+            if executor.cancelled.is_set() or executor.all_done.is_set():
+                return
+            now = time.monotonic()
+            expired: typing.List[_PendingCheckpoint] = []
+            with self._lock:
+                for cid, pending in list(self._pending.items()):
+                    if pending.source_initiated and now - pending.created_s > timeout:
+                        pending.failed = True
+                        pending.done.set()
+                        del self._pending[cid]
+                        self.aborted_ids.append(cid)
+                        expired.append(pending)
+            for pending in expired:
+                self._announce_abort(
+                    pending.checkpoint_id,
+                    f"missed deadline ({timeout:.1f}s) with {pending.acks}/{pending.expected} acks")
+
+    def _announce_abort(self, checkpoint_id: int, why: str) -> None:
+        """Log one declined checkpoint and fan the abort out to the
+        subtasks (they drop the id's alignment)."""
+        logger.warning("checkpoint %d aborted: %s; discarded, sources keep cutting later "
+                       "checkpoints", checkpoint_id, why)
+        self.executor.notify_checkpoint_aborted(checkpoint_id)
 
     def _complete_locked(self, pending: _PendingCheckpoint) -> None:
         """Finish a source-initiated checkpoint (caller holds the lock, so
@@ -227,7 +290,11 @@ class CheckpointCoordinator:
                 self._persist_futures = [f for f in self._persist_futures if f not in done]
 
     def shutdown(self) -> None:
-        """Stop the persist worker (after :meth:`wait_for_persistence`)."""
+        """Stop the deadline sweeper and the persist worker (after
+        :meth:`wait_for_persistence`)."""
+        self._abort_stop.set()
+        if self._abort_thread is not None:
+            self._abort_thread.join(timeout=5.0)
         if self._persist_pool is not None:
             self._persist_pool.shutdown(wait=True)
             self._persist_pool = None

@@ -55,6 +55,7 @@ from flink_tensorflow_tpu_torch.core.partitioning import ForwardPartitioner, Has
 from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore
 from flink_tensorflow_tpu_torch.metrics.registry import MetricRegistry
+from flink_tensorflow_tpu_torch.parallel.multihost import topology
 from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype
 from flink_tensorflow_tpu_torch.tensors.transfer import env_device_resident, env_wire_dtype
 
@@ -240,6 +241,11 @@ class _Subtask:
         #: completed ids to announce to the operators on their own thread.
         self._control: typing.List[int] = []
         self._notifications: typing.List[int] = []
+        #: Ids the coordinator aborted at their deadline, waiting for this
+        #: thread, and those it has taken: a late barrier of one is
+        #: swallowed, not aligned (its alignment could never complete).
+        self._aborts: typing.List[int] = []
+        self._aborted_cids: typing.Set[int] = set()
         self._control_lock = threading.Lock()
         #: Barrier alignment spans (first barrier -> snapshot), set in _build.
         self.alignment = None
@@ -266,6 +272,20 @@ class _Subtask:
     def add_notification(self, checkpoint_id: int) -> None:
         with self._control_lock:
             self._notifications.append(checkpoint_id)
+
+    def add_abort(self, checkpoint_id: int) -> None:
+        """The coordinator aborted ``checkpoint_id``: deliver it to this
+        subtask's thread (a worker's gate is woken to take it)."""
+        with self._control_lock:
+            self._aborts.append(checkpoint_id)
+        if self.gate is not None:
+            self.gate.wake()
+
+    def _drain_aborts(self) -> typing.List[int]:
+        with self._control_lock:
+            pending, self._aborts = self._aborts, []
+        self._aborted_cids.update(pending)
+        return pending
 
     def deliver_notifications(self) -> None:
         with self._control_lock:
@@ -309,7 +329,10 @@ class _Subtask:
     # -- thread bodies ---------------------------------------------------------
     def _source_barrier(self, checkpoint_id: int) -> None:
         """Cut this source's stream: snapshot + ack, then the barrier
-        (which snapshots each fused member in turn)."""
+        (which snapshots each fused member in turn).  An aborted id is
+        not cut."""
+        if checkpoint_id in self._aborted_cids:
+            return
         self._snapshot_and_ack(checkpoint_id)
         self.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
 
@@ -324,6 +347,7 @@ class _Subtask:
                 if executor.cancelled.is_set():
                     break
                 self.deliver_notifications()
+                self._drain_aborts()
                 for cid in self._drain_control():
                     self._source_barrier(cid)
                 if isinstance(value, el.SourceIdle):
@@ -394,6 +418,12 @@ class _Subtask:
                 timeout = None if deadline is None else max(0.0, deadline - time.monotonic())
                 item = gate.poll(timeout=timeout)
                 self.deliver_notifications()
+                for cid in self._drain_aborts():
+                    # An aborted checkpoint: drop its alignment, so the
+                    # channels its missing barrier blocked flow again.
+                    if barrier_seen.pop(cid, None) is not None:
+                        barrier_t0.pop(cid, None)
+                        gate.unblock_all()
                 self._chain_fire_due(time.monotonic())
                 if item is None:
                     continue
@@ -406,6 +436,10 @@ class _Subtask:
                     merge_watermarks()
                 elif isinstance(element, el.CheckpointBarrier):
                     cid = element.checkpoint_id
+                    if cid in self._aborted_cids:
+                        # A late barrier of an aborted checkpoint: neither
+                        # aligned nor forwarded (every subtask was told).
+                        continue
                     seen = barrier_seen.setdefault(cid, set())
                     if not seen:
                         barrier_t0[cid] = time.monotonic()
@@ -479,6 +513,9 @@ class LocalExecutor:
         #: is None.
         self.wire_dtype = normalize_wire_dtype(
             wire_dtype if wire_dtype is not None else env_wire_dtype())
+        #: Processes of the cohort this one belongs to
+        #: (``parallel.multihost``; 1 outside a ``torch.distributed`` group).
+        self.num_processes = topology().num_processes
         #: Periodic trigger interval (set by the environment before start).
         self.checkpoint_interval_s: typing.Optional[float] = None
         self.cancelled = threading.Event()
@@ -610,7 +647,8 @@ class LocalExecutor:
             state = KeyedStateStore()
             ctx = RuntimeContext(unit.t.name, unit.index, unit.t.parallelism,
                                  self.metrics.group(unit.scope), device=device,
-                                 keyed_state=state, mesh=self.mesh)
+                                 keyed_state=state, mesh=self.mesh,
+                                 num_processes=self.num_processes)
             ctx.device_resident = self.device_resident
             ctx.wire_dtype = self.wire_dtype
             if st.gate is not None:
@@ -731,6 +769,18 @@ class LocalExecutor:
         (delivered to each operator on its own thread)."""
         for st in self.subtasks:
             st.add_notification(checkpoint_id)
+
+    def notify_checkpoint_aborted(self, checkpoint_id: int) -> None:
+        """Fan a checkpoint abort out to every subtask: each drops the
+        id's alignment (unblocking channels a missing barrier held) and
+        swallows its late barriers, so the job keeps flowing."""
+        for st in self.subtasks:
+            st.add_abort(checkpoint_id)
+
+    @property
+    def all_done(self) -> threading.Event:
+        """Set once every subtask has finished."""
+        return self._all_done
 
     def subtask_finished(self, subtask: _Subtask) -> None:
         self.coordinator.subtask_finished(subtask)

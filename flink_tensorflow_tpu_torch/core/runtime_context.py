@@ -5,8 +5,9 @@ identity, parallelism and metric group; keyed state through
 ``state(descriptor)`` (scoped to the current key, ``with_key`` swaps it);
 ``device``, the answer of the job's device provider (None: the model
 runner resolves the GPU); ``mesh``, the job's mesh for gang operators,
-and ``num_processes``, the processes of the cohort (always 1: the port
-runs one process); ``wakeup``, which breaks the subtask loop's
+and ``num_processes``, the processes of the ``torch.distributed`` cohort
+this one belongs to (``parallel.multihost``; 1 outside a cohort), each
+of which runs its own executor; ``wakeup``, which breaks the subtask loop's
 wait when a model runner's results land (the chain head's gate, shared by
 every member of a worker chain; None for source chains and bare
 operators); ``device_resident``, the job's residency mode; and

@@ -4,7 +4,10 @@ Port of ``flink_tensorflow_tpu/functions/model_function.py``: the model
 source resolver (``_resolve``, ``:48-58``), ``_ModelFunctionBase``
 (``:60``, ``open`` ``:239``), ``ModelMapFunction`` (``:282-430``) and
 ``ModelWindowFunction`` (``:442``) on the list path (``process_window``
-``:607``, timer hooks ``:689-716``).  A model source is a ``Model``, a
+``:607``, timer hooks ``:689-716``), and the frozen-graph functions
+``GraphWindowFunction`` and ``GraphMapFunction`` (``:728-889``), which
+load a ``models.loaders.freeze_method`` graph at ``open()`` and run it
+through the same runner.  A model source is a ``Model``, a
 bundle path, a ``SavedModelLoader`` or a zero-argument callable; each
 subtask resolves it at ``open()``, so a bundle is loaded once per
 subtask (one model replica each).  ``open()`` builds a
@@ -80,8 +83,8 @@ import torch
 
 from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.functions.runner import CompiledMethodRunner
-from flink_tensorflow_tpu_torch.models.base import Model
-from flink_tensorflow_tpu_torch.models.loaders import SavedModelLoader
+from flink_tensorflow_tpu_torch.models.base import Model, ModelMethod
+from flink_tensorflow_tpu_torch.models.loaders import GraphLoader, SavedModelLoader
 from flink_tensorflow_tpu_torch.native.ring import TensorRing
 from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketLadder, BucketPolicy
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
@@ -600,6 +603,79 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
         # Emit everything in flight before a snapshot is taken.
         self.flush_in_flight()
         return None
+
+
+class FrozenGraph(torch.nn.Module):
+    """A loaded frozen graph as a model's params: it owns no parameter or
+    buffer (the program's weights are its constants), so the runner's
+    ``.to()`` and ``.eval()`` leave it as it is, and a deep copy shares the
+    read-only program (already on the subtask's device)."""
+
+    def __init__(self, program: typing.Callable):
+        super().__init__()
+        object.__setattr__(self, "program", program)
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+def graph_model(source: typing.Union[str, bytes], *, input_schema, needs_lengths: bool,
+                device) -> Model:
+    """A frozen graph loaded onto ``device`` as a :class:`Model` with one
+    method, ``serve``, that calls the program."""
+    frozen = FrozenGraph(GraphLoader(source).load(device))
+
+    def serve(module: FrozenGraph, inputs, lengths=None):
+        return module.program(inputs, lengths) if needs_lengths else module.program(inputs)
+
+    method = ModelMethod("serve", input_schema, (), serve, needs_lengths=needs_lengths)
+    return Model("frozen_graph", frozen, {"serve": method})
+
+
+class _GraphFunctionBase:
+    """Runs a frozen graph (``models.loaders.freeze_method``) instead of a
+    model, through the same runner, ring and lanes as the Model functions
+    (JAX ``_GraphFunctionBase``, ``:728``).  A frozen graph is specialised
+    to one batch and one length bucket, so the batch policy is forced to
+    them: ``BucketPolicy(fixed_batch=batch,
+    lengths=BucketLadder([length_bucket]))``.  Each subtask loads the graph
+    onto its device at ``open()``."""
+
+    def __init__(self, graph: typing.Union[str, bytes], *, batch: int, input_schema,
+                 needs_lengths: bool = False, length_bucket: int = 128, **kw):
+        self._graph_source = graph
+        self._graph_schema = input_schema
+        self._needs_lengths = needs_lengths
+        kw["policy"] = BucketPolicy(fixed_batch=batch, lengths=BucketLadder([length_bucket]))
+        kw.setdefault("warmup_length_bucket", length_bucket)
+        super().__init__(None, "serve", **kw)
+
+    def open(self, ctx) -> None:
+        device = resolve_device(getattr(ctx, "device", None))
+        self._source = lambda: graph_model(self._graph_source, input_schema=self._graph_schema,
+                                           needs_lengths=self._needs_lengths, device=device)
+        super().open(ctx)
+
+
+class GraphWindowFunction(_GraphFunctionBase, ModelWindowFunction):
+    """A fired window through a frozen graph: one call per ``batch``
+    records (a larger window is chunked, a smaller one padded).  Takes
+    :class:`ModelWindowFunction`'s options besides the policy."""
+
+
+class GraphMapFunction(_GraphFunctionBase, ModelMapFunction):
+    """Per-record inference over a frozen graph of batch 1, pipelined: up
+    to ``pipeline_depth`` records in flight, results in arrival order, a
+    lull drained after ``idle_flush_s``, everything flushed at the end of
+    input and before a barrier (JAX ``GraphMapFunction``, ``:785``)."""
+
+    def __init__(self, graph, *, input_schema, needs_lengths: bool = False,
+                 length_bucket: int = 128, pipeline_depth: int = 4,
+                 idle_flush_s: float = 0.01, **kw):
+        super().__init__(graph, batch=1, input_schema=input_schema,
+                         needs_lengths=needs_lengths, length_bucket=length_bucket,
+                         micro_batch=1, pipeline_depth=pipeline_depth,
+                         idle_flush_s=idle_flush_s, **kw)
 
 
 class DeviceMapFunction(fn.MapFunction):

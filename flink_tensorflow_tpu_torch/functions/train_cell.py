@@ -19,10 +19,27 @@ Weights come from the port's initialiser (seed 0).  Each ``run_*`` runs
 the job once and returns its sink's records, their arrival times, the
 metric registry, the job's seconds and the function instance that ran
 last (its final TrainState; the host's after ``close``).
+
+resnet-train across processes (the reference's manual multi-process
+placement): each of N processes runs the same job on its rows of every
+global batch of 32 (``partition``), with ``count_window(32 / N)`` into
+the gang over a ``{"data": N}`` mesh.  One such process:
+
+    python3 -m flink_tensorflow_tpu_torch.functions.train_cell \
+        --rank R --world N --port P --steps S --out DIR [--backend gloo] \
+        [--local-batch-stats]
+
+joins the cohort at ``tcp://127.0.0.1:P`` on the card (``cuda:R mod
+cards``; ``--backend gloo`` lets ranks share one card), trains S steps
+and writes its losses, step times, collective and K1 launch counts and
+final variables to ``DIR/rank<R>.pt``.  ``--local-batch-stats`` is the
+negative control of the cross-rank batch norm
+(:func:`local_batch_statistics`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 import typing
@@ -35,6 +52,8 @@ from flink_tensorflow_tpu_torch.functions.training_function import (
     OnlineTrainFunction,
 )
 from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+from flink_tensorflow_tpu_torch.parallel import collectives
+from flink_tensorflow_tpu_torch.parallel.mesh import spans_processes
 from flink_tensorflow_tpu_torch.parallel.optim import adam
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
@@ -101,18 +120,38 @@ def resnet_cell(*, records: int = RESNET_BATCH * RESNET_STEPS, image_size: int =
     return mdef, schema, values
 
 
+def partition(records: typing.Sequence[TensorValue], global_batch: int, rank: int,
+              world: int) -> typing.List[TensorValue]:
+    """Process ``rank``'s rows of every global batch: the ``rank``-th
+    block of ``global_batch / world`` records of each, in order (the
+    reference's dim-0 split over ``data``)."""
+    local = global_batch // world
+    return [r for i, r in enumerate(records) if (i % global_batch) // local == rank]
+
+
 def run_resnet(mdef, schema, records, mesh, *, batch: int = RESNET_BATCH,
-               timeout: float = 900.0) -> CellRun:
+               checkpoint_dir: typing.Optional[str] = None, every_n_records: int = RESNET_BATCH,
+               restore_id: typing.Optional[int] = None, timeout: float = 900.0) -> CellRun:
+    """The resnet-train job at global batch ``batch``; over a mesh that
+    spans processes, ``records`` are this process's partition and its
+    windows hold ``batch / processes`` of them.  With ``checkpoint_dir``,
+    count-based checkpoints every ``every_n_records`` of this process's
+    records, and with ``restore_id`` the job restores from that one."""
     kept: list = []
     env = StreamExecutionEnvironment(parallelism=1)
     env.set_mesh(mesh)
-    stream = (env.from_collection(records, parallelism=1).count_window(batch)
+    if checkpoint_dir is not None:
+        env.enable_checkpointing(checkpoint_dir, every_n_records=every_n_records)
+    window = batch // mesh.size if spans_processes(mesh) else batch
+    stream = (env.from_collection(records, parallelism=1).count_window(window)
               .apply(_keeping(DPTrainWindowFunction, kept)(
                   mdef, adam(RESNET_LR), train_schema=schema, global_batch=batch),
                   name="dp_train"))
     results, arrivals = _timed_sink(stream)
+    restore = {} if restore_id is None else dict(restore_from=checkpoint_dir,
+                                                 restore_checkpoint_id=restore_id)
     t0 = time.monotonic()
-    env.execute("resnet-train", timeout=timeout)
+    env.execute("resnet-train", timeout=timeout, **restore)
     return CellRun(results, arrivals, env, time.monotonic() - t0, kept[-1])
 
 
@@ -184,3 +223,66 @@ def rate(arrivals: typing.Sequence[float], per_item: float = 1.0) -> float:
     if len(arrivals) < 2 or arrivals[-1] <= arrivals[0]:
         return float("nan")
     return (len(arrivals) - 1) * per_item / (arrivals[-1] - arrivals[0])
+
+
+@contextlib.contextmanager
+def local_batch_statistics():
+    """While active, train-mode batch norm takes its moments over each
+    rank's own rows (the gradients are still averaged): the control that
+    shows a check can tell the global batch statistics from local ones."""
+    shared = collectives.batch_moments
+    collectives.batch_moments = lambda mean, mean_sq: (mean, mean_sq)
+    try:
+        yield
+    finally:
+        collectives.batch_moments = shared
+
+
+def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
+                backend: typing.Optional[str] = None, local_batch_stats: bool = False) -> None:
+    """One process of the resnet-train cell across ``world`` processes,
+    on its card (see the module docstring)."""
+    import os
+
+    import torch
+
+    from flink_tensorflow_tpu_torch.ops.flash_attention import flash_attention
+    from flink_tensorflow_tpu_torch.parallel import multihost
+    from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh
+
+    # f32 products stay f32, as the single-process cell runs them.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend=backend)
+    try:
+        mesh = make_mesh({"data": world})
+        mdef, schema, records = resnet_cell(records=RESNET_BATCH * steps)
+        collectives.calls.clear()
+        with local_batch_statistics() if local_batch_stats else contextlib.nullcontext():
+            run = run_resnet(mdef, schema, partition(records, RESNET_BATCH, rank, world), mesh)
+        torch.save({"losses": [float(r["loss"]) for r in run.results],
+                    "steps": [int(r["step"]) for r in run.results],
+                    "arrivals": list(run.arrivals), "seconds": run.seconds,
+                    "device": str(mesh.device), "calls": dict(collectives.calls),
+                    "k1_launches": flash_attention.launches,
+                    "variables": run.function.current_params()},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        multihost.shutdown()
+
+
+if __name__ == "__main__":
+    import argparse
+
+    parser = argparse.ArgumentParser(description=resnet_rank.__doc__)
+    parser.add_argument("--rank", type=int, required=True)
+    parser.add_argument("--world", type=int, required=True)
+    parser.add_argument("--port", type=int, required=True)
+    parser.add_argument("--steps", type=int, default=RESNET_STEPS)
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--backend", choices=("nccl", "gloo"), default=None)
+    parser.add_argument("--local-batch-stats", action="store_true",
+                        help="batch norm's moments over each rank's rows (the control)")
+    args = parser.parse_args()
+    resnet_rank(args.rank, args.world, args.port, args.steps, args.out, args.backend,
+                args.local_batch_stats)

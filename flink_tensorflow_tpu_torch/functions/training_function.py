@@ -50,7 +50,7 @@ from flink_tensorflow_tpu_torch.functions.runner import (
 )
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef
 from flink_tensorflow_tpu_torch.parallel import dp
-from flink_tensorflow_tpu_torch.parallel.mesh import replicate, shard_batch
+from flink_tensorflow_tpu_torch.parallel.mesh import replicate, shard_batch, spans_processes
 from flink_tensorflow_tpu_torch.parallel.optim import sgd
 from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy, assemble
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
@@ -372,7 +372,17 @@ class DPTrainWindowFunction(fn.WindowFunction):
     Use with parallelism 1 — the gang owns the mesh (``env.set_mesh``).
     The window is the global batch, padded to ``global_batch`` (which the
     mesh's data axis must divide).  The state is updated in place on the
-    mesh device (the reference donates it)."""
+    mesh device (the reference donates it).
+
+    **Across processes** (a mesh over a ``torch.distributed`` cohort,
+    ``parallel.multihost``; the reference's manual pattern,
+    ``examples/multihost_dp_train.py`` worker mode): every process runs
+    the same job with this gang at parallelism 1 on its own executor and
+    feeds its own partition, ``global_batch // num_processes`` records per
+    window (size the count window so).  Every process must fire the same
+    number of windows, so feed equal partitions, and checkpoints must land
+    at the same step on every process: use count-based triggers
+    (``every_n_records``), which cut each partition at the same record."""
 
     #: The gang owns the mesh and blocks in its step: the chaining pass
     #: never fuses it with a neighbour (``analysis/chaining.py``).
@@ -413,15 +423,15 @@ class DPTrainWindowFunction(fn.WindowFunction):
         if ctx.mesh is None:
             raise RuntimeError(
                 "DPTrainWindowFunction needs env.set_mesh(...) — the gang owns the mesh")
-        # Valid gang placements: parallelism 1 on a single-process
-        # executor, or one subtask per process of a cohort (so every
-        # process joins the collective step).
-        required = ctx.num_processes if ctx.num_processes > 1 else 1
-        if ctx.parallelism != required:
+        # The gang runs at parallelism 1 on each process's executor: the
+        # reference's manual multi-process placement (one executor per
+        # process, each feeding its own partition).  A cohort that places
+        # one subtask per process needs the record plane, not ported.
+        if ctx.parallelism != 1:
             raise RuntimeError(
-                f"gang operator parallelism must be {required} "
-                f"(num_processes={ctx.num_processes}) so every process "
-                f"joins the collective step; got {ctx.parallelism}")
+                f"gang operator parallelism must be 1 (num_processes="
+                f"{ctx.num_processes}: one gang subtask per process's executor) so "
+                f"every process joins the collective step; got {ctx.parallelism}")
         self.ctx = ctx
         self.mesh = ctx.mesh
         data_size = self.mesh.shape.get("data", 1)
@@ -429,6 +439,13 @@ class DPTrainWindowFunction(fn.WindowFunction):
             raise ValueError(
                 f"global_batch {self.global_batch} must be divisible by the "
                 f"data-axis size {data_size}")
+        n_proc = self.mesh.size if spans_processes(self.mesh) else 1
+        if self.global_batch % n_proc:
+            raise ValueError(
+                f"global_batch {self.global_batch} must be divisible by the "
+                f"process count {n_proc}")
+        # Each process assembles only its rows of the global batch.
+        self._policy = BucketPolicy(fixed_batch=self.global_batch // n_proc)
         optimizer = self.optimizer or sgd(0.01)
         self.optimizer = optimizer
         self._cudnn.acquire(self.mesh.device)

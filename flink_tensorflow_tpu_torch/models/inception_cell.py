@@ -32,7 +32,7 @@ import typing
 import numpy as np
 
 from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
-from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
+from flink_tensorflow_tpu_torch.functions.model_function import GraphWindowFunction, ModelWindowFunction
 from flink_tensorflow_tpu_torch.functions.runner import CompiledMethodRunner
 from flink_tensorflow_tpu_torch.io.sources import PacedSource
 from flink_tensorflow_tpu_torch.models.stream_cell import run_job
@@ -103,6 +103,20 @@ def run_cell_job(model, records: typing.Sequence[TensorValue], *, device_provide
                    .apply(fn, name="inception"),
                    device_provider=device_provider, timeout=timeout,
                    config={"chaining": chaining})
+
+
+def run_graph_job(graph, input_schema, records: typing.Sequence[TensorValue], *,
+                  device_provider=None, timeout: float = 600.0, lanes: int = LANES,
+                  batch: int = BATCH):
+    """The cell's job with the model frozen (``models.loaders.freeze_method``
+    at ``batch``): ``count_window(batch) -> GraphWindowFunction``, the
+    cell's other settings unchanged."""
+    fn = GraphWindowFunction(graph, batch=batch, input_schema=input_schema,
+                             warmup_batches=(batch,), outputs=("label", "score"),
+                             transfer_lanes=lanes, pipeline_depth=DEPTH)
+    return run_job(records, lambda s: s.count_window(batch, timeout_s=TIMEOUT_S)
+                   .apply(fn, name="inception"),
+                   device_provider=device_provider, timeout=timeout)
 
 
 def trailing_exclude(records: int = RECORDS) -> int:

@@ -20,7 +20,10 @@ What is held equal to the flax definition:
   batch`` with that BIASED variance, eps is 1e-5, and the normalisation
   runs in f32 on the ``compute_dtype`` input with one rounding on the
   way out.  Pad rows of a batch enter the statistics (only the loss is
-  ``valid``-weighted).  In eval mode BN uses the running statistics;
+  ``valid``-weighted).  Inside a data-parallel step over a cohort the
+  two moments are the global batch's (``parallel.collectives.
+  batch_moments``), as XLA computes them over the reference's sharded
+  batch.  In eval mode BN uses the running statistics;
 - the last BN of each block starts with scale 0;
 - the head's mean over H and W accumulates in f32 and rounds to
   ``compute_dtype`` (``jnp.mean`` of a bf16 tensor); the Dense runs in f32.
@@ -45,6 +48,7 @@ from flink_tensorflow_tpu_torch.models.base import ModelMethod
 from flink_tensorflow_tpu_torch.models.zoo._common import lecun_normal_, weighted_metrics
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef, register_model_def
 from flink_tensorflow_tpu_torch.ops.preprocessing import inception_normalize
+from flink_tensorflow_tpu_torch.parallel import collectives
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
 
 BN_EPSILON = 1e-5
@@ -79,8 +83,9 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, mean_sq = collectives.batch_moments(xf.mean(dim=(0, 2, 3)),
+                                                      (xf * xf).mean(dim=(0, 2, 3)))
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 stats[self.path + "mean"] = BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean
                 stats[self.path + "var"] = BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var

@@ -13,6 +13,17 @@ the new ``batch_stats`` from the loss's auxiliary output, as
 ``jax.grad(..., has_aux=True)`` does.  The module is a storage-free
 skeleton on the ``meta`` device: every tensor it reads is the state's.
 
+Over a mesh that spans a cohort (``parallel/mesh.py``) the gang's step
+is the JAX ``jit`` over a batch sharded on ``data``, spelled out: each
+rank runs the forward and backward pass on its own rows, with train-mode
+batch norm's moments averaged over the data axis inside the pass
+(``collectives.cross_replica_moments``: the reference's BN sees the
+GLOBAL batch, and so must its running statistics), each rank's loss
+weighted by its share of the valid rows; the gradients and the metrics
+are then averaged over the axis (one all-reduce), and every rank takes
+the same optimizer step, so the state stays replicated.  At one rank every
+collective is a copy and every weight 1, so the step keeps its bits.
+
 ``rng``: neither zoo model draws random numbers, so the state keeps an
 integer seed and each step derives a ``torch.Generator`` from ``(seed,
 step)`` — the snapshot stays plain data.  The reference's jitted step
@@ -24,6 +35,7 @@ copy it.
 
 from __future__ import annotations
 
+import contextlib
 import typing
 
 import numpy as np
@@ -31,7 +43,8 @@ import torch
 from torch import nn
 
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef
-from flink_tensorflow_tpu_torch.parallel.mesh import Mesh
+from flink_tensorflow_tpu_torch.parallel import collectives
+from flink_tensorflow_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from flink_tensorflow_tpu_torch.parallel.optim import apply_updates
 
 TrainState = typing.Dict[str, typing.Any]   # variables / opt_state / step / rng
@@ -79,7 +92,8 @@ class _LossCall(nn.Module):
         return self.loss_fn(self.module, batch, generator)
 
 
-def make_train_step(model_def: ModelDef, optimizer, *, inplace: bool = False):
+def make_train_step(model_def: ModelDef, optimizer, *, inplace: bool = False,
+                    data_group: typing.Optional[typing.Tuple[typing.Any, int]] = None):
     """``step(state, batch, step_no=None) -> (state, metrics)``, one SGD
     step.  ``batch`` is a dict of tensors on the state's device; metrics
     stay there (0-d tensors).  ``step_no`` is the host's count of steps
@@ -88,7 +102,10 @@ def make_train_step(model_def: ModelDef, optimizer, *, inplace: bool = False):
 
     ``inplace=False`` returns a new state and leaves the old one intact
     (the online operator pipelines steps and keeps older states);
-    ``inplace=True`` updates the given state's tensors and returns it."""
+    ``inplace=True`` updates the given state's tensors and returns it.
+
+    ``data_group=(group, n)``: this rank's share of a step over ``n``
+    ranks (see the module docstring)."""
     loss_fn = model_def.loss_fn
     if loss_fn is None:
         raise ValueError(f"model {model_def.architecture} has no loss_fn")
@@ -107,11 +124,16 @@ def make_train_step(model_def: ModelDef, optimizer, *, inplace: bool = False):
         if step_no is None:
             step_no = int(state["step"])
         generator = torch.Generator(leaves[0].device).manual_seed(fold_in(state["rng"], step_no))
-        with torch.enable_grad():
+        weight = None if data_group is None else _rank_weight(data_group, batch, leaves[0])
+        with torch.enable_grad(), _moments(data_group):
             loss, (new_model_state, metrics) = torch.func.functional_call(
                 skeleton, tensors, (batch, generator))
+            if weight is not None:
+                loss = loss * weight
             grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_group is not None:
+            _average(data_group, weight, grads, metrics)
         with torch.no_grad():
             if inplace:
                 optimizer.apply_(grads, state["opt_state"], params)
@@ -153,11 +175,49 @@ def make_multi_train_step(model_def: ModelDef, optimizer):
     return multi
 
 
+def _moments(data_group):
+    if data_group is None:
+        return contextlib.nullcontext()
+    return collectives.cross_replica_moments(*data_group)
+
+
+def _rank_weight(data_group, batch, like: torch.Tensor) -> torch.Tensor:
+    """``w_r = n c_r / sum_r c_r`` for this rank's count ``c_r`` of valid
+    rows (one all-reduce).  The JAX loss is the valid-weighted mean over
+    the global batch, ``sum_r c_r L_r / sum_r c_r`` for per-rank means
+    ``L_r``: each rank differentiates ``w_r L_r``, and the mean over the
+    ranks of those gradients is that loss's gradient, batch norm's
+    cross-rank terms included.  With equal counts every weight is
+    exactly 1."""
+    group, n = data_group
+    valid = batch.get("valid")
+    rows = next(iter(batch.values())).shape[0]
+    count = (valid.float().sum() if valid is not None
+             else torch.tensor(float(rows), device=like.device))
+    total = collectives.all_reduce_(count.clone(), group)
+    return count * n / total
+
+
+def _average(data_group, weight: torch.Tensor, grads: dict, metrics: dict) -> None:
+    """Gradients (of the weighted loss) and metrics in place: their mean
+    over the data axis, the metrics weighted as the loss is."""
+    group, n = data_group
+    torch._foreach_mul_(list(metrics.values()), weight)
+    collectives.all_reduce_mean_(list(grads.values()) + list(metrics.values()), group, n)
+
+
 def make_dp_train_step(model_def: ModelDef, optimizer, mesh: Mesh):
-    """The gang's step over a mesh: batch on the mesh's data axis, state
-    replicated, updated in place (the reference's donated state).  One
-    device here; a multi-device mesh cannot be built yet
-    (``parallel.mesh.make_mesh``)."""
-    if len(mesh.devices) != 1:
-        raise NotImplementedError("multi-device data parallelism is not ported yet")
-    return make_train_step(model_def, optimizer, inplace=True)
+    """The gang's step over a mesh: this process's rows on its device,
+    state replicated, updated in place (the reference's donated state).
+    On a one-device mesh it is :func:`make_train_step`; over a cohort
+    (``mesh.distributed``) the batch is split over ``data`` and the step
+    runs the collectives of the module docstring.  Other axes must have
+    size 1: the batch rides ``data`` only."""
+    if not mesh.distributed:
+        return make_train_step(model_def, optimizer, inplace=True)
+    others = {a: s for a, s in mesh.shape.items() if a != DATA_AXIS and s > 1}
+    if others:
+        raise ValueError(f"make_dp_train_step splits the batch over {DATA_AXIS!r} only; "
+                         f"mesh axes {others} would hold replicas of the same rows")
+    return make_train_step(model_def, optimizer, inplace=True,
+                           data_group=(mesh.group(DATA_AXIS), mesh.axis_size(DATA_AXIS)))

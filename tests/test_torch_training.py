@@ -518,8 +518,10 @@ class TestDPTrainGang:
             with pytest.raises(JobFailure) as info:
                 env.execute(timeout=60)
             assert match in str(info.value.__cause__)
-        with pytest.raises(NotImplementedError, match="queue item 5"):
-            make_mesh({"data": 2}, devices=["cpu", "cpu"])
+        # A mesh over two processes needs a cohort of two (one device
+        # each); this process is in none.
+        with pytest.raises(ValueError, match="multihost.initialize"):
+            make_mesh({"data": 2})
 
     def test_gang_restart_from_checkpoint_equals_uninterrupted(self, tmp_path):
         """A crash mid-job under ``RestartStrategy``: the restored gang
