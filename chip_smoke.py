@@ -100,10 +100,11 @@ Phases (any failure exits non-zero and prints no result line):
    (at the sink) per micro-batch and ``fetch_elided_batches`` equal to
    the batches; labels equal, scores within ``CHAIN_SCORE_TOL``, and on
    equal to direct calls; (d) ``bench.py:bench_deviceres`` non-smoke
-   (resmlp, dim 4096 f32, 512 records, micro-batch 8, two chained models)
-   on and off: one H2D and one D2H per micro-batch on, two off, outputs
-   equal bit for bit and to the CPU's f32; H2D/D2H counts and bytes and
-   e2e latency p50/p95 of each arm printed;
+   (resmlp, dim 4096 f32, 512 records from a Poisson ``PacedSource`` at
+   400 records/s, micro-batch 8, two chained models) on and off: one H2D
+   and one D2H per micro-batch on, two off, outputs equal bit for bit and
+   to the CPU's f32; H2D/D2H counts and bytes and e2e latency p50/p95
+   from each record's scheduled arrival printed for each arm;
 10. paged KV serving (``serving/cell.py:paged_cell``) through the keyed
    pipeline at the serving cell's full width, every pool on the card and
    every run's K1 launches equal to layers x (prefill batches + warmup
@@ -196,7 +197,32 @@ Phases (any failure exits non-zero and prints no result line):
    program's direct calls and within the bf16 bar of the module), every
    id once, K1 0 launches; freeze and load seconds, forward ms and job
    records/s beside ``ModelWindowFunction``'s; the phase's seconds;
-14. print one ``kernels`` JSON line, the card line, and the final
+14. split sources and the cohort supervisor (``sources/``,
+   ``parallel/supervisor.py``): (a) the reference serving bench's
+   open-loop arms (``serving/cell.py:open_loop_arm``; ``bench.py:
+   bench_serving``) on phase 4's weights and 96 requests, fixed arm first,
+   at 400 and 1,200 requests/s: ``PacedSplitSource(num_splits=1,
+   start_delay_s=1.5) -> count_window(8, timeout_s=0.3) ->
+   FixedWindowGenerateFunction`` (the window fused into the split
+   source's chain) and ``-> key_by -> continuous_batching``; every
+   session served once with phase 4's tokens, K1's launches equal to
+   layers x (prefill batches + warmup prefills) in each arm; each arm's
+   row (tokens/s from the first scheduled arrival to the last emit, TTFT
+   and per-token p50/p95 from ``sched_ts``, the continuous arm's
+   counters) and the bench's ``continuous_dominates_*`` flags printed,
+   nothing about speed asserted; (b) ``bench.py:bench_filesplit`` at
+   scale 48 (files of 576, 192, 96 and 6 x 48 records,
+   ``source_throttle_s`` 0.0005, parallelism 4 -> rebalance -> identity
+   map -> sink; host-only): every id once, records/s and each reader's
+   ``splits_completed``; (c) phase 13 (b)'s two gloo ranks under a
+   ``CohortSupervisor`` (``train_cell --checkpoint-root``), 8 steps,
+   checkpoints every 2: uninterrupted, and with the last rank exiting at
+   step 5 on attempt 0: 2 attempts, no rank left alive, both ranks
+   restored from checkpoint 2 (the newest both hold), steps 5-8's losses
+   and the final params and batch statistics equal to the uninterrupted
+   run's bit for bit, K1 0 launches; step times and the card's memory in
+   use after the supervisor returned;
+15. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -371,6 +397,8 @@ RESMLP_DIM = 4096
 RESMLP_RECORDS = 512
 RESMLP_MICRO = 8
 RESMLP_F32_TOL = 1e-5
+# The bench's offered load (``bench.py:2127``, ``:2158-2160``).
+RESMLP_RATE = 400.0
 # Phase 12 (a): the Inception ring at depth 6, (5 + 3) x 128 = 1,024 slots
 # of 268,224 B (one 299 x 299 x 3 record, 64-byte rounded), page-locked.
 RING_PINNED_BYTES = 1024 * 268224
@@ -1591,13 +1619,16 @@ def check_chained_inception_map(card, torch, inception):
     return row
 
 
-def run_resident(records, build, device_resident: bool):
+def run_resident(records, build, device_resident: bool, paced_rate=None):
     """``from_collection(records) -> build(stream) -> sink`` with
     ``device_resident`` on or off; the source stamps each record's
-    emission, the sink its arrival.  Returns ``(results, end-to-end
-    seconds per record, metric report, plan, seconds)``."""
+    emission, the sink its arrival.  With ``paced_rate``, the source is a
+    Poisson ``PacedSource`` at that many records/s instead, and latency
+    runs from each record's scheduled arrival (``sched_ts``).  Returns
+    ``(results, end-to-end seconds per record, metric report, plan,
+    seconds)``."""
     from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
-    from flink_tensorflow_tpu_torch.io.sources import CollectionSource
+    from flink_tensorflow_tpu_torch.io.sources import CollectionSource, PacedSource
 
     stamps = {}
 
@@ -1613,12 +1644,15 @@ def run_resident(records, build, device_resident: bool):
     results, latency = [], []
 
     def sink(r):
-        latency.append(time.monotonic() - stamps[r.meta["id"]])
+        start = r.meta["sched_ts"] if paced_rate else stamps[r.meta["id"]]
+        latency.append(time.monotonic() - start)
         results.append(r)
 
     env = StreamExecutionEnvironment(parallelism=1)
     env.configure(device_resident=device_resident)
-    build(env.from_source(StampedCollection(records), name="collection")).sink_to_callable(sink)
+    source = (PacedSource(records, paced_rate, jitter="poisson") if paced_rate
+              else StampedCollection(records))
+    build(env.from_source(source, name="collection")).sink_to_callable(sink)
     plan = env.describe()
     t0 = time.monotonic()
     metrics = env.execute(timeout=600).metrics
@@ -1747,7 +1781,8 @@ def resmlp_model(torch, rng):
 
 def check_resident_resmlp(card, torch):
     """Phase 9 (d): two chained ``ModelMapFunction``s over resmlp, 512
-    records in micro-batches of 8, residency on and off."""
+    records from a Poisson ``PacedSource`` at ``RESMLP_RATE`` in
+    micro-batches of 8, residency on and off."""
     import numpy as np
 
     from flink_tensorflow_tpu_torch.functions.model_function import ModelMapFunction
@@ -1767,13 +1802,14 @@ def check_resident_resmlp(card, torch):
                 .map(ModelMapFunction(model, micro_batch=RESMLP_MICRO, idle_flush_s=1.0),
                      name="model_b"))
 
-    arms = [(on, run_resident(records, build, on)) for on in ABBA]
+    arms = [(on, run_resident(records, build, on, paced_rate=RESMLP_RATE)) for on in ABBA]
     plan = arms[0][1][3]
     print("resmlp-resident plan:\n" + "\n".join("  " + x for x in plan.splitlines()), flush=True)
     if "model_a => model_b -> sink" not in plan:
         fail(f"resmlp-resident: the two models did not fuse on the device: {plan}")
     row = {"card": card, "records": RESMLP_RECORDS, "dim": RESMLP_DIM,
-           "micro_batch": RESMLP_MICRO, "source": "from_collection (PacedSource not ported)",
+           "micro_batch": RESMLP_MICRO,
+           "source": f"PacedSource({RESMLP_RATE}, jitter=poisson)",
            "order": "on, off, off, on", "on": [], "off": []}
     out = {}
     for on, (results, latency, metrics, _, seconds) in arms:
@@ -2035,7 +2071,18 @@ def check_paged_serving(card, torch, fa, model, cfg, requests, want, dense_keyed
     at the serving cell's full width: (a) paged against dense, A B B A;
     (b) the oversubscription ladder at 8x/16x/32x against a dense-roomy
     arm; (c) prefix sharing on against off on two fleets; (d) failover
-    with spilled sessions, and a 2 -> 3 rescale.  Returns K1's launches."""
+    with spilled sessions, and a 2 -> 3 rescale.  Its spill files live in
+    a temporary directory removed when the phase ends, however it ends.
+    Returns K1's launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spill") as spill_root:
+        return paged_serving_arms(card, torch, fa, model, cfg, requests, want, dense_keyed,
+                                  spill_root)
+
+
+def paged_serving_arms(card, torch, fa, model, cfg, requests, want, dense_keyed, spill_root):
+    """The runs of phase 10, their spill files under ``spill_root``."""
     import dataclasses
     import tempfile
 
@@ -2047,7 +2094,6 @@ def check_paged_serving(card, torch, fa, model, cfg, requests, want, dense_keyed
     t_phase = time.monotonic()
     launches = {}
     slots = cfg.max_active_seqs
-    spill_root = tempfile.mkdtemp(prefix="chip_smoke_spill")
     cell = paged_cell(requests, cfg, spill_root=spill_root)
 
     def print_row(what, row):
@@ -3186,6 +3232,261 @@ def check_parallel(card, torch, fa, resnet_ref, inception, direct):
             "graph_inception": graph_launches}
 
 
+# Phase 14 (b): bench.py:bench_filesplit at its full scale (48): one
+# dominant file and a tail of small ones, read by 4 pulling readers.
+FILESPLIT_SCALE = 48
+FILESPLIT_SIZES = tuple(k * FILESPLIT_SCALE for k in (12, 4, 2, 1, 1, 1, 1, 1, 1))
+FILESPLIT_PARALLELISM = 4
+FILESPLIT_THROTTLE_S = 0.0005
+# Phase 14 (c): phase 13 (b)'s two gloo ranks under a CohortSupervisor,
+# 8 steps, count-based checkpoints every 2 steps
+# (``train_cell.SUPERVISED_EVERY_N_STEPS``); on attempt 0 the last
+# rank exits at step 5, after checkpoint 2 (cut after step 4) is on both
+# ranks' disks, so the restart restores checkpoint 2 and runs steps 5-8.
+SUPERVISED_STEPS = 8
+SUPERVISED_FAIL_AT_STEP = 5
+
+
+def check_open_loop_serving(card, torch, fa, mdef, model, cfg, requests, want):
+    """Phase 14 (a): the serving bench's open-loop arms
+    (``serving/cell.py:open_loop_arm``) on phase 4's weights and requests,
+    fixed arm first at each offered load.  Every session served once with
+    phase 4's tokens, K1's launches counted exactly, the fixed arm's window
+    fused into the split source's chain.  Returns K1's launches per arm."""
+    from flink_tensorflow_tpu_torch.serving.cell import OPEN_LOOP_RATES, open_loop_arm
+
+    layers = mdef.config["num_layers"]
+    warm = len(cfg.resolved_admit_buckets()) * len(cfg.resolved_prompt_buckets())
+    sessions = {r.session_id for r in requests}
+    launches = {}
+    for rate in OPEN_LOOP_RATES:
+        rows = {}
+        for arm in ("fixed", "continuous"):
+            what = f"serving-open-loop {arm}@{rate:g}"
+            fa.flash_attention.launches = 0
+            run = open_loop_arm(model, cfg, requests, arm, rate)
+            n = fa.flash_attention.launches
+            seen = set()
+            for _, ev in run.events:
+                if (ev.session_id, ev.index) in seen:
+                    fail(f"{what}: session {ev.session_id} emitted index {ev.index} twice")
+                seen.add((ev.session_id, ev.index))
+            got = by_session(ev for _, ev in run.events)
+            if set(got) != sessions:
+                fail(f"{what}: served {len(got)} of {len(sessions)} sessions")
+            hold_tokens(what, got, want, requests, model, torch)
+            report = run.env.metric_registry.report()
+            prefills = sum(v for k, v in report.items() if k.endswith(".prefill_batches"))
+            if n != layers * (prefills + warm):
+                fail(f"{what}: K1 launches {n} != {layers} x ({prefills} prefill batches "
+                     f"+ {warm} warmup prefills)")
+            plan = run.env.describe()
+            if arm == "fixed" and "sessions -> fixed_window_generate -> sink" not in plan:
+                fail(f"{what}: the count window is not fused into the split source's chain: "
+                     f"{plan}")
+            print(what, json.dumps({**run.row, "k1_launches": n, "prefill_batches": prefills,
+                                    "warmup_prefills": warm, "plan": plan, "card": card}),
+                  flush=True)
+            rows[arm] = run.row
+            launches[f"serving_open_loop_{arm}_{rate:g}"] = n
+        fixed, cont = rows["fixed"], rows["continuous"]
+        point = {"offered_rate_rps": rate,
+                 "continuous_dominates_tokens_per_s":
+                     (cont["tokens_per_s"] or 0) > (fixed["tokens_per_s"] or 0),
+                 "continuous_dominates_ttft":
+                     (cont["ttft_p50_ms"] or 1e9) < (fixed["ttft_p50_ms"] or 0),
+                 "ttft_p50_speedup": (fixed["ttft_p50_ms"] / cont["ttft_p50_ms"]
+                                      if cont["ttft_p50_ms"] and fixed["ttft_p50_ms"]
+                                      else None)}
+        print(f"serving-open-loop point@{rate:g}", json.dumps(point), f"| card: {card}",
+              flush=True)
+    return launches
+
+
+def check_filesplit(card, fa):
+    """Phase 14 (b): ``bench.py:bench_filesplit``'s skewed files through
+    ``FileSplitSource`` at parallelism 4 -> rebalance -> identity map ->
+    sink: every id once, records/s and the splits each reader completed.
+    No operator of this job touches the card."""
+    import tempfile
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.io.files import write_record_file
+    from flink_tensorflow_tpu_torch.sources import FileSplitSource
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    fa.flash_attention.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_filesplit_") as tmp:
+        paths, idx = [], 0
+        for f, n in enumerate(FILESPLIT_SIZES):
+            path = os.path.join(tmp, f"part-{f:02d}.rec")
+            write_record_file(path, [TensorValue({"x": np.float32(idx + i)}, {"id": idx + i})
+                                     for i in range(n)])
+            idx += n
+            paths.append(path)
+        env = StreamExecutionEnvironment(parallelism=1)
+        env.source_throttle_s = FILESPLIT_THROTTLE_S
+        results = []
+        (env.from_source(FileSplitSource(paths), name="filesplit",
+                         parallelism=FILESPLIT_PARALLELISM)
+         .rebalance().map(lambda r: r, name="ident", parallelism=FILESPLIT_PARALLELISM)
+         .sink_to_callable(results.append))
+        t0 = time.monotonic()
+        env.execute("filesplit", timeout=600)
+        seconds = time.monotonic() - t0
+    check_ids("filesplit", results, idx)
+    report = env.metric_registry.report()
+    splits = {i: report[f"filesplit.{i}.splits_completed"] for i in range(FILESPLIT_PARALLELISM)}
+    if sum(splits.values()) != len(FILESPLIT_SIZES):
+        fail(f"filesplit: {splits} splits completed, want {len(FILESPLIT_SIZES)} in all")
+    row = {"records": idx, "records_per_s": idx / seconds, "seconds": seconds,
+           "file_sizes": list(FILESPLIT_SIZES), "throttle_s": FILESPLIT_THROTTLE_S,
+           "splits_completed": splits, "splits_assigned": report["filesplit.0.splits_assigned"],
+           "k1_launches": fa.flash_attention.launches,
+           "note": "host-only arm: no operator of this job runs on the card"}
+    print("filesplit", json.dumps(row), f"| card: {card}", flush=True)
+    return {"filesplit": fa.flash_attention.launches}
+
+
+def supervised_ranks(what, fail_at_step=None):
+    """Phase 13 (b)'s two gloo ranks under a ``CohortSupervisor``, as
+    supervised workers (``train_cell --checkpoint-root``).  Returns the
+    outcome, the ranks' files from the attempt that succeeded, the seconds,
+    the rank processes of every attempt and each rank's checkpoint ids."""
+    import tempfile
+
+    import torch
+
+    from flink_tensorflow_tpu_torch.checkpoint.store import checkpoint_ids
+    from flink_tensorflow_tpu_torch.functions.train_cell import rank_checkpoint_dirs
+    from flink_tensorflow_tpu_torch.parallel import CohortFailed, CohortSupervisor
+
+    class Recording(CohortSupervisor):
+        """Keeps every rank process it spawns in ``procs``."""
+
+        def _spawn(self, attempt, num_workers):
+            started = super()._spawn(attempt, num_workers)
+            self.procs.extend(started)
+            return started
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_supervised_") as root:
+        out, chk = os.path.join(root, "out"), os.path.join(root, "chk")
+        os.makedirs(out)
+        ports = {}
+
+        def command(w, n, a):
+            port = ports.setdefault(a, free_port())
+            cmd = [sys.executable, "-m", "flink_tensorflow_tpu_torch.functions.train_cell",
+                   "--rank", str(w), "--world", str(n), "--port", str(port),
+                   "--steps", str(SUPERVISED_STEPS), "--out", out, "--backend", "gloo",
+                   "--checkpoint-root", chk, "--attempt", str(a)]
+            return cmd + (["--fail-at-step", str(fail_at_step)] if fail_at_step else [])
+
+        path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
+        sup = Recording(command, 2, env=lambda w, n, a: {"PYTHONPATH": path}, max_restarts=1,
+                        poll_s=0.1, kill_grace_s=10.0, attempt_timeout_s=DP_RANK_TIMEOUT_S)
+        sup.procs = []
+        t0 = time.monotonic()
+        try:
+            outcome = sup.run()
+        except CohortFailed as exc:
+            fail(f"{what}: {exc}")
+        seconds = time.monotonic() - t0
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        held = {r: checkpoint_ids(d) for r, d in enumerate(rank_checkpoint_dirs(chk, 2))}
+    alive = [p.pid for p in sup.procs if p.poll() is None]
+    if alive:
+        fail(f"{what}: rank processes {alive} outlived the supervisor")
+    return outcome, ranks, seconds, sup.procs, held
+
+
+def check_supervised_gang(card, torch):
+    """Phase 14 (c): the supervised restart of the gang.  An uninterrupted
+    supervised run, then one whose last rank exits at step 5 on attempt 0:
+    two attempts, no rank left alive, both ranks restored from checkpoint
+    2 (the newest both hold), and steps 5-8's losses and the final params
+    and batch statistics equal the uninterrupted run's bit for bit."""
+    import gc
+
+    from flink_tensorflow_tpu_torch.functions.train_cell import (
+        FAIL_EXIT_CODE,
+        SUPERVISED_EVERY_N_STEPS,
+    )
+
+    # The rank processes share the card with this one, whose caching
+    # allocator still holds what the earlier phases freed (all but a few
+    # GB of the card after phase 13): give it back first.
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    used_before = total - free
+    clean, want, clean_s, _, _ = supervised_ranks("supervised gang, uninterrupted")
+    outcome, got, seconds, procs, held = supervised_ranks(
+        "supervised gang, failed at step 5", SUPERVISED_FAIL_AT_STEP)
+    restored_step = (SUPERVISED_FAIL_AT_STEP - 1) // SUPERVISED_EVERY_N_STEPS
+    first = restored_step * SUPERVISED_EVERY_N_STEPS + 1
+    codes = [p.returncode for p in procs]
+    if (clean.attempts, outcome.attempts, outcome.returncode) != (1, 2, 0):
+        fail(f"supervised gang: attempts {clean.attempts} and {outcome.attempts} "
+             f"(rc {outcome.returncode}), want 1 and 2")
+    if len(procs) != 4 or FAIL_EXIT_CODE not in codes or codes.count(0) != 2:
+        fail(f"supervised gang: rank exit codes {codes}")
+    for r in range(2):
+        a, b = got[r], want[r]
+        if b["steps"] != list(range(1, SUPERVISED_STEPS + 1)) or b["device"] != "cuda:0":
+            fail(f"supervised gang: the uninterrupted rank {r} ran steps {b['steps']} "
+                 f"on {b['device']}")
+        if (a["attempt"], a["restored_checkpoint"]) != (1, restored_step):
+            fail(f"supervised gang: rank {r} restored {a['restored_checkpoint']} on attempt "
+                 f"{a['attempt']}, want checkpoint {restored_step} on attempt 1")
+        if a["steps"] != list(range(first, SUPERVISED_STEPS + 1)):
+            fail(f"supervised gang: rank {r} ran steps {a['steps']} after the restore")
+        if a["losses"] != b["losses"][first - 1:]:
+            fail(f"supervised gang: rank {r} losses after the restore {a['losses']} differ "
+                 f"from the uninterrupted run's {b['losses'][first - 1:]}")
+        for coll in ("params", "batch_stats"):
+            if not _bit_equal(a["variables"][coll], b["variables"][coll]):
+                fail(f"supervised gang: rank {r}'s final {coll} differ from the "
+                     "uninterrupted run's")
+    k1 = sum(r["k1_launches"] for r in got + want)
+    if k1:
+        fail(f"supervised gang: K1 launched {k1} times, want 0")
+    free, total = torch.cuda.mem_get_info()
+    # Mean seconds per step from the first result to the last: results
+    # reach the sink in bursts around the checkpoints, so the median gap
+    # between two says nothing of the step.
+    step_s = {name: [(r["arrivals"][-1] - r["arrivals"][0]) / (len(r["arrivals"]) - 1)
+                     for r in ranks]
+              for name, ranks in (("uninterrupted", want), ("restored", got))}
+    row = {"ranks": 2, "backend": "gloo", "device": "cuda:0", "steps": SUPERVISED_STEPS,
+           "checkpoint_every_steps": SUPERVISED_EVERY_N_STEPS,
+           "fail_at_step": SUPERVISED_FAIL_AT_STEP, "attempts": outcome.attempts,
+           "rank_exit_codes": codes, "restored_checkpoint": restored_step,
+           "checkpoints_held": held, "bit_equal": True, "seconds_per_step": step_s,
+           "seconds_uninterrupted": clean_s, "seconds_supervised": seconds,
+           "card_memory_used_bytes_before": used_before,
+           "card_memory_used_bytes_after": total - free, "card_memory_total_bytes": total,
+           "k1_launches": k1, "card": card}
+    print("supervised gang", json.dumps(row), flush=True)
+    print(f"supervised gang seconds per step {step_s} (2 ranks sharing one card, not a "
+          f"multi-card number); card memory in use after the supervisor returned "
+          f"{total - free} B | card: {card}", flush=True)
+    return {"supervised_gang": k1}
+
+
+def check_split_sources(card, torch, fa, mdef, model, cfg, requests, want):
+    """Phase 14: split sources and the cohort supervisor."""
+    t0 = time.monotonic()
+    launches = check_open_loop_serving(card, torch, fa, mdef, model, cfg, requests, want)
+    launches.update(check_filesplit(card, fa))
+    launches.update(check_supervised_gang(card, torch))
+    print(f"split sources phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3279,6 +3580,8 @@ def main() -> int:
 
     parallel_launches = check_parallel(card, torch, fa, resnet_ref, inception, direct)
 
+    split_launches = check_split_sources(card, torch, fa, mdef, model, cfg, requests, got)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -3295,7 +3598,7 @@ def main() -> int:
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
                              **training_launches, **stream_launches, **chain_launches,
                              **paged_launches, **event_time_launches,
-                             **transfer_launches, **parallel_launches},
+                             **transfer_launches, **parallel_launches, **split_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

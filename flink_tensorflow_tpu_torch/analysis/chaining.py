@@ -25,11 +25,12 @@ An edge ``u -> d`` fuses only when all of these hold:
 - neither side is a gang operator (a gang owns the device mesh and
   blocks in its step), and their declared sharding axes agree;
 - timer-driven operators (windows with wall-clock deadlines, async
-  maps, process functions) never fuse into a source chain: the source
-  loop blocks inside the user function and cannot serve deadlines.
-  Behind a worker head they fuse: the worker loop waits until the
-  chain's earliest deadline.  Every source of the port is such a loop
-  (the reference's split sources, exempt there, are not ported).
+  maps, process functions) never fuse into a legacy source chain: that
+  source loop blocks inside the user function and cannot serve
+  deadlines.  Behind a worker head they fuse: the worker loop waits
+  until the chain's earliest deadline.  Behind a split source
+  (``sources/``, whose operator is ``wakeable``) they fuse too: its
+  mailbox loop parks until the chain's earliest deadline (``:273-280``).
 """
 
 from __future__ import annotations
@@ -196,11 +197,16 @@ def compute_chains(graph: DataflowGraph, *, enabled: bool = True) -> ChainPlan:
                 elif isinstance(e.partitioner, ForwardPartitioner):
                     reasons[(e.upstream.id, t.id)] = reason
 
-    # A source chain is cut before its first timer-driven member, wherever
-    # it sits: source -> map -> window(timeout) splits at map | window,
-    # leaving the window a worker head that waits until its deadline.
+    # A legacy source chain is cut before its first timer-driven member,
+    # wherever it sits: source -> map -> window(timeout) splits at map |
+    # window, leaving the window a worker head that waits until its
+    # deadline.  A split source is exempt (its head is ``wakeable``): its
+    # loop parks on a mailbox bounded by the chain's earliest deadline.
     for t in order:
         if not t.is_source:
+            continue
+        head_op = operators.get(t.id)
+        if head_op is not None and getattr(head_op, "wakeable", False):
             continue
         prev, cur = t, next_of.get(t.id)
         while cur is not None:

@@ -4,8 +4,8 @@ Port of ``flink_tensorflow_tpu/core/environment.py``:
 ``StreamExecutionEnvironment`` (``:153``) with ``from_collection``
 (``:301``), ``enable_checkpointing`` (``:174``), ``set_device_provider``
 (``:193``), ``execute`` with restore and restart (``:439-543``),
-``execute_async`` (``:544``) and ``set_mesh`` / ``mesh`` (``:199``,
-``:268``); ``RestartStrategy`` (``:33``), ``JobHandle``
+``execute_async`` (``:544``), ``set_mesh`` / ``mesh`` (``:199``,
+``:268``) and ``from_source`` over a ``SplitSource`` (``:313-332``); ``RestartStrategy`` (``:33``), ``JobHandle``
 (``:69``) and ``JobResult`` (``:27``).  The job builds a graph;
 ``execute()`` runs it on the local executor (``:416``), one thread per
 chain of fused operators (``JobConfig.chaining``), and ``describe()``
@@ -33,6 +33,8 @@ from flink_tensorflow_tpu_torch.core.runtime import JobFailure, JobTimeout, Loca
 from flink_tensorflow_tpu_torch.core.stream import DataStream
 from flink_tensorflow_tpu_torch.io.sources import CollectionSource
 from flink_tensorflow_tpu_torch.metrics.registry import MetricRegistry
+from flink_tensorflow_tpu_torch.sources.api import SplitSource
+from flink_tensorflow_tpu_torch.sources.operator import SplitSourceOperator
 
 
 class JobResult:
@@ -160,12 +162,19 @@ class StreamExecutionEnvironment:
                         parallelism: int = 1) -> DataStream:
         return self.from_source(CollectionSource(data), name=name, parallelism=parallelism)
 
-    def from_source(self, source: fn.SourceFunction, *, name="source",
-                    parallelism: int = 1) -> DataStream:
-        if not isinstance(source, fn.SourceFunction):
-            raise TypeError(f"from_source expects a SourceFunction, got {type(source).__name__}")
-        t = self.graph.add(name, lambda: SourceOperator(name, source), parallelism,
-                           is_source=True)
+    def from_source(self, source, *, name="source", parallelism: int = 1) -> DataStream:
+        """``source`` is a :class:`SourceFunction` (a fixed stride per
+        subtask, run by the legacy source loop) or a
+        :class:`~flink_tensorflow_tpu_torch.sources.SplitSource` (splits
+        pulled by the readers, run by the mailbox loop)."""
+        if isinstance(source, SplitSource):
+            factory = lambda: SplitSourceOperator(name, source)  # noqa: E731
+        elif isinstance(source, fn.SourceFunction):
+            factory = lambda: SourceOperator(name, source)  # noqa: E731
+        else:
+            raise TypeError("from_source expects a SourceFunction or SplitSource, "
+                            f"got {type(source).__name__}")
+        t = self.graph.add(name, factory, parallelism, is_source=True)
         return DataStream(self, t)
 
     def execute(self, job_name: str = "job", *,

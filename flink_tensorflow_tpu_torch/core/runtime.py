@@ -23,7 +23,9 @@ Port of ``flink_tensorflow_tpu/core/runtime.py``:
   (``process_record_from``, ``:598``), so joins and connected streams
   tell their inputs apart.  Aligned
   checkpoints run through it: sources cut barriers on request or every N
-  records (``run_source``, ``:349``), workers align them across their
+  records (``run_source``, ``:349``; a split source's mailbox loop,
+  ``run_split_source``, ``:436-540``, with its split coordinator
+  ``split_coordinator``, ``:1202-1230``), workers align them across their
   channels (``run_worker``, ``:541``), the barrier snapshots each chain
   member head to tail, the
   :class:`~flink_tensorflow_tpu_torch.core.checkpoint.CheckpointCoordinator`
@@ -56,6 +58,9 @@ from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore
 from flink_tensorflow_tpu_torch.metrics.registry import MetricRegistry
 from flink_tensorflow_tpu_torch.parallel.multihost import topology
+from flink_tensorflow_tpu_torch.sources.coordinator import SplitCoordinator
+from flink_tensorflow_tpu_torch.sources.mailbox import SourceMailbox
+from flink_tensorflow_tpu_torch.sources.operator import DONE, RECORD
 from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype
 from flink_tensorflow_tpu_torch.tensors.transfer import env_device_resident, env_wire_dtype
 
@@ -247,6 +252,16 @@ class _Subtask:
         self._aborts: typing.List[int] = []
         self._aborted_cids: typing.Set[int] = set()
         self._control_lock = threading.Lock()
+        #: Checkpoint ids this split-source subtask has cut its stream at.
+        #: A barrier reaches a split reader on three paths (a trigger's
+        #: request, a count-based position, the freeze-deadlock guard of
+        #: :meth:`run_split_source`), and each id is cut once.
+        self._barriers_cut: typing.Set[int] = set()
+        #: The :class:`~flink_tensorflow_tpu_torch.sources.mailbox.SourceMailbox`
+        #: of a split-source subtask (set in ``_build``): the one wait of
+        #: :meth:`run_split_source`, which barrier requests,
+        #: notifications and aborts wake.
+        self.mailbox: typing.Optional[SourceMailbox] = None
         #: Barrier alignment spans (first barrier -> snapshot), set in _build.
         self.alignment = None
 
@@ -263,6 +278,8 @@ class _Subtask:
     def request_checkpoint(self, checkpoint_id: int) -> None:
         with self._control_lock:
             self._control.append(checkpoint_id)
+        if self.mailbox is not None:
+            self.mailbox.notify()
 
     def _drain_control(self) -> typing.List[int]:
         with self._control_lock:
@@ -272,13 +289,18 @@ class _Subtask:
     def add_notification(self, checkpoint_id: int) -> None:
         with self._control_lock:
             self._notifications.append(checkpoint_id)
+        if self.mailbox is not None:
+            self.mailbox.notify()
 
     def add_abort(self, checkpoint_id: int) -> None:
         """The coordinator aborted ``checkpoint_id``: deliver it to this
-        subtask's thread (a worker's gate is woken to take it)."""
+        subtask's thread (a worker's gate or a split reader's mailbox is
+        woken to take it)."""
         with self._control_lock:
             self._aborts.append(checkpoint_id)
-        if self.gate is not None:
+        if self.mailbox is not None:
+            self.mailbox.notify()
+        elif self.gate is not None:
             self.gate.wake()
 
     def _drain_aborts(self) -> typing.List[int]:
@@ -366,6 +388,96 @@ class _Subtask:
                 # Serve the barrier requests that raced with the last records.
                 for cid in self._drain_control():
                     self._source_barrier(cid)
+                op.finish()
+                self.output.broadcast_element(el.EndOfPartition())
+            self._close_chain()
+        except BaseException as exc:  # noqa: BLE001 - reported through join()
+            self._fail(exc)
+        finally:
+            self.finished.set()
+            executor.subtask_finished(self)
+
+    def _split_barrier(self, checkpoint_id: int) -> None:
+        """Cut a split reader's stream at a barrier: register with the
+        split coordinator first (which freezes assignment and, for reader
+        0, stages the pool snapshot), then snapshot and send the barrier
+        down the chain.  Each id is cut once, whichever path brings it;
+        an aborted id is not cut."""
+        if checkpoint_id in self._barriers_cut or checkpoint_id in self._aborted_cids:
+            return
+        self._barriers_cut.add(checkpoint_id)
+        self.operator.on_barrier(checkpoint_id)
+        self._snapshot_and_ack(checkpoint_id)
+        self.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
+
+    def run_split_source(self) -> None:
+        """The mailbox loop of a split source (JAX ``core/runtime.py:436-540``).
+
+        Unlike :meth:`run_source`, which blocks wherever the user's
+        generator blocks, this loop owns all waiting.  Each turn serves
+        notifications, aborts, pending barriers and the chain's due
+        timers, then asks the operator for one step that does not block
+        (emit a record, park until ``due``, or done).  It parks only on
+        the mailbox, until the earlier of the next record's due time and
+        the chain's earliest deadline, and barrier requests, split
+        availability, notifications, ``ctx.wakeup`` and cancellation wake
+        it early.  That is why timer-driven operators may fuse into a
+        split-source chain."""
+        op = self.operator
+        executor = self.executor
+        throttle = executor.source_throttle_s
+        every_n = executor.checkpoint_every_n
+        try:
+            self._open_chain()
+            while not executor.cancelled.is_set():
+                self.deliver_notifications()
+                self._drain_aborts()
+                for cid in self._drain_control():
+                    self._split_barrier(cid)
+                now = time.monotonic()
+                deadline = self._chain_next_deadline()
+                if deadline is not None and now >= deadline:
+                    self._chain_fire_due(now)
+                    deadline = self._chain_next_deadline()
+                kind, payload = op.poll_next()
+                if kind == RECORD:
+                    self.output.emit(payload)
+                    op.record_emitted()
+                    # Count-based barriers at per-subtask positions.
+                    if every_n and op.offset % every_n == 0:
+                        cid = op.offset // every_n
+                        if executor.coordinator.begin_source_checkpoint(cid):
+                            self._split_barrier(cid)
+                    if throttle:
+                        time.sleep(throttle)
+                    continue
+                if kind == DONE:
+                    break
+                # The freeze-deadlock guard: a reader parked with no split
+                # on a frozen assignment emits nothing, so under count-based
+                # triggers it never reaches the position that cuts the
+                # pending barrier, and the alignment would wait for it
+                # forever.  Cut every pending alignment here, at the wait,
+                # then poll again: the completed alignment may thaw splits.
+                served = False
+                for cid in op.pending_alignments():
+                    self._split_barrier(cid)
+                    served = True
+                if served:
+                    continue
+                # WAIT: park until ``payload`` (the next record's due time,
+                # or None: until an event) or the chain's earliest timer.
+                now = time.monotonic()
+                timeout = None
+                for target in (payload, deadline):
+                    if target is not None:
+                        t = max(0.0, target - now)
+                        timeout = t if timeout is None else min(timeout, t)
+                self.mailbox.wait(timeout)
+            if not executor.cancelled.is_set():
+                # Serve the barrier requests that raced with the last records.
+                for cid in self._drain_control():
+                    self._split_barrier(cid)
                 op.finish()
                 self.output.broadcast_element(el.EndOfPartition())
             self._close_chain()
@@ -530,6 +642,10 @@ class LocalExecutor:
         self._finished_count = 0
         self._all_done = threading.Event()
         self._periodic_thread: typing.Optional[threading.Thread] = None
+        #: One split coordinator per split-source transformation, shared
+        #: by its reader subtasks (:meth:`split_coordinator`).
+        self._split_coordinators: typing.Dict[str, SplitCoordinator] = {}
+        self._split_lock = threading.Lock()
         self._build()
 
     def _build(self) -> None:
@@ -584,8 +700,11 @@ class LocalExecutor:
                     gates[(t.id, i)] = gate
                     self._gates.append(gate)
                 operators = [member.operator_factory() for member in chain]
-                subtasks.append(_Subtask(self, chain, i, operators, gate, gate_size[t.id],
-                                         edge_of_channel[t.id]))
+                st = _Subtask(self, chain, i, operators, gate, gate_size[t.id],
+                              edge_of_channel[t.id])
+                if t.is_source and getattr(operators[0], "is_split_source", False):
+                    st.mailbox = SourceMailbox()
+                subtasks.append(st)
             by_head[t.id] = subtasks
 
         # Only a chain's tail writes to channels: every edge out of it
@@ -655,7 +774,29 @@ class LocalExecutor:
                 # A runner's fetch thread wakes the one thread that runs
                 # the whole chain, whichever member it belongs to.
                 ctx.wakeup = st.gate.wake
+            elif st.mailbox is not None:
+                # A split-source chain waits on its mailbox instead.
+                ctx.wakeup = st.mailbox.notify
             unit.operator.setup(ctx, unit.output, state)
+            if unit is st.units[0] and st.mailbox is not None:
+                # The reader meets its source's coordinator before
+                # restore(): restored pool state flows through it.
+                coord = self.split_coordinator(unit.t, unit.operator.source)
+                unit.operator.attach(coord, unit.index, st.mailbox)
+
+    def split_coordinator(self, t: Transformation, source) -> SplitCoordinator:
+        """The split coordinator of split source ``t``, made on first use;
+        ``source`` is the SplitSource every reader's factory shares.
+
+        One per process: the port runs a split source's readers in one
+        executor only (a source spread over a process cohort would run an
+        enumerator per process and hand out every split twice)."""
+        with self._split_lock:
+            coord = self._split_coordinators.get(t.name)
+            if coord is None:
+                coord = SplitCoordinator(source, t.parallelism)
+                self._split_coordinators[t.name] = coord
+            return coord
 
     # -- restore ---------------------------------------------------------------
     def restore(self, snapshots: typing.Dict[str, typing.Dict[int, typing.Any]],
@@ -693,11 +834,25 @@ class LocalExecutor:
                 else:
                     unit.operator.restore(unit.operator.rescale(
                         task_snaps, unit.index, parallelism, self.max_parallelism))
+        # Split sources: restored splits and pools go to their coordinators
+        # now, before any reader thread runs, so each enumerator is built
+        # with them (in-flight splits resume at their offsets, pooled ones
+        # are pulled again).
+        for st in self.subtasks:
+            for unit in st.units:
+                apply = getattr(unit.operator, "apply_restore", None)
+                if apply is not None:
+                    apply()
 
     # -- execution -------------------------------------------------------------
     def start(self) -> None:
         for st in self.subtasks:
-            body = st.run_source if st.t.is_source else st.run_worker
+            if not st.t.is_source:
+                body = st.run_worker
+            elif st.mailbox is not None:
+                body = st.run_split_source
+            else:
+                body = st.run_source
             st.thread = threading.Thread(target=body, name=st.scope, daemon=True)
         for st in self.subtasks:
             st.thread.start()
@@ -762,6 +917,11 @@ class LocalExecutor:
         self.cancelled.set()
         for gate in self._gates:
             gate.close()
+        for st in self.subtasks:
+            if st.mailbox is not None:
+                # close(), not notify(): the sticky signal cannot be lost
+                # between a loop's cancellation check and its park.
+                st.mailbox.close()
         self.coordinator.cancel_pending()
 
     def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
@@ -773,9 +933,14 @@ class LocalExecutor:
     def notify_checkpoint_aborted(self, checkpoint_id: int) -> None:
         """Fan a checkpoint abort out to every subtask: each drops the
         id's alignment (unblocking channels a missing barrier held) and
-        swallows its late barriers, so the job keeps flowing."""
+        swallows its late barriers, so the job keeps flowing; split
+        coordinators drop the id's assignment freeze."""
         for st in self.subtasks:
             st.add_abort(checkpoint_id)
+        with self._split_lock:
+            coords = list(self._split_coordinators.values())
+        for coord in coords:
+            coord.cancel_alignment(checkpoint_id)
 
     @property
     def all_done(self) -> threading.Event:

@@ -27,20 +27,28 @@ the gang over a ``{"data": N}`` mesh.  One such process:
 
     python3 -m flink_tensorflow_tpu_torch.functions.train_cell \
         --rank R --world N --port P --steps S --out DIR [--backend gloo] \
-        [--local-batch-stats]
+        [--local-batch-stats] [--checkpoint-root CHK --attempt A [--fail-at-step F]]
 
 joins the cohort at ``tcp://127.0.0.1:P`` on the card (``cuda:R mod
 cards``; ``--backend gloo`` lets ranks share one card), trains S steps
 and writes its losses, step times, collective and K1 launch counts and
 final variables to ``DIR/rank<R>.pt``.  ``--local-batch-stats`` is the
 negative control of the cross-rank batch norm
-(:func:`local_batch_statistics`).
+(:func:`local_batch_statistics`).  With ``--checkpoint-root`` the rank is
+a supervised worker (:func:`run_supervised_resnet`, as the reference's
+``examples/multihost_dp_train.py`` has it): count-based checkpoints every
+``SUPERVISED_EVERY_N_STEPS`` steps into ``CHK/rank<R>``; on attempt
+A > 0 a restore from ``parallel.latest_common_checkpoint`` over every
+rank's directory; and with ``--fail-at-step F`` the last rank exits with
+``FAIL_EXIT_CODE`` on attempt 0 once its F-th step's result arrives.  A
+``parallel.CohortSupervisor`` spawns such ranks and passes the attempt.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import time
 import typing
 
@@ -55,6 +63,7 @@ from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
 from flink_tensorflow_tpu_torch.parallel import collectives
 from flink_tensorflow_tpu_torch.parallel.mesh import spans_processes
 from flink_tensorflow_tpu_torch.parallel.optim import adam
+from flink_tensorflow_tpu_torch.parallel.supervisor import latest_common_checkpoint
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 
@@ -68,6 +77,10 @@ WIDEDEEP_USERS = 16
 MINI_BATCH = 32
 STEPS_PER_DISPATCH = 16
 WIDEDEEP_LR = 1e-2
+#: The exit code of a supervised rank told to fail (``--fail-at-step``).
+FAIL_EXIT_CODE = 17
+#: Steps between a supervised rank's count-based checkpoints.
+SUPERVISED_EVERY_N_STEPS = 2
 
 
 class CellRun(typing.NamedTuple):
@@ -131,12 +144,14 @@ def partition(records: typing.Sequence[TensorValue], global_batch: int, rank: in
 
 def run_resnet(mdef, schema, records, mesh, *, batch: int = RESNET_BATCH,
                checkpoint_dir: typing.Optional[str] = None, every_n_records: int = RESNET_BATCH,
-               restore_id: typing.Optional[int] = None, timeout: float = 900.0) -> CellRun:
+               restore_id: typing.Optional[int] = None, tap=None,
+               timeout: float = 900.0) -> CellRun:
     """The resnet-train job at global batch ``batch``; over a mesh that
     spans processes, ``records`` are this process's partition and its
     windows hold ``batch / processes`` of them.  With ``checkpoint_dir``,
     count-based checkpoints every ``every_n_records`` of this process's
-    records, and with ``restore_id`` the job restores from that one."""
+    records, and with ``restore_id`` the job restores from that one.
+    ``tap`` is a map on the step results ahead of the sink."""
     kept: list = []
     env = StreamExecutionEnvironment(parallelism=1)
     env.set_mesh(mesh)
@@ -147,12 +162,69 @@ def run_resnet(mdef, schema, records, mesh, *, batch: int = RESNET_BATCH,
               .apply(_keeping(DPTrainWindowFunction, kept)(
                   mdef, adam(RESNET_LR), train_schema=schema, global_batch=batch),
                   name="dp_train"))
+    if tap is not None:
+        stream = stream.map(tap, name="tap")
     results, arrivals = _timed_sink(stream)
     restore = {} if restore_id is None else dict(restore_from=checkpoint_dir,
                                                  restore_checkpoint_id=restore_id)
     t0 = time.monotonic()
     env.execute("resnet-train", timeout=timeout, **restore)
     return CellRun(results, arrivals, env, time.monotonic() - t0, kept[-1])
+
+
+def rank_checkpoint_dirs(checkpoint_root: str, world: int) -> typing.List[str]:
+    """Each rank's checkpoint directory under ``checkpoint_root``."""
+    return [os.path.join(checkpoint_root, f"rank{r}") for r in range(world)]
+
+
+def _exit_at_step(step: int, checkpoint_dirs: typing.Sequence[str], checkpoint_id: int,
+                  wait_s: float = 60.0):
+    """A tap that ends the process, with ``FAIL_EXIT_CODE``, when the result
+    of step ``step`` (or a later one) reaches it: a worker lost in mid-run,
+    its collectives cut.  It first waits (up to ``wait_s``) until checkpoint
+    ``checkpoint_id``, the last one cut before that step, is on disk in
+    every rank's directory (the ranks share a host), so the failure lands
+    after it whatever the host's speed."""
+
+    def tap(record):
+        if int(record["step"]) >= step:
+            deadline = time.monotonic() + wait_s
+            while ((latest_common_checkpoint(checkpoint_dirs) or 0) < checkpoint_id
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            os._exit(FAIL_EXIT_CODE)
+        return record
+
+    return tap
+
+
+def run_supervised_resnet(mdef, schema, records, mesh, *, rank: int, world: int,
+                          checkpoint_root: str, every_n_records: int,
+                          batch: int = RESNET_BATCH, attempt: int = 0,
+                          restore_id: typing.Optional[int] = None,
+                          fail_at_step: typing.Optional[int] = None,
+                          timeout: float = 900.0) -> typing.Tuple[CellRun, typing.Optional[int]]:
+    """One rank's attempt of the resnet-train job across ``world``
+    processes, as a ``CohortSupervisor`` worker: ``records`` are the whole
+    stream (the rank takes its ``partition``), count-based checkpoints
+    every ``every_n_records`` of its records go to its own directory under
+    ``checkpoint_root``.  An attempt after the first restores from the
+    newest checkpoint every rank holds (``latest_common_checkpoint``), or
+    from ``restore_id`` where one is given.  With ``fail_at_step``, the
+    last rank exits at that step on attempt 0, once the checkpoints cut
+    before it are on every rank's disk.  Returns the run and the
+    checkpoint id it restored from (None: a fresh start)."""
+    dirs = rank_checkpoint_dirs(checkpoint_root, world)
+    if restore_id is None and attempt > 0:
+        restore_id = latest_common_checkpoint(dirs)
+    tap = None
+    if fail_at_step is not None and attempt == 0 and rank == world - 1:
+        window = batch // world
+        tap = _exit_at_step(fail_at_step, dirs, (fail_at_step - 1) * window // every_n_records)
+    run = run_resnet(mdef, schema, partition(records, batch, rank, world), mesh, batch=batch,
+                     checkpoint_dir=dirs[rank], every_n_records=every_n_records,
+                     restore_id=restore_id, tap=tap, timeout=timeout)
+    return run, restore_id
 
 
 def widedeep_cell(*, records: int = WIDEDEEP_RECORDS):
@@ -239,11 +311,11 @@ def local_batch_statistics():
 
 
 def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
-                backend: typing.Optional[str] = None, local_batch_stats: bool = False) -> None:
+                backend: typing.Optional[str] = None, local_batch_stats: bool = False,
+                checkpoint_root: typing.Optional[str] = None, attempt: int = 0,
+                fail_at_step: typing.Optional[int] = None) -> None:
     """One process of the resnet-train cell across ``world`` processes,
     on its card (see the module docstring)."""
-    import os
-
     import torch
 
     from flink_tensorflow_tpu_torch.ops.flash_attention import flash_attention
@@ -258,13 +330,24 @@ def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
         mesh = make_mesh({"data": world})
         mdef, schema, records = resnet_cell(records=RESNET_BATCH * steps)
         collectives.calls.clear()
+        restored = None
         with local_batch_statistics() if local_batch_stats else contextlib.nullcontext():
-            run = run_resnet(mdef, schema, partition(records, RESNET_BATCH, rank, world), mesh)
+            if checkpoint_root is None:
+                run = run_resnet(mdef, schema, partition(records, RESNET_BATCH, rank, world),
+                                 mesh)
+            else:
+                run, restored = run_supervised_resnet(
+                    mdef, schema, records, mesh, rank=rank, world=world,
+                    checkpoint_root=checkpoint_root,
+                    every_n_records=SUPERVISED_EVERY_N_STEPS * RESNET_BATCH // world,
+                    attempt=attempt,
+                    fail_at_step=fail_at_step)
         torch.save({"losses": [float(r["loss"]) for r in run.results],
                     "steps": [int(r["step"]) for r in run.results],
                     "arrivals": list(run.arrivals), "seconds": run.seconds,
                     "device": str(mesh.device), "calls": dict(collectives.calls),
                     "k1_launches": flash_attention.launches,
+                    "attempt": attempt, "restored_checkpoint": restored,
                     "variables": run.function.current_params()},
                    os.path.join(out, f"rank{rank}.pt"))
     finally:
@@ -283,6 +366,12 @@ if __name__ == "__main__":
     parser.add_argument("--backend", choices=("nccl", "gloo"), default=None)
     parser.add_argument("--local-batch-stats", action="store_true",
                         help="batch norm's moments over each rank's rows (the control)")
+    parser.add_argument("--checkpoint-root", default=None,
+                        help="a supervised worker: per-rank checkpoints under this directory")
+    parser.add_argument("--attempt", type=int, default=0,
+                        help="the supervisor's attempt; after the first, restore")
+    parser.add_argument("--fail-at-step", type=int, default=None,
+                        help="on attempt 0 the last rank exits at this step")
     args = parser.parse_args()
     resnet_rank(args.rank, args.world, args.port, args.steps, args.out, args.backend,
-                args.local_batch_stats)
+                args.local_batch_stats, args.checkpoint_root, args.attempt, args.fail_at_step)

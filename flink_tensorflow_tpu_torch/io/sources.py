@@ -5,8 +5,8 @@ Port of ``flink_tensorflow_tpu/io/sources.py`` (``:17-170``):
 open-loop ``PacedSource``.  Every source here replays: the source
 operator snapshots an offset per subtask and skips that many records on
 restore (``PacedSource`` repositions with ``seek`` instead of sleeping
-through them).  Not ported: the split sources of ``sources/`` (they
-belong to the distributed record plane).
+through them).  The split sources (pulled splits, a wakeable mailbox
+loop) live in ``sources/``.
 """
 
 from __future__ import annotations

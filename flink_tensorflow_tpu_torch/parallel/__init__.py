@@ -1,5 +1,5 @@
 """Parallelism layer — meshes, data-parallel training, ring and Ulysses
-attention, process cohorts.
+attention, process cohorts and their supervisor.
 
 The names of ``flink_tensorflow_tpu/parallel/__init__.py`` that the port
 has: where the reference lets XLA emit collectives from sharding
@@ -34,6 +34,12 @@ from flink_tensorflow_tpu_torch.parallel.ring_attention import (
     ring_attention_sharded,
     ring_decode_attention,
 )
+from flink_tensorflow_tpu_torch.parallel.supervisor import (
+    CohortFailed,
+    CohortOutcome,
+    CohortSupervisor,
+    latest_common_checkpoint,
+)
 from flink_tensorflow_tpu_torch.parallel.ulysses import (
     ulysses_attention,
     ulysses_attention_sharded,
@@ -44,6 +50,9 @@ __all__ = [
     "AXIS_ORDER",
     "DATA_AXIS",
     "SEQ_AXIS",
+    "CohortFailed",
+    "CohortOutcome",
+    "CohortSupervisor",
     "HostTopology",
     "Mesh",
     "batch_sharding",
@@ -51,6 +60,7 @@ __all__ = [
     "global_mesh",
     "init_train_state",
     "initialize",
+    "latest_common_checkpoint",
     "make_dp_train_step",
     "make_mesh",
     "make_train_step",

@@ -13,6 +13,10 @@ subtask loop in the calling thread, and :func:`keyed_job` /
 :func:`serve_keyed` build the pipeline users call,
 ``StreamExecutionEnvironment -> from_collection -> key_by(session_id) ->
 serving.continuous_batching(...) -> sink``, on the local executor.
+:func:`open_loop_arm` runs one arm of the reference's serving bench under
+open-loop arrivals (``bench.py:bench_serving.run_arm``, ``:2652-2760``):
+a ``PacedSplitSource`` into continuous batching or into a fixed count
+window.
 
 :func:`paged_cell` builds the paged KV pool's arms on the same model, after
 the JAX package's ``bench.py:bench_kveconomy`` (``:3726-3990``) and
@@ -35,6 +39,17 @@ CAPACITY = 64
 PROMPT_HI = 16
 MAX_NEW = 40
 SESSIONS = 96
+#: The bench's two offered loads, requests/s (both above the fixed arm's
+#: flood capacity in the reference), and the schedule's shift past the
+#: operators' ``open()`` (``bench.py:2593``, ``:2650``).
+OPEN_LOOP_RATES = (400.0, 1200.0)
+START_DELAY_S = 1.5
+#: The fixed arm's window (``bench.py:2674``).
+FIXED_WINDOW = 8
+FIXED_TIMEOUT_S = 0.3
+#: The continuous arm's counters that the bench reports.
+SERVING_COUNTERS = ("admitted", "evicted", "preempted", "rejected", "serving_steps",
+                    "step_h2d_bytes", "cache_h2d_blocks", "cache_d2h_blocks")
 
 
 def serving_cell(seed: int = 0):
@@ -116,6 +131,79 @@ def serve_keyed(model, cfg, requests, *, parallelism: int = 1, device=None):
     seconds = arrivals[-1][0] - arrivals[0][0] if arrivals else 0.0
     return ([ev for _, ev in arrivals], seconds,
             env.metric_registry.group("continuous_batching.0"))
+
+
+@dataclasses.dataclass
+class OpenLoopArm:
+    """One arm's run: the bench's ``row``, the ``(emit time, TokenEvent)``
+    pairs in sink order, and the environment (its plan and metrics)."""
+
+    row: typing.Dict[str, typing.Any]
+    events: typing.List[typing.Tuple[float, typing.Any]]
+    env: typing.Any
+
+
+def open_loop_arm(model, cfg, requests, arm: str, rate: float, *, device=None) -> OpenLoopArm:
+    """One arm of the serving bench at offered load ``rate`` requests/s
+    (``bench.py:bench_serving.run_arm`` without its traced pass):
+    ``PacedSplitSource(requests, rate, num_splits=1, start_delay_s=1.5)`` into
+    ``key_by(session_id) -> serving.continuous_batching`` (``arm=
+    "continuous"``) or ``count_window(8, timeout_s=0.3) ->
+    FixedWindowGenerateFunction`` (``"fixed"``), then a sink.  ``device``
+    goes to every subtask (None: ``cuda``).
+
+    The row: sessions, tokens, tokens/s over the span from the first
+    scheduled arrival to the last emit, TTFT and per-token latency p50/p95
+    from each request's ``sched_ts`` (ms); the continuous arm adds
+    :data:`SERVING_COUNTERS`, summed over its subtasks."""
+    from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.serving.baseline import FixedWindowGenerateFunction
+    from flink_tensorflow_tpu_torch.serving.operator import continuous_batching
+    from flink_tensorflow_tpu_torch.sources.paced import PacedSplitSource
+
+    if arm not in ("continuous", "fixed"):
+        raise ValueError(f"unknown arm {arm!r}")
+    env = StreamExecutionEnvironment(parallelism=1)
+    if device is not None:
+        env.set_device_provider(lambda task, index: device)
+    source = env.from_source(PacedSplitSource(requests, rate, num_splits=1,
+                                              start_delay_s=START_DELAY_S),
+                             name="sessions", parallelism=1)
+    if arm == "continuous":
+        stream = continuous_batching(source.key_by(lambda r: r.session_id), model, config=cfg)
+    else:
+        stream = source.count_window(FIXED_WINDOW, timeout_s=FIXED_TIMEOUT_S).apply(
+            FixedWindowGenerateFunction(model, cfg), name="fixed_window_generate")
+    events: typing.List[typing.Tuple[float, typing.Any]] = []
+    stream.sink_to_callable(lambda ev: events.append((time.monotonic(), ev)))
+    env.execute(f"serving-open-loop-{arm}", timeout=3600)
+
+    tok_lat, ttft = [], []
+    first_sched = last_emit = None
+    for t_emit, ev in events:
+        sched = ev.meta.get("sched_ts")
+        if sched is None or ev.index < 0:
+            continue
+        first_sched = sched if first_sched is None else min(first_sched, sched)
+        last_emit = t_emit if last_emit is None else max(last_emit, t_emit)
+        tok_lat.append((t_emit - sched) * 1e3)
+        if ev.index == 0:
+            ttft.append((t_emit - sched) * 1e3)
+    span = last_emit - first_sched if tok_lat else None
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
+    row: typing.Dict[str, typing.Any] = {
+        "arm": arm, "offered_rate_rps": rate,
+        "sessions": len({ev.session_id for _, ev in events}),
+        "tokens": len(tok_lat),
+        "tokens_per_s": len(tok_lat) / span if span else None,
+        "ttft_p50_ms": pct(ttft, 50), "ttft_p95_ms": pct(ttft, 95),
+        "token_p50_ms": pct(tok_lat, 50), "token_p95_ms": pct(tok_lat, 95),
+    }
+    if arm == "continuous":
+        report = env.metric_registry.report()
+        for name in SERVING_COUNTERS:
+            row[name] = sum(v for k, v in report.items() if k.endswith("." + name))
+    return OpenLoopArm(row, events, env)
 
 
 @dataclasses.dataclass

@@ -3,7 +3,9 @@
 Copy of ``flink_tensorflow_tpu/serving/records.py``.
 
 Requests ride the record plane like any other value: picklable, keyed by
-``session_id``, carrying their metadata in ``meta``.  Responses stream back as one :class:`TokenEvent` per generated token —
+``session_id``, carrying their metadata in ``meta`` (the paced sources
+stamp ``meta["sched_ts"]`` through ``with_meta``, as on a TensorValue).
+Responses stream back as one :class:`TokenEvent` per generated token —
 time-to-first-token is simply the latency of ``index == 0``.
 """
 
@@ -33,6 +35,12 @@ class GenerateRequest:
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
+
+    def with_meta(self, **kw) -> "GenerateRequest":
+        """A copy with more meta (how the paced sources stamp the schedule)."""
+        meta = dict(self.meta)
+        meta.update(kw)
+        return dataclasses.replace(self, meta=meta)
 
 
 @dataclasses.dataclass

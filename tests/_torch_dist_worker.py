@@ -15,9 +15,14 @@ imports torch and the port only, joins the cohort at
   rows of the given global batches (``--local-batch-stats``: batch
   norm's moments left local to each rank, the negative control;
   ``--device cuda --backend gloo``: every rank on the card);
-- ``gang``: the resnet-train job (``functions/train_cell.py:run_resnet``)
-  on each rank's partition with count-based checkpoints, then the same
-  job in a fresh environment restored from checkpoint ``--restore-id``.
+- ``gang``: the resnet-train job as a supervised worker runs it
+  (``functions/train_cell.py:run_supervised_resnet``) on each rank's
+  partition with count-based checkpoints, then the same job in a fresh
+  environment as attempt 1, restored from checkpoint ``--restore-id``;
+- ``supervised``: one attempt (``--attempt``) of that worker, as a
+  ``CohortSupervisor`` spawns it: attempt 0 starts fresh (the last rank
+  exits at ``--fail-at-step``), a later one restores from the newest
+  checkpoint every rank holds.
 """
 
 import argparse
@@ -112,37 +117,52 @@ def dp(args, inputs):
             "step": int(state["step"])}
 
 
-def gang(args, inputs):
-    from flink_tensorflow_tpu_torch.checkpoint.store import read_checkpoint
+def _gang_inputs(args, inputs):
     from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
     from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 
     mesh = make_mesh({"data": args.world}, devices=["cpu"])
     mdef = get_model_def("resnet50", **inputs["config"])
-    batch = inputs["global_batch"]
     records = [TensorValue({"image": image, "label": label}, {"id": i})
                for i, (image, label) in enumerate(zip(inputs["images"], inputs["labels"]))]
-    mine = train_cell.partition(records, batch, args.rank, args.world)
-    chk = os.path.join(args.dir, f"chk{args.rank}")
+    return mdef, mesh, records
 
-    def run(restore_id=None):
-        run = train_cell.run_resnet(mdef, inputs["schema"], mine, mesh, batch=batch,
-                                    checkpoint_dir=chk, every_n_records=inputs["every_n"],
-                                    restore_id=restore_id, timeout=60)
-        return ([(int(r["step"]), float(r["loss"])) for r in run.results],
-                run.function.current_params())
 
-    steps_a, params_a = run()
+def _supervised_attempt(args, inputs, attempt, restore_id=None, fail_at_step=None):
+    mdef, mesh, records = _gang_inputs(args, inputs)
+    run, restored = train_cell.run_supervised_resnet(
+        mdef, inputs["schema"], records, mesh, rank=args.rank, world=args.world,
+        checkpoint_root=os.path.join(args.dir, "chk"), every_n_records=inputs["every_n"],
+        batch=inputs["global_batch"], attempt=attempt, restore_id=restore_id,
+        fail_at_step=fail_at_step, timeout=60)
+    return ([(int(r["step"]), float(r["loss"])) for r in run.results],
+            run.function.current_params(), restored)
+
+
+def gang(args, inputs):
+    from flink_tensorflow_tpu_torch.checkpoint.store import read_checkpoint
+
+    steps_a, params_a, _ = _supervised_attempt(args, inputs, 0)
+    chk = train_cell.rank_checkpoint_dirs(os.path.join(args.dir, "chk"), args.world)[args.rank]
     _, snap = read_checkpoint(chk, args.restore_id)
     ckpt_step = int(snap["dp_train"][0]["function"]["state"]["step"])
-    steps_b, params_b = run(args.restore_id)
+    steps_b, params_b, restored = _supervised_attempt(args, inputs, 1, args.restore_id)
+    assert restored == args.restore_id
     return {"steps_a": steps_a, "params_a": params_a, "steps_b": steps_b, "params_b": params_b,
             "checkpoint_step": ckpt_step, "num_processes": multihost.topology().num_processes}
 
 
+def supervised(args, inputs):
+    steps, params, restored = _supervised_attempt(args, inputs, args.attempt,
+                                                  fail_at_step=args.fail_at_step)
+    return {"steps": steps, "params": params, "restored_checkpoint": restored,
+            "attempt": args.attempt, "num_processes": multihost.topology().num_processes}
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--scenario", required=True, choices=("attention", "dp", "gang"))
+    p.add_argument("--scenario", required=True,
+                   choices=("attention", "dp", "gang", "supervised"))
     p.add_argument("--rank", type=int, required=True)
     p.add_argument("--world", type=int, required=True)
     p.add_argument("--port", type=int, required=True)
@@ -150,6 +170,8 @@ def main() -> None:
     p.add_argument("--mesh", default="seq=4")
     p.add_argument("--local-batch-stats", action="store_true")
     p.add_argument("--restore-id", type=int, default=1)
+    p.add_argument("--attempt", type=int, default=0)
+    p.add_argument("--fail-at-step", type=int, default=None)
     p.add_argument("--device", default="cpu", help="dp: cuda shares the card between ranks")
     p.add_argument("--backend", default=None)
     args = p.parse_args()
@@ -159,7 +181,8 @@ def main() -> None:
                                 device=args.device, backend=args.backend, timeout_s=60)
     assert topo.num_processes == args.world and topo.process_id == args.rank
     inputs = torch.load(os.path.join(args.dir, "in.pt"), weights_only=False)
-    out = {"attention": attention, "dp": dp, "gang": gang}[args.scenario](args, inputs)
+    out = {"attention": attention, "dp": dp, "gang": gang,
+           "supervised": supervised}[args.scenario](args, inputs)
     torch.save(out, os.path.join(args.dir, f"rank{args.rank}.pt"))
     multihost.shutdown()
 
