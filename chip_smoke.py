@@ -222,7 +222,39 @@ Phases (any failure exits non-zero and prints no result line):
    and the final params and batch statistics equal to the uninterrupted
    run's bit for bit, K1 0 launches; step times and the card's memory in
    use after the supervisor returned;
-15. print one ``kernels`` JSON line, the card line, and the final
+15. the distributed record plane (``core/{reactor,shuffle,distributed}.py``;
+   host-side, so K1 must launch 0 times): (a) ``bench.py:bench_shuffle``'s
+   four arms (``percord_tcp``, ``coalesce_tcp``, ``coalesce_columnar_tcp``,
+   ``coalesce_columnar_shm``) at 64 x 40,000, 1,024 x 20,000 and 16,384 x
+   2,000 floats, one sender subprocess serving every arm in turn into this
+   process's reactor (``core/shuffle_probe.py``, best of
+   ``SHUFFLE_PASSES``): every record
+   arrives; records/s, MB/s and the bench's two ratios printed, nothing
+   about speed asserted; a tensor on the card written to a remote channel
+   arrives as the same values in a CPU tensor; (b) resnet-train as ONE job
+   across two processes sharing ``cuda:0`` (``train_cell --plane-ports``:
+   gloo for the gang, the record plane for the stream,
+   ``from_collection(parallelism=2) -> count_window(16) ->
+   DPTrainWindowFunction(parallelism=2) -> loss probe ->
+   sink_to_callable(parallelism=1)``), 8 steps, checkpoints every 2 into
+   one shared directory, under a ``CohortSupervisor`` uninterrupted and
+   with the last process exiting at step 5 on attempt 0: 2 attempts, no
+   process left alive, the restore from checkpoint 2 (the newest common),
+   steps 5-8's losses and the final params and batch statistics equal to
+   the uninterrupted run's bit for bit, process 0's sink receiving every
+   (rank, step) once, and the uninterrupted run equal to phase 14 (c)'s
+   per-rank job bit for bit (the source is interleaved so each rank reads
+   the rows that job reads); (c) the widedeep-online cell keyed over the
+   cohort (``train_cell --widedeep``: ``key_by(user) ->
+   OnlineTrainFunction(scope="key", mini_batch=32, steps_per_dispatch=16)
+   -> ExactlyOnceRecordFileSink``) on two processes sharing ``cuda:0``,
+   process 0 (the source and the 2PC sink) SIGKILLed once the commit gate
+   has promoted a checkpoint's output, restored as three processes at
+   keyed parallelism 3:
+   the committed (key, step) records equal a one-process run's at keyed
+   parallelism 2, each once, losses bit for bit; records/s of each run and
+   the recovery seconds printed; the phase's seconds;
+16. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -2785,11 +2817,21 @@ GRAPH_RECORDS = 512
 
 
 def free_port() -> int:
+    return free_ports(1)[0]
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free ports, all bound before any is released."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
 
 
 def held(got, want, dtype) -> float:
@@ -3245,6 +3287,15 @@ FILESPLIT_THROTTLE_S = 0.0005
 # ranks' disks, so the restart restores checkpoint 2 and runs steps 5-8.
 SUPERVISED_STEPS = 8
 SUPERVISED_FAIL_AT_STEP = 5
+# Phase 15 (a): passes per shuffle arm and size (the bench takes the best
+# of 2).
+SHUFFLE_PASSES = 2
+# Phase 15 (c): the widedeep-online cell's 8,192 events paced at 1 ms
+# while two processes run it (a kill must find a committed checkpoint and
+# the stream unfinished), checkpoints every 1,024 events
+# (``train_cell.WIDEDEEP_EVERY_N_RECORDS``, phase 7's).
+COHORT_WIDEDEEP_THROTTLE_S = 0.001
+COHORT_TIMEOUT_S = 300
 
 
 def check_open_loop_serving(card, torch, fa, mdef, model, cfg, requests, want):
@@ -3350,9 +3401,10 @@ def check_filesplit(card, fa):
     return {"filesplit": fa.flash_attention.launches}
 
 
-def supervised_ranks(what, fail_at_step=None):
+def supervised_ranks(what, fail_at_step=None, cohort=False):
     """Phase 13 (b)'s two gloo ranks under a ``CohortSupervisor``, as
-    supervised workers (``train_cell --checkpoint-root``).  Returns the
+    supervised workers (``train_cell --checkpoint-root``; with ``cohort``,
+    one job over the record plane, ``--plane-ports``).  Returns the
     outcome, the ranks' files from the attempt that succeeded, the seconds,
     the rank processes of every attempt and each rank's checkpoint ids."""
     import tempfile
@@ -3360,7 +3412,7 @@ def supervised_ranks(what, fail_at_step=None):
     import torch
 
     from flink_tensorflow_tpu_torch.checkpoint.store import checkpoint_ids
-    from flink_tensorflow_tpu_torch.functions.train_cell import rank_checkpoint_dirs
+    from flink_tensorflow_tpu_torch.functions.train_cell import cohort_dirs, rank_checkpoint_dirs
     from flink_tensorflow_tpu_torch.parallel import CohortFailed, CohortSupervisor
 
     class Recording(CohortSupervisor):
@@ -3377,11 +3429,13 @@ def supervised_ranks(what, fail_at_step=None):
         ports = {}
 
         def command(w, n, a):
-            port = ports.setdefault(a, free_port())
+            port, *plane = ports.setdefault(a, free_ports(1 + (n if cohort else 0)))
             cmd = [sys.executable, "-m", "flink_tensorflow_tpu_torch.functions.train_cell",
                    "--rank", str(w), "--world", str(n), "--port", str(port),
                    "--steps", str(SUPERVISED_STEPS), "--out", out, "--backend", "gloo",
                    "--checkpoint-root", chk, "--attempt", str(a)]
+            if plane:
+                cmd += ["--plane-ports", ",".join(map(str, plane))]
             return cmd + (["--fail-at-step", str(fail_at_step)] if fail_at_step else [])
 
         path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
@@ -3396,7 +3450,8 @@ def supervised_ranks(what, fail_at_step=None):
         seconds = time.monotonic() - t0
         ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
                  for r in range(2)]
-        held = {r: checkpoint_ids(d) for r, d in enumerate(rank_checkpoint_dirs(chk, 2))}
+        dirs = cohort_dirs(chk, 2) if cohort else rank_checkpoint_dirs(chk, 2)
+        held = {r: checkpoint_ids(d) for r, d in enumerate(dirs)}
     alive = [p.pid for p in sup.procs if p.poll() is None]
     if alive:
         fail(f"{what}: rank processes {alive} outlived the supervisor")
@@ -3474,7 +3529,7 @@ def check_supervised_gang(card, torch):
     print(f"supervised gang seconds per step {step_s} (2 ranks sharing one card, not a "
           f"multi-card number); card memory in use after the supervisor returned "
           f"{total - free} B | card: {card}", flush=True)
-    return {"supervised_gang": k1}
+    return {"supervised_gang": k1}, want
 
 
 def check_split_sources(card, torch, fa, mdef, model, cfg, requests, want):
@@ -3482,8 +3537,263 @@ def check_split_sources(card, torch, fa, mdef, model, cfg, requests, want):
     t0 = time.monotonic()
     launches = check_open_loop_serving(card, torch, fa, mdef, model, cfg, requests, want)
     launches.update(check_filesplit(card, fa))
-    launches.update(check_supervised_gang(card, torch))
+    gang_launches, per_rank = check_supervised_gang(card, torch)
+    launches.update(gang_launches)
     print(f"split sources phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return launches, per_rank
+
+
+def check_shuffle_arms(card, torch):
+    """Phase 15 (a): ``bench.py:bench_shuffle``'s arms and sizes through
+    ``core/shuffle_probe.py`` (a sender subprocess into this process's
+    reactor), and a tensor on the card across a remote channel."""
+    from flink_tensorflow_tpu_torch.core import elements as el
+    from flink_tensorflow_tpu_torch.core.channels import InputGate
+    from flink_tensorflow_tpu_torch.core.shuffle import RemoteChannelWriter, ShuffleServer
+    from flink_tensorflow_tpu_torch.core.shuffle_probe import SIZES, shuffle_bench
+
+    try:
+        bench = shuffle_bench(SIZES, SHUFFLE_PASSES)
+    except RuntimeError as exc:
+        fail(f"shuffle arms: {exc}")
+    for name, rows in bench["arms"].items():
+        for row in rows:
+            print(f"shuffle {name}", json.dumps(row), f"| card: {card}", flush=True)
+    ratios = {k: v for k, v in bench.items() if k != "arms"}
+    print("shuffle ratios", json.dumps(ratios),
+          "(host-only arms: no tensor touches the card)", f"| card: {card}", flush=True)
+    # A card tensor crosses as its host copy; the receiver builds a CPU
+    # tensor and touches no device.
+    gate = InputGate(1, capacity=4)
+    server = ShuffleServer("127.0.0.1")
+    server.register_gate("t", 0, gate)
+    server.start()
+    writer = RemoteChannelWriter("127.0.0.1", server.port, "t", 0, 0, flush_bytes=0)
+    sent = torch.arange(12, dtype=torch.bfloat16, device="cuda").reshape(3, 4) / 7
+    try:
+        writer.write(el.StreamRecord({"t": sent}))
+        item = gate.poll(timeout=30.0)
+    finally:
+        writer.close()
+        server.close()
+    got = None if item is None else item[1].value["t"]
+    if (got is None or got.device.type != "cpu" or got.dtype != sent.dtype
+            or not torch.equal(got, sent.cpu())):
+        fail(f"a card tensor across the record plane arrived as {got!r}")
+    return bench
+
+
+def check_cohort_gang(card, torch, per_rank):
+    """Phase 15 (b): the reference's multihost DP job on the record plane,
+    uninterrupted and restarted; held to itself bit for bit, to phase 14
+    (c)'s per-rank job bit for bit, and for every (rank, step) once at
+    process 0's sink."""
+    import gc
+
+    from flink_tensorflow_tpu_torch.functions.train_cell import (
+        FAIL_EXIT_CODE,
+        SUPERVISED_EVERY_N_STEPS,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    clean, want, clean_s, _, _ = supervised_ranks("cohort gang, uninterrupted", cohort=True)
+    outcome, got, seconds, procs, held = supervised_ranks(
+        "cohort gang, failed at step 5", SUPERVISED_FAIL_AT_STEP, cohort=True)
+    restored = (SUPERVISED_FAIL_AT_STEP - 1) // SUPERVISED_EVERY_N_STEPS
+    first = restored * SUPERVISED_EVERY_N_STEPS + 1
+    codes = [p.returncode for p in procs]
+    if (clean.attempts, outcome.attempts, outcome.returncode) != (1, 2, 0):
+        fail(f"cohort gang: attempts {clean.attempts} and {outcome.attempts} "
+             f"(rc {outcome.returncode}), want 1 and 2")
+    if len(procs) != 4 or FAIL_EXIT_CODE not in codes or codes.count(0) != 2:
+        fail(f"cohort gang: process exit codes {codes}")
+    steps = range(1, SUPERVISED_STEPS + 1)
+    # Process 0's sink: every (rank, step) once, each the step's loss.
+    for name, runs, span in (("uninterrupted", want, steps),
+                             ("restored", got, range(first, SUPERVISED_STEPS + 1))):
+        pairs = sorted(zip(runs[0]["gang_subtasks"], runs[0]["steps"]))
+        if pairs != [(g, s) for g in range(2) for s in span] or runs[1]["steps"]:
+            fail(f"cohort gang, {name}: process 0's sink received {pairs} (process 1's "
+                 f"{runs[1]['steps']}), want every (rank, step) of steps {list(span)} once")
+    losses = {}
+    for g, s, loss in zip(want[0]["gang_subtasks"], want[0]["steps"], want[0]["losses"]):
+        if losses.setdefault(s, loss) != loss:
+            fail(f"cohort gang: the ranks' losses of step {s} differ")
+    for r in range(2):
+        if (got[r]["attempt"], got[r]["restored_checkpoint"]) != (1, restored):
+            fail(f"cohort gang: process {r} restored {got[r]['restored_checkpoint']} on "
+                 f"attempt {got[r]['attempt']}, want checkpoint {restored} on attempt 1")
+        if want[r]["device"] != "cuda:0":
+            fail(f"cohort gang: process {r} ran on {want[r]['device']}")
+        for coll in ("params", "batch_stats"):
+            if not _bit_equal(got[r]["variables"][coll], want[r]["variables"][coll]):
+                fail(f"cohort gang: process {r}'s final {coll} after the restore differ from "
+                     "the uninterrupted run's")
+            if not _bit_equal(want[r]["variables"][coll], per_rank[r]["variables"][coll]):
+                fail(f"cohort gang: process {r}'s final {coll} differ from phase 14 (c)'s "
+                     "per-rank job's")
+        if [losses[s] for s in steps] != per_rank[r]["losses"]:
+            fail(f"cohort gang: losses {[losses[s] for s in steps]} differ from phase 14 "
+                 f"(c)'s per-rank job's {per_rank[r]['losses']}")
+    for g, s, loss in zip(got[0]["gang_subtasks"], got[0]["steps"], got[0]["losses"]):
+        if loss != losses[s]:
+            fail(f"cohort gang: rank {g}'s loss of step {s} after the restore {loss} differs "
+                 f"from the uninterrupted run's {losses[s]}")
+    k1 = sum(r["k1_launches"] for r in got + want)
+    if k1:
+        fail(f"cohort gang: K1 launched {k1} times, want 0")
+    arrivals = want[0]["arrivals"]
+    row = {"processes": 2, "backend": "gloo + record plane", "device": "cuda:0",
+           "steps": SUPERVISED_STEPS, "checkpoint_every_steps": SUPERVISED_EVERY_N_STEPS,
+           "fail_at_step": SUPERVISED_FAIL_AT_STEP, "attempts": outcome.attempts,
+           "exit_codes": codes, "restored_checkpoint": restored, "checkpoints_held": held,
+           "bit_equal": True,
+           "equal_to_per_rank_job": True,
+           "sink_records": {"uninterrupted": len(want[0]["steps"]),
+                            "restored": len(got[0]["steps"])},
+           "seconds_per_step": (arrivals[-1] - arrivals[0]) / (SUPERVISED_STEPS - 1),
+           "seconds_uninterrupted": clean_s, "seconds_supervised": seconds,
+           "job_seconds": {"uninterrupted": want[0]["seconds"], "restored": got[0]["seconds"]},
+           "k1_launches": k1, "card": card}
+    print("cohort gang", json.dumps(row), flush=True)
+    return {"cohort_gang": k1}
+
+
+def widedeep_cohort_proc(rank, world, ports, out, chk, *, par, throttle=0.0, restore_id=None):
+    cmd = [sys.executable, "-m", "flink_tensorflow_tpu_torch.functions.train_cell", "--widedeep",
+           "--rank", str(rank), "--world", str(world), "--plane-ports", ",".join(map(str, ports)),
+           "--out", out, "--checkpoint-root", chk, "--par", str(par),
+           "--throttle", str(throttle)]
+    if restore_id is not None:
+        cmd += ["--restore-id", str(restore_id)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def wait_procs(what, procs, timeout=COHORT_TIMEOUT_S):
+    """Every process's exit code and output; kills what outlives ``timeout``."""
+    deadline = time.monotonic() + timeout
+    results = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"{what}: a process hung")
+        results.append((p.returncode, out.decode(errors="replace")))
+    return results
+
+
+def committed_steps(out):
+    from flink_tensorflow_tpu_torch.io.files import read_committed
+
+    return [(int(r.meta["key"]), int(r["step"]), float(r["loss"])) for r in read_committed(out)]
+
+
+def check_widedeep_cohort(card, torch):
+    """Phase 15 (c): the widedeep-online cell keyed over the cohort,
+    process 0 killed once the commit gate has promoted a checkpoint's
+    output, restored as three processes."""
+    import signal
+    import tempfile
+
+    from flink_tensorflow_tpu_torch.functions import train_cell
+    from flink_tensorflow_tpu_torch.parallel.supervisor import latest_common_checkpoint
+
+    mdef, schema, records = train_cell.widedeep_cell()
+    n, every = len(records), train_cell.WIDEDEEP_EVERY_N_RECORDS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_widedeep_cohort_") as root:
+        base = os.path.join(root, "base")
+        base_s = train_cell.run_widedeep_cohort(
+            mdef, schema, records, None, out=base, checkpoint_root=os.path.join(root, "chk1"),
+            every_n_records=every, parallelism=2,
+            device_provider=lambda task, index: "cuda:0")
+        want = sorted(committed_steps(base))
+        out, chk = os.path.join(root, "out"), os.path.join(root, "chk")
+        dirs = train_cell.cohort_dirs(chk, 2)
+        ports = free_ports(2)
+        t0 = time.monotonic()
+        procs = [widedeep_cohort_proc(r, 2, ports, out, chk, par=2,
+                                      throttle=COHORT_WIDEDEEP_THROTTLE_S) for r in range(2)]
+        # The kill waits for the global commit gate to promote a
+        # checkpoint's 2PC output, so the restored cohort must also not
+        # commit again what was committed before the kill.
+        common, committed = None, 0
+        while time.monotonic() - t0 < COHORT_TIMEOUT_S:
+            common = latest_common_checkpoint(dirs)
+            committed = (len(committed_steps(out))
+                         if common is not None and os.path.isdir(out) else 0)
+            if committed or any(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.05)
+        t_kill = time.monotonic()
+        if not committed:
+            for p in procs:
+                p.kill()
+            fail(f"widedeep cohort: nothing committed before the kill (checkpoint {common}): "
+                 f"{[r for r in wait_procs('widedeep cohort', procs)]}")
+        cohort_rate = (common * every) / (t_kill - t0)
+        procs[0].send_signal(signal.SIGKILL)
+        codes = [rc for rc, _ in wait_procs("widedeep cohort, killed", procs)]
+        if codes[0] != -signal.SIGKILL or codes[1] == 0:
+            fail(f"widedeep cohort: exit codes {codes} after killing process 0 (the survivor "
+                 "must fail)")
+        common = latest_common_checkpoint(dirs)
+        ports = free_ports(3)
+        t1 = time.monotonic()
+        procs = [widedeep_cohort_proc(r, 3, ports, out, chk, par=3, restore_id=common)
+                 for r in range(3)]
+        results = wait_procs("widedeep cohort, restored", procs)
+        restored_s = time.monotonic() - t1
+        for r, (rc, log) in enumerate(results):
+            if rc != 0:
+                fail(f"widedeep cohort: restored process {r} failed:\n{log[-4000:]}")
+        with open(os.path.join(chk, "seconds-0.json")) as f:
+            job_s = json.load(f)["seconds"]
+        got = sorted(committed_steps(out))
+    pairs = [(k, s) for k, s, _ in got]
+    if len(set(pairs)) != len(pairs) or pairs != [(k, s) for k, s, _ in want]:
+        fail(f"widedeep cohort: committed (key, step) pairs differ from the one-process run's "
+             f"({len(pairs)} vs {len(want)}, {len(set(pairs))} distinct)")
+    if len(want) != train_cell.expected_steps(records):
+        fail(f"widedeep cohort: the one-process run committed {len(want)} steps, want "
+             f"{train_cell.expected_steps(records)}")
+    equal = sum(a[2] == b[2] for a, b in zip(got, want))
+    if equal != len(want):
+        worst = max(abs(a[2] - b[2]) / max(abs(b[2]), 1e-30) for a, b in zip(got, want))
+        fail(f"widedeep cohort: {len(want) - equal} of {len(want)} losses differ from the "
+             f"one-process run's (worst relative {worst:.3g}); each key trains its own model "
+             "on the same events in the same dispatch groups, so they must be equal bits")
+    row = {"events": n, "steps": len(want), "keys": train_cell.WIDEDEEP_USERS,
+           "processes": "2 -> 3", "keyed_parallelism": "2 -> 3",
+           "restored_checkpoint": common, "committed_at_kill": committed,
+           "losses_bit_equal": equal,
+           "records_per_s": {"one_process": n / base_s,
+                             "cohort_2_spawn_to_checkpoint_incl_startup": cohort_rate,
+                             "restored_3": (n - common * every) / job_s},
+           "note": "the 2-process run is paced at 1 ms per event until the kill",
+           "seconds": {"one_process": base_s, "restored_job": job_s,
+                       "restored_processes": restored_s,
+                       "recovery_kill_to_done": time.monotonic() - t_kill},
+           "card": card}
+    print("widedeep cohort", json.dumps(row), flush=True)
+
+
+def check_record_plane(card, torch, fa, per_rank):
+    """Phase 15: the distributed record plane; K1 must launch 0 times."""
+    t0 = time.monotonic()
+    fa.flash_attention.launches = 0
+    check_shuffle_arms(card, torch)
+    launches = check_cohort_gang(card, torch, per_rank)
+    check_widedeep_cohort(card, torch)
+    in_process = fa.flash_attention.launches
+    if in_process:
+        fail(f"phase 15 launched K1 {in_process} times in this process, want 0")
+    launches["record_plane"] = in_process
+    print(f"record plane phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
     return launches
 
 
@@ -3580,7 +3890,10 @@ def main() -> int:
 
     parallel_launches = check_parallel(card, torch, fa, resnet_ref, inception, direct)
 
-    split_launches = check_split_sources(card, torch, fa, mdef, model, cfg, requests, got)
+    split_launches, per_rank = check_split_sources(card, torch, fa, mdef, model, cfg,
+                                                   requests, got)
+
+    plane_launches = check_record_plane(card, torch, fa, per_rank)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
@@ -3598,7 +3911,8 @@ def main() -> int:
         "launches_by_path": {"serving_subtask_loop": launches, **keyed_launches,
                              **training_launches, **stream_launches, **chain_launches,
                              **paged_launches, **event_time_launches,
-                             **transfer_launches, **parallel_launches, **split_launches},
+                             **transfer_launches, **parallel_launches, **split_launches,
+                             **plane_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

@@ -44,10 +44,19 @@ Ported so far:
 - parallelism over ``torch.distributed`` (``parallel.multihost``, one
   device per process): the data-parallel gang across processes with
   global batch-norm statistics, and ring and Ulysses attention over a
-  ``seq`` axis on the flash-attention kernel.
+  ``seq`` axis on the flash-attention kernel;
+- split sources (``sources/``) and the cohort supervisor
+  (``parallel.supervisor``);
+- the distributed record plane: one job graph across a process cohort
+  (``env.set_distributed(DistributedConfig(...))``, ``core.distributed``)
+  with keyed and rebalance edges over ``core.shuffle`` (coalesced,
+  columnar, credit-controlled, shared memory between processes of one
+  host) on one ``core.reactor`` thread per process, cohort checkpoints
+  and the rescaling restore.
 """
 
 from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig
+from flink_tensorflow_tpu_torch.core.distributed import DistributedConfig
 from flink_tensorflow_tpu_torch.core.environment import (
     RestartStrategy,
     StreamExecutionEnvironment,
@@ -59,6 +68,7 @@ from flink_tensorflow_tpu_torch.core.stream import DataStream, KeyedStream, Wind
 __all__ = [
     "CheckpointConfig",
     "DataStream",
+    "DistributedConfig",
     "JobConfig",
     "KeyedStream",
     "ProcessFunction",

@@ -10,6 +10,13 @@ channel whose barrier arrived is blocked, its later elements are stashed
 and replayed in order once the checkpoint is taken (Flink's aligned
 exactly-once protocol).  Only host objects cross a channel; tensors reach
 the device as batches inside the model operators.
+
+The record plane's receive side (``core/shuffle.py``) feeds a gate from
+the reactor thread, which must never block: :meth:`InputGate.try_put_batch`
+takes what fits, a space listener resumes the paused connection when the
+queue leaves the full state, and a drain listener replenishes the
+sender's credits once the consumer pulls the queue below its low-water
+mark (JAX ``:101-115``, ``:162-220``).
 """
 
 from __future__ import annotations
@@ -42,6 +49,15 @@ class InputGate:
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self._not_full = threading.Condition(self._lock)
+        #: Wake sentinels in the queue (not counted by :attr:`depth`).
+        self._wake_sentinels = 0
+        #: Fired under the gate lock (so they must not block) on the full ->
+        #: not-full transition and on close.
+        self._space_listeners: typing.List[typing.Callable[[], None]] = []
+        #: Fired under the gate lock when ``poll`` pulls the queue below
+        #: the low-water mark, and on close.
+        self._drain_listeners: typing.List[typing.Callable[[], None]] = []
+        self._low_water = max(1, capacity // 2)
 
     def put(self, channel_idx: int, element: el.StreamElement) -> None:
         """Enqueue, waiting while the queue is full (backpressure)."""
@@ -54,11 +70,46 @@ class InputGate:
             self.puts_per_channel[channel_idx] += 1
             self._not_empty.notify()
 
+    def try_put_batch(self, channel_idx: int,
+                      elements: typing.Sequence[el.StreamElement]) -> int:
+        """Append as many of ``elements`` as the queue has room for, under
+        one lock and one reader wakeup; returns how many were taken (the
+        reactor offers the rest again once a space listener fires).  A
+        closed gate takes everything (dropped)."""
+        with self._not_full:
+            if self._closed:
+                return len(elements)
+            room = self.capacity - len(self._queue)
+            if room <= 0:
+                return 0
+            taken = min(room, len(elements))
+            self._queue.extend((channel_idx, e) for e in elements[:taken])
+            self.puts_per_channel[channel_idx] += taken
+            self._not_empty.notify()
+            return taken
+
+    def add_space_listener(self, fn: typing.Callable[[], None]) -> None:
+        with self._lock:
+            self._space_listeners.append(fn)
+
+    def add_drain_listener(self, fn: typing.Callable[[], None]) -> None:
+        with self._lock:
+            self._drain_listeners.append(fn)
+
+    @staticmethod
+    def _notify(listeners) -> None:
+        for fn in listeners:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 - an observer never breaks the gate
+                pass
+
     def wake(self) -> None:
         """Break a blocked :meth:`poll` now (the model runner's fetch thread
         calls this when results land).  No element is consumed."""
         with self._not_empty:
             self._queue.append((-1, None))
+            self._wake_sentinels += 1
             self._not_empty.notify()
 
     def poll(self, timeout: typing.Optional[float] = None
@@ -87,6 +138,12 @@ class InputGate:
                                 return None
                 idx, element = self._queue.popleft()
                 self._not_full.notify()
+                if self._space_listeners and len(self._queue) == self.capacity - 1:
+                    self._notify(self._space_listeners)
+                if self._drain_listeners and len(self._queue) == self._low_water - 1:
+                    self._notify(self._drain_listeners)
+                if idx < 0:
+                    self._wake_sentinels -= 1
             if idx < 0:
                 return None  # wake() sentinel: hand control back now
             if self._blocked[idx]:
@@ -112,6 +169,17 @@ class InputGate:
             self._closed = True
             self._not_empty.notify_all()
             self._not_full.notify_all()
+            # A paused connection must not stay parked on a gate nobody
+            # drains again.
+            self._notify(self._space_listeners)
+            self._notify(self._drain_listeners)
+
+    @property
+    def depth(self) -> int:
+        """Elements buffered (queue, stashes and replay; wake sentinels
+        excluded)."""
+        return max(0, len(self._queue) + len(self._replay)
+                   + sum(len(d) for d in self._stashed) - self._wake_sentinels)
 
 
 class ChannelWriter:

@@ -1,7 +1,6 @@
 """Checkpoint coordinator — aligned snapshots, persisted and announced.
 
-Port of ``flink_tensorflow_tpu/core/checkpoint.py:24-509`` without the
-distributed hooks.  The
+Port of ``flink_tensorflow_tpu/core/checkpoint.py:24-509``.  The
 coordinator collects one snapshot per operator subtask for each
 checkpoint id.  Snapshots reach it as host objects: the subtask thread
 that took one copies its tensors to the CPU before acking
@@ -18,6 +17,17 @@ cutting later checkpoints, which complete.  A ``trigger()`` that times
 out aborts its checkpoint the same way, then fails its caller.  The
 sweeper thread starts with the first count-based checkpoint and ends
 when the job is done or cancelled.
+
+The distributed hooks (JAX ``:94-107``, ``:169``, ``:369``), set by
+``core/distributed.py``: ``lazy_register`` registers a checkpoint at its
+first local ack (its barrier may come from a source on a peer process);
+``commit_gate(id)`` runs after the local shard is durable and before the
+completion notification, and a False return withholds the 2PC commit
+signal (the checkpoint is not yet durable on every process);
+``job_meta_extra`` rides into the shard's ``__job__`` entry and
+``METADATA.json`` (the cohort shape a restore validates); and a manual
+``trigger()`` is refused on a distributed job (it would reach only the
+local sources and bypass the gate).
 
 Disk format: one directory per checkpoint (``checkpoint/store.py``).
 """
@@ -87,6 +97,10 @@ class CheckpointCoordinator:
         self._last_size_bytes: typing.Optional[int] = None
         self.metrics.gauge("last_checkpoint_id", lambda: self._last_checkpoint_id)
         self.metrics.gauge("last_size_bytes", lambda: self._last_size_bytes)
+        #: Distributed hooks (see the module docstring).
+        self.lazy_register = False
+        self.commit_gate: typing.Optional[typing.Callable[[int], bool]] = None
+        self.job_meta_extra: typing.Dict[str, typing.Any] = {}
         #: Checkpoint ids declined at their deadline, in abort order.
         self.aborted_ids: typing.List[int] = []
         executor.metrics.group("recovery").gauge("checkpoints_aborted",
@@ -126,6 +140,11 @@ class CheckpointCoordinator:
                 "manual/timer checkpoints are disabled when "
                 "checkpoint.every_n_records is set — barrier positions must "
                 "stay a deterministic function of the stream")
+        if self.lazy_register or self.commit_gate is not None:
+            raise RuntimeError(
+                "manual checkpoints are not available on distributed jobs — "
+                "configure checkpoint.every_n_records (deterministic "
+                "cohort-wide barrier positions)")
         deadline = time.monotonic() + timeout
         if not self._trigger_lock.acquire(timeout=timeout):
             raise TimeoutError(f"another checkpoint did not drain within {timeout}s")
@@ -137,7 +156,8 @@ class CheckpointCoordinator:
     def _with_job_meta(self, snapshots):
         """Persisted checkpoints pin the key-group count: restoring under
         another max_parallelism would orphan keyed state."""
-        return {**snapshots, "__job__": {0: {"max_parallelism": self.executor.max_parallelism}}}
+        return {**snapshots, "__job__": {0: {"max_parallelism": self.executor.max_parallelism,
+                                              **self.job_meta_extra}}}
 
     def _seed_finished(self, pending: _PendingCheckpoint) -> None:
         """Subtasks that already finished ack at once with their final
@@ -251,6 +271,10 @@ class CheckpointCoordinator:
                                    exc_info=True)
                     return  # not durable: no completion notification
             self._record_completed(pending, path)
+            # A cohort promotes 2PC output only once every process holds
+            # its shard of the checkpoint.
+            if self.commit_gate is not None and not self.commit_gate(pending.checkpoint_id):
+                return
             self.executor.notify_checkpoint_complete(pending.checkpoint_id)
             self._prune()
 
@@ -303,6 +327,13 @@ class CheckpointCoordinator:
     def ack(self, checkpoint_id: int, task: str, subtask_index: int, snapshot: typing.Any) -> None:
         with self._lock:
             pending = self._pending.get(checkpoint_id)
+            if pending is None and self.lazy_register and checkpoint_id >= self._next_id:
+                pending = _PendingCheckpoint(checkpoint_id, self.executor.total_subtasks,
+                                             source_initiated=True)
+                self._pending[checkpoint_id] = pending
+                self._next_id = checkpoint_id + 1
+                self._seed_finished(pending)
+                self._ensure_abort_sweeper_locked()
             if pending is None:
                 return
             if pending.add(task, subtask_index, snapshot) and pending.source_initiated:

@@ -5,7 +5,10 @@ Port of ``flink_tensorflow_tpu/core/config.py``: ``CheckpointConfig``
 reads, the gang operators' ``mesh`` (``:224``) among them, operator
 ``chaining`` (``:101-107``), ``device_resident`` (``:153-162``) and
 ``wire_dtype`` (``:170``, validated as ``:286-292``) with the reference's
-defaults.
+defaults, and the record plane's ``wire_flush_bytes``, ``wire_flush_ms``,
+``shm_channels``, ``flow_control`` (``:171-206``) and ``distributed``
+(``:235-239``), validated as ``:278-322`` validates them: a distributed
+job checkpoints with count-based triggers only.
 """
 
 from __future__ import annotations
@@ -92,6 +95,25 @@ class JobConfig:
     #: function: ``ModelWindowFunction(wire_dtype=...)``.  The environment
     #: variable ``FLINK_TPU_WIRE_DTYPE`` applies when this is None.
     wire_dtype: typing.Optional[str] = None
+    #: Frame coalescing on the cross-process record plane
+    #: (``core/shuffle.py``): records buffer until this many estimated
+    #: payload bytes, then flush as one frame; 0 sends a frame per record.
+    #: ``FLINK_TPU_WIRE_FLUSH_BYTES`` overrides.
+    wire_flush_bytes: int = 64 * 1024
+    #: Buffer timeout: a partly filled buffer flushes this many ms after
+    #: its first record (barriers, watermarks and end-of-partition flush at
+    #: once); 0 flushes every record.  ``FLINK_TPU_WIRE_FLUSH_MS`` overrides.
+    wire_flush_ms: float = 5.0
+    #: Same-host edges ride a shared-memory ring (``native/ring.py:
+    #: ShmByteRing``) instead of loopback TCP; the socket stays as
+    #: handshake, doorbell and liveness channel.  ``FLINK_TPU_SHM``
+    #: overrides.
+    shm_channels: bool = True
+    #: Credit-based flow control on the record plane: receivers grant
+    #: per-edge frame credits and replenish them as the gate drains,
+    #: senders park at zero; barriers, watermarks, end-of-partition and the
+    #: control channel bypass credit.  ``FLINK_TPU_FLOW_CONTROL`` overrides.
+    flow_control: bool = True
     #: Sleep between source emissions — test/backpressure pacing.
     source_throttle_s: float = 0.0
     #: ``(task_name, subtask_index) -> device`` (``"cpu"``, ``"cuda:0"``,
@@ -103,6 +125,10 @@ class JobConfig:
     mesh: typing.Optional[typing.Any] = None
     #: Aligned snapshots: directory, trigger mode, retention.
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
+    #: Cohort membership (``core.distributed.DistributedConfig``): subtasks
+    #: placed over processes, keyed and rebalance edges spanning them
+    #: through the record plane.  None runs in one process.
+    distributed: typing.Optional[typing.Any] = None
 
     def validate(self) -> "JobConfig":
         if self.parallelism < 1:
@@ -111,6 +137,10 @@ class JobConfig:
             raise ValueError(f"max_parallelism must be >= 1, got {self.max_parallelism}")
         if self.channel_capacity < 1:
             raise ValueError(f"channel_capacity must be >= 1, got {self.channel_capacity}")
+        if self.wire_flush_bytes < 0:
+            raise ValueError(f"wire_flush_bytes must be >= 0, got {self.wire_flush_bytes}")
+        if self.wire_flush_ms < 0:
+            raise ValueError(f"wire_flush_ms must be >= 0, got {self.wire_flush_ms}")
         for flag in ("chaining", "device_resident"):
             if not isinstance(getattr(self, flag), bool):
                 raise ValueError(f"{flag} must be a bool, got {getattr(self, flag)!r}")
@@ -125,5 +155,12 @@ class JobConfig:
                                           and hasattr(self.mesh, "devices")):
             raise ValueError("mesh must be a parallel.mesh.Mesh (make_mesh), got "
                              f"{type(self.mesh).__name__}")
+        if self.distributed is not None:
+            self.distributed.validate()
+            if self.checkpoint.interval_s is not None:
+                raise ValueError(
+                    "distributed jobs checkpoint with count-based triggers "
+                    "(checkpoint.every_n_records), not interval_s — barrier "
+                    "positions must be deterministic across the cohort")
         self.checkpoint.validate()
         return self

@@ -11,6 +11,16 @@ Port of ``flink_tensorflow_tpu/core/environment.py``:
 chain of fused operators (``JobConfig.chaining``), and ``describe()``
 prints the chain plan.
 
+A process cohort (``set_distributed``, JAX ``:344``): the executor is a
+``core.distributed.DistributedExecutor`` (``:431-436``), checkpoints go
+to a per-process shard under the shared directory (``:373-377``), a
+``restart_strategy`` is refused (``:481-511``: each process would pick
+its own restore point) and a restore takes the cohort's shard set
+(``:552-620``): a same-shape cohort restores each process from its own
+shard, an idle process of the same shape from the job record alone, and
+a changed shape merges every shard and redistributes keyed state by key
+group.
+
 Devices: a model subtask runs on what the device provider returns for
 ``(task_name, subtask_index)``.  Without a provider it runs on
 ``resolve_device(None)`` — the GPU, or an error when there is none.
@@ -128,6 +138,12 @@ class StreamExecutionEnvironment:
         """Assign a device per ``(task_name, subtask_index)``."""
         return self.configure(device_provider=provider)
 
+    def set_distributed(self, distributed) -> "StreamExecutionEnvironment":
+        """Join a process cohort (``core.distributed.DistributedConfig``):
+        subtasks spread over it and keyed and rebalance edges span
+        processes through the record plane."""
+        return self.configure(distributed=distributed)
+
     def set_mesh(self, mesh) -> "StreamExecutionEnvironment":
         """Share a ``parallel.mesh.Mesh`` with gang operators (DP training)."""
         return self.configure(mesh=mesh)
@@ -194,6 +210,12 @@ class StreamExecutionEnvironment:
                                       restore_checkpoint_id=restore_checkpoint_id).wait(timeout)
         if self.checkpoint_dir is None:
             raise ValueError("restart_strategy requires enable_checkpointing(dir)")
+        if self.config.distributed is not None:
+            raise ValueError(
+                "restart_strategy is per-process and cannot agree on a cohort-wide "
+                "restore point — supervise distributed jobs with "
+                "parallel.CohortSupervisor and restore from "
+                "parallel.latest_common_checkpoint(...)")
         deadline = None if timeout is None else time.monotonic() + timeout
         attempt = 0
         restore, restore_id = restore_from, restore_checkpoint_id
@@ -205,7 +227,8 @@ class StreamExecutionEnvironment:
             remaining = None if deadline is None else max(0.1, deadline - time.monotonic())
             try:
                 handle = self.execute_async(job_name, restore_from=restore,
-                                            restore_checkpoint_id=restore_id)
+                                            restore_checkpoint_id=restore_id,
+                                            restart_epoch=attempt)
                 if t_fail is not None:
                     # The restored job's subtasks are running again.
                     recovery_s.record(time.monotonic() - t_fail)
@@ -235,23 +258,80 @@ class StreamExecutionEnvironment:
                 else:
                     restore, restore_id = restore_from, restore_checkpoint_id
 
+    def _checkpoint_location(self, d: typing.Optional[str]) -> typing.Optional[str]:
+        """A cohort shards one (possibly shared) checkpoint directory per
+        process (``DistributedConfig.process_checkpoint_dir``)."""
+        if d is not None and self.config.distributed is not None:
+            return self.config.distributed.process_checkpoint_dir(d)
+        return d
+
     def execute_async(self, job_name: str = "job", *,
                       restore_from: typing.Optional[str] = None,
-                      restore_checkpoint_id: typing.Optional[int] = None) -> JobHandle:
+                      restore_checkpoint_id: typing.Optional[int] = None,
+                      restart_epoch: int = 0) -> JobHandle:
+        """``restart_epoch``: which attempt of the job this run is (a
+        cohort's comes from its ``DistributedConfig``)."""
         cfg = self.config.validate()
-        executor = LocalExecutor(
-            self.graph, channel_capacity=cfg.channel_capacity,
+        common = dict(
+            channel_capacity=cfg.channel_capacity,
             metric_registry=self.metric_registry, device_provider=cfg.device_provider,
-            source_throttle_s=cfg.source_throttle_s, checkpoint_dir=cfg.checkpoint.dir,
+            source_throttle_s=cfg.source_throttle_s,
+            checkpoint_dir=self._checkpoint_location(cfg.checkpoint.dir),
             checkpoint_every_n=cfg.checkpoint.every_n_records,
             checkpoint_timeout_s=cfg.checkpoint.timeout_s,
             checkpoint_retain_last=cfg.checkpoint.retain_last,
             max_parallelism=cfg.max_parallelism, mesh=cfg.mesh,
             chaining=cfg.chaining, device_resident=cfg.device_resident,
-            wire_dtype=cfg.wire_dtype)
+            wire_dtype=cfg.wire_dtype, wire_flush_bytes=cfg.wire_flush_bytes,
+            wire_flush_ms=cfg.wire_flush_ms, shm_channels=cfg.shm_channels,
+            flow_control=cfg.flow_control, restart_epoch=restart_epoch)
+        if cfg.distributed is not None:
+            from flink_tensorflow_tpu_torch.core.distributed import DistributedExecutor
+
+            executor = DistributedExecutor(self.graph, distributed=cfg.distributed, **common)
+        else:
+            executor = LocalExecutor(self.graph, **common)
         executor.checkpoint_interval_s = cfg.checkpoint.interval_s
-        if restore_from is not None:
-            cid, snapshots = store.read_checkpoint(restore_from, restore_checkpoint_id)
-            executor.restore(snapshots, from_checkpoint_id=cid)
-        executor.start()
+        try:
+            if restore_from is not None:
+                if cfg.distributed is not None:
+                    cid, snapshots, local_shard = self._read_cohort_restore(
+                        restore_from, restore_checkpoint_id)
+                else:
+                    cid, snapshots = store.read_checkpoint(restore_from, restore_checkpoint_id)
+                    local_shard = False
+                executor.restore(snapshots, from_checkpoint_id=cid, local_shard=local_shard)
+            executor.start()
+        except BaseException:
+            executor.cancel()
+            raise
         return JobHandle(executor)
+
+    def _read_cohort_restore(self, base: str, checkpoint_id: typing.Optional[int]):
+        """``(id, snapshots, local_shard)`` of a cohort restore from the
+        shared base: the highest id with a complete shard set (or the one
+        asked for, which must be complete)."""
+        dist = self.config.distributed
+        cid, shard_set = store.select_cohort_checkpoint(base, checkpoint_id)
+        own_dir = dist.process_checkpoint_dir(base)
+        job = (store.read_shard_meta(own_dir, cid) or {}).get("job", {})
+        current = {t.name: t.parallelism for t in self.graph.transformations}
+        if (job.get("num_processes") == dist.num_processes
+                and job.get("process_index") == dist.process_index
+                and job.get("task_parallelism") == current):
+            # Same cohort shape and parallelisms: the own shard holds
+            # exactly this process's subtasks.
+            cid, snapshots = store.read_checkpoint(own_dir, cid)
+            return cid, snapshots, True
+        shard_job = (store.read_shard_meta(shard_set[0], cid) or {}).get("job", {})
+        if (shard_job.get("participants") is not None
+                and dist.process_index not in shard_job["participants"]
+                and shard_job.get("num_processes") == dist.num_processes
+                and shard_job.get("task_parallelism") == current):
+            # An idle process of an unchanged shape owns no subtask and
+            # wrote no shard: it needs only the job record.
+            return cid, {"__job__": {0: dict(shard_job)}}, True
+        # The shape changed: merge every shard, so keyed state can move by
+        # key group.
+        cid, snapshots = store.read_cohort_checkpoint(base, cid)
+        return cid, snapshots, False

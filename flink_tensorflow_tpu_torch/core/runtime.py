@@ -32,6 +32,16 @@ Port of ``flink_tensorflow_tpu/core/runtime.py``:
   persists and announces them, and :meth:`LocalExecutor.restore`
   (``:1247``) loads a checkpoint by logical operator, in either layout,
   redistributing keyed state by key group when a parallelism changed.
+
+Placement hooks (JAX ``:1226-1250``), overridden by
+``core/distributed.py:DistributedExecutor``: ``_owns_subtask`` says which
+subtasks this process runs (all, here), ``_process_identity`` gives
+``(process_index, num_processes)`` to each runtime context, and a
+downstream subtask without a local gate gets a ``_remote_writer`` (a
+channel of the record plane) in place of a :class:`ChannelWriter`.
+``restore(..., local_shard=True)`` restores a process's own shard by
+index without rescaling, and ``restart_epoch`` (which attempt of the job
+this executor runs) reaches every runtime context.
 """
 
 from __future__ import annotations
@@ -55,9 +65,9 @@ from flink_tensorflow_tpu_torch.core.graph import DataflowGraph, Transformation
 from flink_tensorflow_tpu_torch.core.operators import Operator, Output, SourceOperator
 from flink_tensorflow_tpu_torch.core.partitioning import ForwardPartitioner, HashPartitioner
 from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
+from flink_tensorflow_tpu_torch.core.shuffle import env_flow_control_enabled, env_shm_enabled
 from flink_tensorflow_tpu_torch.core.state import KeyedStateStore
 from flink_tensorflow_tpu_torch.metrics.registry import MetricRegistry
-from flink_tensorflow_tpu_torch.parallel.multihost import topology
 from flink_tensorflow_tpu_torch.sources.coordinator import SplitCoordinator
 from flink_tensorflow_tpu_torch.sources.mailbox import SourceMailbox
 from flink_tensorflow_tpu_torch.sources.operator import DONE, RECORD
@@ -605,7 +615,12 @@ class LocalExecutor:
                  mesh: typing.Any = None,
                  chaining: bool = True,
                  device_resident: bool = False,
-                 wire_dtype: typing.Optional[str] = None):
+                 wire_dtype: typing.Optional[str] = None,
+                 wire_flush_bytes: typing.Optional[int] = None,
+                 wire_flush_ms: typing.Optional[float] = None,
+                 shm_channels: bool = True,
+                 flow_control: bool = True,
+                 restart_epoch: int = 0):
         self.graph = graph
         self.mesh = mesh
         self.channel_capacity = channel_capacity
@@ -625,9 +640,17 @@ class LocalExecutor:
         #: is None.
         self.wire_dtype = normalize_wire_dtype(
             wire_dtype if wire_dtype is not None else env_wire_dtype())
-        #: Processes of the cohort this one belongs to
-        #: (``parallel.multihost``; 1 outside a ``torch.distributed`` group).
-        self.num_processes = topology().num_processes
+        #: The record plane's knobs (``JobConfig``; they take effect on a
+        #: ``DistributedExecutor``'s remote edges), with the reference's
+        #: environment overrides.
+        self.wire_flush_bytes = wire_flush_bytes
+        self.wire_flush_ms = wire_flush_ms
+        env_shm = env_shm_enabled()
+        self.shm_channels = shm_channels if env_shm is None else env_shm
+        env_fc = env_flow_control_enabled()
+        self.flow_control = flow_control if env_fc is None else env_fc
+        #: Which attempt of the job this executor runs (0 = the first).
+        self.restart_epoch = restart_epoch
         #: Periodic trigger interval (set by the environment before start).
         self.checkpoint_interval_s: typing.Optional[float] = None
         self.cancelled = threading.Event()
@@ -694,6 +717,8 @@ class LocalExecutor:
             chain = chain_by_head[t.id]
             subtasks = []
             for i in range(t.parallelism):
+                if not self._owns_subtask(t, i):
+                    continue
                 gate = None
                 if not t.is_source:
                     gate = InputGate(gate_size[t.id], capacity=self.channel_capacity)
@@ -723,7 +748,11 @@ class LocalExecutor:
                         targets = [(st.index, base)]
                     else:
                         targets = [(j, base + st.index) for j in range(d.parallelism)]
-                    writers = [ChannelWriter(gates[(d.id, j)], ch) for j, ch in targets]
+                    # A downstream subtask without a local gate lives on a
+                    # peer process: its channel is a remote writer.
+                    writers = [ChannelWriter(gates[(d.id, j)], ch) if (d.id, j) in gates
+                               else self._remote_writer(d, j, ch)
+                               for j, ch in targets]
                     # Stateful partitioners (rebalance's round robin) are
                     # per upstream subtask.
                     edges.append((copy.deepcopy(edge.partitioner), writers))
@@ -760,6 +789,7 @@ class LocalExecutor:
                 lo = channel_base[(st.t.id, edge_idx)]
                 grp.gauge(f"edge{edge_idx}_{edge.upstream.name}_queue_puts",
                           lambda g=st.gate, a=lo, b=lo + span: sum(g.puts_per_channel[a:b]))
+        process_index, num_processes = self._process_identity()
         for unit in st.units:
             device = (self.device_provider(unit.t.name, unit.index)
                       if self.device_provider is not None else None)
@@ -767,7 +797,9 @@ class LocalExecutor:
             ctx = RuntimeContext(unit.t.name, unit.index, unit.t.parallelism,
                                  self.metrics.group(unit.scope), device=device,
                                  keyed_state=state, mesh=self.mesh,
-                                 num_processes=self.num_processes)
+                                 process_index=process_index,
+                                 num_processes=num_processes)
+            ctx.restart_epoch = self.restart_epoch
             ctx.device_resident = self.device_resident
             ctx.wire_dtype = self.wire_dtype
             if st.gate is not None:
@@ -788,24 +820,46 @@ class LocalExecutor:
         """The split coordinator of split source ``t``, made on first use;
         ``source`` is the SplitSource every reader's factory shares.
 
-        One per process: the port runs a split source's readers in one
-        executor only (a source spread over a process cohort would run an
-        enumerator per process and hand out every split twice)."""
+        One per process: a split source whose readers are spread over a
+        process cohort is refused (each process would run an enumerator and
+        hand out every split twice)."""
         with self._split_lock:
             coord = self._split_coordinators.get(t.name)
             if coord is None:
+                if not all(self._owns_subtask(t, i) for i in range(t.parallelism)):
+                    raise ValueError(
+                        f"split source {t.name!r}: subtasks are spread over a process "
+                        "cohort but the split enumerator is per-process — run split "
+                        "sources on a single process (or use a SourceFunction for "
+                        "cohort jobs)")
                 coord = SplitCoordinator(source, t.parallelism)
                 self._split_coordinators[t.name] = coord
             return coord
 
+    # -- placement hooks (overridden by DistributedExecutor) ---------------------
+    def _owns_subtask(self, t: Transformation, index: int) -> bool:
+        """Whether subtask ``index`` of ``t`` runs in this process."""
+        return True
+
+    def _process_identity(self) -> typing.Tuple[int, int]:
+        """``(process_index, num_processes)`` of this executor's cohort."""
+        return 0, 1
+
+    def _remote_writer(self, t: Transformation, subtask_index: int, channel_idx: int):
+        raise RuntimeError(f"no gate for {t.name}.{subtask_index} — a local executor owns "
+                           "every subtask, so this is a plan-construction bug")
+
     # -- restore ---------------------------------------------------------------
     def restore(self, snapshots: typing.Dict[str, typing.Dict[int, typing.Any]],
-                from_checkpoint_id: typing.Optional[int] = None) -> None:
+                from_checkpoint_id: typing.Optional[int] = None, *,
+                local_shard: bool = False) -> None:
         """Load ``{task: {subtask: snapshot}}`` into the operators before
         :meth:`start`.  Snapshots are keyed by logical operator, so a job
         snapshotted in one chaining layout restores in another.  A task
         whose parallelism changed gets its keyed state redistributed by
-        key group (``Operator.rescale``)."""
+        key group (``Operator.rescale``).  ``local_shard=True``: the
+        snapshots are exactly this process's subtasks (a cohort restore of
+        the same shape from the process's own shard), restored by index."""
         if from_checkpoint_id is not None:
             # New checkpoints must never overwrite the restore point.
             self.coordinator.resume_from(from_checkpoint_id)
@@ -825,9 +879,11 @@ class LocalExecutor:
             task_snaps = snapshots.get(task)
             if task_snaps is None:
                 continue
+            # The declared parallelism: on a cohort the local units are only
+            # this process's share of it.
             parallelism = units[0].t.parallelism
             for unit in units:
-                if len(task_snaps) == parallelism:
+                if local_shard or len(task_snaps) == parallelism:
                     snap = task_snaps.get(unit.index)
                     if snap is not None:
                         unit.operator.restore(snap)

@@ -4,10 +4,13 @@ Port of ``flink_tensorflow_tpu/core/runtime_context.py``: the subtask's
 identity, parallelism and metric group; keyed state through
 ``state(descriptor)`` (scoped to the current key, ``with_key`` swaps it);
 ``device``, the answer of the job's device provider (None: the model
-runner resolves the GPU); ``mesh``, the job's mesh for gang operators,
-and ``num_processes``, the processes of the ``torch.distributed`` cohort
-this one belongs to (``parallel.multihost``; 1 outside a cohort), each
-of which runs its own executor; ``wakeup``, which breaks the subtask loop's
+runner resolves the GPU); ``mesh``, the job's mesh for gang operators;
+``process_index`` and ``num_processes``, this process's place in the
+record-plane cohort (a ``DistributedExecutor``'s ``DistributedConfig``;
+0 and 1 on a local executor, also when it is one of several processes of
+a ``torch.distributed`` group, each running its own executor), which gang
+operators use to check their placement; ``restart_epoch``, which attempt of the job this is;
+``wakeup``, which breaks the subtask loop's
 wait when a model runner's results land (the chain head's gate, shared by
 every member of a worker chain; None for source chains and bare
 operators); ``device_resident``, the job's residency mode; and
@@ -28,7 +31,7 @@ class RuntimeContext:
                  metric_group: typing.Optional[MetricGroup] = None,
                  device: typing.Any = None,
                  keyed_state: typing.Optional[KeyedStateStore] = None,
-                 mesh: typing.Any = None, num_processes: int = 1):
+                 mesh: typing.Any = None, process_index: int = 0, num_processes: int = 1):
         self.task_name = task_name
         self.subtask_index = subtask_index
         self.parallelism = parallelism
@@ -36,7 +39,10 @@ class RuntimeContext:
         self.device = device
         #: Shared ``parallel.mesh.Mesh`` for gang operators (DP training).
         self.mesh = mesh
+        self.process_index = process_index
         self.num_processes = num_processes
+        #: Which attempt of the job this subtask runs in (0 = the first).
+        self.restart_epoch = 0
         self._keyed_state = keyed_state if keyed_state is not None else KeyedStateStore()
         self.wakeup: typing.Optional[typing.Callable[[], None]] = None
         #: ``JobConfig.device_resident``: model functions read it at

@@ -42,6 +42,31 @@ A > 0 a restore from ``parallel.latest_common_checkpoint`` over every
 rank's directory; and with ``--fail-at-step F`` the last rank exits with
 ``FAIL_EXIT_CODE`` on attempt 0 once its F-th step's result arrives.  A
 ``parallel.CohortSupervisor`` spawns such ranks and passes the attempt.
+
+resnet-train as ONE job across the cohort (the reference's
+``examples/multihost_dp_train.py:148-250``), with ``--plane-ports
+P0,P1,...`` (one record-plane endpoint per process, beside the gloo or
+NCCL port): :func:`cohort_rank` joins the cohort's record plane
+(``env.set_distributed``) and runs ``from_collection(parallelism=W) ->
+count_window(32 / W) -> DPTrainWindowFunction(parallelism=W)`` (one gang
+subtask per process) ``-> loss probe -> sink_to_callable(parallelism=1)``
+on process 0, whose sink receives every rank's losses over the record
+plane.  The collection is reordered (:func:`interleave`) so that source
+subtask w emits exactly rank w's :func:`partition`, so the job trains on the rows
+the per-rank job trains on.  Count-based checkpoints every
+``SUPERVISED_EVERY_N_STEPS`` steps go into one shared directory (a shard
+per process); the attempt is the cohort's ``restart_epoch``, and an
+attempt after the first restores from the newest checkpoint every
+process holds.
+
+widedeep-online across the cohort (:func:`run_widedeep_cohort`, the shape
+of the reference's ``tests/_distributed_worker.py:193-232``): ``key_by(user)
+-> OnlineTrainFunction(scope="key", mini_batch=32, steps_per_dispatch=16)
+-> ExactlyOnceRecordFileSink`` with the keyed stage spread over the
+cohort.  One such process: ``python3 -m
+flink_tensorflow_tpu_torch.functions.train_cell --widedeep --rank R --world
+N --plane-ports P0,...,PN-1 --out DIR --checkpoint-root CHK [--par K]
+[--restore-id I] [--throttle S] [--device cpu]``.
 """
 
 from __future__ import annotations
@@ -54,6 +79,8 @@ import typing
 
 import numpy as np
 
+from flink_tensorflow_tpu_torch.core import functions as fn
+from flink_tensorflow_tpu_torch.core.distributed import DistributedConfig
 from flink_tensorflow_tpu_torch.core.environment import RestartStrategy, StreamExecutionEnvironment
 from flink_tensorflow_tpu_torch.functions.training_function import (
     DPTrainWindowFunction,
@@ -77,6 +104,8 @@ WIDEDEEP_USERS = 16
 MINI_BATCH = 32
 STEPS_PER_DISPATCH = 16
 WIDEDEEP_LR = 1e-2
+#: Events between the widedeep-online cell's count-based checkpoints.
+WIDEDEEP_EVERY_N_RECORDS = 1024
 #: The exit code of a supervised rank told to fail (``--fail-at-step``).
 FAIL_EXIT_CODE = 17
 #: Steps between a supervised rank's count-based checkpoints.
@@ -172,6 +201,85 @@ def run_resnet(mdef, schema, records, mesh, *, batch: int = RESNET_BATCH,
     return CellRun(results, arrivals, env, time.monotonic() - t0, kept[-1])
 
 
+def interleave(records: typing.Sequence[TensorValue], global_batch: int,
+               world: int) -> typing.List[TensorValue]:
+    """``records`` reordered so that a source at parallelism ``world`` (its
+    subtask w emits elements w, w + world, ...) gives subtask w exactly
+    ``partition(records, global_batch, w, world)``."""
+    parts = [partition(records, global_batch, w, world) for w in range(world)]
+    return [parts[i % world][i // world] for i in range(len(records))]
+
+
+class LossProbe(fn.MapFunction):
+    """The map behind the cohort's gang: tags each step's result with the
+    gang subtask that produced it, and runs ``tap`` on it first (a tap
+    may end the process)."""
+
+    def __init__(self, tap=None):
+        self.tap = tap
+        self.subtask = 0
+
+    def open(self, ctx):
+        self.subtask = ctx.subtask_index
+
+    def map(self, record):
+        if self.tap is not None:
+            self.tap(record)
+        return record.with_meta(gang_subtask=self.subtask)
+
+
+def cohort_dirs(checkpoint_root: str, world: int) -> typing.List[str]:
+    """The shard directory of each process under the cohort's shared
+    checkpoint directory."""
+    dist = DistributedConfig(0, world, ("127.0.0.1:0",) * world)
+    return [dist.process_checkpoint_dir(checkpoint_root, w) for w in range(world)]
+
+
+def run_cohort_resnet(mdef, schema, records, mesh, dist: DistributedConfig, *,
+                      checkpoint_root: str, every_n_records: int, batch: int = RESNET_BATCH,
+                      fail_at_step: typing.Optional[int] = None,
+                      timeout: float = 900.0):
+    """One process's attempt (``dist.restart_epoch``) of the resnet-train
+    job across the cohort ``dist`` over ``mesh`` (see the module
+    docstring): ``records`` are the whole stream.  An attempt after the
+    first restores from the newest checkpoint every process holds.  With
+    ``fail_at_step`` the last process exits at that step on attempt 0,
+    once the checkpoints cut before it are on every process's disk.
+    Returns the run (its results are what process 0's sink received,
+    empty elsewhere; its function is this process's gang subtask) and the
+    checkpoint id it restored from (None: a fresh start)."""
+    world = dist.num_processes
+    window = batch // world
+    dirs = cohort_dirs(checkpoint_root, world)
+    restore_id = latest_common_checkpoint(dirs) if dist.restart_epoch > 0 else None
+    tap = None
+    if fail_at_step is not None and dist.restart_epoch == 0 and dist.process_index == world - 1:
+        tap = _exit_at_step(fail_at_step, dirs, (fail_at_step - 1) * window // every_n_records)
+    kept: list = []
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.set_mesh(mesh)
+    env.set_distributed(dist)
+    env.enable_checkpointing(checkpoint_root, every_n_records=every_n_records)
+    stream = (env.from_collection(interleave(records, batch, world), parallelism=world)
+              .count_window(window)
+              .apply(_keeping(DPTrainWindowFunction, kept)(
+                  mdef, adam(RESNET_LR), train_schema=schema, global_batch=batch),
+                  name="dp_train", parallelism=world)
+              .map(LossProbe(tap), name="loss_probe", parallelism=world))
+    results, arrivals = [], []
+
+    def sink(record):
+        results.append(record)
+        arrivals.append(time.monotonic())
+
+    stream.sink_to_callable(sink, name="loss_agg", parallelism=1)
+    restore = {} if restore_id is None else dict(restore_from=checkpoint_root,
+                                                 restore_checkpoint_id=restore_id)
+    t0 = time.monotonic()
+    env.execute("resnet-train-cohort", timeout=timeout, **restore)
+    return CellRun(results, arrivals, env, time.monotonic() - t0, kept[-1]), restore_id
+
+
 def rank_checkpoint_dirs(checkpoint_root: str, world: int) -> typing.List[str]:
     """Each rank's checkpoint directory under ``checkpoint_root``."""
     return [os.path.join(checkpoint_root, f"rank{r}") for r in range(world)]
@@ -261,7 +369,8 @@ def expected_steps(records: typing.Sequence[TensorValue], mini_batch: int = MINI
 
 
 def run_widedeep(mdef, schema, records, *, device_provider=None,
-                 checkpoint_dir: typing.Optional[str] = None, every_n_records: int = 1024,
+                 checkpoint_dir: typing.Optional[str] = None,
+                 every_n_records: int = WIDEDEEP_EVERY_N_RECORDS,
                  tap=None, max_restarts: int = 0, throttle_s: float = 0.0,
                  timeout: float = 600.0) -> CellRun:
     """The widedeep job; with ``checkpoint_dir``, count-based checkpoints
@@ -289,6 +398,42 @@ def run_widedeep(mdef, schema, records, *, device_provider=None,
     return CellRun(results, arrivals, env, time.monotonic() - t0, kept[-1])
 
 
+def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[DistributedConfig], *,
+                        out: str, checkpoint_root: typing.Optional[str] = None,
+                        every_n_records: int = WIDEDEEP_EVERY_N_RECORDS, parallelism: int = 2,
+                        restore_id: typing.Optional[int] = None, throttle_s: float = 0.0,
+                        device_provider=None, timeout: float = 600.0) -> float:
+    """The widedeep-online cell keyed over a cohort (``dist``; None: one
+    process at the same keyed parallelism, the reference run):
+    ``from_collection`` (on process 0) ``-> key_by(user) ->
+    OnlineTrainFunction(adam(1e-2), scope="key", mini_batch=32,
+    steps_per_dispatch=16)`` at ``parallelism`` ``-> ExactlyOnceRecordFileSink(out)``
+    (on process 0), with count-based checkpoints every ``every_n_records``
+    events.  Each key trains its own model in keyed state, so its steps
+    depend on its own events only.  Returns the job's seconds."""
+    from flink_tensorflow_tpu_torch.io.files import ExactlyOnceRecordFileSink
+
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.source_throttle_s = throttle_s
+    if dist is not None:
+        env.set_distributed(dist)
+    if device_provider is not None:
+        env.set_device_provider(device_provider)
+    if checkpoint_root is not None:
+        env.enable_checkpointing(checkpoint_root, every_n_records=every_n_records)
+    (env.from_collection(records, parallelism=1)
+     .key_by(lambda r: r.meta["user"])
+     .process(OnlineTrainFunction(mdef, adam(WIDEDEEP_LR), train_schema=schema, scope="key",
+                                  mini_batch=MINI_BATCH, steps_per_dispatch=STEPS_PER_DISPATCH),
+              name="keyed_train", parallelism=parallelism)
+     .add_sink(ExactlyOnceRecordFileSink(out), name="sink", parallelism=1))
+    restore = {} if restore_id is None else dict(restore_from=checkpoint_root,
+                                                 restore_checkpoint_id=restore_id)
+    t0 = time.monotonic()
+    env.execute("widedeep-cohort", timeout=timeout, **restore)
+    return time.monotonic() - t0
+
+
 def rate(arrivals: typing.Sequence[float], per_item: float = 1.0) -> float:
     """Items per second over the arrivals after the first (the first
     step carries the first call's one-time costs)."""
@@ -313,9 +458,11 @@ def local_batch_statistics():
 def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
                 backend: typing.Optional[str] = None, local_batch_stats: bool = False,
                 checkpoint_root: typing.Optional[str] = None, attempt: int = 0,
-                fail_at_step: typing.Optional[int] = None) -> None:
+                fail_at_step: typing.Optional[int] = None,
+                plane_ports: typing.Optional[typing.Sequence[int]] = None) -> None:
     """One process of the resnet-train cell across ``world`` processes,
-    on its card (see the module docstring)."""
+    on its card (see the module docstring); with ``plane_ports`` the
+    cohort runs it as one job (:func:`run_cohort_resnet`)."""
     import torch
 
     from flink_tensorflow_tpu_torch.ops.flash_attention import flash_attention
@@ -332,7 +479,15 @@ def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
         collectives.calls.clear()
         restored = None
         with local_batch_statistics() if local_batch_stats else contextlib.nullcontext():
-            if checkpoint_root is None:
+            if plane_ports is not None:
+                dist = DistributedConfig(rank, world,
+                                         tuple(f"127.0.0.1:{p}" for p in plane_ports),
+                                         restart_epoch=attempt)
+                run, restored = run_cohort_resnet(
+                    mdef, schema, records, mesh, dist, checkpoint_root=checkpoint_root,
+                    every_n_records=SUPERVISED_EVERY_N_STEPS * RESNET_BATCH // world,
+                    fail_at_step=fail_at_step)
+            elif checkpoint_root is None:
                 run = run_resnet(mdef, schema, partition(records, RESNET_BATCH, rank, world),
                                  mesh)
             else:
@@ -348,10 +503,36 @@ def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
                     "device": str(mesh.device), "calls": dict(collectives.calls),
                     "k1_launches": flash_attention.launches,
                     "attempt": attempt, "restored_checkpoint": restored,
+                    "gang_subtasks": [int(r.meta.get("gang_subtask", rank))
+                                      for r in run.results],
                     "variables": run.function.current_params()},
                    os.path.join(out, f"rank{rank}.pt"))
     finally:
         multihost.shutdown()
+
+
+def widedeep_rank(rank: int, world: int, plane_ports: typing.Sequence[int], out: str,
+                  checkpoint_root: str, *, parallelism: int, records: int = WIDEDEEP_RECORDS,
+                  every_n_records: int = WIDEDEEP_EVERY_N_RECORDS,
+                  restore_id: typing.Optional[int] = None, throttle_s: float = 0.0) -> None:
+    """One process of the widedeep-online cell keyed over ``world``
+    processes (:func:`run_widedeep_cohort`), its model subtasks on the card."""
+    import json
+
+    import torch
+
+    # f32 products stay f32, as the cell runs them in one process.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mdef, schema, values = widedeep_cell(records=records)
+    dist = DistributedConfig(rank, world, tuple(f"127.0.0.1:{p}" for p in plane_ports),
+                             connect_timeout_s=60.0)
+    seconds = run_widedeep_cohort(mdef, schema, values, dist, out=out,
+                                  checkpoint_root=checkpoint_root,
+                                  every_n_records=every_n_records, parallelism=parallelism,
+                                  restore_id=restore_id, throttle_s=throttle_s)
+    with open(os.path.join(checkpoint_root, f"seconds-{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": world, "seconds": seconds}, f)
 
 
 if __name__ == "__main__":
@@ -360,7 +541,7 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=resnet_rank.__doc__)
     parser.add_argument("--rank", type=int, required=True)
     parser.add_argument("--world", type=int, required=True)
-    parser.add_argument("--port", type=int, required=True)
+    parser.add_argument("--port", type=int, default=0, help="the gloo or NCCL port")
     parser.add_argument("--steps", type=int, default=RESNET_STEPS)
     parser.add_argument("--out", required=True)
     parser.add_argument("--backend", choices=("nccl", "gloo"), default=None)
@@ -372,6 +553,23 @@ if __name__ == "__main__":
                         help="the supervisor's attempt; after the first, restore")
     parser.add_argument("--fail-at-step", type=int, default=None,
                         help="on attempt 0 the last rank exits at this step")
+    parser.add_argument("--plane-ports", default=None,
+                        help="comma-separated record-plane ports, one per process: "
+                             "the cohort runs one job")
+    parser.add_argument("--widedeep", action="store_true",
+                        help="the widedeep-online cell keyed over the cohort")
+    parser.add_argument("--par", type=int, default=2, help="--widedeep: keyed parallelism")
+    parser.add_argument("--records", type=int, default=WIDEDEEP_RECORDS)
+    parser.add_argument("--every", type=int, default=WIDEDEEP_EVERY_N_RECORDS)
+    parser.add_argument("--restore-id", type=int, default=None)
+    parser.add_argument("--throttle", type=float, default=0.0)
     args = parser.parse_args()
-    resnet_rank(args.rank, args.world, args.port, args.steps, args.out, args.backend,
-                args.local_batch_stats, args.checkpoint_root, args.attempt, args.fail_at_step)
+    plane = None if args.plane_ports is None else [int(p) for p in args.plane_ports.split(",")]
+    if args.widedeep:
+        widedeep_rank(args.rank, args.world, plane, args.out, args.checkpoint_root,
+                      parallelism=args.par, records=args.records, every_n_records=args.every,
+                      restore_id=args.restore_id, throttle_s=args.throttle)
+    else:
+        resnet_rank(args.rank, args.world, args.port, args.steps, args.out, args.backend,
+                    args.local_batch_stats, args.checkpoint_root, args.attempt,
+                    args.fail_at_step, plane)

@@ -369,7 +369,11 @@ class DPTrainWindowFunction(fn.WindowFunction):
     """Gang operator: each fired window is one data-parallel train step
     on the mesh.
 
-    Use with parallelism 1 — the gang owns the mesh (``env.set_mesh``).
+    Use with parallelism 1 on a single-process executor — the gang owns
+    the mesh (``env.set_mesh``) — or, on a ``DistributedExecutor``, with
+    parallelism equal to ``num_processes``: one subtask per process, so
+    every process joins the collective step (JAX
+    ``functions/training_function.py:470-485``).
     The window is the global batch, padded to ``global_batch`` (which the
     mesh's data axis must divide).  The state is updated in place on the
     mesh device (the reference donates it).
@@ -423,15 +427,15 @@ class DPTrainWindowFunction(fn.WindowFunction):
         if ctx.mesh is None:
             raise RuntimeError(
                 "DPTrainWindowFunction needs env.set_mesh(...) — the gang owns the mesh")
-        # The gang runs at parallelism 1 on each process's executor: the
-        # reference's manual multi-process placement (one executor per
-        # process, each feeding its own partition).  A cohort that places
-        # one subtask per process needs the record plane, not ported.
-        if ctx.parallelism != 1:
+        # Valid placements: parallelism 1 on a single-process executor
+        # (one such executor per process in the manual pattern), or one
+        # subtask per process on a record-plane cohort.  Anything else
+        # leaves a process out of the collective step, which then hangs.
+        if ctx.parallelism != ctx.num_processes:
             raise RuntimeError(
-                f"gang operator parallelism must be 1 (num_processes="
-                f"{ctx.num_processes}: one gang subtask per process's executor) so "
-                f"every process joins the collective step; got {ctx.parallelism}")
+                f"gang operator parallelism must be {ctx.num_processes} (num_processes="
+                f"{ctx.num_processes}) so every process joins the collective step; "
+                f"got {ctx.parallelism}")
         self.ctx = ctx
         self.mesh = ctx.mesh
         data_size = self.mesh.shape.get("data", 1)

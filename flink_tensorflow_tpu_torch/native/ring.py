@@ -33,12 +33,21 @@ Claims may overlap (several claimed batches in flight); releases free the
 oldest claimed slots first, and both run on the one consumer thread.  A
 slot's bytes may be overwritten only after the batch that claimed it has
 been released, and its owner releases only once the batch's H2D is done.
+
+:class:`ShmByteRing` (JAX ``:180-400``, kept byte for byte so a ring of
+either package attaches to the other's file) is the cross-process
+sibling: opaque frames over a shared ``mmap`` in :func:`shm_dir`, the
+same-host transport of the record plane (``core/shuffle.py``).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import mmap
+import os
+import struct
+import tempfile
 import threading
 import typing
 
@@ -309,3 +318,224 @@ class TensorRing:
             self.close()
         except Exception:  # noqa: BLE001 - interpreter teardown
             pass
+
+
+def shm_dir() -> str:
+    """Where shared ring files live: tmpfs (``/dev/shm``) when the
+    platform has it — a page-cache-backed temp dir otherwise (still
+    mmap-shareable, just not guaranteed RAM-only)."""
+    return "/dev/shm" if os.path.isdir("/dev/shm") else tempfile.gettempdir()
+
+
+class ShmByteRing:
+    """Cross-process SPSC byte-frame ring — TensorRing's sibling for the
+    same-host record plane.
+
+    Where :class:`TensorRing` is schema-typed and intra-process (its
+    arena is private memory), this ring carries OPAQUE variable-length
+    frames over a shared ``mmap`` so two processes on one host exchange
+    record-plane frames without touching the kernel TCP stack: the
+    producer writes ``[u32 len][payload]`` frames at ``tail``, the
+    consumer drains at ``head``, and both cursors live in the mapping
+    itself (one writer each — the SPSC contract the TensorRing layouts
+    already rely on; cursors sit on separate cache lines).  Publication
+    order is payload-then-cursor, so a reader never observes a frame
+    before its bytes.
+
+    The file lives in :func:`shm_dir` (tmpfs on Linux).  The CREATING
+    side owns the name; the attaching side maps it read-write.  Either
+    side may :meth:`close`; ``unlink=True`` removes the file (guarded —
+    first unlinker wins, crashes leave at most one small file behind).
+    """
+
+    _CURSOR = struct.Struct("<Q")
+    _FRAME = struct.Struct("<I")
+    _HEAD_OFF, _TAIL_OFF, _CAP_OFF, _DATA_OFF = 0, 64, 128, 192
+    #: Consumer-parked doorbell flag (shares the read-mostly capacity
+    #: cache line; written by the consumer, cleared by the producer).
+    _PARK_OFF = 136
+    #: Cumulative credit grants (record-plane flow control): the
+    #: CONSUMER is the only writer — it adds the initial window at
+    #: attach and one credit per frame its gate drained; the producer
+    #: compares against its own spent-frames count before each write.
+    #: Cumulative u64 counters keep the cell SPSC-safe exactly like the
+    #: head/tail cursors (no read-modify-write races across processes).
+    _CREDIT_OFF = 144
+
+    def __init__(self, path: str, mm: mmap.mmap, capacity: int, *,
+                 created: bool):
+        self.path = path
+        self._mm = mm
+        self.capacity = capacity
+        self._created = created
+        self._view = memoryview(mm)
+        self._closed = False
+
+    # -- construction ----------------------------------------------------
+    @classmethod
+    def create(cls, path: str, capacity: int = 1 << 20) -> "ShmByteRing":
+        pow2 = 1
+        while pow2 < capacity:
+            pow2 *= 2
+        size = cls._DATA_OFF + pow2
+        fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+        try:
+            os.ftruncate(fd, size)
+            mm = mmap.mmap(fd, size)
+        finally:
+            os.close(fd)
+        ring = cls(path, mm, pow2, created=True)
+        ring._store(cls._HEAD_OFF, 0)
+        ring._store(cls._TAIL_OFF, 0)
+        ring._store(cls._CAP_OFF, pow2)
+        ring._store(cls._PARK_OFF, 0)
+        ring._store(cls._CREDIT_OFF, 0)
+        return ring
+
+    @classmethod
+    def attach(cls, path: str) -> "ShmByteRing":
+        fd = os.open(path, os.O_RDWR)
+        try:
+            size = os.fstat(fd).st_size
+            mm = mmap.mmap(fd, size)
+        finally:
+            os.close(fd)
+        (capacity,) = cls._CURSOR.unpack_from(mm, cls._CAP_OFF)
+        if cls._DATA_OFF + capacity != size:
+            raise ValueError(f"shm ring {path!r} header/size mismatch")
+        return cls(path, mm, capacity, created=False)
+
+    # -- cursors ---------------------------------------------------------
+    def _load(self, off: int) -> int:
+        return self._CURSOR.unpack_from(self._mm, off)[0]
+
+    def _store(self, off: int, value: int) -> None:
+        self._CURSOR.pack_into(self._mm, off, value)
+
+    # -- producer --------------------------------------------------------
+    def free_bytes(self) -> int:
+        return self.capacity - (self._load(self._TAIL_OFF)
+                                - self._load(self._HEAD_OFF))
+
+    def try_write(self, payload: typing.Union[bytes, bytearray, memoryview]
+                  ) -> bool:
+        """Write one frame; False when the ring lacks space (the caller
+        backs off — ring-full IS the backpressure signal)."""
+        need = self._FRAME.size + len(payload)
+        if need > self.capacity:
+            raise ValueError(
+                f"frame of {len(payload)} bytes exceeds the shm ring "
+                f"capacity {self.capacity} — raise the ring size or "
+                "lower wire_flush_bytes"
+            )
+        tail = self._load(self._TAIL_OFF)
+        if need > self.capacity - (tail - self._load(self._HEAD_OFF)):
+            return False
+        self._put_bytes(tail, self._FRAME.pack(len(payload)))
+        self._put_bytes(tail + self._FRAME.size, payload)
+        # Publish AFTER the payload is in the mapping.
+        self._store(self._TAIL_OFF, tail + need)
+        return True
+
+    def try_write_parts(self, parts: typing.Sequence[typing.Any],
+                        total: int) -> bool:
+        """Scatter-gather :meth:`try_write`: writes ``parts`` (whose
+        lengths sum to ``total``) as ONE frame without concatenating
+        them first — the zero-copy send path for multi-part wire frames."""
+        need = self._FRAME.size + total
+        if need > self.capacity:
+            raise ValueError(
+                f"frame of {total} bytes exceeds the shm ring "
+                f"capacity {self.capacity} — raise the ring size or "
+                "lower wire_flush_bytes"
+            )
+        tail = self._load(self._TAIL_OFF)
+        if need > self.capacity - (tail - self._load(self._HEAD_OFF)):
+            return False
+        self._put_bytes(tail, self._FRAME.pack(total))
+        pos = tail + self._FRAME.size
+        for p in parts:
+            self._put_bytes(pos, p)
+            pos += len(p) if not isinstance(p, memoryview) else p.nbytes
+        self._store(self._TAIL_OFF, tail + need)
+        return True
+
+    def _put_bytes(self, pos: int, data) -> None:
+        cap = self.capacity
+        off = pos & (cap - 1)
+        data = memoryview(data).cast("B") if not isinstance(data, bytes) else data
+        n = len(data)
+        first = min(n, cap - off)
+        base = self._DATA_OFF
+        self._view[base + off:base + off + first] = data[:first]
+        if first < n:  # wrap
+            self._view[base:base + n - first] = data[first:]
+
+    # -- doorbell --------------------------------------------------------
+    # The consumer parks before sleeping; the producer sends its (socket)
+    # notify ONLY when it observes the parked flag, clearing it first so
+    # back-to-back frames ring the doorbell once.  mmap stores carry no
+    # memory fence, so a publish racing a park can — very rarely — leave
+    # the consumer asleep with data in the ring; the consumer side MUST
+    # therefore keep a bounded re-poll while parked (the reactor's ring
+    # poller).  Suppression is a throughput optimisation, never the sole
+    # wakeup path.
+
+    def consumer_parked(self) -> bool:
+        return self._load(self._PARK_OFF) != 0
+
+    def set_consumer_parked(self, parked: bool) -> None:
+        self._store(self._PARK_OFF, 1 if parked else 0)
+
+    # -- flow control ----------------------------------------------------
+    def credits_granted(self) -> int:
+        """Cumulative credits the consumer has granted over the ring's
+        lifetime (producer side compares with its own spent total)."""
+        return self._load(self._CREDIT_OFF)
+
+    def add_credits(self, n: int) -> None:
+        """Grant ``n`` more frame credits (CONSUMER only — single
+        writer, like the head cursor)."""
+        self._store(self._CREDIT_OFF, self._load(self._CREDIT_OFF) + n)
+
+    # -- consumer --------------------------------------------------------
+    def readable(self) -> bool:
+        return self._load(self._TAIL_OFF) != self._load(self._HEAD_OFF)
+
+    def read(self) -> typing.Optional[bytearray]:
+        """Pop one frame as a WRITABLE standalone buffer; None if empty."""
+        head = self._load(self._HEAD_OFF)
+        if self._load(self._TAIL_OFF) == head:
+            return None
+        (length,) = self._FRAME.unpack(
+            bytes(self._get_bytes(head, self._FRAME.size)))
+        payload = self._get_bytes(head + self._FRAME.size, length)
+        self._store(self._HEAD_OFF, head + self._FRAME.size + length)
+        return payload
+
+    def _get_bytes(self, pos: int, n: int) -> bytearray:
+        cap = self.capacity
+        off = pos & (cap - 1)
+        out = bytearray(n)
+        first = min(n, cap - off)
+        base = self._DATA_OFF
+        out[:first] = self._view[base + off:base + off + first]
+        if first < n:  # wrap
+            out[first:] = self._view[base:base + n - first]
+        return out
+
+    # -- lifecycle -------------------------------------------------------
+    def close(self, unlink: bool = False) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self._view.release()
+            self._mm.close()
+        except (BufferError, ValueError, OSError):
+            pass
+        if unlink:
+            try:
+                os.unlink(self.path)
+            except OSError:
+                pass

@@ -55,11 +55,12 @@ class CohortSupervisor:
     ``command(worker_id, num_workers, attempt)`` returns the argv for one
     worker; ``env(worker_id, num_workers, attempt)`` (optional) returns
     extra environment variables.  The attempt number lets ``command``
-    pick a fresh coordinator port per round (a dead coordinator
-    socket can linger in TIME_WAIT), lets workers decide to restore, and
-    would fence the previous attempt's senders once a record plane crosses
-    processes (the reference's ``DistributedConfig.restart_epoch``; the
-    port has no such plane yet).
+    pick fresh ports per round (a dead socket can linger in TIME_WAIT),
+    lets workers decide to restore, and fences the previous attempt's
+    senders: worker commands thread it into
+    ``core.distributed.DistributedConfig.restart_epoch``, and a record-plane
+    server of that epoch drops every frame of an older sender
+    (``train_cell --plane-ports ... --attempt A``).
 
     Failure policy: the FIRST nonzero worker exit fails the whole attempt
     — the survivors are sent SIGTERM (SIGKILL after ``kill_grace_s``) and
@@ -72,8 +73,10 @@ class CohortSupervisor:
     instead of giving up the supervisor re-forms the cohort one worker
     smaller, down to ``min_workers``, with a fresh respawn budget per
     shape.  ``command`` receives the current ``num_workers``; the
-    workers carry their state across the shape change (the reference's
-    cohort-rescaling restore, which comes with the port's record plane).
+    workers carry their state across the shape change through the
+    cohort-rescaling restore (``core/environment.py``: every shard of the
+    shared checkpoint directory merged, keyed state redistributed by key
+    group).
 
     **Elastic scale-up** (``capacity_probe``): Flink's failover restores
     the original parallelism when resources return; here a zero-argument

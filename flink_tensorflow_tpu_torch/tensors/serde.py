@@ -1,9 +1,9 @@
 """Binary record codec — the on-disk form of a record.
 
-Copy of ``flink_tensorflow_tpu/tensors/serde.py`` (``:20-195``): the
-identity codec and wire narrowing.  A frame written by either package
-reads back in the other, and the same record and wire dtype give the
-same bytes in both.
+Copy of ``flink_tensorflow_tpu/tensors/serde.py``: the identity codec,
+wire narrowing and the columnar batch frame (``:195-347``).  A frame
+written by either package reads back in the other, and the same records
+and wire dtype give the same bytes in both.
 
 Frame layout (little-endian)::
 
@@ -27,8 +27,14 @@ about 3 significant digits, f16 about 3.3 and saturates beyond ±65504,
 int8 is a uniform absmax quantization (worst error absmax / 254 per
 field); never narrow ids.
 
-Not ported: the columnar batch frame and ``decode_frame`` (they belong
-to the distributed record plane).
+**Columnar batch frame** (magic ``'FTTB'``, the record plane's coalesced
+frames, ``core/shuffle.py``): a homogeneous run of records (same field
+names, dtypes and shapes: :func:`batch_signature`) as one json header
+``{"n": N, "fields": [...]}``, one pickled list of metas and one
+contiguous ``[N, ...]`` buffer per field.  Narrowing composes with it;
+int8 keeps one scale per record (a list in the header row), so the
+error bound of the record codec holds.  :func:`decode_frame` reads
+either kind.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 
 MAGIC = 0x52545446  # 'FTTR'
+MAGIC_BATCH = 0x42545446  # 'FTTB'
 _HEADER = struct.Struct("<III")
 
 #: Accepted ``wire_dtype`` names; ``"f32"`` and None both mean the
@@ -185,3 +192,139 @@ def decode_record(data: typing.Union[bytes, memoryview]) -> TensorValue:
             arr.setflags(write=False)
         out[name] = arr
     return TensorValue(out, meta)
+
+
+# -- the columnar batch frame ---------------------------------------------------
+
+
+def batch_signature(value: typing.Any) -> typing.Optional[typing.Tuple]:
+    """Hashable homogeneity key of one record, or None when it cannot ride
+    a columnar frame (not a TensorValue, or an object field).  Records
+    with equal signatures stack into one frame."""
+    if not isinstance(value, TensorValue):
+        return None
+    sig = []
+    for name, arr in value.fields.items():
+        if arr.dtype.hasobject:
+            return None
+        sig.append((name, arr.dtype.str, arr.shape))
+    return tuple(sig)
+
+
+def _narrow_stacked(stacked: np.ndarray, wire: str) -> bytes:
+    if wire == "bf16":
+        return to_bf16(stacked).view(torch.int16).numpy().tobytes()
+    return stacked.astype(np.float16).tobytes()
+
+
+def encode_batch(records: typing.Sequence[TensorValue],
+                 wire_dtype: typing.Optional[str] = None) -> bytearray:
+    """One columnar frame of a homogeneous run of records (the caller
+    checks homogeneity with :func:`batch_signature`).  An identity field
+    writes each row once, straight into the frame."""
+    wire = normalize_wire_dtype(wire_dtype)
+    n = len(records)
+    first = records[0]
+    fields = []
+    plans: typing.List[typing.Tuple] = []
+    for name in first.fields:
+        a0 = np.asarray(first.fields[name])
+        if a0.dtype.hasobject:
+            raise TypeError(f"field {name!r} has object dtype {a0.dtype} — record fields "
+                            "must be numeric/bytes tensors (put Python objects in meta)")
+        row_shape = list(a0.shape)
+        if wire is not None and _narrowable(a0.dtype):
+            stacked = np.stack([np.asarray(r.fields[name]) for r in records])
+            if wire == "int8":
+                flat = stacked.reshape(n, -1).astype(np.float64)
+                absmax = np.max(np.abs(flat), axis=1) if flat.shape[1] else np.zeros(n)
+                scales = np.where(absmax > 0.0, absmax / 127.0, 1.0)
+                q = np.clip(np.rint(flat / scales[:, None]), -127, 127)
+                plans.append(("bytes", q.astype(np.int8).tobytes()))
+                fields.append([name, row_shape, a0.dtype.str, wire, [float(s) for s in scales]])
+            else:
+                plans.append(("bytes", _narrow_stacked(stacked, wire)))
+                fields.append([name, row_shape, a0.dtype.str, wire, None])
+        else:
+            rows = [np.ravel(np.asarray(r.fields[name])) for r in records]
+            plans.append(("rows", rows, a0.dtype, sum(r.nbytes for r in rows)))
+            fields.append([name, row_shape, a0.dtype.str])
+    header = json.dumps({"n": n, "fields": fields}).encode()
+    metas = pickle.dumps([dict(r.meta) for r in records], protocol=pickle.HIGHEST_PROTOCOL)
+    total = _HEADER.size + len(header) + len(metas) + sum(
+        len(p[1]) if p[0] == "bytes" else p[3] for p in plans)
+    out = bytearray(total)
+    _HEADER.pack_into(out, 0, MAGIC_BATCH, len(header), len(metas))
+    off = _HEADER.size
+    out[off:off + len(header)] = header
+    off += len(header)
+    out[off:off + len(metas)] = metas
+    off += len(metas)
+    for plan in plans:
+        if plan[0] == "bytes":
+            out[off:off + len(plan[1])] = plan[1]
+            off += len(plan[1])
+        else:
+            _, rows, dtype, nbytes = plan
+            dest = np.frombuffer(out, dtype=dtype, count=nbytes // dtype.itemsize, offset=off)
+            np.concatenate(rows, out=dest)
+            off += nbytes
+    return out
+
+
+def decode_batch(data: typing.Union[bytes, bytearray, memoryview]) -> typing.List[TensorValue]:
+    """One columnar frame -> its records, whose identity fields are
+    read-only row views into the frame (narrowed fields are restored to
+    their declared dtype, one new array per field)."""
+    view = memoryview(data)
+    magic, header_len, meta_len = _HEADER.unpack_from(view, 0)
+    if magic != MAGIC_BATCH:
+        raise ValueError(f"bad batch magic {magic:#x}")
+    off = _HEADER.size
+    header = json.loads(bytes(view[off:off + header_len]))
+    off += header_len
+    metas = pickle.loads(view[off:off + meta_len])
+    off += meta_len
+    n = header["n"]
+    columns: typing.Dict[str, np.ndarray] = {}
+    for entry in header["fields"]:
+        name, shape, dtype = entry[0], entry[1], np.dtype(entry[2])
+        row_elems = int(np.prod(shape)) if shape else 1
+        count = n * row_elems
+        if len(entry) > 3:
+            wire, scales = entry[3], entry[4]
+            layout = _WIRE_LAYOUT[wire]
+            raw = np.frombuffer(view, dtype=layout, count=count, offset=off)
+            if wire == "int8":
+                s = np.asarray(scales, dtype=dtype)
+                arr = (raw.astype(dtype).reshape((n, row_elems)) * s[:, None]).reshape((n, *shape))
+            elif wire == "bf16":
+                arr = bf16_to_f32(raw).astype(dtype).reshape((n, *shape))
+            else:
+                arr = raw.astype(dtype).reshape((n, *shape))
+            off += count * layout.itemsize
+        else:
+            arr = np.frombuffer(view, dtype=dtype, count=count, offset=off).reshape((n, *shape))
+            off += count * dtype.itemsize
+        if arr.flags.writeable:
+            arr.setflags(write=False)
+        columns[name] = arr
+    out = []
+    for i in range(n):
+        fields = {}
+        for name, col in columns.items():
+            row = col[i]
+            if not isinstance(row, np.ndarray):  # a scalar field: a 0-d view
+                row = col[i:i + 1].reshape(())
+            fields[name] = row
+        out.append(TensorValue(fields, metas[i]))
+    return out
+
+
+def decode_frame(data: typing.Union[bytes, bytearray, memoryview]) -> typing.List[TensorValue]:
+    """Either frame kind (one record, or a columnar batch) -> its records."""
+    view = memoryview(data)
+    (magic,) = struct.unpack_from("<I", view, 0)
+    if magic == MAGIC_BATCH:
+        return decode_batch(view)
+    return [decode_record(view)]
