@@ -254,7 +254,30 @@ Phases (any failure exits non-zero and prints no result line):
    the committed (key, step) records equal a one-process run's at keyed
    parallelism 2, each once, losses bit for bit; records/s of each run and
    the recovery seconds printed; the phase's seconds;
-16. print one ``kernels`` JSON line, the card line, and the final
+16. the chaos plane, the concurrency sanitizer and the job-to-job pipe,
+   untraced: (a) ``bench.py:bench_chaos``'s keyed arms at its full size
+   (4,000 records paced at 0.5 ms, checkpoints every 200, 8 keys,
+   ``KeyedSum`` at parallelism 2 into the 2PC sink, the sanitizer on),
+   clean and under ``kill:src.0@1333;store_fail@2;stall:count.0@125~0.8#1``
+   with the bench's backoff restart strategy and a 0.3 s checkpoint
+   deadline: the chaos arm's committed bytes equal the clean arm's, at
+   least one restart and one aborted checkpoint, ``faults.store_fail`` 1,
+   no sanitizer violation; (b) bench_chaos's pipe leg (1,000 records
+   through ``RemoteSink(flush_bytes=4096, flush_ms=1.0)`` into a
+   ``RemoteSource`` job's 2PC sink), clean and severed at frame 5, the
+   same bytes and one reconnect, then phase 5's Inception cell over 512
+   records as the producer of a pipe severed at frame 5, the consumer's
+   committed labels and scores equal to phase 5's direct calls bit for
+   bit; (c) phase 6 (b)'s keyed serving job under
+   ``kill:continuous_batching.0@48;store_fail@2`` with the sanitizer on:
+   tokens equal to phase 4's, one restart, checkpoint 2 declined, K1's
+   launches held over both attempts; (d) phase 15 (c)'s Wide&Deep cohort
+   at two processes with ``FLINK_TPU_FAULTS`` severing and then delaying
+   the keyed edge into process 1 and ``FLINK_TPU_SANITIZE`` on: the
+   committed (key, step) pairs and losses equal to the one-process run's,
+   a reconnect, and the two processes' happens-before logs stitched by
+   ``core/sanitizer_stitch.py`` with no violation; the phase's seconds;
+17. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -3751,9 +3774,19 @@ def check_widedeep_cohort(card, torch):
         for r, (rc, log) in enumerate(results):
             if rc != 0:
                 fail(f"widedeep cohort: restored process {r} failed:\n{log[-4000:]}")
-        with open(os.path.join(chk, "seconds-0.json")) as f:
-            job_s = json.load(f)["seconds"]
+        stats = []
+        for r in range(3):
+            with open(os.path.join(chk, f"seconds-{r}.json")) as f:
+                stats.append(json.load(f))
+        job_s = stats[0]["seconds"]
         got = sorted(committed_steps(out))
+    # Keyed as user * WIDEDEEP_KEY_STRIDE, the users spread over the keyed
+    # subtasks, so the restored cohort's keyed edge carries training events
+    # to processes 1 and 2.
+    crossed = [sum(s["keyed_records_in"].values()) for s in stats]
+    if not all(crossed[1:]):
+        fail(f"widedeep cohort: keyed records in per restored process {crossed}: no training "
+             "event crossed to process 1 or 2")
     pairs = [(k, s) for k, s, _ in got]
     if len(set(pairs)) != len(pairs) or pairs != [(k, s) for k, s, _ in want]:
         fail(f"widedeep cohort: committed (key, step) pairs differ from the one-process run's "
@@ -3770,6 +3803,7 @@ def check_widedeep_cohort(card, torch):
     row = {"events": n, "steps": len(want), "keys": train_cell.WIDEDEEP_USERS,
            "processes": "2 -> 3", "keyed_parallelism": "2 -> 3",
            "restored_checkpoint": common, "committed_at_kill": committed,
+           "keyed_records_in_by_restored_process": crossed,
            "losses_bit_equal": equal,
            "records_per_s": {"one_process": n / base_s,
                              "cohort_2_spawn_to_checkpoint_incl_startup": cohort_rate,
@@ -3795,6 +3829,402 @@ def check_record_plane(card, torch, fa, per_rank):
     launches["record_plane"] = in_process
     print(f"record plane phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
     return launches
+
+
+# Phase 16 (a): bench.py:bench_chaos's keyed arms at the bench's full size:
+# 4,000 records paced at 0.5 ms, checkpoints every 200 records, 8 keys,
+# KeyedSum at parallelism 2, the sanitizer on in both arms; the chaos arm
+# kills the source a third of the way in, fails checkpoint 2's store
+# write, and stalls the keyed subtask past a 0.3 s checkpoint deadline on
+# the restarted epoch, under the bench's backoff restart strategy.
+CHAOS_RECORDS = 4000
+CHAOS_EVERY = max(20, CHAOS_RECORDS // 20)
+CHAOS_THROTTLE_S = 0.0005
+CHAOS_KEYS = 8
+CHAOS_SCHEDULE = (f"kill:src.0@{CHAOS_RECORDS // 3};store_fail@2;"
+                  f"stall:count.0@{max(1, CHAOS_RECORDS // (2 * CHAOS_KEYS) // 2)}~0.8#1")
+# Phase 16 (b): bench_chaos's pipe leg (1,000 records; the bench's n // 4)
+# and phase 5's first 512 Inception records through the same pipe, each
+# severed at its 5th coalesced frame.
+PIPE_RECORDS = CHAOS_RECORDS // 4
+PIPE_SEVER = "sever:rsink.0@5"
+PIPE_SINK = dict(flush_bytes=4096, flush_ms=1.0)
+PIPE_INCEPTION_RECORDS = 512
+# Phase 16 (c): phase 6 (b)'s keyed serving job with the fault plane in
+# place of the crash tap: the serving subtask dies at its 48th request and
+# checkpoint 2's write fails.
+SERVING_SCHEDULE = "kill:continuous_batching.0@48;store_fail@2"
+# Phase 16 (d): the edge into process 1's keyed subtask of phase 15 (c)'s
+# Wide&Deep cohort is cut at its 5th frame, then 10 frames are delayed.
+COHORT_WIRE_FAULTS = "sever:keyed_train.1@5;delay:keyed_train.1@40~0.002x10"
+
+
+def chaos_keyed_arm(root, tag, faults=None, restart=None, timeout_s=None):
+    """One arm of bench_chaos's keyed job; returns its row, the sorted
+    bytes of what its 2PC sink committed and the sorted (key, i, running
+    sum) rows they decode to."""
+    import dataclasses
+
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.core import functions as fn
+    from flink_tensorflow_tpu_torch.core.faults import fired_counts
+    from flink_tensorflow_tpu_torch.core.state import StateDescriptor
+    from flink_tensorflow_tpu_torch.io.files import ExactlyOnceRecordFileSink, read_committed
+    from flink_tensorflow_tpu_torch.tensors.serde import encode_record
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    total = StateDescriptor("sum", default_factory=lambda: 0)
+
+    class KeyedSum(fn.ProcessFunction):
+        def process_element(self, value, ctx, out):
+            s = ctx.state(total)
+            cur = s.value() + int(value)
+            s.update(cur)
+            out.collect(TensorValue({"v": np.int64(cur)},
+                                    {"key": int(ctx.current_key), "i": int(value)}))
+
+    out = os.path.join(root, f"out-{tag}")
+    env = StreamExecutionEnvironment(parallelism=2)
+    env.enable_checkpointing(os.path.join(root, f"chk-{tag}"), every_n_records=CHAOS_EVERY)
+    if timeout_s:
+        env.configure(checkpoint=dataclasses.replace(env.config.checkpoint, timeout_s=timeout_s))
+    env.configure(sanitize=True)
+    if faults:
+        env.configure(faults=faults)
+    env.source_throttle_s = CHAOS_THROTTLE_S
+    (env.from_collection(list(range(CHAOS_RECORDS)), name="src")
+     .key_by(lambda x: x % CHAOS_KEYS)
+     .process(KeyedSum(), name="count", parallelism=2)
+     .add_sink(ExactlyOnceRecordFileSink(out), name="sink", parallelism=1))
+    t0 = time.monotonic()
+    env.execute(f"chaos-{tag}", timeout=600, restart_strategy=restart)
+    wall = time.monotonic() - t0
+    rep = env.metric_registry.report()
+    committed = read_committed(out)
+    digest = sorted(bytes(encode_record(r)) for r in committed)
+    rows = sorted((int(r.meta["key"]), int(r.meta["i"]), int(r["v"])) for r in committed)
+    recovery = env.metric_registry.group("recovery").histogram("recovery_duration_s").values
+    row = {"wall_s": wall, "records_per_s": CHAOS_RECORDS / wall,
+           "records_committed": len(digest),
+           "restarts": rep.get("recovery.restarts_total", 0),
+           "recovery_s": sum(recovery),
+           "checkpoints_aborted": rep.get("recovery.checkpoints_aborted", 0),
+           "checkpoints_completed": rep.get("checkpoint.completed", 0),
+           "faults_fired": fired_counts(rep),
+           "sanitizer_violations": rep["sanitizer.violations"],
+           "sanitizer_tracked_ops": rep["sanitizer.tracked_ops"]}
+    return row, digest, rows
+
+
+def chaos_expected_rows():
+    """The keyed job's output computed plainly: record i adds i to key
+    i % CHAOS_KEYS's running sum."""
+    sums, rows = {}, []
+    for i in range(CHAOS_RECORDS):
+        k = i % CHAOS_KEYS
+        sums[k] = sums.get(k, 0) + i
+        rows.append((k, i, sums[k]))
+    return sorted(rows)
+
+
+def check_chaos_arms(card, root):
+    """Phase 16 (a): bench_chaos's clean and chaos arms; the clean arm's
+    committed rows must equal a plain computation of the running sums, and
+    the chaos arm's committed output the clean arm's byte for byte."""
+    from flink_tensorflow_tpu_torch import RestartStrategy
+
+    clean, clean_digest, clean_rows = chaos_keyed_arm(root, "clean")
+    want = chaos_expected_rows()
+    if clean_rows != want:
+        fail(f"chaos: the clean arm committed {len(clean_rows)} rows, "
+             f"{len(set(clean_rows) - set(want))} of them not the plain running sums "
+             f"({len(want)} expected)")
+    chaos, chaos_digest, _ = chaos_keyed_arm(
+        root, "chaos", faults=CHAOS_SCHEDULE,
+        restart=RestartStrategy(max_restarts=3, delay_s=0.05, backoff_multiplier=2.0,
+                                max_delay_s=1.0, jitter=0.1),
+        timeout_s=0.3)
+    lost = len(clean_digest) - len(chaos_digest)
+    if len(clean_digest) != CHAOS_RECORDS:
+        fail(f"chaos: the clean arm committed {len(clean_digest)} of {CHAOS_RECORDS} records")
+    if chaos_digest != clean_digest or lost:
+        fail(f"chaos: the chaos arm's committed output differs from the clean arm's "
+             f"({len(chaos_digest)} vs {len(clean_digest)} records)")
+    if chaos["restarts"] < 1 or chaos["checkpoints_aborted"] < 1:
+        fail(f"chaos: {chaos['restarts']} restarts, {chaos['checkpoints_aborted']} aborted "
+             "checkpoints, want at least 1 each")
+    if chaos["faults_fired"].get("store_fail") != 1:
+        fail(f"chaos: faults fired {chaos['faults_fired']}, want store_fail 1")
+    for arm in (clean, chaos):
+        if arm["sanitizer_violations"]:
+            fail(f"chaos: {arm['sanitizer_violations']} sanitizer violations")
+    row = {"records": CHAOS_RECORDS, "checkpoint_every_n": CHAOS_EVERY, "keys": CHAOS_KEYS,
+           "schedule": CHAOS_SCHEDULE, "clean_equals_plain_sums": True,
+           "byte_identical": True, "records_lost": lost,
+           "clean": clean, "chaos": chaos, "traced": False, "card": card}
+    print("chaos keyed arms", json.dumps(row), flush=True)
+
+
+def run_pipe(root, tag, build, faults=None):
+    """``build(env)`` -> a stream of TensorValues into a ``RemoteSink``
+    (``PIPE_SINK``), read by a consumer job's ``RemoteSource`` into a 2PC
+    sink on a thread.  Returns the committed records, the producer's
+    metric report and the seconds."""
+    import threading
+
+    from flink_tensorflow_tpu_torch import StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.io import RemoteSink, RemoteSource
+    from flink_tensorflow_tpu_torch.io.files import ExactlyOnceRecordFileSink, read_committed
+
+    out = os.path.join(root, f"pipe-{tag}")
+    source = RemoteSource(bind="127.0.0.1")
+    errors = []
+
+    def consume():
+        try:
+            cenv = StreamExecutionEnvironment(parallelism=1)
+            cenv.from_source(source, name="rsrc").add_sink(ExactlyOnceRecordFileSink(out),
+                                                           name="csink")
+            cenv.execute(f"pipe-consumer-{tag}", timeout=300)
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+
+    t = threading.Thread(target=consume)
+    t.start()
+    env = StreamExecutionEnvironment(parallelism=1)
+    if faults:
+        env.configure(faults=faults)
+    build(env).add_sink(RemoteSink("127.0.0.1", source.port, **PIPE_SINK), name="rsink")
+    t0 = time.monotonic()
+    env.execute(f"pipe-producer-{tag}", timeout=300)
+    t.join(300)
+    seconds = time.monotonic() - t0
+    if t.is_alive() or errors:
+        fail(f"pipe {tag}: the consumer failed: {errors or 'still running'}")
+    return read_committed(out), env.metric_registry.report(), seconds
+
+
+def check_pipes(card, root, inception, direct):
+    """Phase 16 (b): bench_chaos's pipe leg clean and severed, then phase
+    5's Inception cell as the producer of a severed pipe."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.functions.model_function import ModelWindowFunction
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+    from flink_tensorflow_tpu_torch.tensors.serde import encode_record
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    def numbers(env):
+        return (env.from_collection(list(range(PIPE_RECORDS)), name="psrc")
+                .map(lambda v: TensorValue({"v": np.int64(v)}, {"i": int(v)}), name="tv"))
+
+    rows = {}
+    digests = {}
+    for tag, faults in (("clean", None), ("sever", PIPE_SEVER)):
+        recs, rep, seconds = run_pipe(root, tag, numbers, faults)
+        digests[tag] = sorted(bytes(encode_record(r)) for r in recs)
+        rows[tag] = {"seconds": seconds, "records_committed": len(recs),
+                     "records_per_s": len(recs) / seconds,
+                     "reconnects": rep.get("rsink.0.reconnects", 0),
+                     "resent_bursts": rep.get("rsink.0.resent_bursts", 0),
+                     "bursts": rep["rsink.0.wire_flush_total"]["count"]}
+    if len(digests["clean"]) != PIPE_RECORDS or digests["sever"] != digests["clean"]:
+        fail(f"pipe: the severed pipe committed {len(digests['sever'])} records, the clean "
+             f"one {len(digests['clean'])}, want {PIPE_RECORDS} each, byte-identical")
+    if rows["sever"]["reconnects"] != 1 or rows["clean"]["reconnects"] != 0:
+        fail(f"pipe: reconnects {rows['clean']['reconnects']} clean, "
+             f"{rows['sever']['reconnects']} severed, want 0 and 1")
+
+    mdef, model, pixels = inception
+    n = PIPE_INCEPTION_RECORDS
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(n)]
+
+    def inception_producer(env):
+        fn = ModelWindowFunction(model, policy=BucketPolicy(fixed_batch=cell.BATCH),
+                                 warmup_batches=(cell.BATCH,), outputs=("label", "score"),
+                                 transfer_lanes=cell.LANES, pipeline_depth=cell.DEPTH)
+        return (env.from_collection(records, parallelism=1)
+                .count_window(cell.BATCH, timeout_s=cell.TIMEOUT_S).apply(fn, name="inception"))
+
+    recs, rep, seconds = run_pipe(root, "inception", inception_producer, PIPE_SEVER)
+    ids = sorted(int(r.meta["id"]) for r in recs)
+    if ids != list(range(n)):
+        fail(f"inception pipe: {len(ids)} records committed, {len(set(ids))} distinct ids, "
+             f"want each of {n} once")
+    label = np.empty(n, np.int32)
+    score = np.empty(n, np.float32)
+    for r in recs:
+        label[r.meta["id"]] = np.asarray(r["label"])
+        score[r.meta["id"]] = np.asarray(r["score"])
+    if not (np.array_equal(label, direct[0][:n]) and np.array_equal(score, direct[1][:n])):
+        fail("inception pipe: committed labels or scores differ from phase 5's direct calls "
+             f"({int((label != direct[0][:n]).sum())} labels, "
+             f"max score diff {float(np.abs(score - direct[1][:n]).max())})")
+    if rep.get("rsink.0.reconnects", 0) != 1:
+        fail(f"inception pipe: {rep.get('rsink.0.reconnects', 0)} reconnects, want 1")
+    rows["inception"] = {"records": n, "seconds": seconds, "records_per_s": n / seconds,
+                         "reconnects": rep["rsink.0.reconnects"],
+                         "bursts": rep["rsink.0.wire_flush_total"]["count"],
+                         "labels_scores_bit_equal_to_direct": True}
+    row = {"records": PIPE_RECORDS, "sink": PIPE_SINK, "fault": PIPE_SEVER,
+           "byte_identical": True, **rows, "card": card}
+    print("chaos pipes", json.dumps(row), flush=True)
+
+
+def check_serving_under_faults(card, torch, fa, mdef, model, cfg, requests, want):
+    """Phase 16 (c): phase 6 (b)'s keyed serving job under
+    ``SERVING_SCHEDULE`` with the sanitizer on; returns K1's launches."""
+    import tempfile
+
+    from flink_tensorflow_tpu_torch import RestartStrategy
+    from flink_tensorflow_tpu_torch.checkpoint.store import checkpoint_ids
+    from flink_tensorflow_tpu_torch.core.faults import fired_counts
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job
+
+    layers = mdef.config["num_layers"]
+    warm = len(cfg.resolved_admit_buckets()) * len(cfg.resolved_prompt_buckets())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_serving") as d:
+        env, arrivals = keyed_job(model, cfg, requests)
+        env.enable_checkpointing(d, every_n_records=8)
+        env.configure(faults=SERVING_SCHEDULE, sanitize=True)
+        fa.flash_attention.launches = 0
+        t0 = time.monotonic()
+        result = env.execute("serving-chaos", timeout=600,
+                             restart_strategy=RestartStrategy(max_restarts=2))
+        seconds = time.monotonic() - t0
+        launches = fa.flash_attention.launches
+        ids = checkpoint_ids(d)
+    rep = env.metric_registry.report()
+    hold_tokens("serving under faults", tokens_checked([ev for _, ev in arrivals]), want,
+                requests, model, torch)
+    fired = fired_counts(rep)
+    if result.restarts != 1 or fired != {"kill": 1, "store_fail": 1}:
+        fail(f"serving under faults: {result.restarts} restarts, faults {fired}, want 1 "
+             "restart, one kill and one store failure")
+    # Declined: the fault fired once (above) and checkpoint 2 never landed,
+    # while later ones did.  (``recovery.checkpoints_aborted`` is the last
+    # attempt's count, as in the reference; the failure was the first's.)
+    if 2 in ids or not any(i > 2 for i in ids):
+        fail(f"serving under faults: checkpoints on disk {ids}, want 2 declined and later "
+             "ones written")
+    if rep["sanitizer.violations"]:
+        fail(f"serving under faults: {rep['sanitizer.violations']} sanitizer violations")
+    prefills = rep["continuous_batching.0.prefill_batches"]
+    want_launches = layers * (prefills + warm * (result.restarts + 1))
+    if launches != want_launches:
+        fail(f"serving under faults: K1 launches {launches} != {layers} x ({prefills} prefill "
+             f"batches + {warm} x {result.restarts + 1} warmup prefills)")
+    recovery = env.metric_registry.group("recovery").histogram("recovery_duration_s").values
+    row = {"sessions": len(requests), "schedule": SERVING_SCHEDULE,
+           "tokens_equal_to_phase_4": True, "restarts": result.restarts,
+           "faults_fired": fired, "checkpoints_on_disk": ids,
+           "checkpoints_completed": rep["checkpoint.completed"],
+           "sanitizer_violations": 0, "sanitizer_tracked_ops": rep["sanitizer.tracked_ops"],
+           "seconds": seconds, "recovery_s": sum(recovery),
+           "k1_launches": launches, "k1_launches_expected": want_launches,
+           "prefill_batches_both_attempts": prefills, "card": card}
+    print("chaos serving", json.dumps(row), flush=True)
+    return launches
+
+
+def check_wire_faults(card, root):
+    """Phase 16 (d): phase 15 (c)'s Wide&Deep cohort at 2 processes with
+    ``COHORT_WIRE_FAULTS`` on the keyed edge into process 1, the sanitizer
+    on in both, held to a one-process run of the same job."""
+    from flink_tensorflow_tpu_torch.core.sanitizer_rt import load_hb_log
+    from flink_tensorflow_tpu_torch.core.sanitizer_stitch import stitch
+    from flink_tensorflow_tpu_torch.functions import train_cell
+
+    mdef, schema, records = train_cell.widedeep_cell()
+    base = os.path.join(root, "wd-base")
+    base_s = train_cell.run_widedeep_cohort(
+        mdef, schema, records, None, out=base, checkpoint_root=os.path.join(root, "wd-chk1"),
+        every_n_records=train_cell.WIDEDEEP_EVERY_N_RECORDS, parallelism=2,
+        device_provider=lambda task, index: "cuda:0")
+    want = sorted(committed_steps(base))
+    out, chk = os.path.join(root, "wd-out"), os.path.join(root, "wd-chk")
+    hb = os.path.join(root, "wd-hb.json")
+    faults = {"FLINK_TPU_FAULTS": COHORT_WIRE_FAULTS, "FLINK_TPU_SANITIZE": "1",
+              "FLINK_TPU_SANITIZE_LOG": hb}
+    saved = {k: os.environ.get(k) for k in faults}
+    os.environ.update(faults)
+    try:
+        ports = free_ports(2)
+        t0 = time.monotonic()
+        procs = [widedeep_cohort_proc(r, 2, ports, out, chk, par=2,
+                                      throttle=COHORT_WIDEDEEP_THROTTLE_S) for r in range(2)]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    results = wait_procs("wire faults cohort", procs)
+    seconds = time.monotonic() - t0
+    for r, (rc, log) in enumerate(results):
+        if rc != 0:
+            fail(f"wire faults cohort: process {r} failed:\n{log[-4000:]}")
+    stats = []
+    for r in range(2):
+        with open(os.path.join(chk, f"seconds-{r}.json")) as f:
+            stats.append(json.load(f))
+    got = sorted(committed_steps(out))
+    if [(k, s) for k, s, _ in got] != [(k, s) for k, s, _ in want]:
+        fail(f"wire faults cohort: committed (key, step) pairs differ from the one-process "
+             f"run's ({len(got)} vs {len(want)})")
+    equal = sum(a[2] == b[2] for a, b in zip(got, want))
+    if equal != len(want):
+        fail(f"wire faults cohort: {len(want) - equal} of {len(want)} losses differ from the "
+             "one-process run's")
+    if stats[0]["faults"] != {"sever": 1, "delay": 10} or stats[0]["edge_reconnects"] < 1:
+        fail(f"wire faults cohort: process 0 fired {stats[0]['faults']} with "
+             f"{stats[0]['edge_reconnects']} reconnects, want sever 1, delay 10 and a reconnect")
+    crossed = stats[1]["keyed_records_in"].get("keyed_train.1.records_in", 0)
+    if not crossed:
+        fail("wire faults cohort: no training event reached process 1's keyed subtask")
+    docs = [load_hb_log(os.path.join(root, f"wd-hb.proc{r}.json")) for r in range(2)]
+    report = stitch(docs)
+    violations = len(report["violations"]) + len(report["local_violations"])
+    if violations or any(s["sanitizer_violations"] for s in stats):
+        fail(f"wire faults cohort: {violations} stitched sanitizer violations "
+             f"{report['violations'][:3]} {report['local_violations'][:3]}")
+    row = {"events": train_cell.WIDEDEEP_RECORDS, "steps": len(got),
+           "key_stride": train_cell.WIDEDEEP_KEY_STRIDE,
+           "events_into_process_1": crossed,
+           "faults": COHORT_WIRE_FAULTS, "pairs_equal": True, "losses_bit_equal": equal,
+           "edge_reconnects": stats[0]["edge_reconnects"],
+           "faults_fired": stats[0]["faults"],
+           "stitch": {"events": report["events"], "checks": report["checks"],
+                      "violations": violations},
+           "seconds": {"one_process": base_s, "processes": seconds,
+                       "job": [s["seconds"] for s in stats]},
+           "note": "two processes sharing the card, paced at 1 ms per event", "card": card}
+    print("chaos wire faults", json.dumps(row), flush=True)
+
+
+def check_chaos_plane(card, torch, fa, mdef, model, cfg, requests, want, inception, direct):
+    """Phase 16: the chaos plane, the sanitizer and the job-to-job pipe.
+    Returns K1's launches (phase 4's count over both attempts of (c); 0
+    everywhere else in this process)."""
+    import tempfile
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as root:
+        fa.flash_attention.launches = 0
+        check_chaos_arms(card, root)
+        check_pipes(card, root, inception, direct)
+        host_launches = fa.flash_attention.launches
+        serving = check_serving_under_faults(card, torch, fa, mdef, model, cfg, requests, want)
+        fa.flash_attention.launches = 0
+        check_wire_faults(card, root)
+        host_launches += fa.flash_attention.launches
+    if host_launches:
+        fail(f"phase 16 launched K1 {host_launches} times outside the serving arm, want 0")
+    print(f"chaos plane phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return {"serving_chaos": serving, "chaos_pipes_and_arms": host_launches}
 
 
 def main() -> int:
@@ -3895,6 +4325,9 @@ def main() -> int:
 
     plane_launches = check_record_plane(card, torch, fa, per_rank)
 
+    chaos_launches = check_chaos_plane(card, torch, fa, mdef, model, cfg, requests, got,
+                                       inception, direct)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -3912,7 +4345,7 @@ def main() -> int:
                              **training_launches, **stream_launches, **chain_launches,
                              **paged_launches, **event_time_launches,
                              **transfer_launches, **parallel_launches, **split_launches,
-                             **plane_launches},
+                             **plane_launches, **chaos_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

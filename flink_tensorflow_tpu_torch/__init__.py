@@ -52,7 +52,14 @@ Ported so far:
   with keyed and rebalance edges over ``core.shuffle`` (coalesced,
   columnar, credit-controlled, shared memory between processes of one
   host) on one ``core.reactor`` thread per process, cohort checkpoints
-  and the rescaling restore.
+  and the rescaling restore;
+- the chaos plane (``JobConfig(faults=...)`` or ``FLINK_TPU_FAULTS``:
+  ``core.faults.FaultPlan`` of kill, stall, sever, blackhole, delay and
+  store_fail faults), the concurrency sanitizer (``JobConfig(sanitize=
+  True)``: ``core.sanitizer_rt``, with the cohort stitcher
+  ``core.sanitizer_stitch`` and the replay-purity scanner
+  ``analysis.sanitizer``) and the job-to-job pipe
+  (``io.RemoteSink`` / ``io.RemoteSource``).
 """
 
 from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig
@@ -61,6 +68,7 @@ from flink_tensorflow_tpu_torch.core.environment import (
     RestartStrategy,
     StreamExecutionEnvironment,
 )
+from flink_tensorflow_tpu_torch.core.faults import FaultPlan, FaultSpec
 from flink_tensorflow_tpu_torch.core.functions import ProcessFunction
 from flink_tensorflow_tpu_torch.core.state import StateDescriptor
 from flink_tensorflow_tpu_torch.core.stream import DataStream, KeyedStream, WindowedStream
@@ -69,6 +77,8 @@ __all__ = [
     "CheckpointConfig",
     "DataStream",
     "DistributedConfig",
+    "FaultPlan",
+    "FaultSpec",
     "JobConfig",
     "KeyedStream",
     "ProcessFunction",

@@ -16,7 +16,19 @@ the reactor thread, which must never block: :meth:`InputGate.try_put_batch`
 takes what fits, a space listener resumes the paused connection when the
 queue leaves the full state, and a drain listener replenishes the
 sender's credits once the consumer pulls the queue below its low-water
-mark (JAX ``:101-115``, ``:162-220``).
+mark (JAX ``:101-115``, ``:162-220``).  A remote channel blocked for
+alignment takes nothing: its frames stay parked in the connection's route
+(Flink's credit-based alignment, and what the reference's route says it
+does) until :meth:`InputGate.unblock_all` fires the space listeners.  The
+reference's gate takes them and stashes them, so its route logs
+deliveries into a blocked channel, which its own stitcher reports as
+``dist-barrier-blocked-channel`` on a healthy cohort.
+
+With a sanitizer (``core/sanitizer_rt.py``, JAX ``:50-77``, ``:250-294``)
+the gate's lock and condition variables are instrumented and every
+delivery is checked against the alignment state: an element handed out
+from a blocked channel is a violation.  Without one the gate keeps plain
+``threading`` primitives and pays one ``is None`` test per delivery.
 """
 
 from __future__ import annotations
@@ -34,7 +46,9 @@ class InputGate:
     barrier alignment (blocked channels, their stashes, the replay queue;
     these are touched by the single reader thread only)."""
 
-    def __init__(self, num_channels: int, capacity: int = 1024):
+    def __init__(self, num_channels: int, capacity: int = 1024, *,
+                 sanitizer: typing.Optional[typing.Any] = None,
+                 name: typing.Optional[str] = None):
         self.num_channels = num_channels
         self.capacity = capacity
         self._queue: typing.Deque[typing.Tuple[int, typing.Optional[el.StreamElement]]] = (
@@ -46,9 +60,18 @@ class InputGate:
         #: Elements put per channel (the runtime's per-edge queue gauges).
         self.puts_per_channel: typing.List[int] = [0] * num_channels
         self._closed = False
-        self._lock = threading.Lock()
-        self._not_empty = threading.Condition(self._lock)
-        self._not_full = threading.Condition(self._lock)
+        self._san = sanitizer
+        self._san_name = name or f"gate@{id(self):x}"
+        # One lock, two wait sets: the reader parks on ``_not_empty``,
+        # writers on ``_not_full``.
+        if sanitizer is not None:
+            self._lock = sanitizer.lock(f"{self._san_name}.lock")
+            self._not_empty = sanitizer.condition(f"{self._san_name}.not_empty", self._lock)
+            self._not_full = sanitizer.condition(f"{self._san_name}.not_full", self._lock)
+        else:
+            self._lock = threading.Lock()
+            self._not_empty = threading.Condition(self._lock)
+            self._not_full = threading.Condition(self._lock)
         #: Wake sentinels in the queue (not counted by :attr:`depth`).
         self._wake_sentinels = 0
         #: Fired under the gate lock (so they must not block) on the full ->
@@ -71,20 +94,25 @@ class InputGate:
             self._not_empty.notify()
 
     def try_put_batch(self, channel_idx: int,
-                      elements: typing.Sequence[el.StreamElement]) -> int:
+                      elements: typing.Sequence[el.StreamElement],
+                      on_put: typing.Optional[typing.Callable[[int], None]] = None) -> int:
         """Append as many of ``elements`` as the queue has room for, under
         one lock and one reader wakeup; returns how many were taken (the
         reactor offers the rest again once a space listener fires).  A
-        closed gate takes everything (dropped)."""
+        channel blocked for alignment takes none.  A closed gate takes
+        everything (dropped).  ``on_put(taken)`` runs under the lock, so
+        what it logs is ordered with the alignment's block and unblock."""
         with self._not_full:
             if self._closed:
                 return len(elements)
             room = self.capacity - len(self._queue)
-            if room <= 0:
+            if room <= 0 or self._blocked[channel_idx]:
                 return 0
             taken = min(room, len(elements))
             self._queue.extend((channel_idx, e) for e in elements[:taken])
             self.puts_per_channel[channel_idx] += taken
+            if on_put is not None:
+                on_put(taken)
             self._not_empty.notify()
             return taken
 
@@ -122,6 +150,8 @@ class InputGate:
             if self._blocked[idx]:
                 self._stashed[idx].append((idx, element))
                 continue
+            if self._san is not None:
+                self._san.gate_delivered(self._san_name, idx)
             return idx, element
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
@@ -149,16 +179,26 @@ class InputGate:
             if self._blocked[idx]:
                 self._stashed[idx].append((idx, element))
                 continue
+            if self._san is not None:
+                self._san.gate_delivered(self._san_name, idx)
             return idx, element
 
     def block_channel(self, idx: int) -> None:
         """Hold ``idx``'s elements back until :meth:`unblock_all` (its
         barrier arrived; the others' have not)."""
-        self._blocked[idx] = True
+        with self._lock:  # ordered with a remote route's try_put_batch
+            self._blocked[idx] = True
+            if self._san is not None:
+                self._san.gate_channel_blocked(self._san_name, idx)
 
     def unblock_all(self) -> None:
-        """Alignment done: stashed elements replay in channel order."""
-        self._blocked = [False] * self.num_channels
+        """Alignment done: stashed elements replay in channel order, and
+        remote routes parked on a blocked channel resume."""
+        with self._lock:
+            self._blocked = [False] * self.num_channels
+            if self._san is not None:
+                self._san.gate_unblocked(self._san_name)
+            self._notify(self._space_listeners)
         stashed = self._stashed
         self._stashed = [collections.deque() for _ in range(self.num_channels)]
         for dq in stashed:

@@ -29,6 +29,13 @@ signal (the checkpoint is not yet durable on every process);
 ``trigger()`` is refused on a distributed job (it would reach only the
 local sources and bypass the gate).
 
+The chaos plane's ``store_point`` (JAX ``:230-232``, ``:347-352``) runs
+before both store writes: a scheduled ``store_fail`` raises there and
+takes the path a failed disk write takes, so the checkpoint is declined
+(``aborted_ids``, the subtasks told), no 2PC commit goes out for it, and
+later checkpoints go on.  With the sanitizer on, the coordinator's lock
+is an instrumented one (JAX ``:111-117``).
+
 Disk format: one directory per checkpoint (``checkpoint/store.py``).
 """
 
@@ -106,7 +113,10 @@ class CheckpointCoordinator:
         executor.metrics.group("recovery").gauge("checkpoints_aborted",
                                                  lambda: len(self.aborted_ids))
         self._next_id = 1
-        self._lock = threading.Lock()
+        #: Instrumented under the sanitizer, so its order against the gate,
+        #: split-coordinator and mailbox locks is checked.
+        san = getattr(executor, "sanitizer", None)
+        self._lock = san.lock("checkpoint.lock") if san is not None else threading.Lock()
         #: Serializes whole trigger() calls: a manual trigger colliding
         #: with the periodic timer queues behind it instead of failing.
         self._trigger_lock = threading.Lock()
@@ -188,6 +198,9 @@ class CheckpointCoordinator:
         self._completed.append(cid)
         path = None
         if self.checkpoint_dir is not None:
+            faults = getattr(self.executor, "faults", None)
+            if faults is not None:
+                faults.store_point(cid)
             path = store.write_checkpoint(self.checkpoint_dir, cid,
                                           self._with_job_meta(pending.snapshots))
         self._record_completed(pending, path)
@@ -263,12 +276,18 @@ class CheckpointCoordinator:
             path = None
             if self.checkpoint_dir is not None:
                 try:
+                    faults = getattr(self.executor, "faults", None)
+                    if faults is not None:
+                        faults.store_point(pending.checkpoint_id)
                     path = store.write_checkpoint(
                         self.checkpoint_dir, pending.checkpoint_id,
                         self._with_job_meta(pending.snapshots))
                 except Exception:
                     logger.warning("persisting checkpoint %d failed", pending.checkpoint_id,
                                    exc_info=True)
+                    with self._lock:
+                        self.aborted_ids.append(pending.checkpoint_id)
+                    self._announce_abort(pending.checkpoint_id, "checkpoint-store write failed")
                     return  # not durable: no completion notification
             self._record_completed(pending, path)
             # A cohort promotes 2PC output only once every process holds

@@ -8,7 +8,10 @@ reads, the gang operators' ``mesh`` (``:224``) among them, operator
 defaults, and the record plane's ``wire_flush_bytes``, ``wire_flush_ms``,
 ``shm_channels``, ``flow_control`` (``:171-206``) and ``distributed``
 (``:235-239``), validated as ``:278-322`` validates them: a distributed
-job checkpoints with count-based triggers only.
+job checkpoints with count-based triggers only.  The chaos and sanitizer
+planes' ``faults``, ``sanitize`` and ``sanitize_log_path``
+(``:108-123``, ``:207-213``; a fault plan is parsed at validation,
+``:294``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import typing
 
+from flink_tensorflow_tpu_torch.core.faults import FaultPlan
 from flink_tensorflow_tpu_torch.tensors.serde import WIRE_DTYPES
 
 
@@ -81,6 +85,21 @@ class JobConfig:
     #: Per-operator opt-outs: ``stream.start_new_chain()`` /
     #: ``stream.disable_chaining()``.
     chaining: bool = True
+    #: Debug-mode concurrency sanitizer (``core/sanitizer_rt.py``): the
+    #: runtime's locks and condition variables (gates, source mailboxes,
+    #: split and checkpoint coordinators) are instrumented, lock-order
+    #: inversions and waits-for cycles are found, and the barrier protocol
+    #: is checked (no record past a blocked channel during alignment,
+    #: snapshot order equal to chain order, split assignment frozen while
+    #: a barrier aligns).  Off, the runtime keeps plain ``threading``
+    #: primitives.  ``FLINK_TPU_SANITIZE=1`` turns it on;
+    #: ``FLINK_TPU_SANITIZE_STALL_S`` adds the stall watchdog.
+    sanitize: bool = False
+    #: Where the sanitizer's happens-before log is dumped (the input of
+    #: ``core/sanitizer_stitch.py``); a cohort process inserts
+    #: ``.proc<k>`` before the extension.  None keeps it in memory.
+    #: ``FLINK_TPU_SANITIZE_LOG`` applies when this is None.
+    sanitize_log_path: typing.Optional[str] = None
     #: Device-resident dataflow (``tensors/transfer.py:DeviceBatch``): a
     #: model fused ahead of an operator that consumes device batches
     #: (another model, a ``DeviceMapFunction``) hands it the batch on the
@@ -114,6 +133,12 @@ class JobConfig:
     #: senders park at zero; barriers, watermarks, end-of-partition and the
     #: control channel bypass credit.  ``FLINK_TPU_FLOW_CONTROL`` overrides.
     flow_control: bool = True
+    #: Deterministic fault plan (``core/faults.py``: a ``FaultPlan``, a
+    #: spec string, or a sequence of ``FaultSpec``\ s or spec strings):
+    #: kill, stall, sever, blackhole, delay and store_fail faults pinned
+    #: to (restart epoch, stream position).  None costs nothing;
+    #: ``FLINK_TPU_FAULTS`` overrides.
+    faults: typing.Optional[typing.Any] = None
     #: Sleep between source emissions — test/backpressure pacing.
     source_throttle_s: float = 0.0
     #: ``(task_name, subtask_index) -> device`` (``"cpu"``, ``"cuda:0"``,
@@ -147,6 +172,8 @@ class JobConfig:
         if self.wire_dtype is not None and self.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"wire_dtype must be one of {WIRE_DTYPES} or None, "
                              f"got {self.wire_dtype!r}")
+        if self.faults is not None:
+            FaultPlan.resolve(self.faults)  # raises on a malformed spec
         if self.source_throttle_s < 0:
             raise ValueError(f"source_throttle_s must be >= 0, got {self.source_throttle_s}")
         if self.device_provider is not None and not callable(self.device_provider):

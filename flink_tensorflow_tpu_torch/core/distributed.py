@@ -22,7 +22,8 @@ checkpoint barriers flowing through the channels.
   process announced its shard durable over the control channel
   (:meth:`DistributedExecutor._global_commit_gate`).
 - A peer that dies fails the job: a connection that ends before
-  end-of-partition reports a transport error, and with
+  end-of-partition and is not replaced by the writer's reconnect within
+  the server's grace reports a transport error, and with
   ``heartbeat_timeout_s`` a peer silent past it raises
   :class:`CohortPeerLost`.  A cohort supervisor restarts the cohort from
   its newest common checkpoint.
@@ -32,6 +33,12 @@ process from its own shard; a changed shape merges every shard and
 redistributes keyed state by key group.  A gang operator whose
 parallelism equals ``num_processes`` gets one subtask per process, the
 layout its collective step needs.  Gradients never touch this plane.
+
+The chaos and sanitizer planes (JAX ``:252-271``, ``:344-353``): each
+remote writer takes the fault injector's hook for the edge it feeds, and
+with a sanitizer the writers and the server's routes log both halves of
+every frame, the process's log goes to ``<path>.proc<k>.json`` and
+carries the process's cohort identity (offsets 0: no clock sync yet).
 
 Not started until its slice (``ROADMAP.md`` item 4): the cohort
 telemetry service (clock sync and metric pushes to process 0).
@@ -191,6 +198,22 @@ class DistributedExecutor(LocalExecutor):
         for st in self.subtasks:
             if st.gate is not None:
                 self._server.register_gate(st.t.name, st.index, st.gate)
+        # One happens-before log per process (``.proc<k>``): the stitcher
+        # takes the cohort's file set (JAX ``:252-271``).
+        if self.sanitize_log_path and self.dist.num_processes > 1:
+            root, ext = os.path.splitext(self.sanitize_log_path)
+            self.sanitize_log_path = f"{root}.proc{self.dist.process_index}{ext or '.json'}"
+        if self.sanitizer is not None:
+            # No clock sync yet: every offset is 0, exact on one host.
+            self.sanitizer.cohort_meta = {
+                "process_index": self.dist.process_index,
+                "pid": os.getpid(),
+                "offset_to_proc0_s": 0.0,
+                "error_bound_s": 0.0,
+            }
+            # The server was built before the sanitizer: attach it before
+            # start() opens the listener, so every route logs.
+            self._server.sanitizer = self.sanitizer
         self._server.start()
         if self.dist.heartbeat_timeout_s > 0 and self.dist.num_processes > 1:
             self._hb_thread = threading.Thread(
@@ -216,7 +239,12 @@ class DistributedExecutor(LocalExecutor):
             epoch=self.dist.restart_epoch,
             # Data edges take credits; control writers never do (2PC
             # announcements must not park behind data).
-            flow_control=self.flow_control)
+            flow_control=self.flow_control,
+            # The chaos plane's sever / blackhole / delay on the edge into
+            # ``t.subtask_index``, and the send half of the hb log.
+            fault_hook=(self.faults.edge_hook(t.name, subtask_index)
+                        if self.faults is not None else None),
+            sanitizer=self.sanitizer)
         self._remote_writers.append(writer)
         return writer
 

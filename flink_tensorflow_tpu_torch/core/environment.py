@@ -284,7 +284,9 @@ class StreamExecutionEnvironment:
             chaining=cfg.chaining, device_resident=cfg.device_resident,
             wire_dtype=cfg.wire_dtype, wire_flush_bytes=cfg.wire_flush_bytes,
             wire_flush_ms=cfg.wire_flush_ms, shm_channels=cfg.shm_channels,
-            flow_control=cfg.flow_control, restart_epoch=restart_epoch)
+            flow_control=cfg.flow_control, restart_epoch=restart_epoch,
+            faults=cfg.faults, sanitize=cfg.sanitize,
+            sanitize_log_path=cfg.sanitize_log_path)
         if cfg.distributed is not None:
             from flink_tensorflow_tpu_torch.core.distributed import DistributedExecutor
 

@@ -177,6 +177,9 @@ class Connection:
         self._out: typing.Deque[memoryview] = collections.deque()
         self._out_bytes = 0
         self._peak_out_bytes = 0
+        #: Bytes the socket took, over the connection's lifetime: a writer
+        #: that loses the connection resends the frames past this mark.
+        self._bytes_sent = 0
         self._send_cv = threading.Condition()
         self._closed = False
         self._error: typing.Optional[BaseException] = None
@@ -368,6 +371,7 @@ class Connection:
                 return
             with self._send_cv:
                 self._out_bytes -= n
+                self._bytes_sent += n
                 if n == len(mv):
                     if self._out and self._out[0] is mv:
                         self._out.popleft()
@@ -399,6 +403,11 @@ class Connection:
         depth, so a transient between two polls can't hide growth."""
         return self._peak_out_bytes
 
+    @property
+    def bytes_sent(self) -> int:
+        """Bytes the socket has taken so far; final once :attr:`closed`."""
+        return self._bytes_sent
+
     def drain(self, timeout: typing.Optional[float] = None) -> bool:
         """Wait for the send queue to empty; True when drained."""
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -426,6 +435,19 @@ class Connection:
             self.reactor.submit(_do_close)
         else:
             _do_close()
+
+    def wait_closed(self, timeout: float) -> bool:
+        """Wait (off the reactor thread) until a :meth:`close` has taken
+        effect, so no more bytes leave and :attr:`bytes_sent` is final;
+        False if that did not happen within ``timeout``."""
+        deadline = time.monotonic() + timeout
+        with self._send_cv:
+            while not self._closed and self.reactor.alive:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0.0:
+                    return False
+                self._send_cv.wait(min(0.05, remaining))
+            return True  # closed, or no reactor left to write
 
     @property
     def closed(self) -> bool:

@@ -42,6 +42,20 @@ channel of the record plane) in place of a :class:`ChannelWriter`.
 ``restore(..., local_shard=True)`` restores a process's own shard by
 index without rescaling, and ``restart_epoch`` (which attempt of the job
 this executor runs) reaches every runtime context.
+
+The chaos and sanitizer planes (JAX ``:769-849``, ``:889-904``): with a
+fault plan armed for this restart epoch (``JobConfig.faults`` or
+``FLINK_TPU_FAULTS``) the executor holds a
+:class:`~flink_tensorflow_tpu_torch.core.faults.FaultInjector` whose
+``record_point`` runs after each record in the three subtask loops; with
+``sanitize`` (or ``FLINK_TPU_SANITIZE=1``) it holds a
+:class:`~flink_tensorflow_tpu_torch.core.sanitizer_rt.ConcurrencySanitizer`
+that the gates, mailboxes and coordinators take their locks from, and
+that checks the chain snapshot order and logs barrier injections.  Off,
+both are None and each hook site is one ``is None`` test.  ``join``
+raises ``SanitizerError`` on a recorded violation (not a ``JobFailure``:
+a restart must not replay over a concurrency bug) and dumps the
+happens-before log to ``sanitize_log_path``.
 """
 
 from __future__ import annotations
@@ -59,8 +73,10 @@ from flink_tensorflow_tpu_torch.analysis.chaining import (
 )
 from flink_tensorflow_tpu_torch.checkpoint.store import to_host
 from flink_tensorflow_tpu_torch.core import elements as el
+from flink_tensorflow_tpu_torch.core import sanitizer_rt
 from flink_tensorflow_tpu_torch.core.channels import ChannelWriter, InputGate
 from flink_tensorflow_tpu_torch.core.checkpoint import CheckpointCoordinator
+from flink_tensorflow_tpu_torch.core.faults import FaultInjector, FaultPlan
 from flink_tensorflow_tpu_torch.core.graph import DataflowGraph, Transformation
 from flink_tensorflow_tpu_torch.core.operators import Operator, Output, SourceOperator
 from flink_tensorflow_tpu_torch.core.partitioning import ForwardPartitioner, HashPartitioner
@@ -352,6 +368,11 @@ class _Subtask:
         """Snapshot and ack one logical operator.  Device tensors leave for
         the host here, on the thread that owns them: the coordinator and
         its persist thread see host objects only."""
+        san = self.executor.sanitizer
+        if san is not None:
+            # Snapshot order must be chain order, head to tail, no gaps.
+            san.chain_snapshot(self.scope, checkpoint_id, self.units.index(unit),
+                               len(self.units))
         snapshot = to_host(unit.operator.snapshot(checkpoint_id))
         self.executor.coordinator.ack(checkpoint_id, unit.t.name, unit.index, snapshot)
 
@@ -365,6 +386,9 @@ class _Subtask:
         not cut."""
         if checkpoint_id in self._aborted_cids:
             return
+        san = self.executor.sanitizer
+        if san is not None:
+            san.hb("barrier.inject", self.scope, cid=checkpoint_id)
         self._snapshot_and_ack(checkpoint_id)
         self.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
 
@@ -373,6 +397,7 @@ class _Subtask:
         executor = self.executor
         throttle = executor.source_throttle_s
         every_n = executor.checkpoint_every_n
+        faults = executor.faults
         try:
             self._open_chain()
             for value in op.iterate():
@@ -386,6 +411,8 @@ class _Subtask:
                     continue  # a heartbeat: barriers served, no record
                 self.output.emit(value)
                 op.record_emitted()
+                if faults is not None:
+                    faults.record_point(self.scope, op.offset)
                 # Count-based barriers: checkpoint k cuts the stream after
                 # this subtask's k*N-th record, a deterministic position.
                 if every_n and op.offset % every_n == 0:
@@ -416,6 +443,9 @@ class _Subtask:
         if checkpoint_id in self._barriers_cut or checkpoint_id in self._aborted_cids:
             return
         self._barriers_cut.add(checkpoint_id)
+        san = self.executor.sanitizer
+        if san is not None:
+            san.hb("barrier.inject", self.scope, cid=checkpoint_id)
         self.operator.on_barrier(checkpoint_id)
         self._snapshot_and_ack(checkpoint_id)
         self.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
@@ -437,6 +467,7 @@ class _Subtask:
         executor = self.executor
         throttle = executor.source_throttle_s
         every_n = executor.checkpoint_every_n
+        faults = executor.faults
         try:
             self._open_chain()
             while not executor.cancelled.is_set():
@@ -453,6 +484,8 @@ class _Subtask:
                 if kind == RECORD:
                     self.output.emit(payload)
                     op.record_emitted()
+                    if faults is not None:
+                        faults.record_point(self.scope, op.offset)
                     # Count-based barriers at per-subtask positions.
                     if every_n and op.offset % every_n == 0:
                         cid = op.offset // every_n
@@ -511,6 +544,8 @@ class _Subtask:
         #: the first one did.
         barrier_seen: typing.Dict[int, typing.Set[int]] = {}
         barrier_t0: typing.Dict[int, float] = {}
+        faults = executor.faults
+        processed = 0
 
         def merge_watermarks() -> None:
             """The head's watermark: the minimum over live channels."""
@@ -551,6 +586,9 @@ class _Subtask:
                     continue
                 idx, element = item
                 if isinstance(element, el.StreamRecord):
+                    processed += 1
+                    if faults is not None:
+                        faults.record_point(self.scope, processed)
                     records_in.mark()
                     op.process_record_from(edge_of_channel[idx], element)
                 elif isinstance(element, el.Watermark):
@@ -620,7 +658,10 @@ class LocalExecutor:
                  wire_flush_ms: typing.Optional[float] = None,
                  shm_channels: bool = True,
                  flow_control: bool = True,
-                 restart_epoch: int = 0):
+                 restart_epoch: int = 0,
+                 faults: typing.Any = None,
+                 sanitize: bool = False,
+                 sanitize_log_path: typing.Optional[str] = None):
         self.graph = graph
         self.mesh = mesh
         self.channel_capacity = channel_capacity
@@ -651,6 +692,23 @@ class LocalExecutor:
         self.flow_control = flow_control if env_fc is None else env_fc
         #: Which attempt of the job this executor runs (0 = the first).
         self.restart_epoch = restart_epoch
+        #: The concurrency sanitizer (``sanitize`` or ``FLINK_TPU_SANITIZE``),
+        #: else None: gates, mailboxes and coordinators then take plain
+        #: ``threading`` primitives.
+        self.sanitizer = (sanitizer_rt.ConcurrencySanitizer(name="executor")
+                          if sanitize or sanitizer_rt.env_enabled() else None)
+        #: Where ``join`` dumps the happens-before log (kept without a
+        #: sanitizer too: a cohort suffixes it per process).
+        self.sanitize_log_path = sanitize_log_path or sanitizer_rt.env_hb_log_path()
+        #: The fault plan's injector for this restart epoch, or None when no
+        #: spec is armed for it (a restarted attempt replays cleanly).
+        plan = FaultPlan.resolve(faults)
+        injector = None
+        if plan is not None and plan.specs:
+            injector = FaultInjector(plan, epoch=restart_epoch, metrics=self.metrics)
+            if not injector.active:
+                injector = None
+        self.faults = injector
         #: Periodic trigger interval (set by the environment before start).
         self.checkpoint_interval_s: typing.Optional[float] = None
         self.cancelled = threading.Event()
@@ -670,6 +728,16 @@ class LocalExecutor:
         self._split_coordinators: typing.Dict[str, SplitCoordinator] = {}
         self._split_lock = threading.Lock()
         self._build()
+        if self.sanitizer is not None:
+            san = self.sanitizer
+            grp = self.metrics.group("sanitizer")
+            grp.gauge("violations", lambda: len(san.violations))
+            grp.gauge("tracked_ops", lambda: san.progress_ops)
+            cohort = self.metrics.group("sanitizer.cohort")
+            cohort.gauge("hb_events", lambda: san.hb_events)
+            cohort.gauge("hb_recorded", lambda: san.hb_recorded)
+            cohort.gauge("hb_dropped", lambda: san.hb_dropped)
+            cohort.gauge("violations", lambda: len(san.violations))
 
     def _build(self) -> None:
         order = self.graph.topological_order()
@@ -721,14 +789,16 @@ class LocalExecutor:
                     continue
                 gate = None
                 if not t.is_source:
-                    gate = InputGate(gate_size[t.id], capacity=self.channel_capacity)
+                    gate = InputGate(gate_size[t.id], capacity=self.channel_capacity,
+                                     sanitizer=self.sanitizer, name=f"{t.name}.{i}.gate")
                     gates[(t.id, i)] = gate
                     self._gates.append(gate)
                 operators = [member.operator_factory() for member in chain]
                 st = _Subtask(self, chain, i, operators, gate, gate_size[t.id],
                               edge_of_channel[t.id])
                 if t.is_source and getattr(operators[0], "is_split_source", False):
-                    st.mailbox = SourceMailbox()
+                    st.mailbox = SourceMailbox(sanitizer=self.sanitizer,
+                                               name=f"{t.name}.{i}.mailbox")
                 subtasks.append(st)
             by_head[t.id] = subtasks
 
@@ -802,6 +872,12 @@ class LocalExecutor:
             ctx.restart_epoch = self.restart_epoch
             ctx.device_resident = self.device_resident
             ctx.wire_dtype = self.wire_dtype
+            # The job-to-job pipe's defaults, read at its open().
+            ctx.wire_flush_bytes = self.wire_flush_bytes
+            ctx.wire_flush_ms = self.wire_flush_ms
+            ctx.flow_control = self.flow_control
+            ctx.sanitizer = self.sanitizer
+            ctx.fault_injector = self.faults
             if st.gate is not None:
                 # A runner's fetch thread wakes the one thread that runs
                 # the whole chain, whichever member it belongs to.
@@ -832,7 +908,8 @@ class LocalExecutor:
                         "cohort but the split enumerator is per-process — run split "
                         "sources on a single process (or use a SourceFunction for "
                         "cohort jobs)")
-                coord = SplitCoordinator(source, t.parallelism)
+                coord = SplitCoordinator(source, t.parallelism, sanitizer=self.sanitizer,
+                                         name=t.name)
                 self._split_coordinators[t.name] = coord
             return coord
 
@@ -961,6 +1038,24 @@ class LocalExecutor:
                                    st.scope, exc_info=True)
         if self._error is not None:
             raise JobFailure(f"job failed: {self._error!r}") from self._error
+        if self.sanitizer is not None:
+            # The job drained: a recorded violation is a real protocol or
+            # lock-discipline bug.  A clean log is dumped too: zero
+            # violations is what the stitcher proves.
+            self.sanitizer.shutdown()
+            try:
+                self.sanitizer.check()
+            except sanitizer_rt.SanitizerError:
+                self.sanitizer_log_dump("violation")
+                raise
+            self.sanitizer_log_dump("shutdown")
+
+    def sanitizer_log_dump(self, reason: str) -> typing.Optional[str]:
+        """Dump the happens-before log to ``sanitize_log_path`` (no-op
+        without a sanitizer or a path); idempotent per reason."""
+        if self.sanitizer is None or not self.sanitize_log_path:
+            return None
+        return self.sanitizer.dump_hb_log(self.sanitize_log_path, reason)
 
     def fail(self, subtask: _Subtask, exc: BaseException) -> None:
         with self._error_lock:

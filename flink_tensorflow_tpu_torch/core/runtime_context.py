@@ -13,8 +13,13 @@ operators use to check their placement; ``restart_epoch``, which attempt of the 
 ``wakeup``, which breaks the subtask loop's
 wait when a model runner's results land (the chain head's gate, shared by
 every member of a worker chain; None for source chains and bare
-operators); ``device_resident``, the job's residency mode; and
-``wire_dtype``, the job's H2D wire dtype (None: full width).
+operators); ``device_resident``, the job's residency mode;
+``wire_dtype``, the job's H2D wire dtype (None: full width);
+``wire_flush_bytes``, ``wire_flush_ms`` and ``flow_control``, the
+defaults ``io.remote.RemoteSink`` takes at ``open()``; and
+``sanitizer`` and ``fault_injector``, the job's concurrency sanitizer
+and fault injector (None when off), which the pipe logs to and takes its
+edge fault hook from.
 """
 
 from __future__ import annotations
@@ -52,6 +57,11 @@ class RuntimeContext:
         #: ``FLINK_TPU_WIRE_DTYPE``): model functions without their own
         #: ``wire_dtype`` take it at ``open()``.
         self.wire_dtype: typing.Optional[str] = None
+        self.wire_flush_bytes: typing.Optional[int] = None
+        self.wire_flush_ms: typing.Optional[float] = None
+        self.flow_control = True
+        self.sanitizer: typing.Any = None
+        self.fault_injector: typing.Any = None
 
     def state(self, descriptor: StateDescriptor) -> ValueState:
         return self._keyed_state.value_state(descriptor)

@@ -37,6 +37,20 @@ port's host-side record traffic:
 - **Restart-epoch fence** — the handshake carries the sender's cohort
   restart epoch; a server of a newer epoch drops every frame of an older
   sender (a zombie of a failed attempt) and counts it.
+- **Reconnect** — each channel numbers its frames.  A writer whose
+  transport fails reconnects, and its handshake carries the number of
+  frames its earlier transports wrote whole; it then resends, in order,
+  every frame the dead transport took but never wrote whole (a reactor
+  connection's send queue, a frame cut mid-write) and the frame in
+  flight.  The receiver treats a data connection that ends without
+  end-of-partition (an EOF, a truncated frame, a reset) as a candidate for
+  that reconnect: it delivers the whole frames it holds, drops a cut one
+  uncounted, and waits ``RECONNECT_GRACE_S`` for a new connection of the
+  same channel.  The new one delivers only once the old one's backlog is
+  in the gate (so the channel stays FIFO), and only if it resumes at
+  exactly the frame after the last one received: a gap or a repeat fails
+  the job, as does a grace that runs out.  The reference fails the job at
+  once, so a severed edge there can only be recovered by a restart.
 
 Framing: ``[u32 pickle_len][u16 nbuf][pickle][per buffer: u64 len +
 bytes]``, pickle protocol 5 with out-of-band buffers, so numpy payloads
@@ -46,9 +60,18 @@ receiver rebuilds it as a CPU tensor and never touches a device (the
 reference's receiver ``device_put``\\ s it on its default device; a port
 process that owns no card must not create a CUDA context for a record).
 
-Left out until their slices (``ROADMAP.md`` items 3 and 4): the writer's
-tracer spans and per-frame fault hook, and the sanitizer's
-happens-before hooks on both ends.
+The chaos and sanitizer planes: a writer's ``fault_hook``
+(``core/faults.py:FaultInjector.edge_hook``, JAX ``:940-963``, ``:1315``)
+runs before each frame and severs, blackholes or delays it, and the
+reconnect and the epoch fence carry the records through.  With a
+``sanitizer`` both ends log their half of every interaction to its
+happens-before ring (JAX ``:394-400``, ``:448-641``, ``:998``,
+``:1081-1105``, ``:1344-1350``, ``:1411-1510``): the handshake's epoch,
+each frame sent, received and delivered with its barrier ids, credit
+grants, spends and parks, and a full gate's stall and resume, under one
+edge name and a connection id the sender mints per transport, so
+``core/sanitizer_stitch.py`` pairs both ends.  Left out until the port
+has a tracer: the writer's tracer spans.
 """
 
 from __future__ import annotations
@@ -56,6 +79,7 @@ from __future__ import annotations
 import collections
 import copyreg
 import io
+import itertools
 import logging
 import os
 import pickle
@@ -109,11 +133,36 @@ CREDIT_GRANT = "__credit__"
 #: overdraw the credit window by (the control element itself spends none).
 CREDIT_OVERFLOW_FRAMES = 4
 
+#: Seconds a receiver waits for a writer's reconnect after a connection
+#: ends between frames without end-of-partition.  A live writer's first
+#: retry comes after 50 ms; a lost process's peers fail this much later.
+RECONNECT_GRACE_S = 2.0
+
+#: Socket errors that end a data connection the way a cut wire does (a
+#: handler's or a handshake's error fails the job at once).
+_TRANSPORT_LOSS = (ConnectionResetError, ConnectionAbortedError, BrokenPipeError, TimeoutError)
+
+
+class _WrittenFrameError(ConnectionError):
+    """The transport failed after the frame in flight was written whole
+    (into the shm ring): a reconnect must not send it again."""
+
 
 def credit_window(channel_capacity: int) -> int:
     """Per-edge credit window in frames, from the receiving gate's
     capacity in elements."""
     return max(2, min(32, channel_capacity // 32))
+
+
+_conn_seq = itertools.count(1)
+
+
+def _new_conn_id() -> str:
+    """A record-plane connection id unique in the cohort (pid and a
+    process-local counter), sent in the handshake when the sanitizer is on
+    so both ends' logs name the same connection.  A reconnect mints a new
+    one: a resent frame opens a new sequence space."""
+    return f"{os.getpid()}:{next(_conn_seq)}"
 
 
 def env_flush_bytes() -> typing.Optional[int]:
@@ -295,6 +344,12 @@ class _ServerRoute:
     def __init__(self, server: "ShuffleServer", sock: socket.socket):
         self.server = server
         self.route = "<handshake>"
+        #: The edge name the sender logs too (``route`` gains [shm] and
+        #: stale-epoch marks), and the sender's connection id.
+        self.edge = self.route
+        self._san = server.sanitizer
+        self._hb_conn = ""
+        self._hb_stalled = False
         self.task: typing.Optional[str] = None
         self.subtask_index = -1
         self.channel_idx = -1
@@ -314,6 +369,19 @@ class _ServerRoute:
         self.saw_eop = False
         self.eof_clean: typing.Optional[bool] = None
         self.done = False
+        #: The route of the same channel this one replaces (a writer's
+        #: reconnect), which must deliver its backlog first, and the one
+        #: that replaced this route.
+        self._predecessor: typing.Optional["_ServerRoute"] = None
+        self._successor: typing.Optional["_ServerRoute"] = None
+        #: Ended without end-of-partition, waiting for the reconnect.
+        self._orphaned = False
+        self._failed = False
+        self._ended_how = "disconnected"
+        #: The channel's number of this route's first frame (the writer's
+        #: handshake), and the whole frames received since.
+        self.base_seq = 0
+        self.frames = 0
         self._records = self._bytes = None
         self._gate_paused = None
         self.conn = Connection(server.reactor, sock, parser=ShuffleFrameParser(),
@@ -328,6 +396,8 @@ class _ServerRoute:
             return self._handshake(obj)
         if self.stale:
             self.server.count_stale_frame()
+            if self._san is not None:
+                self._san.hb("frame.stale_drop", self.edge, self._hb_conn)
             return True
         if self.is_control:
             if self.server.on_control is not None:
@@ -335,6 +405,7 @@ class _ServerRoute:
             return True
         if obj == RING_NOTIFY:
             return self._drain()
+        self.frames += 1
         self._count_credit(obj)
         self._ingest(obj, nbytes)
         return self._drain()
@@ -349,8 +420,15 @@ class _ServerRoute:
     def _handshake(self, hello) -> bool:
         self.task, self.subtask_index, self.channel_idx = hello[0], hello[1], hello[2]
         self.route = f"{self.task}.{self.subtask_index}[ch{self.channel_idx}]"
+        self.edge = self.route
         opts = hello[3] if len(hello) > 3 and isinstance(hello[3], dict) else {}
         peer_epoch = opts.get("epoch", 0)
+        self.base_seq = int(opts.get("seq", 0))
+        if self._san is not None and self.task != ShuffleServer.CONTROL_TASK:
+            self._hb_conn = str(opts.get("conn", ""))
+            self._san.hb("epoch.handshake", self.edge, self._hb_conn, role="recv",
+                         epoch=peer_epoch, server_epoch=self.server.epoch,
+                         stale=peer_epoch < self.server.epoch)
         if peer_epoch < self.server.epoch:
             # A zombie of an earlier attempt: the connection stays open (a
             # raise would read as this process's failure) but nothing it
@@ -370,6 +448,21 @@ class _ServerRoute:
             raise ConnectionError(f"no local gate for route {self.route} — placement mismatch "
                                   "(peers must build the identical job graph)")
         self.gate = gate
+        key = (self.task, self.subtask_index, self.channel_idx)
+        prev = self.server._by_channel.get(key)
+        self.server._by_channel[key] = self
+        if prev is not None and not prev.saw_eop:
+            # The writer reconnected: this route delivers once the old one
+            # has put its backlog into the gate (and _drain checks that the
+            # frame numbers join).
+            self._predecessor = prev
+            prev._successor = self
+            if prev._orphaned:
+                prev._orphaned = False
+                logger.info("edge %s reconnected at frame %d", self.route, self.base_seq)
+        elif prev is None and self.base_seq:
+            raise ConnectionError(f"edge {self.route} connected at frame {self.base_seq}, but "
+                                  "none of its earlier frames arrived")
         reactor = self.server.reactor
         gate.add_space_listener(lambda: reactor.submit(self._kick))
         if "shm" in opts:
@@ -409,22 +502,60 @@ class _ServerRoute:
             if n:
                 self._records.inc(n)
                 self._bytes.inc(nbytes)
+        if self._san is not None:
+            barriers = [e.checkpoint_id for e in elements
+                        if isinstance(e, el.CheckpointBarrier)]
+            args: typing.Dict[str, typing.Any] = {"nbytes": nbytes}
+            if barriers:
+                args["barriers"] = barriers
+            self._san.hb("frame.recv", self.edge, self._hb_conn, **args)
         self.pending.extend(elements)
 
     def _drain(self) -> bool:
         """Deliver the backlog (and in shm mode the ring) into the gate;
-        False when stalled on a full gate (the connection pauses)."""
+        False when stalled on a full gate or behind the route this one
+        replaces (the connection pauses)."""
+        pred = self._predecessor
+        if pred is not None:
+            if not pred.done or pred._failed:
+                return False  # a failed predecessor has failed the job
+            self._predecessor = None
+            expected = pred.base_seq + pred.frames
+            if self.base_seq != expected:
+                self._fail(ConnectionError(
+                    f"edge {self.route} reconnected at frame {self.base_seq}, but frame "
+                    f"{expected} is the next one received: "
+                    f"{'frames were lost' if self.base_seq > expected else 'frames would repeat'}"))
+                return False
         while True:
             while self.pending:
                 batch = list(self.pending)
-                taken = self.gate.try_put_batch(self.channel_idx, batch)
+                san = self._san
+                on_put = None
+                if san is not None:
+                    def on_put(n, batch=batch):
+                        # Records reached the gate (logged under its lock):
+                        # the event the epoch-fence and blocked-channel
+                        # checks key on.
+                        san.hb("frame.deliver", self.edge, self._hb_conn,
+                               gate=self.gate._san_name, ch=self.channel_idx, n=n,
+                               data=any(type(e) is el.StreamRecord for e in batch[:n]))
+                taken = self.gate.try_put_batch(self.channel_idx, batch, on_put)
                 for element in batch[:taken]:
                     self.pending.popleft()
                     if type(element) is el.EndOfPartition:
                         self.saw_eop = True
+                if san is not None and taken:
+                    if self._hb_stalled:
+                        self._hb_stalled = False
+                        san.hb("gate.resume", self.edge, self._hb_conn)
                 if taken < len(batch):
                     if self._gate_paused is not None:
                         self._gate_paused.inc()
+                    if san is not None and not self._hb_stalled:
+                        # The receiver's half of the deadlock check.
+                        self._hb_stalled = True
+                        san.hb("gate.full", self.edge, self._hb_conn)
                     return False
             if self.ring is None:
                 self._maybe_grant()
@@ -442,6 +573,7 @@ class _ServerRoute:
             for obj, nbytes in self._ring_parser.feed(frame):
                 if obj == RING_NOTIFY:
                     continue
+                self.frames += 1
                 self._count_credit(obj)
                 self._ingest(obj, nbytes)
 
@@ -456,6 +588,8 @@ class _ServerRoute:
             self.conn.send(parts, block=False)
         if self._credit_grants is not None:
             self._credit_grants.inc(n)
+        if self._san is not None:
+            self._san.hb("credit.grant", self.edge, self._hb_conn, n=n)
 
     def _maybe_grant(self) -> None:
         """Replenish the frames whose elements all reached the gate, but
@@ -508,13 +642,18 @@ class _ServerRoute:
         if self.stale:
             self.done = True
             return
-        if not clean:
-            self._fail(ConnectionError(f"peer for {self.route} closed mid-frame "
-                                       "(stream truncated)"))
-            return
         if self.is_control or self.gate is None:
+            if not clean:
+                self._fail(ConnectionError(f"peer for {self.route} closed mid-frame "
+                                           "(stream truncated)"))
             self.done = True
             return
+        # A data route: a frame cut by the end was never counted, and the
+        # writer's reconnect resends it whole.
+        self._transport_ended("disconnected" if clean else "closed mid-frame (stream truncated)")
+
+    def _transport_ended(self, how: str) -> None:
+        self._ended_how = how
         if self._drain():
             self._finish()
         # else: the gate's space listener completes the backlog.
@@ -531,13 +670,40 @@ class _ServerRoute:
                 return
             self.ring.close(unlink=True)
         if not self.saw_eop and not self.server._stop.is_set():
-            self._fail(ConnectionError(f"peer for {self.route} disconnected before "
-                                       "EndOfPartition (upstream process lost)"), force=True)
+            if self._successor is not None:
+                self._successor_kick()
+                return
+            # Delivered everything it had: wait for the writer's reconnect.
+            self._orphaned = True
+            reactor = self.server.reactor
+            FlushScheduler.shared().schedule(time.monotonic() + RECONNECT_GRACE_S,
+                                             lambda: reactor.submit(self._orphan_expired))
+
+    def _successor_kick(self) -> None:
+        succ = self._successor
+        if succ is not None and not succ.done:
+            succ._kick()
+
+    def _orphan_expired(self) -> None:
+        """The reconnect grace ran out (reactor thread)."""
+        if not self._orphaned or self.server._stop.is_set():
+            return
+        self._orphaned = False
+        self._fail(ConnectionError(f"peer for {self.route} {self._ended_how} before "
+                                   "EndOfPartition and did not reconnect within "
+                                   f"{RECONNECT_GRACE_S} s (upstream process lost)"), force=True)
 
     def _on_io_error(self, exc: BaseException) -> None:
         if self.stale:
             self.done = True
             self.conn.close()
+            return
+        if (self.gate is not None and not self.done and not self._failed
+                and isinstance(exc, _TRANSPORT_LOSS)):
+            # A reset data connection ended as a truncated one does: the
+            # frame numbers decide whether a reconnect can take over.
+            self.eof_clean = False
+            self._transport_ended(f"failed ({exc!r})")
             return
         self._fail(exc)
 
@@ -545,6 +711,7 @@ class _ServerRoute:
         if self.done and not force:
             return
         self.done = True
+        self._failed = True
         if self.ring is not None:
             self.server.reactor.remove_poller(self._ring_poll)
             self.ring.close(unlink=True)
@@ -582,9 +749,12 @@ class ShuffleServer:
                  on_control: typing.Optional[typing.Callable[[int, typing.Any], None]] = None,
                  metrics: typing.Optional[typing.Any] = None,
                  reactor: typing.Optional[Reactor] = None,
-                 epoch: int = 0):
+                 epoch: int = 0,
+                 sanitizer: typing.Optional[typing.Any] = None):
         #: Senders whose handshake carries an older epoch are fenced.
         self.epoch = epoch
+        #: Routes log their happens-before events here (set before start).
+        self.sanitizer = sanitizer
         self._stale_frames = None
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -604,6 +774,9 @@ class ShuffleServer:
         self._own_reactor = reactor is None
         self._gates: typing.Dict[typing.Tuple[str, int], "InputGate"] = {}
         self._routes: typing.List[_ServerRoute] = []
+        #: The newest route of each (task, subtask, channel): a reconnect
+        #: finds the route it replaces here (reactor thread only).
+        self._by_channel: typing.Dict[typing.Tuple[str, int, int], _ServerRoute] = {}
         self._lock = threading.Lock()
         self._stop = threading.Event()
 
@@ -695,10 +868,11 @@ class RemoteChannelWriter:
     lane (a reactor, or the ring); a blocking writer stays credit-free.
 
     A transport error retries connect and handshake with backoff for
-    ``reconnect_timeout_s`` and resends the frame in flight (frames are
-    encoded whole before any byte leaves, so a break between frames loses
-    nothing; a break inside one truncates the receiver's parser, which
-    fails the peer loudly)."""
+    ``reconnect_timeout_s``.  The handshake carries the count of frames
+    the earlier transports wrote whole, and the writer resends, in order,
+    the frames the dead one never wrote whole and the frame in flight;
+    the receiver takes the new connection only if it resumes at exactly
+    the frame after the last one it received."""
 
     def __init__(self, host: str, port: int, task: str, subtask_index: int,
                  channel_idx: int, *, connect_timeout_s: float = 60.0,
@@ -712,7 +886,9 @@ class RemoteChannelWriter:
                  shm_ring_bytes: int = 8 << 20,
                  epoch: int = 0,
                  reconnect_timeout_s: float = 5.0,
-                 flow_control: bool = False):
+                 flow_control: bool = False,
+                 fault_hook: typing.Optional[typing.Callable[[], typing.Optional[str]]] = None,
+                 sanitizer: typing.Optional[typing.Any] = None):
         self.host = host
         self.port = port
         self.task = task
@@ -722,12 +898,29 @@ class RemoteChannelWriter:
         self.epoch = epoch
         self.reconnect_timeout_s = reconnect_timeout_s
         self.flow_control = flow_control
+        #: The chaos plane's per-frame hook: "drop" blackholes the frame,
+        #: a raise severs the transport, a sleep delays it.
+        self._fault_hook = fault_hook
+        #: Happens-before log of the send half, under the receiver's edge
+        #: name and a per-transport connection id.
+        self._san = sanitizer
+        self._edge = f"{task}.{subtask_index}[ch{channel_idx}]"
+        self._hb_conn = ""
         self._fc_cv = threading.Condition()
         self._fc_credits = 0        # TCP grants available (may overdraw)
         self._fc_ring_spent = 0     # frames spent against the ring's grant cell
         self._fc_gen = 0            # transport generation: fences stale grants
         self._fc_active = False     # this transport negotiated credits
         self._fc_starved_s = 0.0    # seconds parked at zero credit
+        #: Frames the channel's transports have written whole (or taken,
+        #: for the reactor connection's queue), over the writer's life.
+        self._seq = 0
+        #: Frames queued on the reactor connection, oldest first, with the
+        #: connection's byte offset at their end: those past its
+        #: ``bytes_sent`` when it dies are resent.  A frame is (parts,
+        #: credit class, payload bytes, barrier ids).
+        self._unsent: typing.Deque[typing.Tuple[int, tuple]] = collections.deque()
+        self._queued_bytes = 0
         env_b, env_ms = env_flush_bytes(), env_flush_ms()
         self.flush_bytes = (env_b if env_b is not None
                             else flush_bytes if flush_bytes is not None else DEFAULT_FLUSH_BYTES)
@@ -784,7 +977,10 @@ class RemoteChannelWriter:
         self._sock = connect_with_retry(
             self.host, self.port, self.connect_timeout_s if timeout_s is None else timeout_s,
             aborted=lambda: self._closed)
-        opts: typing.Dict[str, typing.Any] = {"epoch": self.epoch}
+        opts: typing.Dict[str, typing.Any] = {"epoch": self.epoch, "seq": self._seq}
+        if self._san is not None:
+            self._hb_conn = _new_conn_id()
+            opts["conn"] = self._hb_conn
         if self.shm:
             path = os.path.join(
                 shm_dir(),
@@ -796,6 +992,9 @@ class RemoteChannelWriter:
         if fc:
             opts["fc"] = True
         _send_obj(self._sock, (self.task, self.subtask_index, self.channel_idx, opts))
+        if self._san is not None:
+            self._san.hb("epoch.handshake", self._edge, self._hb_conn, role="send",
+                         epoch=self.epoch, fc=bool(fc))
         with self._fc_cv:
             # A new transport generation: credits restart at zero and wait
             # for the new route's grant; grants of an older generation are
@@ -816,6 +1015,7 @@ class RemoteChannelWriter:
                     on_error=lambda exc: self._fc_wake())
             else:
                 self._conn = Connection(self._reactor, self._sock)
+            self._queued_bytes = 0
             self._reactor.add_connection(self._conn)
 
     # -- write path ----------------------------------------------------------------
@@ -899,7 +1099,8 @@ class RemoteChannelWriter:
         n = len(buf)
         obj: typing.Any = buf[0] if n == 1 else self._coalesce(buf)
         parts, payload_bytes = encode_obj_frame(obj)
-        self._send_parts(parts, fc="align" if reason in ("barrier", "close") else "data")
+        self._send_parts(parts, payload_bytes,
+                         fc="align" if reason in ("barrier", "close") else "data")
         if self._records is not None:
             self._records.inc(n)
             self._bytes.inc(payload_bytes)
@@ -924,27 +1125,53 @@ class RemoteChannelWriter:
         parts, payload_bytes = encode_obj_frame(element)
         # A lone control element bypasses credit: a zero-credit edge must
         # still align and end.
-        self._send_parts(parts, fc="bypass")
+        self._send_parts(parts, payload_bytes, fc="bypass",
+                         barriers=([element.checkpoint_id]
+                                   if isinstance(element, el.CheckpointBarrier) else None))
         if self._records is not None and isinstance(element, el.StreamRecord):
             self._records.inc()
             self._bytes.inc(payload_bytes)
 
-    def _send_parts(self, parts, fc: str = "data") -> None:
+    def _send_parts(self, parts, payload_bytes: int, fc: str = "data",
+                    barriers: typing.Optional[typing.List[int]] = None) -> None:
+        frame = (parts, fc, payload_bytes, barriers)
         try:
+            if self._fault_hook is not None and self._fault_hook() == "drop":
+                return  # an injected blackhole: the frame vanishes
             if self._sock is None:
                 self._connect()
+            # Spent after the drop hook: a dropped frame never reaches the
+            # receiver, which could never replenish its credit.
             self._fc_acquire(fc)
-            self._transmit(parts)
-        except (OSError, ConnectionError):
+            self._transmit(frame)
+        except (OSError, ConnectionError) as exc:
             # Drop the dead transport, so a later write reconnects.
-            self._teardown_transport()
+            unsent = self._teardown_transport()
             if self._closed:
                 return
-            if self._reconnect_and_resend(parts):
-                return
+            if unsent is not None:
+                if isinstance(exc, _WrittenFrameError):
+                    self._hb_frame_sent(frame)
+                elif not any(f is frame for f in unsent):
+                    unsent.append(frame)
+                if self._reconnect_and_resend(unsent):
+                    return
             raise  # peer loss is this subtask's failure, hence the job's
+        self._hb_frame_sent(frame)
 
-    def _transmit(self, parts) -> None:
+    def _hb_frame_sent(self, frame: tuple) -> None:
+        """Logged only once a frame hit the transport: a dropped frame books
+        neither a send nor a credit, so the ledgers balance under faults."""
+        if self._san is None:
+            return
+        _, fc, payload_bytes, barriers = frame
+        args: typing.Dict[str, typing.Any] = {"fc": fc, "nbytes": payload_bytes}
+        if barriers:
+            args["barriers"] = barriers
+        self._san.hb("frame.send", self._edge, self._hb_conn, **args)
+
+    def _transmit(self, frame: tuple) -> None:
+        parts = frame[0]
         if self._ring is not None:
             total = sum(p.nbytes if isinstance(p, memoryview) else len(p) for p in parts)
             while not self._ring.try_write_parts(parts, total):
@@ -952,14 +1179,33 @@ class RemoteChannelWriter:
                 if self._closed:
                     return
                 time.sleep(0.0001)
+            # In the ring the frame is whole: the receiver drains the ring
+            # even after the socket ends.
+            self._seq += 1
             # Ring the socket only for a parked consumer.
             if self._ring.consumer_parked():
                 self._ring.set_consumer_parked(False)
-                self._sock.sendall(_ring_notify_wire())
+                try:
+                    self._sock.sendall(_ring_notify_wire())
+                except OSError as exc:
+                    raise _WrittenFrameError(f"edge {self._edge}: doorbell lost") from exc
         elif self._conn is not None:
-            self._conn.send(parts)
+            conn = self._conn
+            if conn.closed:
+                # The receiver ended the connection (a send would drop the
+                # frame silently).
+                raise ConnectionError(f"edge {self._edge}: the connection was closed")
+            self._queued_bytes += sum(p.nbytes if isinstance(p, memoryview) else len(p)
+                                      for p in parts)
+            self._unsent.append((self._queued_bytes, frame))
+            self._seq += 1
+            conn.send(parts)
+            sent = conn.bytes_sent
+            while self._unsent and self._unsent[0][0] <= sent:
+                self._unsent.popleft()
         else:
             _sendall_parts(self._sock, parts)
+            self._seq += 1
 
     # -- flow control --------------------------------------------------------------
     def _fc_available(self) -> bool:
@@ -989,6 +1235,9 @@ class RemoteChannelWriter:
             with self._fc_cv:
                 if gen == self._fc_gen:
                     self._fc_credits += int(obj[1])
+                    if self._san is not None:
+                        self._san.hb("credit.recv_grant", self._edge, self._hb_conn, gen=gen,
+                                     n=int(obj[1]), balance=self._fc_credits)
                     self._fc_cv.notify_all()
         return True
 
@@ -1009,21 +1258,37 @@ class RemoteChannelWriter:
             self._fc_acquire_ring(floor)
             return
         t0 = None
+        san = self._san
         with self._fc_cv:
             gen = self._fc_gen
             while (self._fc_credits <= floor and not self._closed and self._fc_gen == gen
                    and self._conn is not None and not self._conn.closed):
                 if t0 is None:
                     t0 = time.monotonic()
+                    if san is not None:
+                        # The sender's half of the deadlock check.
+                        san.hb("credit.park", self._edge, self._hb_conn, gen=gen, floor=floor)
                 self._fc_cv.wait(0.05)
             if t0 is not None:
-                self._fc_starved_s += time.monotonic() - t0
+                waited = time.monotonic() - t0
+                self._fc_starved_s += waited
+                if san is not None:
+                    san.hb("credit.unpark", self._edge, self._hb_conn, gen=gen,
+                           waited_s=waited)
             self._fc_credits -= 1
+            if san is not None:
+                # Each ledger row carries its own invariant (balance after
+                # the spend against the floor), so it survives truncation.
+                san.hb("credit.spend", self._edge, self._hb_conn, gen=self._fc_gen,
+                       balance=self._fc_credits, floor=floor)
 
     def _fc_acquire_ring(self, floor: int) -> None:
         """Ring-mode spend: our cumulative spends against the consumer's
         cumulative grants (both monotonic, the ring cursors' SPSC rule)."""
         t0 = None
+        san = self._san
+        spent = False
+        granted = 0
         while not self._closed:
             ring = self._ring
             if ring is None:
@@ -1034,17 +1299,30 @@ class RemoteChannelWriter:
                 break
             if self._fc_ring_spent < granted - floor:
                 self._fc_ring_spent += 1
+                spent = True
                 break
             if t0 is None:
                 t0 = time.monotonic()
+                if san is not None:
+                    san.hb("credit.park", self._edge, self._hb_conn, gen=self._fc_gen,
+                           floor=floor)
             time.sleep(0.0005)
         if t0 is not None:
-            self._fc_starved_s += time.monotonic() - t0
+            waited = time.monotonic() - t0
+            self._fc_starved_s += waited
+            if san is not None:
+                san.hb("credit.unpark", self._edge, self._hb_conn, gen=self._fc_gen,
+                       waited_s=waited)
+        if san is not None and spent:
+            # The ring's grant cell is the grant counter: balance is grants
+            # less spends.
+            san.hb("credit.spend", self._edge, self._hb_conn, gen=self._fc_gen,
+                   balance=granted - self._fc_ring_spent, floor=floor)
 
-    def _reconnect_and_resend(self, parts) -> bool:
-        """Reconnect with backoff and resend the frame in flight; True on
-        success.  A restarted peer fences this writer by epoch if the
-        cohort moved on."""
+    def _reconnect_and_resend(self, frames: typing.List[tuple]) -> bool:
+        """Reconnect with backoff and resend ``frames`` in order, each
+        spending its credit anew; True on success.  A restarted peer fences
+        this writer by epoch if the cohort moved on."""
         budget = self.reconnect_timeout_s
         if budget <= 0:
             return False
@@ -1055,22 +1333,38 @@ class RemoteChannelWriter:
             attempt += 1
             time.sleep(min(backoff, max(0.0, deadline - time.monotonic())))
             backoff = min(backoff * 2.0, 1.0)
+            done = 0
             try:
                 self._connect(timeout_s=max(0.05, deadline - time.monotonic()))
-                self._transmit(parts)
-            except (OSError, ConnectionError, TimeoutError):
-                self._teardown_transport()
+                for frame in frames:
+                    self._fc_acquire(frame[1])
+                    self._transmit(frame)
+                    self._hb_frame_sent(frame)
+                    done += 1
+            except (OSError, ConnectionError, TimeoutError) as exc:
+                if isinstance(exc, _WrittenFrameError):
+                    self._hb_frame_sent(frames[done])
+                    done += 1
+                unsent = self._teardown_transport()
+                if unsent is None:
+                    return False
+                queued = {id(f) for f in unsent}
+                frames = unsent + [f for f in frames[done:] if id(f) not in queued]
                 continue
             if self._reconnects is not None:
                 self._reconnects.inc()
                 self._edge_reconnects.mark()
             logger.warning("edge to %s.%d[ch%d] at %s:%d re-established after %d attempt(s); "
-                           "in-flight frame resent", self.task, self.subtask_index,
-                           self.channel_idx, self.host, self.port, attempt)
+                           "%d frame(s) resent from frame %d", self.task, self.subtask_index,
+                           self.channel_idx, self.host, self.port, attempt, len(frames),
+                           self._seq - len(frames))
             return True
         return False
 
-    def _teardown_transport(self) -> None:
+    def _teardown_transport(self) -> typing.Optional[typing.List[tuple]]:
+        """Drop the transport; returns the frames the reactor connection
+        took but never wrote whole, oldest first (the frame count steps
+        back over them), or None if it would not stop writing in time."""
         with self._fc_cv:
             # Retire the generation: stale grants become no-ops, a parked
             # sender wakes to see the dead connection.
@@ -1078,9 +1372,17 @@ class RemoteChannelWriter:
             self._fc_active = False
             self._fc_credits = 0
             self._fc_cv.notify_all()
+        unsent: typing.Optional[typing.List[tuple]] = []
         if self._conn is not None:
-            self._conn.close()
-            self._conn = None
+            conn, self._conn = self._conn, None
+            conn.close()
+            if conn.wait_closed(5.0):
+                sent = conn.bytes_sent
+                unsent = [frame for end, frame in self._unsent if end > sent]
+                self._seq -= len(unsent)
+            else:
+                unsent = None
+            self._unsent.clear()
         if self._ring is not None:
             self._ring.close(unlink=True)
             self._ring = None
@@ -1090,6 +1392,7 @@ class RemoteChannelWriter:
             except OSError:
                 pass
             self._sock = None
+        return unsent
 
     def close(self) -> None:
         self._closed = True
@@ -1101,6 +1404,7 @@ class RemoteChannelWriter:
         try:
             self._buf = []
             self._buf_bytes = 0
+            self._unsent.clear()
         finally:
             if acquired:
                 self._lock.release()

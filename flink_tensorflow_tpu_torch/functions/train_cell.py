@@ -66,7 +66,7 @@ of the reference's ``tests/_distributed_worker.py:193-232``): ``key_by(user)
 cohort.  One such process: ``python3 -m
 flink_tensorflow_tpu_torch.functions.train_cell --widedeep --rank R --world
 N --plane-ports P0,...,PN-1 --out DIR --checkpoint-root CHK [--par K]
-[--restore-id I] [--throttle S] [--device cpu]``.
+[--restore-id I] [--throttle S]``.
 """
 
 from __future__ import annotations
@@ -82,6 +82,7 @@ import numpy as np
 from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.core.distributed import DistributedConfig
 from flink_tensorflow_tpu_torch.core.environment import RestartStrategy, StreamExecutionEnvironment
+from flink_tensorflow_tpu_torch.core.faults import fired_counts
 from flink_tensorflow_tpu_torch.functions.training_function import (
     DPTrainWindowFunction,
     OnlineTrainFunction,
@@ -106,6 +107,13 @@ STEPS_PER_DISPATCH = 16
 WIDEDEEP_LR = 1e-2
 #: Events between the widedeep-online cell's count-based checkpoints.
 WIDEDEEP_EVERY_N_RECORDS = 1024
+#: The cohort keys a user as ``user * WIDEDEEP_KEY_STRIDE``.  A small
+#: integer key is its own key group, and key groups are split into
+#: contiguous ranges, so keyed by the user alone all 16 users fall to
+#: subtask 0 at any keyed parallelism up to 8 (as in the reference) and no
+#: training event crosses to another process; the stride spreads them
+#: (users 8-15 to subtask 1 at parallelism 2).
+WIDEDEEP_KEY_STRIDE = 8
 #: The exit code of a supervised rank told to fail (``--fail-at-step``).
 FAIL_EXIT_CODE = 17
 #: Steps between a supervised rank's count-based checkpoints.
@@ -402,7 +410,8 @@ def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[Distributed
                         out: str, checkpoint_root: typing.Optional[str] = None,
                         every_n_records: int = WIDEDEEP_EVERY_N_RECORDS, parallelism: int = 2,
                         restore_id: typing.Optional[int] = None, throttle_s: float = 0.0,
-                        device_provider=None, timeout: float = 600.0) -> float:
+                        device_provider=None, timeout: float = 600.0,
+                        report: typing.Optional[dict] = None) -> float:
     """The widedeep-online cell keyed over a cohort (``dist``; None: one
     process at the same keyed parallelism, the reference run):
     ``from_collection`` (on process 0) ``-> key_by(user) ->
@@ -410,7 +419,10 @@ def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[Distributed
     steps_per_dispatch=16)`` at ``parallelism`` ``-> ExactlyOnceRecordFileSink(out)``
     (on process 0), with count-based checkpoints every ``every_n_records``
     events.  Each key trains its own model in keyed state, so its steps
-    depend on its own events only.  Returns the job's seconds."""
+    depend on its own events only.  The key is ``user *
+    WIDEDEEP_KEY_STRIDE``, so the keyed edge crosses processes.  Returns the
+    job's seconds; ``report``, when given, receives the job's metric
+    report."""
     from flink_tensorflow_tpu_torch.io.files import ExactlyOnceRecordFileSink
 
     env = StreamExecutionEnvironment(parallelism=1)
@@ -422,7 +434,7 @@ def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[Distributed
     if checkpoint_root is not None:
         env.enable_checkpointing(checkpoint_root, every_n_records=every_n_records)
     (env.from_collection(records, parallelism=1)
-     .key_by(lambda r: r.meta["user"])
+     .key_by(lambda r: r.meta["user"] * WIDEDEEP_KEY_STRIDE)
      .process(OnlineTrainFunction(mdef, adam(WIDEDEEP_LR), train_schema=schema, scope="key",
                                   mini_batch=MINI_BATCH, steps_per_dispatch=STEPS_PER_DISPATCH),
               name="keyed_train", parallelism=parallelism)
@@ -431,7 +443,10 @@ def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[Distributed
                                                  restore_checkpoint_id=restore_id)
     t0 = time.monotonic()
     env.execute("widedeep-cohort", timeout=timeout, **restore)
-    return time.monotonic() - t0
+    seconds = time.monotonic() - t0
+    if report is not None:
+        report.update(env.metric_registry.report())
+    return seconds
 
 
 def rate(arrivals: typing.Sequence[float], per_item: float = 1.0) -> float:
@@ -516,7 +531,11 @@ def widedeep_rank(rank: int, world: int, plane_ports: typing.Sequence[int], out:
                   every_n_records: int = WIDEDEEP_EVERY_N_RECORDS,
                   restore_id: typing.Optional[int] = None, throttle_s: float = 0.0) -> None:
     """One process of the widedeep-online cell keyed over ``world``
-    processes (:func:`run_widedeep_cohort`), its model subtasks on the card."""
+    processes (:func:`run_widedeep_cohort`), its model subtasks on the card.
+    Writes ``seconds-<rank>.json`` under ``checkpoint_root``: the job's
+    seconds, its edge reconnects, the faults that fired
+    (``FLINK_TPU_FAULTS`` reaches the job through its config) and the
+    records its keyed subtasks took in."""
     import json
 
     import torch
@@ -527,12 +546,19 @@ def widedeep_rank(rank: int, world: int, plane_ports: typing.Sequence[int], out:
     mdef, schema, values = widedeep_cell(records=records)
     dist = DistributedConfig(rank, world, tuple(f"127.0.0.1:{p}" for p in plane_ports),
                              connect_timeout_s=60.0)
+    report: typing.Dict[str, typing.Any] = {}
     seconds = run_widedeep_cohort(mdef, schema, values, dist, out=out,
                                   checkpoint_root=checkpoint_root,
                                   every_n_records=every_n_records, parallelism=parallelism,
-                                  restore_id=restore_id, throttle_s=throttle_s)
+                                  restore_id=restore_id, throttle_s=throttle_s, report=report)
     with open(os.path.join(checkpoint_root, f"seconds-{rank}.json"), "w") as f:
-        json.dump({"rank": rank, "world": world, "seconds": seconds}, f)
+        json.dump({"rank": rank, "world": world, "seconds": seconds,
+                   "edge_reconnects": report.get("recovery.edge_reconnects", {}).get("count", 0),
+                   "faults": fired_counts(report),
+                   "keyed_records_in": {k: v["count"] for k, v in report.items()
+                                        if k.startswith("keyed_train.")
+                                        and k.endswith(".records_in")},
+                   "sanitizer_violations": report.get("sanitizer.violations")}, f)
 
 
 if __name__ == "__main__":

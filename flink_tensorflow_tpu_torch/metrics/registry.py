@@ -68,6 +68,9 @@ class MetricGroup:
     def __init__(self, scope: str):
         self.scope = scope
         self._metrics: typing.Dict[str, typing.Any] = {}
+        #: The registry holding this group (None for a bare group): a
+        #: function reaches a job-level scope through it.
+        self._registry: typing.Optional["MetricRegistry"] = None
 
     def _get(self, name: str, factory):
         metric = self._metrics.get(name)
@@ -114,6 +117,7 @@ class MetricRegistry:
             grp = self._groups.get(scope)
             if grp is None:
                 grp = self._groups[scope] = MetricGroup(scope)
+                grp._registry = self
             return grp
 
     def report(self) -> typing.Dict[str, typing.Any]:

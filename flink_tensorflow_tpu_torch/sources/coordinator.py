@@ -49,10 +49,17 @@ EXHAUSTED = "exhausted"
 
 
 class SplitCoordinator:
-    def __init__(self, source: SplitSource, num_readers: int):
+    def __init__(self, source: SplitSource, num_readers: int, *,
+                 sanitizer: typing.Optional[typing.Any] = None, name: str = "split"):
         self.source = source
         self.num_readers = num_readers
-        self._lock = threading.Lock()
+        #: The concurrency sanitizer: the lock is instrumented and every
+        #: dispense is checked against the alignment freeze (JAX ``:52-62``,
+        #: ``:146``).
+        self._san = sanitizer
+        self._name = name
+        self._lock = (sanitizer.lock(f"{name}.coordinator")
+                      if sanitizer is not None else threading.Lock())
         self._mailboxes: typing.Dict[int, "SourceMailbox"] = {}
         self._enumerator: typing.Optional[SplitEnumerator] = None
         #: Enumerator state restored before the job starts (reader 0's
@@ -127,6 +134,8 @@ class SplitCoordinator:
         if split is None:
             return (EXHAUSTED if self.source.bounded else WAIT), None
         self.splits_dispensed += 1
+        if self._san is not None:
+            self._san.split_dispensed(self._name, frozen=bool(self._aligning))
         return ASSIGNED, split
 
     # -- checkpoint protocol --------------------------------------------------

@@ -18,6 +18,10 @@ deadline and is woken early by whichever comes first:
 That wait is what lets the chaining pass fuse timer-driven operators
 into split-source chains: the loop bounds each park by the chain's
 earliest deadline.
+
+With a sanitizer (``core/sanitizer_rt.py``) the condition variable is
+instrumented, so a stranded waiter shows in the stall watchdog's dump
+under the mailbox's name (JAX ``:51-61``).
 """
 
 from __future__ import annotations
@@ -40,8 +44,12 @@ class SourceMailbox:
 
     __slots__ = ("_cond", "_signals", "_closed")
 
-    def __init__(self) -> None:
-        self._cond = threading.Condition()
+    def __init__(self, *, sanitizer: typing.Optional[typing.Any] = None,
+                 name: typing.Optional[str] = None) -> None:
+        if sanitizer is not None:
+            self._cond = sanitizer.condition(name or f"mailbox@{id(self):x}")
+        else:
+            self._cond = threading.Condition()
         self._signals = 0
         self._closed = False
 

@@ -324,8 +324,8 @@ def _read_steps(out_dir):
 
 def test_keyed_online_training_spans_processes(tmp_path):
     """``train_cell.run_widedeep_cohort`` (the widedeep-online cell's job:
-    ``key_by(user) -> OnlineTrainFunction(scope="key", mini_batch=32,
-    steps_per_dispatch=16)`` into the 2PC sink) keyed over two processes
+    ``key_by(user * WIDEDEEP_KEY_STRIDE) -> OnlineTrainFunction(scope="key",
+    mini_batch=32, steps_per_dispatch=16)`` into the 2PC sink) keyed over two processes
     commits what the one-process run at the same keyed parallelism
     commits: every (key, step) once, losses bit for bit (each key trains
     its own model on its own events; barriers cut the source at the same
@@ -347,7 +347,8 @@ def test_keyed_online_training_spans_processes(tmp_path):
         from flink_tensorflow_tpu_torch.functions.training_function import OnlineTrainFunction
         from flink_tensorflow_tpu_torch.parallel.optim import adam
 
-        (env.from_collection(records, parallelism=1).key_by(lambda r: r.meta["user"])
+        (env.from_collection(records, parallelism=1)
+         .key_by(lambda r: r.meta["user"] * train_cell.WIDEDEEP_KEY_STRIDE)
          .process(OnlineTrainFunction(mdef, adam(train_cell.WIDEDEEP_LR), train_schema=schema,
                                       scope="key", mini_batch=train_cell.MINI_BATCH,
                                       steps_per_dispatch=train_cell.STEPS_PER_DISPATCH),
