@@ -277,7 +277,30 @@ Phases (any failure exits non-zero and prints no result line):
    committed (key, step) pairs and losses equal to the one-process run's,
    a reconnect, and the two processes' happens-before logs stitched by
    ``core/sanitizer_stitch.py`` with no violation; the phase's seconds;
-17. print one ``kernels`` JSON line, the card line, and the final
+17. the tracing plane, the flight recorder, the reporters, the inspector
+   and the roofline plane (``h100-sxm``): (a) phase 6's keyed serving job
+   traced: tokens equal to phase 4's, K1's launches as untraced, one
+   ``decode.prefill`` span per prefill batch, one ``decode.step`` span per
+   ``decode_step_s`` sample, the prefill spans' buckets summing to the
+   runner's prefill H2D bytes (``b*t*4 + b*8`` each), nothing dropped,
+   the exported trace giving the same attribution counts; (b) phase 5's
+   Inception cell traced: labels and scores bit-equal to phase 5's direct
+   calls, one ``lane_wait``/``h2d``/``compute``/``d2h`` span per batch,
+   traced and untraced records/s in rotated rounds (A B B A), and the
+   tracer's and flight recorder's cost per event; (c) phase 10 (a)'s
+   paged job under ``RooflineConfig(device="h100-sxm")``: tokens
+   unchanged, busy seconds, the bound, one compile event per distinct
+   prefill and step signature, MFU 0 (no cost table yet); (d) phase 16
+   (a)'s chaos arm with ``flight_path`` and a second kill in epoch 1: the
+   dump holds ``faults.kill``, ``job.failure`` and ``restart.attempt``,
+   the committed bytes equal the clean arm's, and ``python -m
+   flink_tensorflow_tpu_torch.tracing --from-flight-dump`` replays it;
+   (e) the Inception cell with JSON-lines, Prometheus file and HTTP
+   reporters every 0.5 s: two or more lines, ``hbm_bytes_in_use`` > 0 on
+   the model subtask, one scrape of ``/metrics``, and ``python -m
+   flink_tensorflow_tpu_torch.metrics <script> --snapshot-only``; the
+   phase's seconds;
+18. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -1935,17 +1958,21 @@ def serving_operators(handle):
 
 def keyed_arm(torch, fa, model, cfg, requests, name, *, parallelism=1, tap=None,
               checkpoint_dir=None, every_n=None, restore=None, restart=None,
-              arrivals_out=False):
+              arrivals_out=False, config=None, handles=None):
     """One run of the keyed serving pipeline (``serving/cell.py:keyed_job``)
     on the card.  Returns its row: tokens by session, seconds from the
     first event at the sink to the last, K1's launches, the serving
     subtask 0's metrics, and the devices of every serving subtask's pool.
     At parallelism 1 K1 must launch once per layer for every prefill batch
-    and warmup prefill (of every attempt)."""
+    and warmup prefill (of every attempt).  ``config`` holds more
+    ``JobConfig`` fields (tracing, roofline); ``handles`` (a list) gets the
+    job's handle."""
     from flink_tensorflow_tpu_torch.functions.runner import PagedDecodeStepRunner
     from flink_tensorflow_tpu_torch.serving.cell import keyed_job
 
     env, arrivals = keyed_job(model, cfg, requests, parallelism=parallelism, tap=tap)
+    if config:
+        env.configure(**config)
     if checkpoint_dir is not None:
         env.enable_checkpointing(checkpoint_dir, every_n_records=every_n)
     if tap is not None and restart is not None:
@@ -1959,6 +1986,8 @@ def keyed_arm(torch, fa, model, cfg, requests, name, *, parallelism=1, tap=None,
                                          "restore_checkpoint_id": restore[1]}
         handle = env.execute_async(name, **kw)
         result = handle.wait(600)
+        if handles is not None:
+            handles.append(handle)
         for op in serving_operators(handle):
             runner = op._runner
             paged = isinstance(runner, PagedDecodeStepRunner)
@@ -3859,7 +3888,7 @@ SERVING_SCHEDULE = "kill:continuous_batching.0@48;store_fail@2"
 COHORT_WIRE_FAULTS = "sever:keyed_train.1@5;delay:keyed_train.1@40~0.002x10"
 
 
-def chaos_keyed_arm(root, tag, faults=None, restart=None, timeout_s=None):
+def chaos_keyed_arm(root, tag, faults=None, restart=None, timeout_s=None, config=None):
     """One arm of bench_chaos's keyed job; returns its row, the sorted
     bytes of what its 2PC sink committed and the sorted (key, i, running
     sum) rows they decode to."""
@@ -3893,6 +3922,8 @@ def chaos_keyed_arm(root, tag, faults=None, restart=None, timeout_s=None):
     env.configure(sanitize=True)
     if faults:
         env.configure(faults=faults)
+    if config:
+        env.configure(**config)
     env.source_throttle_s = CHAOS_THROTTLE_S
     (env.from_collection(list(range(CHAOS_RECORDS)), name="src")
      .key_by(lambda x: x % CHAOS_KEYS)
@@ -3965,6 +3996,7 @@ def check_chaos_arms(card, root):
            "byte_identical": True, "records_lost": lost,
            "clean": clean, "chaos": chaos, "traced": False, "card": card}
     print("chaos keyed arms", json.dumps(row), flush=True)
+    return clean_digest
 
 
 def run_pipe(root, tag, build, faults=None):
@@ -4208,13 +4240,14 @@ def check_wire_faults(card, root):
 def check_chaos_plane(card, torch, fa, mdef, model, cfg, requests, want, inception, direct):
     """Phase 16: the chaos plane, the sanitizer and the job-to-job pipe.
     Returns K1's launches (phase 4's count over both attempts of (c); 0
-    everywhere else in this process)."""
+    everywhere else in this process) and the clean keyed arm's committed
+    bytes."""
     import tempfile
 
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as root:
         fa.flash_attention.launches = 0
-        check_chaos_arms(card, root)
+        clean_digest = check_chaos_arms(card, root)
         check_pipes(card, root, inception, direct)
         host_launches = fa.flash_attention.launches
         serving = check_serving_under_faults(card, torch, fa, mdef, model, cfg, requests, want)
@@ -4224,7 +4257,338 @@ def check_chaos_plane(card, torch, fa, mdef, model, cfg, requests, want, incepti
     if host_launches:
         fail(f"phase 16 launched K1 {host_launches} times outside the serving arm, want 0")
     print(f"chaos plane phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
-    return {"serving_chaos": serving, "chaos_pipes_and_arms": host_launches}
+    return {"serving_chaos": serving, "chaos_pipes_and_arms": host_launches}, clean_digest
+
+
+# -- Phase 17: the observability planes --------------------------------------
+# (a) phase 6's keyed serving job traced; (b) phase 5's Inception cell
+# traced, A B B A against untraced; (c) phase 10 (a)'s paged job under the
+# roofline plane; (d) phase 16 (a)'s chaos arm with a flight path; (e) the
+# Inception cell under the reporters, then the inspector's CLI.
+OBS_INTERVAL_S = 0.5
+#: 17 (b)'s rotated rounds: traced or not, A B B A.
+OBS_TRACED_ROUNDS = (False, True, True, False)
+#: 17 (d): a second kill, in epoch 1, past epoch 0's restore point.  Each
+#: attempt's flight recorder is its own (as in the reference), so a dump
+#: holds ``restart.attempt`` only when a restarted attempt crashes too.
+OBS_EPOCH1_KILL = f"kill:src.0@{(CHAOS_RECORDS * 3) // 4}#1"
+#: Events per overhead probe (``bench.py:_trace_span_overhead_ns``).
+OBS_PROBE_SAMPLES = 20000
+#: 17 (e)'s small port pipeline for ``python -m
+#: flink_tensorflow_tpu_torch.metrics``: a keyed running sum, no model.
+OBS_PIPELINE = """
+from flink_tensorflow_tpu_torch import StreamExecutionEnvironment
+
+
+def main(argv):
+    env = StreamExecutionEnvironment()
+    (env.from_collection(list(range(2000))).key_by(lambda x: x % 8)
+        .reduce(lambda a, b: a + b, name="sum").sink_to_callable(lambda v: None))
+    env.execute("inspect")
+"""
+
+
+def attribution_counts(events):
+    from flink_tensorflow_tpu_torch.tracing import attribution
+
+    return {op: {stage: row["count"] for stage, row in rows.items()}
+            for op, rows in attribution(events).items()}
+
+
+def span_record_ns(samples: int = OBS_PROBE_SAMPLES) -> float:
+    """One span record on the tracer's hot path (``bench.py:162-172``)."""
+    from flink_tensorflow_tpu_torch.tracing import Tracer
+
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    for _ in range(samples):
+        tracer.span("bench.0", "overhead_probe", 0.0, 1.0)
+    return (time.perf_counter() - t0) / samples * 1e9
+
+
+def flight_record_ns(samples: int = OBS_PROBE_SAMPLES) -> float:
+    """One flight-recorder event (``bench.py:175-190``)."""
+    from flink_tensorflow_tpu_torch.tracing import FlightRecorder
+
+    flight = FlightRecorder()
+    t0 = time.perf_counter()
+    for _ in range(samples):
+        flight.record("bench", "overhead_probe")
+    return (time.perf_counter() - t0) / samples * 1e9
+
+
+def check_traced_serving(card, torch, fa, model, cfg, requests, want, root):
+    """17 (a).  Returns K1's launches."""
+    from flink_tensorflow_tpu_torch.tracing import events_from_chrome, format_attribution_table
+    from flink_tensorflow_tpu_torch.tracing import attribution
+
+    if not cfg.padding_buckets:
+        fail("traced serving: the cell's decode step is the padded [S] one")
+    handles = []
+    trace_path = os.path.join(root, "serving.trace.json")
+    got, row = keyed_arm(torch, fa, model, cfg, requests, "serving-traced",
+                         config={"trace": True, "trace_path": trace_path}, handles=handles)
+    hold_tokens("serving-traced", got, want, requests, model, torch)
+    executor = handles[0].executor
+    tracer = executor.tracer
+    events = tracer.events()
+    prefill = [e for e in events if e[1] == "decode.prefill"]
+    steps = [e for e in events if e[1] == "decode.step"]
+    step_hist = executor.metrics.group("continuous_batching.0").histogram("decode_step_s")
+    if len(prefill) != row["prefill_batches"]:
+        fail(f"traced serving: {len(prefill)} decode.prefill spans, "
+             f"{row['prefill_batches']} prefill batches")
+    if len(steps) != step_hist.count or step_hist.count != row["decode_steps"]:
+        fail(f"traced serving: {len(steps)} decode.step spans, {step_hist.count} "
+             f"decode_step_s samples, {row['decode_steps']} decode steps")
+    # step_h2d_bytes = prefills (tokens [b, t], lengths and slots [b], int32)
+    # + steps (tokens and lengths [S] int32, the mask [S] bool).
+    prefill_h2d = sum(b * t * 4 + b * 8 for b, t in (e[5]["bucket"] for e in prefill))
+    step_h2d = row["decode_steps"] * cfg.max_active_seqs * 9
+    if prefill_h2d != row["step_h2d_bytes"] - step_h2d:
+        fail(f"traced serving: the prefill spans' buckets give {prefill_h2d} H2D bytes, the "
+             f"runner counted {row['step_h2d_bytes'] - step_h2d}")
+    if tracer.dropped():
+        fail(f"traced serving: the tracer dropped {tracer.dropped()} events")
+    with open(trace_path) as f:
+        loaded = events_from_chrome(json.load(f))
+    if attribution_counts(loaded) != attribution_counts(events):
+        fail("traced serving: the exported trace's attribution counts differ from the tracer's")
+    print("observability (a) attribution, serving-dense traced | card:", card)
+    print(format_attribution_table(attribution(events)), flush=True)
+    out = {k: row[k] for k in ("tokens", "seconds", "tokens_per_s", "decode_step_p50_ms",
+                               "ttft_p50_ms", "prefill_batches", "decode_steps",
+                               "step_h2d_bytes", "k1_launches")}
+    out.update(prefill_spans=len(prefill), decode_step_spans=len(steps),
+               prefill_h2d_bytes_from_spans=prefill_h2d, events=len(events),
+               dropped=tracer.dropped(), card=card)
+    print("observability (a) serving-traced", json.dumps(out), flush=True)
+    return row["k1_launches"]
+
+
+def check_traced_inception(card, torch, inception, direct):
+    """17 (b): the Inception cell A B B A, traced and untraced."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    _, model, pixels = inception
+    want_label, want_score = direct
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
+    batches = cell.RECORDS // cell.BATCH
+    rates = {False: [], True: []}
+    for traced in OBS_TRACED_ROUNDS:
+        run = cell.run_cell_job(model, records, config={"trace": traced})
+        label = np.empty(cell.RECORDS, np.int32)
+        score = np.empty(cell.RECORDS, np.float32)
+        for r in run.results:
+            label[r.meta["id"]] = r["label"]
+            score[r.meta["id"]] = r["score"]
+        if len(run.results) != cell.RECORDS or not np.array_equal(label, want_label) \
+                or not np.array_equal(score, want_score):
+            fail(f"traced inception (traced={traced}): labels or scores differ from "
+                 "phase 5's direct calls")
+        rps, _ = steady_rps(run.arrivals, cell.RECORDS, cell.BATCH,
+                            cell.trailing_exclude(cell.RECORDS))
+        rates[traced].append({"records_per_s": rps,
+                              "job_records_per_s": cell.RECORDS / run.seconds})
+        if not traced:
+            if run.tracer is not None:
+                fail("traced inception: an untraced run holds a tracer")
+            continue
+        events = run.tracer.events()
+        counts = attribution_counts(events).get("inception", {})
+        stages = {s: counts.get(s, 0) for s in ("lane_wait", "h2d", "compute", "d2h")}
+        if set(stages.values()) != {batches}:
+            fail(f"traced inception: stage spans {stages}, want {batches} of each")
+        if run.tracer.dropped():
+            fail(f"traced inception: the tracer dropped {run.tracer.dropped()} events")
+    row = {"rounds": ["traced" if t else "untraced" for t in OBS_TRACED_ROUNDS],
+           "untraced": rates[False], "traced": rates[True],
+           "batches": batches, "span_record_ns": span_record_ns(),
+           "flight_record_ns": flight_record_ns(), "card": card}
+    print("observability (b) inception traced vs untraced", json.dumps(row), flush=True)
+
+
+def check_paged_roofline(card, torch, fa, model, cfg, requests, want, root):
+    """17 (c).  Returns K1's launches."""
+    from flink_tensorflow_tpu_torch.metrics.roofline import BOUND_NAMES, RooflineConfig
+    from flink_tensorflow_tpu_torch.serving.cell import paged_cell
+
+    cell = paged_cell(requests, cfg, spill_root=os.path.join(root, "spill"))
+    paged = cell.serving
+    handles = []
+    got, row = keyed_arm(torch, fa, model, paged, requests, "serving-paged-roofline",
+                         config={"trace": True,
+                                 "roofline": RooflineConfig(device="h100-sxm")},
+                         handles=handles)
+    hold_tokens("serving-paged-roofline", got, want, requests, model, torch)
+    executor = handles[0].executor
+    snap = executor.metrics.snapshot()["continuous_batching.0"]
+    signatures = {f"prefill:{e[5]['bucket'][0]}x{e[5]['bucket'][1]}"
+                  for e in executor.tracer.events() if e[1] == "decode.prefill"}
+    if paged.warmup_compile:
+        runner = serving_operators(handles[0])[0]._runner
+        signatures |= {f"prefill:{b}x{runner._bucket_len(min(t, paged.capacity))}"
+                       for b in paged.resolved_admit_buckets()
+                       for t in paged.resolved_prompt_buckets()}
+    signatures.add(f"decode:{paged.max_active_seqs}")
+    if not snap["roofline.busy_s"] > 0:
+        fail(f"paged roofline: busy seconds {snap['roofline.busy_s']}")
+    if snap["roofline.compile_events"] != len(signatures):
+        fail(f"paged roofline: {snap['roofline.compile_events']} compile events, the run met "
+             f"{len(signatures)} signatures")
+    if snap["roofline.mfu_pct"] != 0.0:
+        fail(f"paged roofline: MFU {snap['roofline.mfu_pct']} without a cost table")
+    out = {k: snap[f"roofline.{k}"] for k in ("busy_s", "compile_events",
+                                               "unpredicted_compiles", "mfu_pct",
+                                               "measured_h2d_per_call")}
+    out.update(bound=BOUND_NAMES[snap["roofline.bound"]], signatures=sorted(signatures),
+               duty=snap["roofline.busy_s"] / row["seconds"] if row["seconds"] else None,
+               tokens_per_s=row["tokens_per_s"], k1_launches=row["k1_launches"],
+               mfu_note="0: no cost table (the port has no pricer yet)", card=card)
+    print("observability (c) serving-paged roofline", json.dumps(out), flush=True)
+    return row["k1_launches"]
+
+
+def check_flight_under_faults(card, root, clean_digest):
+    """17 (d)."""
+    from flink_tensorflow_tpu_torch import RestartStrategy
+    from flink_tensorflow_tpu_torch.tracing import load_flight_dump
+
+    path = os.path.join(root, "flight.json")
+    arm, digest, _ = chaos_keyed_arm(
+        root, "flight", faults=f"{CHAOS_SCHEDULE};{OBS_EPOCH1_KILL}",
+        restart=RestartStrategy(max_restarts=3, delay_s=0.05, backoff_multiplier=2.0,
+                                max_delay_s=1.0, jitter=0.1),
+        timeout_s=0.3, config={"flight_path": path})
+    if digest != clean_digest:
+        fail(f"flight: the committed output ({len(digest)} records) differs from the clean "
+             f"arm's ({len(clean_digest)})")
+    if not os.path.exists(path):
+        fail("flight: no dump was written")
+    dump = load_flight_dump(path)
+    names = {(ev[0], ev[1]) for ev in dump["events"]}
+    missing = {("faults", "kill"), ("job", "failure"), ("job", "restart.attempt")} - names
+    if missing:
+        fail(f"flight: the dump holds no {sorted(missing)}")
+    replay = subprocess.run(
+        [sys.executable, "-m", "flink_tensorflow_tpu_torch.tracing", "--from-flight-dump", path],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    if replay.returncode != 0:
+        fail(f"flight: the tracing CLI's replay exited {replay.returncode}: "
+             f"{replay.stderr[-2000:]}")
+    out = {"schedule": f"{CHAOS_SCHEDULE};{OBS_EPOCH1_KILL}", "restarts": arm["restarts"],
+           "reason": dump["reason"], "events": len(dump["events"]),
+           "faults": sorted(ev[1] for ev in dump["events"] if ev[0] == "faults"),
+           "byte_identical": True, "card": card}
+    print("observability (d) flight under faults", json.dumps(out), flush=True)
+
+
+def check_reporters(card, inception, direct, root):
+    """17 (e)."""
+    import threading
+    import urllib.request
+
+    from flink_tensorflow_tpu_torch.metrics.reporters import (
+        LatestSnapshotReporter,
+        MetricConfig,
+        PrometheusHttpReporter,
+    )
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    _, model, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
+    latest = LatestSnapshotReporter()
+    jsonl, prom = os.path.join(root, "metrics.jsonl"), os.path.join(root, "metrics.prom")
+    metrics = MetricConfig(report_interval_s=OBS_INTERVAL_S, jsonl_path=jsonl,
+                           prometheus_path=prom, http_port=0, reporters=(latest,))
+    scraped = {}
+
+    def scrape(handle):
+        def body():
+            deadline = time.monotonic() + 120
+            while latest.reports < 1 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            http = next(s for s in handle.reporter.reporters
+                        if isinstance(s, PrometheusHttpReporter))
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{http.port}/metrics",
+                                            timeout=10) as resp:
+                    scraped["body"] = resp.read().decode()
+            except OSError as exc:
+                scraped["error"] = repr(exc)
+
+        scraped["thread"] = threading.Thread(target=body, daemon=True)
+        scraped["thread"].start()
+
+    run = cell.run_cell_job(model, records, config={"metrics": metrics},
+                            device_provider=lambda task, index: "cuda:0", on_start=scrape)
+    scraped["thread"].join(30)
+    if len(run.results) != cell.RECORDS:
+        fail(f"reporters: {len(run.results)} results of {cell.RECORDS}")
+    with open(jsonl) as f:
+        lines = [json.loads(x) for x in f if x.strip()]
+    if len(lines) < 2:
+        fail(f"reporters: {len(lines)} JSON lines, want 2 or more")
+    hbm = [line["metrics"].get("inception.0", {}).get("hbm_bytes_in_use") for line in lines]
+    if not any(isinstance(v, int) and v > 0 for v in hbm):
+        fail(f"reporters: hbm_bytes_in_use on inception.0 read {hbm}")
+    body = scraped.get("body", "")
+    if 'flink_tpu_records_in_count{scope="inception.0"}' not in body:
+        fail(f"reporters: the /metrics scrape gave {scraped.get('error') or body[:200]!r}")
+    with open(prom) as f:
+        if 'scope="inception.0"' not in f.read():
+            fail("reporters: the Prometheus file has no inception.0 scope")
+    script = os.path.join(root, "inspect_pipeline.py")
+    with open(script, "w") as f:
+        f.write(OBS_PIPELINE)
+    cli = subprocess.run(
+        [sys.executable, "-m", "flink_tensorflow_tpu_torch.metrics", script, "--snapshot-only",
+         "--job-args", ""], capture_output=True, text=True, timeout=120, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    if cli.returncode != 0:
+        fail(f"inspector: exited {cli.returncode}: {cli.stderr[-2000:]}")
+    snap = json.loads(cli.stdout.strip().splitlines()[-1])
+    rows = {r["operator"]: r for r in snap["subtasks"]}
+    if rows.get("sum", {}).get("records_in") != 2000:
+        fail(f"inspector: the sum operator's row is {rows.get('sum')}")
+    out = {"json_lines": len(lines), "hbm_bytes_in_use": max(v for v in hbm if v),
+           "scrape_bytes": len(body), "inspector_rows": sorted(rows),
+           "job_records_per_s": cell.RECORDS / run.seconds, "card": card}
+    print("observability (e) reporters and inspector", json.dumps(out), flush=True)
+
+
+def check_observability(card, torch, fa, mdef, model, cfg, requests, want, inception, direct,
+                        clean_digest):
+    """Phase 17: the tracing plane, the flight recorder, the reporters, the
+    inspector and the roofline plane.  Returns K1's launches per path."""
+    import tempfile
+
+    t0 = time.monotonic()
+    print(f"observability phase | card: {card}", flush=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as root:
+        launches["serving_traced"] = check_traced_serving(card, torch, fa, model, cfg,
+                                                          requests, want, root)
+        fa.flash_attention.launches = 0
+        check_traced_inception(card, torch, inception, direct)
+        launches["inception_traced"] = fa.flash_attention.launches
+        launches["paged_roofline"] = check_paged_roofline(card, torch, fa, model, cfg,
+                                                          requests, want, root)
+        fa.flash_attention.launches = 0
+        check_flight_under_faults(card, root, clean_digest)
+        check_reporters(card, inception, direct, root)
+        launches["flight_and_reporters"] = fa.flash_attention.launches
+    for key in ("inception_traced", "flight_and_reporters"):
+        if launches[key]:
+            fail(f"observability: K1 launched {launches[key]} times on {key}, want 0")
+    print(f"observability phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -4325,8 +4689,11 @@ def main() -> int:
 
     plane_launches = check_record_plane(card, torch, fa, per_rank)
 
-    chaos_launches = check_chaos_plane(card, torch, fa, mdef, model, cfg, requests, got,
-                                       inception, direct)
+    chaos_launches, chaos_clean = check_chaos_plane(card, torch, fa, mdef, model, cfg,
+                                                    requests, got, inception, direct)
+
+    observability_launches = check_observability(card, torch, fa, mdef, model, cfg, requests,
+                                                 got, inception, direct, chaos_clean)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
@@ -4345,7 +4712,8 @@ def main() -> int:
                              **training_launches, **stream_launches, **chain_launches,
                              **paged_launches, **event_time_launches,
                              **transfer_launches, **parallel_launches, **split_launches,
-                             **plane_launches, **chaos_launches},
+                             **plane_launches, **chaos_launches,
+                             **observability_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

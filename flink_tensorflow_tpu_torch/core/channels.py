@@ -29,6 +29,12 @@ the gate's lock and condition variables are instrumented and every
 delivery is checked against the alignment state: an element handed out
 from a blocked channel is a violation.  Without one the gate keeps plain
 ``threading`` primitives and pays one ``is None`` test per delivery.
+
+For the metric plane (JAX ``:84-90``) a gate keeps the deepest queue seen
+at a put (``high_watermark``) and the seconds writers spent blocked on a
+full queue (``blocked_put_s``); :meth:`InputGate.put` returns the
+writer's own blocked seconds, which the writing subtask books as its
+backpressure time.
 """
 
 from __future__ import annotations
@@ -59,6 +65,10 @@ class InputGate:
         self._blocked: typing.List[bool] = [False] * num_channels
         #: Elements put per channel (the runtime's per-edge queue gauges).
         self.puts_per_channel: typing.List[int] = [0] * num_channels
+        #: Deepest queue occupancy seen at a put (a monotone maximum).
+        self.high_watermark = 0
+        #: Seconds writers spent blocked on a full queue.
+        self.blocked_put_s = 0.0
         self._closed = False
         self._san = sanitizer
         self._san_name = name or f"gate@{id(self):x}"
@@ -82,16 +92,26 @@ class InputGate:
         self._drain_listeners: typing.List[typing.Callable[[], None]] = []
         self._low_water = max(1, capacity // 2)
 
-    def put(self, channel_idx: int, element: el.StreamElement) -> None:
-        """Enqueue, waiting while the queue is full (backpressure)."""
+    def put(self, channel_idx: int, element: el.StreamElement) -> float:
+        """Enqueue, waiting while the queue is full (backpressure); returns
+        the seconds this put waited (0.0 on the uncontended path)."""
         with self._not_full:
-            while len(self._queue) >= self.capacity and not self._closed:
-                self._not_full.wait()
+            blocked = 0.0
+            if len(self._queue) >= self.capacity and not self._closed:
+                t0 = time.monotonic()
+                while len(self._queue) >= self.capacity and not self._closed:
+                    self._not_full.wait()
+                blocked = time.monotonic() - t0
+                self.blocked_put_s += blocked
             if self._closed:
-                return  # gate torn down (job cancelled): drop
+                return blocked  # gate torn down (job cancelled): drop
             self._queue.append((channel_idx, element))
             self.puts_per_channel[channel_idx] += 1
+            depth = len(self._queue)
+            if depth > self.high_watermark:
+                self.high_watermark = depth
             self._not_empty.notify()
+            return blocked
 
     def try_put_batch(self, channel_idx: int,
                       elements: typing.Sequence[el.StreamElement],
@@ -111,6 +131,9 @@ class InputGate:
             taken = min(room, len(elements))
             self._queue.extend((channel_idx, e) for e in elements[:taken])
             self.puts_per_channel[channel_idx] += taken
+            depth = len(self._queue)
+            if depth > self.high_watermark:
+                self.high_watermark = depth
             if on_put is not None:
                 on_put(taken)
             self._not_empty.notify()
@@ -231,5 +254,6 @@ class ChannelWriter:
         self._gate = gate
         self._idx = idx
 
-    def write(self, element: el.StreamElement) -> None:
-        self._gate.put(self._idx, element)
+    def write(self, element: el.StreamElement) -> float:
+        """Put ``element``; returns the seconds the put was blocked."""
+        return self._gate.put(self._idx, element)

@@ -34,7 +34,10 @@ before both store writes: a scheduled ``store_fail`` raises there and
 takes the path a failed disk write takes, so the checkpoint is declined
 (``aborted_ids``, the subtasks told), no 2PC commit goes out for it, and
 later checkpoints go on.  With the sanitizer on, the coordinator's lock
-is an instrumented one (JAX ``:111-117``).
+is an instrumented one (JAX ``:111-117``).  With the span tracer the
+coordinator marks each trigger and abort as an instant and each completed
+checkpoint as a span on the ``checkpoint`` track, and an abort lands in
+the flight recorder (JAX ``:210``, ``:309-314``, ``:397``).
 
 Disk format: one directory per checkpoint (``checkpoint/store.py``).
 """
@@ -100,6 +103,10 @@ class CheckpointCoordinator:
         #: Job-level metrics: ``duration_s`` (trigger -> durable),
         #: ``completed``, ``last_checkpoint_id``, ``last_size_bytes``.
         self.metrics = executor.metrics.group("checkpoint")
+        #: The executor's span tracer (None untraced): ``trigger`` and
+        #: ``abort`` instants and one span per completed checkpoint on the
+        #: ``checkpoint`` track.
+        self.tracer = getattr(executor, "tracer", None)
         self._last_checkpoint_id: typing.Optional[int] = None
         self._last_size_bytes: typing.Optional[int] = None
         self.metrics.gauge("last_checkpoint_id", lambda: self._last_checkpoint_id)
@@ -182,6 +189,8 @@ class CheckpointCoordinator:
             pending = _PendingCheckpoint(cid, self.executor.total_subtasks)
             self._pending[cid] = pending
             self._seed_finished(pending)
+        if self.tracer is not None:
+            self.tracer.instant("checkpoint", "trigger", args={"checkpoint": cid})
         for st in self.executor.subtasks:
             if st.t.is_source:
                 st.request_checkpoint(cid)
@@ -261,10 +270,16 @@ class CheckpointCoordinator:
                     f"missed deadline ({timeout:.1f}s) with {pending.acks}/{pending.expected} acks")
 
     def _announce_abort(self, checkpoint_id: int, why: str) -> None:
-        """Log one declined checkpoint and fan the abort out to the
-        subtasks (they drop the id's alignment)."""
+        """Log, trace and record one declined checkpoint and fan the abort
+        out to the subtasks (they drop the id's alignment)."""
         logger.warning("checkpoint %d aborted: %s; discarded, sources keep cutting later "
                        "checkpoints", checkpoint_id, why)
+        if self.tracer is not None:
+            self.tracer.instant("checkpoint", "abort",
+                                args={"checkpoint": checkpoint_id, "why": why})
+        flight = getattr(self.executor, "flight", None)
+        if flight is not None:
+            flight.record("checkpoint", "abort", {"checkpoint": checkpoint_id, "why": why})
         self.executor.notify_checkpoint_aborted(checkpoint_id)
 
     def _complete_locked(self, pending: _PendingCheckpoint) -> None:
@@ -303,6 +318,12 @@ class CheckpointCoordinator:
         self._persist_futures.append(self._persist_pool.submit(job))
 
     def _record_completed(self, pending: _PendingCheckpoint, path: typing.Optional[str]) -> None:
+        if self.tracer is not None:
+            # The whole checkpoint as one span on the job's track: barrier
+            # instants and the subtasks' align and snapshot spans nest in
+            # it on the timeline.
+            self.tracer.span("checkpoint", "checkpoint", pending.created_s, time.monotonic(),
+                             args={"checkpoint": pending.checkpoint_id, "path": path})
         self.metrics.histogram("duration_s").record(time.monotonic() - pending.created_s)
         self.metrics.counter("completed").inc()
         self._last_checkpoint_id = pending.checkpoint_id

@@ -11,7 +11,11 @@ defaults, and the record plane's ``wire_flush_bytes``, ``wire_flush_ms``,
 job checkpoints with count-based triggers only.  The chaos and sanitizer
 planes' ``faults``, ``sanitize`` and ``sanitize_log_path``
 (``:108-123``, ``:207-213``; a fault plan is parsed at validation,
-``:294``).
+``:294``).  The observability planes' ``trace``, ``trace_path``,
+``trace_sample_rate``, ``flight_recorder`` and ``flight_path``
+(``:125-152``), ``metrics`` (``:241-244``) and ``roofline``
+(``:254-261``), validated as ``:298-331`` validates them (the health
+plane is not ported yet).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import dataclasses
 import typing
 
 from flink_tensorflow_tpu_torch.core.faults import FaultPlan
+from flink_tensorflow_tpu_torch.metrics.reporters import MetricConfig
 from flink_tensorflow_tpu_torch.tensors.serde import WIRE_DTYPES
 
 
@@ -100,6 +105,31 @@ class JobConfig:
     #: ``.proc<k>`` before the extension.  None keeps it in memory.
     #: ``FLINK_TPU_SANITIZE_LOG`` applies when this is None.
     sanitize_log_path: typing.Optional[str] = None
+    #: End-to-end span tracing (``tracing/``): a per-record trace
+    #: context from source admission through chains and channels, the
+    #: model runners' ``lane_wait``/``h2d``/``compute``/``d2h`` and
+    #: decode spans, checkpoint alignment and split lifecycle; spans land
+    #: in per-thread rings and export as Chrome trace JSON (Perfetto).
+    #: Off costs one ``is None`` test per hook site.  ``FLINK_TPU_TRACE=1``
+    #: turns it on.
+    trace: bool = False
+    #: Where the Chrome trace is written when the job finishes or fails;
+    #: None keeps spans in memory (``executor.tracer``).
+    #: ``FLINK_TPU_TRACE_PATH`` overrides.
+    trace_path: typing.Optional[str] = None
+    #: Head-based sampling: every round(1/rate)-th record per source
+    #: subtask is traced (deterministic given the metrics seed).
+    trace_sample_rate: float = 1.0
+    #: Flight recorder (``tracing/flight.py``): an always-on bounded ring
+    #: of control-rate events (lifecycle, barrier injections, snapshots,
+    #: faults, per-report metric deltas), dumped to ``flight_path`` on a
+    #: crash, a sanitizer violation, SIGTERM/SIGINT or
+    #: ``JobHandle.cancel``.  False is the allocation-free off path
+    #: (``FLINK_TPU_FLIGHT`` overrides either way).
+    flight_recorder: bool = True
+    #: Where flight dumps land; None records in memory only.
+    #: ``FLINK_TPU_FLIGHT_PATH`` overrides.
+    flight_path: typing.Optional[str] = None
     #: Device-resident dataflow (``tensors/transfer.py:DeviceBatch``): a
     #: model fused ahead of an operator that consumes device batches
     #: (another model, a ``DeviceMapFunction``) hands it the batch on the
@@ -154,6 +184,17 @@ class JobConfig:
     #: placed over processes, keyed and rebalance edges spanning them
     #: through the record plane.  None runs in one process.
     distributed: typing.Optional[typing.Any] = None
+    #: Reporter interval, sinks and registry seed
+    #: (``metrics.reporters.MetricConfig``).  The default publishes
+    #: nothing while the job runs: no reporter thread, metrics only in
+    #: the ``JobResult``.
+    metrics: MetricConfig = dataclasses.field(default_factory=MetricConfig)
+    #: Roofline plane (``metrics.roofline.RooflineConfig``): the declared
+    #: device peak (``"h100-sxm"`` by default) and drift tolerances; model
+    #: runners join measured step times against ``roofline.cost_table``
+    #: and publish per-operator ``roofline.*`` gauges and compile events.
+    #: None costs nothing.
+    roofline: typing.Optional[typing.Any] = None
 
     def validate(self) -> "JobConfig":
         if self.parallelism < 1:
@@ -176,6 +217,9 @@ class JobConfig:
             FaultPlan.resolve(self.faults)  # raises on a malformed spec
         if self.source_throttle_s < 0:
             raise ValueError(f"source_throttle_s must be >= 0, got {self.source_throttle_s}")
+        if not (0.0 < self.trace_sample_rate <= 1.0):
+            raise ValueError(
+                f"trace_sample_rate must be in (0, 1], got {self.trace_sample_rate}")
         if self.device_provider is not None and not callable(self.device_provider):
             raise ValueError("device_provider must be callable (task, idx) -> device")
         if self.mesh is not None and not (hasattr(self.mesh, "shape")
@@ -189,5 +233,8 @@ class JobConfig:
                     "distributed jobs checkpoint with count-based triggers "
                     "(checkpoint.every_n_records), not interval_s — barrier "
                     "positions must be deterministic across the cohort")
+        self.metrics.validate()
         self.checkpoint.validate()
+        if self.roofline is not None:
+            self.roofline.validate()
         return self

@@ -2,7 +2,7 @@
 
 Port of ``flink_tensorflow_tpu/core/elements.py``: records, event-time
 watermarks (``:43``), checkpoint barriers, end of partition, the
-``SideOutput`` envelope (``:70``) that routes a record to a named side
+``SideOutput`` envelope (``:70``), the record's ``trace`` context that routes a record to a named side
 stream, and ``SOURCE_IDLE`` (``:83-93``), the heartbeat a waiting source
 yields.  Records crossing a channel or a checkpoint carry host values
 only.
@@ -16,10 +16,17 @@ import typing
 
 @dataclasses.dataclass(slots=True)
 class StreamRecord:
-    """A data record with an optional event-time timestamp."""
+    """A data record with an optional event-time timestamp.
+
+    ``trace`` carries the span tracer's per-record context
+    (``tracing.TraceContext``) when the job runs traced AND this record
+    was sampled at its source; None otherwise.  It rides through channel
+    queues with the record (JAX ``core/elements.py:30-39``); a columnar
+    frame of the record plane carries values and timestamps only."""
 
     value: typing.Any
     timestamp: typing.Optional[float] = None
+    trace: typing.Optional[typing.Any] = None
 
 
 @dataclasses.dataclass(slots=True, frozen=True)

@@ -24,11 +24,23 @@ group.
 Devices: a model subtask runs on what the device provider returns for
 ``(task_name, subtask_index)``.  Without a provider it runs on
 ``resolve_device(None)`` — the GPU, or an error when there is none.
+
+Observability (JAX ``:117``, ``:137``, ``:159``, ``:627-650``,
+``:713-734``): the registry is seeded by ``JobConfig.metrics.seed``;
+``execute_async`` starts a :class:`~flink_tensorflow_tpu_torch.metrics.
+reporters.ReporterThread` when ``metrics.report_interval_s`` (or the
+call's ``report_interval_s``) is set, which also flushes at the first
+failure; ``JobHandle.wait`` stops it and writes the Chrome trace on
+success and failure alike; ``JobHandle.cancel`` dumps the flight ring;
+and a ``ShutdownFlusher`` flushes all three on SIGTERM/SIGINT (main
+thread only).  The roofline plane runs without a cost table: the port
+has no pricer yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import random
 import time
 import typing
@@ -43,8 +55,10 @@ from flink_tensorflow_tpu_torch.core.runtime import JobFailure, JobTimeout, Loca
 from flink_tensorflow_tpu_torch.core.stream import DataStream
 from flink_tensorflow_tpu_torch.io.sources import CollectionSource
 from flink_tensorflow_tpu_torch.metrics.registry import MetricRegistry
+from flink_tensorflow_tpu_torch.metrics.reporters import ConsoleReporter, ReporterThread
 from flink_tensorflow_tpu_torch.sources.api import SplitSource
 from flink_tensorflow_tpu_torch.sources.operator import SplitSourceOperator
+from flink_tensorflow_tpu_torch.tracing.flight import ShutdownFlusher
 
 
 class JobResult:
@@ -83,8 +97,13 @@ class RestartStrategy:
 class JobHandle:
     """Handle to an asynchronously running job."""
 
-    def __init__(self, executor: LocalExecutor):
+    def __init__(self, executor: LocalExecutor, reporter=None):
         self.executor = executor
+        #: The job's ReporterThread (None without a report interval).
+        self.reporter = reporter
+        #: The signal hook ``execute_async`` installed (None off the main
+        #: thread or with nothing to flush).
+        self._flusher = None
 
     def trigger_checkpoint(self, timeout: typing.Optional[float] = None):
         """Run one aligned checkpoint; returns the snapshot mapping.
@@ -94,14 +113,42 @@ class JobHandle:
         return self.executor.coordinator.trigger(timeout=timeout)
 
     def wait(self, timeout: typing.Optional[float] = None) -> JobResult:
-        self.executor.join(timeout)
+        try:
+            self.executor.join(timeout)
+        finally:
+            # On failure too: the final report and the trace are what a
+            # post-mortem needs.
+            self._stop_observers()
         return JobResult(self.executor.metrics.report())
+
+    def _stop_observers(self) -> None:
+        if self._flusher is not None:
+            self._flusher.uninstall()
+        if self.reporter is not None:
+            self.reporter.stop()
+        self._export_trace()
+
+    def _export_trace(self) -> None:
+        """Write the tracer's Chrome trace to ``trace_path`` (best effort:
+        a full disk must not mask the job's own outcome)."""
+        tracer = self.executor.tracer
+        path = self.executor.trace_path
+        if tracer is None or not path:
+            return
+        try:
+            tracer.export(path)
+        except OSError:
+            logging.getLogger(__name__).warning("trace export to %s failed", path,
+                                                exc_info=True)
 
     def cancel(self) -> None:
         self.executor.cancel()
         # Completed checkpoints may still be persisting; they are valid
         # restore points, and a caller typically restores right after.
         self.executor.coordinator.wait_for_persistence(60.0)
+        self._stop_observers()
+        # A cancelled job keeps its black box, as a killed one does.
+        self.executor.flight_dump("cancel")
 
     @property
     def metrics(self) -> MetricRegistry:
@@ -114,7 +161,7 @@ class StreamExecutionEnvironment:
         if config is not None and parallelism != 1:
             config = dataclasses.replace(config, parallelism=parallelism)
         self.config: JobConfig = config or JobConfig(parallelism=parallelism)
-        self.metric_registry = MetricRegistry()
+        self.metric_registry = MetricRegistry(seed=self.config.metrics.seed)
 
     def configure(self, **changes) -> "StreamExecutionEnvironment":
         """Replace JobConfig fields: ``env.configure(channel_capacity=64)``."""
@@ -197,8 +244,11 @@ class StreamExecutionEnvironment:
                 timeout: typing.Optional[float] = None,
                 restore_from: typing.Optional[str] = None,
                 restore_checkpoint_id: typing.Optional[int] = None,
-                restart_strategy: typing.Optional[RestartStrategy] = None) -> JobResult:
+                restart_strategy: typing.Optional[RestartStrategy] = None,
+                report_interval_s: typing.Optional[float] = None) -> JobResult:
         """Run the job to completion (``timeout`` bounds the wait).
+        ``report_interval_s`` publishes metrics while it runs (the sinks
+        of ``JobConfig.metrics``; the console when it names none).
 
         ``restore_from`` starts from a persisted checkpoint (the latest, or
         ``restore_checkpoint_id``).  With a ``restart_strategy`` (requires
@@ -207,7 +257,8 @@ class StreamExecutionEnvironment:
         from the newest completed checkpoint."""
         if restart_strategy is None:
             return self.execute_async(job_name, restore_from=restore_from,
-                                      restore_checkpoint_id=restore_checkpoint_id).wait(timeout)
+                                      restore_checkpoint_id=restore_checkpoint_id,
+                                      report_interval_s=report_interval_s).wait(timeout)
         if self.checkpoint_dir is None:
             raise ValueError("restart_strategy requires enable_checkpointing(dir)")
         if self.config.distributed is not None:
@@ -228,7 +279,8 @@ class StreamExecutionEnvironment:
             try:
                 handle = self.execute_async(job_name, restore_from=restore,
                                             restore_checkpoint_id=restore_id,
-                                            restart_epoch=attempt)
+                                            restart_epoch=attempt,
+                                            report_interval_s=report_interval_s)
                 if t_fail is not None:
                     # The restored job's subtasks are running again.
                     recovery_s.record(time.monotonic() - t_fail)
@@ -247,7 +299,7 @@ class StreamExecutionEnvironment:
                 if attempt > restart_strategy.max_restarts:
                     raise
                 restarts_total.inc()
-                delay = restart_strategy.delay_for(attempt)
+                delay = restart_strategy.delay_for(attempt, seed=self.config.metrics.seed)
                 if delay:
                     time.sleep(delay)
                 # Resume from the newest completed checkpoint; before the
@@ -268,10 +320,14 @@ class StreamExecutionEnvironment:
     def execute_async(self, job_name: str = "job", *,
                       restore_from: typing.Optional[str] = None,
                       restore_checkpoint_id: typing.Optional[int] = None,
-                      restart_epoch: int = 0) -> JobHandle:
+                      restart_epoch: int = 0,
+                      report_interval_s: typing.Optional[float] = None) -> JobHandle:
         """``restart_epoch``: which attempt of the job this run is (a
         cohort's comes from its ``DistributedConfig``)."""
         cfg = self.config.validate()
+        # configure(metrics=...) may have changed the seed after the
+        # registry was made; histograms take it at first use.
+        self.metric_registry.seed = cfg.metrics.seed
         common = dict(
             channel_capacity=cfg.channel_capacity,
             metric_registry=self.metric_registry, device_provider=cfg.device_provider,
@@ -286,7 +342,10 @@ class StreamExecutionEnvironment:
             wire_flush_ms=cfg.wire_flush_ms, shm_channels=cfg.shm_channels,
             flow_control=cfg.flow_control, restart_epoch=restart_epoch,
             faults=cfg.faults, sanitize=cfg.sanitize,
-            sanitize_log_path=cfg.sanitize_log_path)
+            sanitize_log_path=cfg.sanitize_log_path, trace=cfg.trace,
+            trace_path=cfg.trace_path, trace_sample_rate=cfg.trace_sample_rate,
+            flight_recorder=cfg.flight_recorder, flight_path=cfg.flight_path,
+            roofline=cfg.roofline)
         if cfg.distributed is not None:
             from flink_tensorflow_tpu_torch.core.distributed import DistributedExecutor
 
@@ -294,6 +353,7 @@ class StreamExecutionEnvironment:
         else:
             executor = LocalExecutor(self.graph, **common)
         executor.checkpoint_interval_s = cfg.checkpoint.interval_s
+        reporter = self._make_reporter(report_interval_s, flight=executor.flight)
         try:
             if restore_from is not None:
                 if cfg.distributed is not None:
@@ -303,11 +363,46 @@ class StreamExecutionEnvironment:
                     cid, snapshots = store.read_checkpoint(restore_from, restore_checkpoint_id)
                     local_shard = False
                 executor.restore(snapshots, from_checkpoint_id=cid, local_shard=local_shard)
+            if reporter is not None:
+                # Crash-time flush: the snapshot that explains a failure is
+                # published when the first subtask dies.
+                executor.failure_listeners.append(reporter.flush_now)
             executor.start()
         except BaseException:
             executor.cancel()
+            if reporter is not None:
+                for sink in reporter.reporters:  # never started: release the sinks
+                    sink.close()
             raise
-        return JobHandle(executor)
+        if reporter is not None:
+            reporter.start()
+        handle = JobHandle(executor, reporter)
+        # SIGTERM/SIGINT publish the final report, dump the flight ring and
+        # export the trace before the previous handler runs; uninstalled
+        # at wait()/cancel(), a no-op off the main thread.
+        callbacks = []
+        if reporter is not None:
+            callbacks.append(reporter.flush_now)
+        if executor.flight is not None and executor.flight_path:
+            callbacks.append(lambda: executor.flight_dump("signal"))
+        if executor.tracer is not None and executor.trace_path:
+            callbacks.append(handle._export_trace)
+        if callbacks:
+            flusher = ShutdownFlusher(callbacks)
+            if flusher.install():
+                handle._flusher = flusher
+        return handle
+
+    def _make_reporter(self, report_interval_s: typing.Optional[float], flight=None):
+        """The job's ReporterThread (not started), or None: the call's
+        interval first, then ``config.metrics.report_interval_s``.  No
+        interval, no thread and no sinks."""
+        cfg = self.config.metrics
+        interval = report_interval_s if report_interval_s is not None else cfg.report_interval_s
+        if interval is None:
+            return None
+        sinks = cfg.build_reporters() or [ConsoleReporter()]
+        return ReporterThread(self.metric_registry, sinks, interval, flight=flight)
 
     def _read_cohort_restore(self, base: str, checkpoint_id: typing.Optional[int]):
         """``(id, snapshots, local_shard)`` of a cohort restore from the

@@ -52,9 +52,9 @@ crash-looping through its restart budget).  Example::
 
 Every fired fault ticks a ``faults.<kind>`` meter (:func:`fired_counts`
 reads them back from a metric report) and is kept in
-:attr:`FaultInjector.fired`.  ``flight`` is the flight recorder's hook
-(a ``record(track, kind, args)`` object); the port has no flight
-recorder yet, so the executor passes None.
+:attr:`FaultInjector.fired`.  ``flight`` is the executor's flight
+recorder (None when it is off): each firing lands there as a ``<kind>``
+record on the ``faults`` track.
 """
 
 from __future__ import annotations

@@ -24,6 +24,12 @@ leaves as per-record host values.  ``uses_timers`` marks the operators
 the chaining pass keeps out of source chains: async maps, process
 functions, and windows whose trigger or function declares deadlines.
 
+``SubtaskStats`` (``:29-45``) holds a subtask's idle and backpressure
+seconds behind the runtime's gauges; ``Output`` books the
+seconds its channel puts were blocked there, and with a tracer stamps
+the thread's current trace context on each outgoing record with a fresh
+enqueue time (``:77-83``).
+
 Where the reference's ``WindowOperator`` forwards a watermark while its
 model function still has batches in flight (it inherits the base
 ``process_watermark``), the port's flushes them first, as the async map
@@ -51,17 +57,39 @@ if typing.TYPE_CHECKING:
     from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
 
 
+class SubtaskStats:
+    """Per-subtask accumulators behind the runtime's pull-based gauges,
+    written only by the owning subtask thread and read by the reporter
+    (plain float adds, no locks).  Busy time is the head's
+    ``process_latency_s`` timer's total."""
+
+    __slots__ = ("blocked_s", "idle_s")
+
+    def __init__(self) -> None:
+        #: Seconds this subtask's emits spent blocked on full downstream
+        #: queues (its backpressure time).
+        self.blocked_s = 0.0
+        #: Seconds spent waiting on the input gate or mailbox with
+        #: nothing to do.
+        self.idle_s = 0.0
+
+
 class Output:
     """Downstream emitter for one subtask (the tail of its chain).
 
     ``edges`` is a list of ``(partitioner, writers)``: the partitioner's
     ``select(value, n)`` names the writer indices, and each writer's
-    ``write(element)`` takes the element.  ``meter`` (optional) counts the
-    records emitted."""
+    ``write(element)`` takes the element (a local channel returns the
+    seconds it was blocked).  ``meter`` (optional) counts the records
+    emitted, ``stats`` takes the blocked seconds, and ``tracer`` stamps
+    the thread's trace context on each record."""
 
-    def __init__(self, edges, meter=None):
+    def __init__(self, edges, meter=None, stats: typing.Optional[SubtaskStats] = None,
+                 tracer=None):
         self._edges = edges
         self._meter = meter
+        self._stats = stats
+        self._tracer = tracer
 
     def emit(self, value: typing.Any, timestamp: typing.Optional[float] = None) -> None:
         if getattr(value, "is_device_batch", False):
@@ -75,16 +103,28 @@ class Output:
         if self._meter is not None:
             self._meter.mark()
         record = el.StreamRecord(value, timestamp)
+        tracer = self._tracer
+        if tracer is not None:
+            tctx = tracer.current()
+            if tctx is not None:
+                record.trace = tracer.fork(tctx, time.monotonic())
+        blocked = 0.0
         for partitioner, writers in self._edges:
             for idx in partitioner.select(value, len(writers)):
-                writers[idx].write(record)
+                dt = writers[idx].write(record)
+                if dt:
+                    blocked += dt
+        if blocked and self._stats is not None:
+            self._stats.blocked_s += blocked
 
     def broadcast_element(self, element: el.StreamElement) -> None:
         """Control elements (watermarks, barriers, end of partition) go to
         every downstream channel."""
         for _, writers in self._edges:
             for w in writers:
-                w.write(element)
+                dt = w.write(element)
+                if dt and self._stats is not None:
+                    self._stats.blocked_s += dt
 
 
 class StateNotRescalable(RuntimeError):

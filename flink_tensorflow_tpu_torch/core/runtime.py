@@ -56,6 +56,28 @@ both are None and each hook site is one ``is None`` test.  ``join``
 raises ``SanitizerError`` on a recorded violation (not a ``JobFailure``:
 a restart must not replay over a concurrency bug) and dumps the
 happens-before log to ``sanitize_log_path``.
+
+The observability planes (JAX ``:728-862``): with ``trace`` (or
+``FLINK_TPU_TRACE=1``) the executor holds a
+:class:`~flink_tensorflow_tpu_torch.tracing.tracer.Tracer`.  Sources admit
+records into traces (``run_source``, ``run_split_source``), a record's
+context rides its ``StreamRecord`` through channels and thread-locally
+through chained calls, and the loops record ``emit``, ``queue``,
+``process``, ``align``, ``snapshot`` spans and ``barrier.inject`` /
+``watermark`` instants; model runners read ``ctx.tracer``.  The flight
+recorder (on unless ``flight_recorder=False`` or ``FLINK_TPU_FLIGHT=0``)
+keeps lifecycle records (``job.start``, ``restart.attempt``,
+``job.failure``, ``sanitizer.violation``, ``subtask.finished``, barrier
+injections and snapshots, faults) and :meth:`LocalExecutor.flight_dump`
+writes them to ``flight_path`` on a crash or violation.  ``roofline``
+gives the runners a
+:class:`~flink_tensorflow_tpu_torch.metrics.roofline.RooflinePlane`
+(``ctx.roofline``).  Every subtask publishes the reference's metric
+catalogue (JAX ``:1040-1125``): ``process_latency_s``, ``idle_s``,
+``busy_s``, ``backpressure_s``, and on a gate ``queue_depth``,
+``queue_high_watermark`` and ``in_backpressure_s``; a subtask with a
+device gets ``hbm_bytes_in_use``.  Off, the tracer, the recorder and the
+plane are None and each hook site is one ``is None`` test.
 """
 
 from __future__ import annotations
@@ -78,7 +100,7 @@ from flink_tensorflow_tpu_torch.core.channels import ChannelWriter, InputGate
 from flink_tensorflow_tpu_torch.core.checkpoint import CheckpointCoordinator
 from flink_tensorflow_tpu_torch.core.faults import FaultInjector, FaultPlan
 from flink_tensorflow_tpu_torch.core.graph import DataflowGraph, Transformation
-from flink_tensorflow_tpu_torch.core.operators import Operator, Output, SourceOperator
+from flink_tensorflow_tpu_torch.core.operators import Operator, Output, SourceOperator, SubtaskStats
 from flink_tensorflow_tpu_torch.core.partitioning import ForwardPartitioner, HashPartitioner
 from flink_tensorflow_tpu_torch.core.runtime_context import RuntimeContext
 from flink_tensorflow_tpu_torch.core.shuffle import env_flow_control_enabled, env_shm_enabled
@@ -89,6 +111,8 @@ from flink_tensorflow_tpu_torch.sources.mailbox import SourceMailbox
 from flink_tensorflow_tpu_torch.sources.operator import DONE, RECORD
 from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype
 from flink_tensorflow_tpu_torch.tensors.transfer import env_device_resident, env_wire_dtype
+from flink_tensorflow_tpu_torch.tracing import flight as flight_mod
+from flink_tensorflow_tpu_torch.tracing import tracer as tracer_mod
 
 logger = logging.getLogger(__name__)
 
@@ -181,7 +205,8 @@ class _ChainedUnit:
     metric scope and its own checkpoint identity ``(t.name, index)``,
     whether or not it shares a thread with its neighbours."""
 
-    __slots__ = ("t", "index", "operator", "output", "records_in", "records_out")
+    __slots__ = ("t", "index", "operator", "output", "records_in", "records_out",
+                 "latency")
 
     def __init__(self, t: Transformation, index: int, operator: Operator):
         self.t = t
@@ -190,6 +215,7 @@ class _ChainedUnit:
         self.output: typing.Any = None
         self.records_in = None   # Meter
         self.records_out = None  # Meter
+        self.latency = None      # Timer: process_latency_s
 
     @property
     def scope(self) -> str:
@@ -212,17 +238,19 @@ class ChainedOutput:
     - end of partition runs the next member's ``finish()``, then moves on.
     """
 
-    __slots__ = ("_subtask", "_unit", "_records_out", "_accepts_device")
+    __slots__ = ("_subtask", "_unit", "_records_out", "_accepts_device", "_tracer")
 
     def __init__(self, subtask: "_Subtask", unit: _ChainedUnit, records_out,
-                 accepts_device: bool = False):
+                 accepts_device: bool = False, tracer=None):
         self._subtask = subtask
         self._unit = unit
         self._records_out = records_out
         self._accepts_device = accepts_device
+        self._tracer = tracer
 
     def emit(self, value: typing.Any, timestamp: typing.Optional[float] = None) -> None:
         n = 1
+        unit = self._unit
         if getattr(value, "is_device_batch", False):
             if not self._accepts_device:
                 ts = timestamp if timestamp is not None else value.timestamp
@@ -231,8 +259,18 @@ class ChainedOutput:
                 return
             n = value.num_records  # meters count records under fusion too
         self._records_out.mark(n)
-        self._unit.records_in.mark(n)
-        self._unit.operator.process_record_from(0, el.StreamRecord(value, timestamp))
+        unit.records_in.mark(n)
+        t0 = time.monotonic()
+        unit.operator.process_record_from(0, el.StreamRecord(value, timestamp))
+        t1 = time.monotonic()
+        unit.latency.update(t1 - t0)
+        tracer = self._tracer
+        if tracer is not None:
+            tctx = tracer.current()
+            if tctx is not None:
+                # The chained hop's span: it includes the member's own
+                # downstream emissions, as its latency timer does.
+                tracer.span(unit.scope, "process", t0, t1, args={"trace": tctx.trace_id})
 
     def broadcast_element(self, element: el.StreamElement) -> None:
         unit = self._unit
@@ -288,8 +326,12 @@ class _Subtask:
         #: :meth:`run_split_source`, which barrier requests,
         #: notifications and aborts wake.
         self.mailbox: typing.Optional[SourceMailbox] = None
-        #: Barrier alignment spans (first barrier -> snapshot), set in _build.
+        #: Barrier alignment times (first barrier -> snapshot), set in _wire.
         self.alignment = None
+        #: Idle and backpressure seconds behind the subtask's gauges.
+        self.stats = SubtaskStats()
+        #: The head's ``process_latency_s`` timer (set in _wire).
+        self.latency = None
 
     @property
     def scope(self) -> str:
@@ -373,22 +415,58 @@ class _Subtask:
             # Snapshot order must be chain order, head to tail, no gaps.
             san.chain_snapshot(self.scope, checkpoint_id, self.units.index(unit),
                                len(self.units))
+        tracer = self.executor.tracer
+        t0 = time.monotonic() if tracer is not None else 0.0
         snapshot = to_host(unit.operator.snapshot(checkpoint_id))
         self.executor.coordinator.ack(checkpoint_id, unit.t.name, unit.index, snapshot)
+        if tracer is not None:
+            tracer.span(unit.scope, "snapshot", t0, time.monotonic(),
+                        args={"checkpoint": checkpoint_id})
+        flight = self.executor.flight
+        if flight is not None:
+            flight.record(unit.scope, "snapshot", {"checkpoint": checkpoint_id})
 
     def _snapshot_and_ack(self, checkpoint_id: int) -> None:
         self.snapshot_unit(self.units[0], checkpoint_id)
 
     # -- thread bodies ---------------------------------------------------------
+    def _mark_barrier(self, checkpoint_id: int) -> None:
+        """The barrier's injection point: a trace instant, a flight record
+        and the sanitizer's happens-before event."""
+        executor = self.executor
+        if executor.tracer is not None:
+            executor.tracer.instant(self.scope, "barrier.inject",
+                                    args={"checkpoint": checkpoint_id})
+        if executor.flight is not None:
+            executor.flight.record(self.scope, "barrier.inject", {"checkpoint": checkpoint_id})
+        if executor.sanitizer is not None:
+            executor.sanitizer.hb("barrier.inject", self.scope, cid=checkpoint_id)
+
+    def _emit_from_source(self, value: typing.Any) -> None:
+        """Emit one source record: head-based admission into a trace (the
+        one sampling decision of the record's trace), then the chain's
+        emit, timed as the source's ``process_latency_s`` (blocked puts
+        included: the source's side of backpressure)."""
+        tracer = self.executor.tracer
+        if tracer is not None:
+            tracer.set_current(tracer.admit(self.scope, value))
+        t_emit = time.monotonic()
+        self.output.emit(value)
+        t_done = time.monotonic()
+        self.latency.update(t_done - t_emit)
+        if tracer is not None:
+            tctx = tracer.current()
+            if tctx is not None:
+                tracer.span(self.scope, "emit", t_emit, t_done, args={"trace": tctx.trace_id})
+                tracer.set_current(None)
+
     def _source_barrier(self, checkpoint_id: int) -> None:
         """Cut this source's stream: snapshot + ack, then the barrier
         (which snapshots each fused member in turn).  An aborted id is
         not cut."""
         if checkpoint_id in self._aborted_cids:
             return
-        san = self.executor.sanitizer
-        if san is not None:
-            san.hb("barrier.inject", self.scope, cid=checkpoint_id)
+        self._mark_barrier(checkpoint_id)
         self._snapshot_and_ack(checkpoint_id)
         self.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
 
@@ -409,7 +487,7 @@ class _Subtask:
                     self._source_barrier(cid)
                 if isinstance(value, el.SourceIdle):
                     continue  # a heartbeat: barriers served, no record
-                self.output.emit(value)
+                self._emit_from_source(value)
                 op.record_emitted()
                 if faults is not None:
                     faults.record_point(self.scope, op.offset)
@@ -443,9 +521,7 @@ class _Subtask:
         if checkpoint_id in self._barriers_cut or checkpoint_id in self._aborted_cids:
             return
         self._barriers_cut.add(checkpoint_id)
-        san = self.executor.sanitizer
-        if san is not None:
-            san.hb("barrier.inject", self.scope, cid=checkpoint_id)
+        self._mark_barrier(checkpoint_id)
         self.operator.on_barrier(checkpoint_id)
         self._snapshot_and_ack(checkpoint_id)
         self.output.broadcast_element(el.CheckpointBarrier(checkpoint_id))
@@ -482,7 +558,7 @@ class _Subtask:
                     deadline = self._chain_next_deadline()
                 kind, payload = op.poll_next()
                 if kind == RECORD:
-                    self.output.emit(payload)
+                    self._emit_from_source(payload)
                     op.record_emitted()
                     if faults is not None:
                         faults.record_point(self.scope, op.offset)
@@ -517,6 +593,7 @@ class _Subtask:
                         t = max(0.0, target - now)
                         timeout = t if timeout is None else min(timeout, t)
                 self.mailbox.wait(timeout)
+                self.stats.idle_s += time.monotonic() - now
             if not executor.cancelled.is_set():
                 # Serve the barrier requests that raced with the last records.
                 for cid in self._drain_control():
@@ -545,6 +622,9 @@ class _Subtask:
         barrier_seen: typing.Dict[int, typing.Set[int]] = {}
         barrier_t0: typing.Dict[int, float] = {}
         faults = executor.faults
+        tracer = executor.tracer
+        stats = self.stats
+        latency = self.latency
         processed = 0
 
         def merge_watermarks() -> None:
@@ -553,13 +633,19 @@ class _Subtask:
             live = [watermarks[i] for i in range(n) if not eop[i]]
             if live and min(live) > current_wm:
                 current_wm = min(live)
+                if tracer is not None:
+                    tracer.instant(self.scope, "watermark", args={"timestamp": current_wm})
                 op.process_watermark(el.Watermark(current_wm))
 
         def align(cid: int) -> None:
             live = {i for i in range(n) if not eop[i]}
             if live and not live <= barrier_seen[cid]:
                 return
-            self.alignment.record(time.monotonic() - barrier_t0.pop(cid))
+            now = time.monotonic()
+            t_align = barrier_t0.pop(cid)
+            self.alignment.update(now - t_align)
+            if tracer is not None:
+                tracer.span(self.scope, "align", t_align, now, args={"checkpoint": cid})
             self._snapshot_and_ack(cid)
             self.output.broadcast_element(el.CheckpointBarrier(cid))
             del barrier_seen[cid]
@@ -572,7 +658,8 @@ class _Subtask:
                 # Event-driven wait: a put / wake / close, or the chain's
                 # earliest deadline.
                 deadline = self._chain_next_deadline()
-                timeout = None if deadline is None else max(0.0, deadline - time.monotonic())
+                poll_start = time.monotonic()
+                timeout = None if deadline is None else max(0.0, deadline - poll_start)
                 item = gate.poll(timeout=timeout)
                 self.deliver_notifications()
                 for cid in self._drain_aborts():
@@ -581,7 +668,12 @@ class _Subtask:
                     if barrier_seen.pop(cid, None) is not None:
                         barrier_t0.pop(cid, None)
                         gate.unblock_all()
-                self._chain_fire_due(time.monotonic())
+                now = time.monotonic()
+                if item is None:
+                    # An empty poll's wait was idle time (with data the
+                    # dequeue returns at once, so only empty polls count).
+                    stats.idle_s += now - poll_start
+                self._chain_fire_due(now)
                 if item is None:
                     continue
                 idx, element = item
@@ -590,7 +682,23 @@ class _Subtask:
                     if faults is not None:
                         faults.record_point(self.scope, processed)
                     records_in.mark()
-                    op.process_record_from(edge_of_channel[idx], element)
+                    if tracer is None:
+                        op.process_record_from(edge_of_channel[idx], element)
+                        latency.update(time.monotonic() - now)
+                    else:
+                        tctx = element.trace
+                        if tctx is not None:
+                            # The queue wait (enqueue -> this delivery), and
+                            # the context for the chain's emissions.
+                            tracer.queue_span(self.scope, tctx, now)
+                            tracer.set_current(tctx)
+                        op.process_record_from(edge_of_channel[idx], element)
+                        t1 = time.monotonic()
+                        latency.update(t1 - now)
+                        if tctx is not None:
+                            tracer.span(self.scope, "process", now, t1,
+                                        args={"trace": tctx.trace_id})
+                            tracer.set_current(None)
                 elif isinstance(element, el.Watermark):
                     watermarks[idx] = element.timestamp
                     merge_watermarks()
@@ -602,7 +710,7 @@ class _Subtask:
                         continue
                     seen = barrier_seen.setdefault(cid, set())
                     if not seen:
-                        barrier_t0[cid] = time.monotonic()
+                        barrier_t0[cid] = now
                     seen.add(idx)
                     gate.block_channel(idx)
                     align(cid)
@@ -661,7 +769,13 @@ class LocalExecutor:
                  restart_epoch: int = 0,
                  faults: typing.Any = None,
                  sanitize: bool = False,
-                 sanitize_log_path: typing.Optional[str] = None):
+                 sanitize_log_path: typing.Optional[str] = None,
+                 trace: bool = False,
+                 trace_path: typing.Optional[str] = None,
+                 trace_sample_rate: float = 1.0,
+                 flight_recorder: bool = True,
+                 flight_path: typing.Optional[str] = None,
+                 roofline: typing.Any = None):
         self.graph = graph
         self.mesh = mesh
         self.channel_capacity = channel_capacity
@@ -700,12 +814,41 @@ class LocalExecutor:
         #: Where ``join`` dumps the happens-before log (kept without a
         #: sanitizer too: a cohort suffixes it per process).
         self.sanitize_log_path = sanitize_log_path or sanitizer_rt.env_hb_log_path()
+        #: The span tracer (``trace`` or ``FLINK_TPU_TRACE=1``), else None.
+        #: Its sampling is seeded by the registry's seed.
+        if trace or tracer_mod.env_enabled():
+            self.tracer = tracer_mod.Tracer(
+                sample_rate=tracer_mod.env_sample_rate() or trace_sample_rate,
+                seed=self.metrics.seed)
+        else:
+            self.tracer = None
+        #: Where ``JobHandle.wait`` writes the Chrome trace (None: memory).
+        self.trace_path = trace_path or tracer_mod.env_trace_path()
+        #: The flight recorder, on unless switched off (``FLINK_TPU_FLIGHT``
+        #: overrides the config either way); dumps land at ``flight_path``.
+        env_flight = flight_mod.env_enabled()
+        flight_on = flight_recorder if env_flight is None else env_flight
+        self.flight = flight_mod.FlightRecorder() if flight_on else None
+        self.flight_path = flight_path or flight_mod.env_flight_path()
+        if self.sanitizer is not None and self.tracer is not None:
+            # Violations land as instants on the trace timeline.
+            self.sanitizer.tracer = self.tracer
+        #: Zero-arg hooks fired once, at the first subtask failure (the
+        #: reporter's crash-time flush).
+        self.failure_listeners: typing.List[typing.Callable[[], None]] = []
+        #: The roofline plane runners take their probes from, or None.
+        self.roofline = None
+        if roofline is not None:
+            from flink_tensorflow_tpu_torch.metrics.roofline import RooflinePlane
+
+            self.roofline = RooflinePlane(roofline, flight=self.flight, tracer=self.tracer)
         #: The fault plan's injector for this restart epoch, or None when no
         #: spec is armed for it (a restarted attempt replays cleanly).
         plan = FaultPlan.resolve(faults)
         injector = None
         if plan is not None and plan.specs:
-            injector = FaultInjector(plan, epoch=restart_epoch, metrics=self.metrics)
+            injector = FaultInjector(plan, epoch=restart_epoch, metrics=self.metrics,
+                                     flight=self.flight)
             if not injector.active:
                 injector = None
         self.faults = injector
@@ -838,13 +981,29 @@ class LocalExecutor:
             grp = self.metrics.group(unit.scope)
             unit.records_in = grp.meter("records_in")
             unit.records_out = grp.meter("records_out")
+            unit.latency = grp.timer("process_latency_s")
             grp.gauge("chained_edges", lambda n=chain_len - 1: n)
-        st.alignment = self.metrics.group(st.scope).histogram("checkpoint_alignment_s")
-        st.units[-1].output = Output(edges, meter=st.units[-1].records_out)
+        # The metric catalogue: pull-based gauges over the accumulators the
+        # hot path bumps (JAX ``core/runtime.py:1040-1125``).
+        head = self.metrics.group(st.scope)
+        st.latency = st.units[0].latency
+        st.alignment = head.timer("checkpoint_alignment_s")
+        head.gauge("idle_s", lambda s=st.stats: s.idle_s)
+        head.gauge("busy_s", lambda tm=st.latency: tm.total_s)
+        head.gauge("backpressure_s", lambda s=st.stats: s.blocked_s)
+        if st.gate is not None:
+            head.gauge("queue_depth", lambda g=st.gate: g.depth)
+            head.gauge("queue_high_watermark", lambda g=st.gate: g.high_watermark)
+            # Time upstream writers spent blocked putting into this gate:
+            # this operator causes the backpressure above it.
+            head.gauge("in_backpressure_s", lambda g=st.gate: g.blocked_put_s)
+        st.units[-1].output = Output(edges, meter=st.units[-1].records_out, stats=st.stats,
+                                     tracer=self.tracer)
         for k in range(chain_len - 1):
             unit, nxt = st.units[k], st.units[k + 1]
             accepts = accepts_device_op(nxt.operator)
-            unit.output = ChainedOutput(st, nxt, unit.records_out, accepts_device=accepts)
+            unit.output = ChainedOutput(st, nxt, unit.records_out, accepts_device=accepts,
+                                        tracer=self.tracer)
             if accepts and self.device_resident and device_capable_op(unit.operator):
                 # The next member consumes device batches: this member's
                 # function may keep its results on the card.
@@ -863,6 +1022,12 @@ class LocalExecutor:
         for unit in st.units:
             device = (self.device_provider(unit.t.name, unit.index)
                       if self.device_provider is not None else None)
+            if device is not None:
+                from flink_tensorflow_tpu_torch.utils.profiling import device_memory_stats
+
+                self.metrics.group(unit.scope).gauge(
+                    "hbm_bytes_in_use",
+                    lambda d=device: device_memory_stats(d).get("bytes_in_use"))
             state = KeyedStateStore()
             ctx = RuntimeContext(unit.t.name, unit.index, unit.t.parallelism,
                                  self.metrics.group(unit.scope), device=device,
@@ -878,6 +1043,10 @@ class LocalExecutor:
             ctx.flow_control = self.flow_control
             ctx.sanitizer = self.sanitizer
             ctx.fault_injector = self.faults
+            # Model runners read these at open(): stage spans on this
+            # unit's track, and a roofline probe.
+            ctx.tracer = self.tracer
+            ctx.roofline = self.roofline
             if st.gate is not None:
                 # A runner's fetch thread wakes the one thread that runs
                 # the whole chain, whichever member it belongs to.
@@ -979,6 +1148,15 @@ class LocalExecutor:
 
     # -- execution -------------------------------------------------------------
     def start(self) -> None:
+        if self.flight is not None:
+            self.flight.record("job", "start", {
+                "subtasks": len(self.subtasks),
+                "logical_subtasks": self.total_subtasks,
+                "restart_epoch": self.restart_epoch,
+            })
+            if self.restart_epoch:
+                self.flight.record("job", "restart.attempt",
+                                   {"restart_epoch": self.restart_epoch})
         for st in self.subtasks:
             if not st.t.is_source:
                 body = st.run_worker
@@ -1046,23 +1224,59 @@ class LocalExecutor:
             try:
                 self.sanitizer.check()
             except sanitizer_rt.SanitizerError:
+                if self.flight is not None:
+                    self.flight.record("job", "sanitizer.violation",
+                                       {"violations": len(self.sanitizer.violations)})
+                    self.flight_dump("sanitizer")
                 self.sanitizer_log_dump("violation")
                 raise
             self.sanitizer_log_dump("shutdown")
+
+    def flight_dump(self, reason: str) -> typing.Optional[str]:
+        """Dump the flight ring (and the tracer's events when tracing) to
+        ``flight_path``; no-op without a recorder or a path, idempotent
+        per reason.  The dump names the sanitizer's log and the log the
+        dump, so either leads to the other."""
+        if self.flight is None or not self.flight_path:
+            return None
+        extra = {"sanitizer_log": self.sanitize_log_path} if self.sanitize_log_path else None
+        path = self.flight.dump(self.flight_path, reason, tracer=self.tracer, extra=extra)
+        self.sanitizer_log_dump(reason)
+        return path
 
     def sanitizer_log_dump(self, reason: str) -> typing.Optional[str]:
         """Dump the happens-before log to ``sanitize_log_path`` (no-op
         without a sanitizer or a path); idempotent per reason."""
         if self.sanitizer is None or not self.sanitize_log_path:
             return None
-        return self.sanitizer.dump_hb_log(self.sanitize_log_path, reason)
+        extra = ({"flight_dump": self.flight_path}
+                 if self.flight is not None and self.flight_path else None)
+        return self.sanitizer.dump_hb_log(self.sanitize_log_path, reason, extra=extra)
 
     def fail(self, subtask: _Subtask, exc: BaseException) -> None:
         with self._error_lock:
-            if self._error is None:
+            first = self._error is None
+            if first:
                 self._error = exc
         logger.error("subtask %s failed", subtask.scope, exc_info=exc)
         self.cancel()
+        if not first:
+            return
+        if self.tracer is not None:
+            self.tracer.instant("job", "failure",
+                                args={"subtask": subtask.scope, "error": repr(exc)})
+        if self.flight is not None:
+            # The black box lands before teardown goes further: the ring
+            # holds the lifecycle that led here.
+            self.flight.record("job", "failure", {"subtask": subtask.scope, "error": repr(exc)})
+            self.flight_dump("crash")
+        # Crash-time observability: the reporter publishes the snapshot
+        # that explains the failure now, not after teardown.
+        for hook in self.failure_listeners:
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 - observability only
+                logger.warning("failure listener failed", exc_info=True)
 
     def cancel(self) -> None:
         self.cancelled.set()
@@ -1099,6 +1313,8 @@ class LocalExecutor:
         return self._all_done
 
     def subtask_finished(self, subtask: _Subtask) -> None:
+        if self.flight is not None:
+            self.flight.record(subtask.scope, "subtask.finished")
         self.coordinator.subtask_finished(subtask)
         with self._error_lock:
             self._finished_count += 1

@@ -40,7 +40,8 @@ class RuntimeContext:
         self.task_name = task_name
         self.subtask_index = subtask_index
         self.parallelism = parallelism
-        self.metrics = metric_group or MetricGroup(f"{task_name}.{subtask_index}")
+        self.metrics = metric_group if metric_group is not None else MetricGroup(
+            f"{task_name}.{subtask_index}")
         self.device = device
         #: Shared ``parallel.mesh.Mesh`` for gang operators (DP training).
         self.mesh = mesh
@@ -62,6 +63,10 @@ class RuntimeContext:
         self.flow_control = True
         self.sanitizer: typing.Any = None
         self.fault_injector: typing.Any = None
+        #: The job's span tracer and roofline plane (None when off): model
+        #: runners record their stage spans and take a probe at ``open()``.
+        self.tracer: typing.Any = None
+        self.roofline: typing.Any = None
 
     def state(self, descriptor: StateDescriptor) -> ValueState:
         return self._keyed_state.value_state(descriptor)

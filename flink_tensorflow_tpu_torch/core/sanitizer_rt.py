@@ -52,9 +52,9 @@ runtime's checkpoint invariants, fed by hooks at the protocol points:
 
 On with ``JobConfig(sanitize=True)`` or ``FLINK_TPU_SANITIZE=1``.  Off,
 nothing here is built: the runtime takes plain ``threading`` primitives
-and each hook is one ``is None`` test.  ``tracer`` is the span tracer's
-hook (``instant(track, name, args=...)``); the port has no tracer yet,
-so it stays None.
+and each hook is one ``is None`` test.  ``tracer`` is the job's span tracer,
+set by the executor when tracing is on too: each violation lands as an
+instant on the ``sanitizer`` track.
 """
 
 from __future__ import annotations
@@ -304,7 +304,7 @@ class ConcurrencySanitizer:
         self._shake_threads = 0
         self.violations: typing.List[Violation] = []
         #: Span tracer hook: every recorded violation lands as an instant
-        #: on its "sanitizer" track.  None until the port has a tracer.
+        #: on its "sanitizer" track (set by a traced executor).
         self.tracer: typing.Optional[typing.Any] = None
         self._mu = threading.Lock()
         #: lock name -> owning thread id (while held).

@@ -44,6 +44,22 @@ shape (the active rows only, the exact prompt length).
 :class:`PagedDecodeStepRunner` (JAX ``_build_paged_calls`` ``:486`` and
 ``PagedDecodeStepRunner`` ``:547``) keeps the cache as pages with a block
 table per slot; see its docstring.
+
+Traced (``ctx.tracer`` at ``open``), each runner records on its
+subtask's track: a ``CompiledMethodRunner`` batch is ``lane_wait``,
+``h2d`` (or an ``h2d.elided`` instant), ``compute`` and ``d2h`` (or
+``d2h.elided``) spans cut at the stamps the lanes and the fetch thread
+already take (JAX ``:1541-1553``, ``:1625-1640``): ``compute`` runs from
+the launch returning to the fetch thread reaching the batch, ``d2h`` is
+the fetch's own wait, and nothing waits on the device for the tracer.
+The decode runners record ``decode.prefill`` (with its ``[batch, prompt]``
+bucket), ``decode.step``, ``cache.h2d`` / ``cache.d2h`` spans and
+``cache.resident`` / ``cache.cow`` instants (JAX ``:347-481``,
+``:737-975``); warmups are one ``jit_warmup_compile`` span.  With a
+roofline plane (``ctx.roofline``) each runner takes a probe and observes
+every call's busy time and H2D bytes at its signature (``b<batch>``,
+``prefill:<b>x<t>``, ``decode:<S>``); cache moves are transfers, never
+compile events.
 """
 
 from __future__ import annotations
@@ -119,6 +135,11 @@ class DecodeStepRunner:
         self._kc: typing.Optional[torch.Tensor] = None   # [S, L, C, H, Dh]
         self._vc: typing.Optional[torch.Tensor] = None
         self._metrics = None
+        #: Span tracer and track (from ctx at open; None untraced) and the
+        #: roofline probe (None without ``JobConfig.roofline``).
+        self._tracer = None
+        self._trace_track: typing.Optional[str] = None
+        self._roofline = None
         #: Plain counters (mirrored to the metric group by the operator).
         self.step_h2d_bytes = 0
         self.block_h2d_events = 0     # host block -> pool (admission/restore)
@@ -129,6 +150,14 @@ class DecodeStepRunner:
     def open(self, ctx: typing.Optional["RuntimeContext"] = None) -> None:
         if ctx is not None:
             self._metrics = ctx.metrics
+            self._tracer = getattr(ctx, "tracer", None)
+            if self._tracer is not None:
+                self._trace_track = f"{ctx.task_name}.{ctx.subtask_index}"
+            plane = getattr(ctx, "roofline", None)
+            if plane is not None:
+                # Joins each measured prefill and step against the plan's
+                # cost table; roofline.* gauges on this subtask's scope.
+                self._roofline = plane.probe(ctx.task_name, metrics=ctx.metrics)
         if self.device.type == "cuda":
             # The reference is f32 throughout: keep f32 products off TF32
             # (already PyTorch's default; set so no caller's flag leaks in).
@@ -155,14 +184,20 @@ class DecodeStepRunner:
         decode step once, so the kernel build and first launches happen
         before the first live session.  Warmup rows go to the
         out-of-range slot (dropped) and the warm decode runs fully masked
-        — the pool stays clean.  Counters and metrics are suppressed.
-        Without ``padding_buckets`` there is no finite set of shapes to
-        warm, and nothing runs."""
+        — the pool stays clean.  Counters, metrics and stage spans are
+        suppressed (one ``jit_warmup_compile`` span covers the warmup); the
+        roofline probe still logs each signature's first sight, as a
+        warmup compile.  Without ``padding_buckets`` there is no finite set
+        of shapes to warm, and nothing runs."""
         if not self.padding_buckets:
             return
         metrics, self._metrics = self._metrics, None
+        tracer, self._tracer = self._tracer, None
         saved = (self.step_h2d_bytes, self.block_h2d_events,
                  self.block_d2h_events, self.device_block_moves)
+        t_warm = time.monotonic()
+        if self._roofline is not None:
+            self._roofline.begin_warmup()
         try:
             for b in admit_buckets:
                 for t in prompt_buckets:
@@ -171,9 +206,16 @@ class DecodeStepRunner:
                                  [self.pool_slots], batch_bucket=b)
             self.decode_step([0] * self.pool_slots, [0] * self.pool_slots, [])
         finally:
+            if self._roofline is not None:
+                self._roofline.end_warmup()
             self._metrics = metrics
+            self._tracer = tracer
             (self.step_h2d_bytes, self.block_h2d_events,
              self.block_d2h_events, self.device_block_moves) = saved
+            if tracer is not None:
+                tracer.span(self._trace_track, "jit_warmup_compile", t_warm, time.monotonic(),
+                            args={"admit_buckets": list(admit_buckets),
+                                  "prompt_buckets": list(prompt_buckets)})
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
@@ -220,10 +262,17 @@ class DecodeStepRunner:
                 pool[dst] = block
         host = out["next_token"].cpu().numpy()[:n]
         t1 = time.monotonic()
-        self.step_h2d_bytes += tokens.nbytes + lens.nbytes + slot_arr.nbytes
+        h2d = tokens.nbytes + lens.nbytes + slot_arr.nbytes
+        self.step_h2d_bytes += h2d
+        if self._tracer is not None:
+            self._tracer.span(self._trace_track, "decode.prefill", t0, t1,
+                              args={"batch": n, "bucket": [b, t]})
         if self._metrics is not None:
             self._metrics.histogram("prefill_s").record(t1 - t0)
             self._metrics.counter("prefill_batches").inc()
+        if self._roofline is not None:
+            self._roofline.observe("prefill", t1 - t0, signature=f"prefill:{b}x{t}",
+                                   h2d_bytes=h2d, d2h_bytes=b * 4)
         return host
 
     def decode_step(self, tokens_by_slot, lengths_by_slot, active_slots) -> np.ndarray:
@@ -237,6 +286,7 @@ class DecodeStepRunner:
         if self._kc is None:
             raise RuntimeError("decode_step before open()")
         t0 = time.monotonic()
+        h2d_before = self.step_h2d_bytes
         toks = np.asarray(tokens_by_slot, np.int32)
         lens = np.asarray(lengths_by_slot, np.int32)
         if self.padding_buckets:
@@ -261,9 +311,20 @@ class DecodeStepRunner:
             out = np.zeros((self.pool_slots,), np.int32)
             out[slots] = result["next_token"].cpu().numpy()
         t1 = time.monotonic()
+        if self._tracer is not None:
+            self._tracer.span(self._trace_track, "decode.step", t0, t1,
+                              args={"active": len(active_slots)})
         if self._metrics is not None:
             self._metrics.histogram("decode_step_s").record(t1 - t0)
             self._metrics.counter("decode_steps").inc()
+        if self._roofline is not None:
+            # Padded mode presents the one [S] signature; exact mode's
+            # signature is the active-set size.
+            sig = (f"decode:{self.pool_slots}" if self.padding_buckets
+                   else f"decode:{len(active_slots)}")
+            self._roofline.observe("decode_step", t1 - t0, signature=sig,
+                                   h2d_bytes=self.step_h2d_bytes - h2d_before,
+                                   d2h_bytes=int(out.nbytes))
         return out
 
     # -- block movement (keyed-state residency boundary) -------------------
@@ -275,24 +336,49 @@ class DecodeStepRunner:
         updated in place, so a block must own its bytes."""
         if not host:
             self.device_block_moves += 1
+            if self._tracer is not None:
+                self._tracer.instant(self._trace_track, "cache.resident",
+                                     args={"slot": slot, "length": length})
             return self._kc[slot].clone(), self._vc[slot].clone()
         self.block_d2h_events += 1
+        t0 = time.monotonic()
         # A copy even when the pool is on the CPU (where ``.cpu()`` returns
         # the pool's own view): a snapshot or a preempted block must not
         # change when the slot is written again.
-        return (self._kc[slot].to("cpu", copy=True).numpy(),
-                self._vc[slot].to("cpu", copy=True).numpy())
+        k = self._kc[slot].to("cpu", copy=True).numpy()
+        v = self._vc[slot].to("cpu", copy=True).numpy()
+        t1 = time.monotonic()
+        self._observe_move("cache.d2h", t0, t1, {"slot": slot, "length": length},
+                           "cache:block", d2h_bytes=int(k.nbytes + v.nbytes))
+        return k, v
+
+    def _observe_move(self, name: str, t0: float, t1: float, args: dict, signature: str,
+                      *, h2d_bytes: int = 0, d2h_bytes: int = 0) -> None:
+        """A cache move's span (its bytes in the args) and its roofline
+        transfer: data motion, never a compile event."""
+        if self._tracer is not None:
+            self._tracer.span(self._trace_track, name, t0, t1,
+                              args={**args, "bytes": h2d_bytes + d2h_bytes})
+        if self._roofline is not None:
+            self._roofline.observe_transfer("cache_move", t1 - t0, signature=signature,
+                                            h2d_bytes=h2d_bytes, d2h_bytes=d2h_bytes)
 
     def insert_block(self, slot: int, k, v) -> None:
         """One session's cache back into the pool.  Host arrays pay the
         h2d here; device tensors copy device-side."""
         is_host = isinstance(k, np.ndarray)
+        t0 = time.monotonic()
         self._kc[slot] = torch.as_tensor(k).to(self.device)
         self._vc[slot] = torch.as_tensor(v).to(self.device)
+        t1 = time.monotonic()
         if is_host:
             self.block_h2d_events += 1
+            self._observe_move("cache.h2d", t0, t1, {"slot": slot}, "cache:block",
+                               h2d_bytes=int(k.nbytes + v.nbytes))
         else:
             self.device_block_moves += 1
+            if self._tracer is not None:
+                self._tracer.instant(self._trace_track, "cache.resident", args={"slot": slot})
 
 
 class PagedDecodeStepRunner(DecodeStepRunner):
@@ -420,6 +506,7 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         lens = np.zeros((b,), np.int32)
         lens[:n] = np.asarray(lengths, np.int32)
         scatter = np.full((b, self.table_width), self.num_pages, np.int32)
+        adopted_pages = 0
         for i, (p, ln, slot) in enumerate(zip(prompts, lengths, slots)):
             slot = int(slot)
             if slot >= self.pool_slots:
@@ -428,6 +515,7 @@ class PagedDecodeStepRunner(DecodeStepRunner):
             if self.index is not None:
                 full, partial = self.index.match(p)
                 adopted = full + ([partial] if partial is not None else [])
+                adopted_pages += len(adopted)
             own_n = self.pool.pages_for(int(ln)) - len(adopted)
             own = self._alloc(own_n)
             if own is None:
@@ -451,10 +539,18 @@ class PagedDecodeStepRunner(DecodeStepRunner):
             scatter_pages(pool, tables, dense, self.page_tokens)
         host = out["next_token"].cpu().numpy()[:n]
         t1 = time.monotonic()
-        self.step_h2d_bytes += tokens.nbytes + lens.nbytes + scatter.nbytes
+        h2d = tokens.nbytes + lens.nbytes + scatter.nbytes
+        self.step_h2d_bytes += h2d
+        if self._tracer is not None:
+            self._tracer.span(self._trace_track, "decode.prefill", t0, t1,
+                              args={"batch": n, "bucket": [b, t],
+                                    "pages_shared": adopted_pages})
         if self._metrics is not None:
             self._metrics.histogram("prefill_s").record(t1 - t0)
             self._metrics.counter("prefill_batches").inc()
+        if self._roofline is not None:
+            self._roofline.observe("prefill", t1 - t0, signature=f"prefill:{b}x{t}",
+                                   h2d_bytes=h2d, d2h_bytes=b * 4)
         return host
 
     def step_tables(self) -> np.ndarray:
@@ -475,7 +571,8 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         tables = self.step_tables()
         toks = np.asarray(tokens_by_slot, np.int32)
         lens = np.asarray(lengths_by_slot, np.int32)
-        self.step_h2d_bytes += toks.nbytes + lens.nbytes + tables.nbytes
+        h2d = toks.nbytes + lens.nbytes + tables.nbytes
+        self.step_h2d_bytes += h2d
         tab = self._to_device(tables).long()
         result = self._decode.fn(self._module, {
             "token": self._to_device(toks), "lengths": self._to_device(lens),
@@ -484,9 +581,15 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         scatter_pages(self._vc, tab, result["v_cache"], self.page_tokens)
         out = result["next_token"].cpu().numpy()
         t1 = time.monotonic()
+        if self._tracer is not None:
+            self._tracer.span(self._trace_track, "decode.step", t0, t1,
+                              args={"active": len(active_slots)})
         if self._metrics is not None:
             self._metrics.histogram("decode_step_s").record(t1 - t0)
             self._metrics.counter("decode_steps").inc()
+        if self._roofline is not None:
+            self._roofline.observe("decode_step", t1 - t0, signature=f"decode:{self.pool_slots}",
+                                   h2d_bytes=h2d, d2h_bytes=int(out.nbytes))
         return out
 
     # -- copy-on-write / growth -------------------------------------------
@@ -521,6 +624,8 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         """The copy-on-write split: duplicate one page device-side."""
         self._kc[dst].copy_(self._kc[src])
         self._vc[dst].copy_(self._vc[src])
+        if self._tracer is not None:
+            self._tracer.instant(self._trace_track, "cache.cow", args={"src": src, "dst": dst})
 
     # -- block movement (tier-ladder boundary) -----------------------------
     def park(self, slot: int, length: int) -> PagedKVHandle:
@@ -531,31 +636,48 @@ class PagedDecodeStepRunner(DecodeStepRunner):
 
         table = self._tables.pop(slot)
         self.device_block_moves += 1
+        if self._tracer is not None:
+            self._tracer.instant(self._trace_track, "cache.resident",
+                                 args={"slot": slot, "length": length, "pages": len(table)})
         return PagedKVHandle(table, length)
 
     def attach(self, slot: int, handle: PagedKVHandle) -> None:
         """Re-admission of a hot-parked session: re-attach the table."""
         self._tables[slot] = list(handle.pages)
         self.device_block_moves += 1
+        if self._tracer is not None:
+            self._tracer.instant(self._trace_track, "cache.resident",
+                                 args={"slot": slot, "pages": len(handle.pages)})
 
     def _gather_host(self, pages: typing.Sequence[int]):
         """Pages -> dense host ``[L, C, H, Dh]`` K/V, zero-filled beyond
         the given pages (positions past a session's length are masked by
         every consumer).  New host arrays, never views of the pool, even
-        when the pool is on the CPU: the pages are written again."""
+        when the pool is on the CPU: the pages are written again.  Returns
+        ``(k, v, wire_bytes)``: only the gathered pages cross the wire."""
         ids = torch.as_tensor(list(pages), dtype=torch.long).to(self.device)
         out = []
+        wire = 0
         for pool in (self._kc, self._vc):
             got = pool.index_select(0, ids).cpu().numpy()      # a new tensor
+            wire += int(got.nbytes)
             dense = np.zeros((pool.shape[1], self.capacity, *pool.shape[3:]), got.dtype)
             dense[:, :len(pages) * self.page_tokens] = pages_to_dense(got[None])[0]
             out.append(dense)
-        return out[0], out[1]
+        return out[0], out[1], wire
+
+    def _gather_move(self, pages: typing.Sequence[int], args: dict):
+        """``_gather_host`` as one traced and roofline-observed cache D2H."""
+        t0 = time.monotonic()
+        k, v, wire = self._gather_host(pages)
+        self._observe_move("cache.d2h", t0, time.monotonic(), {**args, "pages": len(pages)},
+                           f"cache:pages:{len(pages)}", d2h_bytes=wire)
+        return k, v
 
     def snapshot_block(self, slot: int, length: int):
         """Barrier copy of an ACTIVE session: dense host K/V, pages
         untouched (the pool stays authoritative)."""
-        k, v = self._gather_host(self._tables[slot])
+        k, v = self._gather_move(self._tables[slot], {"slot": slot, "length": length})
         self.block_d2h_events += 1
         return k, v
 
@@ -563,7 +685,7 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         """Demotion of an ACTIVE session (pressure preemption to the warm
         tier): dense host K/V out, pages released."""
         table = self._tables.pop(slot)
-        k, v = self._gather_host(table)
+        k, v = self._gather_move(table, {"slot": slot, "length": length})
         self.pool.release(table)
         self.block_d2h_events += 1
         return k, v
@@ -574,7 +696,7 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         free."""
         from flink_tensorflow_tpu_torch.serving.kv_cache import KVBlock
 
-        k, v = self._gather_host(handle.pages)
+        k, v = self._gather_move(handle.pages, {"length": handle.length})
         self.pool.release(handle.pages)
         self.block_d2h_events += 1
         return KVBlock(k, v, handle.length)
@@ -594,11 +716,16 @@ class PagedDecodeStepRunner(DecodeStepRunner):
                 f"pages, {self.pool.free_pages} free — the admission "
                 "gate should have held this session back")
         self._tables[slot] = got
+        t0 = time.monotonic()
         ids = torch.as_tensor(got, dtype=torch.long).to(self.device)
+        wire = 0
         for pool, block in ((self._kc, k), (self._vc, v)):
             pages = dense_to_pages(np.asarray(block)[None], self.page_tokens)[0][:n]
+            wire += int(pages.nbytes)
             pool.index_copy_(0, ids, torch.from_numpy(np.ascontiguousarray(pages))
                              .to(device=self.device, dtype=pool.dtype))
+        self._observe_move("cache.h2d", t0, time.monotonic(), {"slot": slot, "pages": n},
+                           f"cache:pages:{n}", h2d_bytes=wire)
         self.block_h2d_events += 1
 
     def release_finished(self, slot: int, cached_tokens, length: int) -> None:
@@ -738,6 +865,14 @@ class CompiledMethodRunner:
         self._pool: typing.Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._holds_cudnn = False
         self._metrics = None
+        #: Span tracer and track (from ctx at open; None untraced): per-batch
+        #: ``lane_wait`` / ``h2d`` / ``compute`` / ``d2h`` spans from the
+        #: stamps the lanes and the fetch thread already take.
+        self._tracer = None
+        self._trace_track: typing.Optional[str] = None
+        #: Roofline probe (None without ``JobConfig.roofline``): each batch's
+        #: compute span joins the plan's cost entries.
+        self._roofline = None
         #: In-flight batches, ``(lane future, on_done)`` in dispatch order;
         #: appended by the dispatching thread, consumed FIFO by the fetch
         #: thread; guarded by ``_lock``.
@@ -816,6 +951,12 @@ class CompiledMethodRunner:
             self._fetcher.start()
         if ctx is not None:
             self._metrics = ctx.metrics
+            self._tracer = getattr(ctx, "tracer", None)
+            if self._tracer is not None:
+                self._trace_track = f"{ctx.task_name}.{ctx.subtask_index}"
+            plane = getattr(ctx, "roofline", None)
+            if plane is not None:
+                self._roofline = plane.probe(ctx.task_name, metrics=ctx.metrics)
 
     def warmup(self, batch_sizes: typing.Iterable[int], length_bucket: int = 128) -> None:
         """Run each batch bucket on every dispatch lane, and through every
@@ -823,10 +964,17 @@ class CompiledMethodRunner:
         one-time costs (cuDNN's algorithm choice and plans, which PyTorch
         keeps per thread; allocator growth; pinned staging buffers, sized
         here by the largest bucket and ``length_bucket``) stay out of the
-        live windows, the metrics and the service-time EWMA."""
+        live windows, the metrics, the stage spans (one
+        ``jit_warmup_compile`` span covers the warmup) and the service-time
+        EWMA; the roofline probe logs each batch size's first sight as a
+        warmup compile."""
+        batch_sizes = tuple(batch_sizes)
         schema = self.method.input_schema
         shapes = schema.resolve_dynamic(length_bucket)
         metrics, self._metrics = self._metrics, None
+        tracer, self._tracer = self._tracer, None
+        if self._roofline is not None:
+            self._roofline.begin_warmup()
         lanes = self.lanes
         # Each lane task waits for all the others, so every lane thread
         # takes exactly one of them; as many rounds as it takes for the
@@ -847,8 +995,14 @@ class CompiledMethodRunner:
                     self._enqueue(self._pool.submit(on_each_lane, records, time.monotonic()))
                 self.flush()
         finally:
+            if self._roofline is not None:
+                self._roofline.end_warmup()
             self._metrics = metrics
+            self._tracer = tracer
             self.service_ewma_s = None
+            if tracer is not None:
+                tracer.span(self._trace_track, "jit_warmup_compile", t0, time.monotonic(),
+                            args={"batches": list(batch_sizes)})
         if metrics is not None:
             metrics.histogram("warmup_s").record(time.monotonic() - t0)
 
@@ -1067,7 +1221,8 @@ class CompiledMethodRunner:
             if handle.done is not None:
                 handle.done.synchronize()
             results = [DeviceBatch(handle.host, batch.valid, batch.metas,
-                                   ready=handle.done, metrics=self._metrics)]
+                                   ready=handle.done, metrics=self._metrics,
+                                   tracer=self._tracer, track=self._trace_track)]
             d2h_bytes = None
         else:
             host = self._transfer.finish_fetch(handle)   # this batch's event only
@@ -1077,6 +1232,35 @@ class CompiledMethodRunner:
         dt = t_done - timings["t0"]
         self.service_ewma_s = dt if self.service_ewma_s is None else (
             0.75 * self.service_ewma_s + 0.25 * dt)
+        # Busy time as the reference cuts it: launch -> the fetch thread
+        # reaching the batch; on the device-resident path the compute's
+        # own event wait ends it.
+        t_compute_end = t_fetch if d2h_bytes is not None else t_done
+        tracer = self._tracer
+        if tracer is not None:
+            # The stage spans tile t0..t_done, cut at the stamps the lanes
+            # and this thread already take (no extra wait on the device).
+            track = self._trace_track
+            n = batch.num_records
+            tracer.span(track, "lane_wait", timings["t0"], timings["t_lane_start"],
+                        args={"batch": n})
+            if timings.get("h2d_elided"):
+                tracer.instant(track, "h2d.elided", ts=timings["t_lane_start"],
+                               args={"batch": n})
+            else:
+                tracer.span(track, "h2d", timings["t_lane_start"], timings["t_dispatched"],
+                            args={"bytes": timings["h2d_bytes"], "batch": n,
+                                  "assemble_s": round(timings["assemble_s"], 6)})
+            tracer.span(track, "compute", timings["t_dispatched"], t_compute_end,
+                        args={"batch": n})
+            if d2h_bytes is None:
+                tracer.instant(track, "d2h.elided", ts=t_done, args={"batch": n})
+            else:
+                tracer.span(track, "d2h", t_fetch, t_done, args={"batch": n})
+        if self._roofline is not None:
+            self._roofline.observe(self.method.name, t_compute_end - timings["t_dispatched"],
+                                   signature=f"b{batch.padded_size}",
+                                   h2d_bytes=timings["h2d_bytes"])
         if self.stamp_stages and d2h_bytes is not None:
             stages = {
                 "t0": timings["t0"],

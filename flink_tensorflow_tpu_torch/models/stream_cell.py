@@ -31,15 +31,19 @@ class CellRun:
     threads: int = 0
     gates: int = 0
     plan: str = ""
+    #: The job's span tracer (None untraced).
+    tracer: typing.Any = None
 
 
 def run_job(records: typing.Sequence[TensorValue],
             build: typing.Callable[[DataStream], DataStream], *,
             device_provider=None, timeout: float = 600.0,
-            config: typing.Optional[typing.Dict[str, typing.Any]] = None) -> CellRun:
+            config: typing.Optional[typing.Dict[str, typing.Any]] = None,
+            on_start: typing.Optional[typing.Callable[[typing.Any], None]] = None) -> CellRun:
     """``from_collection(records) -> build(stream) -> timed sink``, run
     once (sources and sink at parallelism 1); ``config`` holds
-    ``JobConfig`` fields (``chaining``, ``device_resident``)."""
+    ``JobConfig`` fields (``chaining``, ``device_resident``); ``on_start``
+    gets the job's handle once it runs."""
     env = StreamExecutionEnvironment(parallelism=1)
     env.configure(**(config or {}))
     if device_provider is not None:
@@ -54,10 +58,12 @@ def run_job(records: typing.Sequence[TensorValue],
     build(env.from_collection(records, parallelism=1)).sink_to_callable(sink)
     t0 = time.monotonic()
     handle = env.execute_async()
+    if on_start is not None:
+        on_start(handle)
     job = handle.wait(timeout)
     ex = handle.executor
     return CellRun(results, arrivals, job.metrics, time.monotonic() - t0,
-                   len(ex.subtasks), len(ex._gates), ex.chain_plan.describe())
+                   len(ex.subtasks), len(ex._gates), ex.chain_plan.describe(), ex.tracer)
 
 
 def steady_rps(arrivals: typing.Sequence[float], total_records: int, first_batch: int,

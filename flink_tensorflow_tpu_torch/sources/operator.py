@@ -20,6 +20,11 @@ Unlike the legacy source, this operator rescales: on a restore at
 another source parallelism, every old reader's in-flight split and the
 old pool merge, and the new readers pull from the merged pool, each split
 resuming at its offset.
+
+Traced (``ctx.tracer``), a reader marks each split's lifecycle on its
+track: a ``split.request`` instant at its first pull toward the
+coordinator, ``split.assign`` when a split arrives, and a ``split.read``
+span from the split's first read to its end (JAX ``:132-151``).
 """
 
 from __future__ import annotations
@@ -67,6 +72,11 @@ class SplitSourceOperator(Operator):
         #: the checkpoint id down to ``_operator_snapshot``.
         self._staged_pool: typing.Any = None
         self._staged_pool_set = False
+        #: Span tracer and track (set at open; None untraced), and whether
+        #: the pull for the next split is already marked.
+        self._tracer = None
+        self._track: typing.Optional[str] = None
+        self._split_requested = False
 
     # -- wiring (executor, before open and restore) --------------------------
     def attach(self, coordinator: "SplitCoordinator", index: int,
@@ -78,6 +88,9 @@ class SplitSourceOperator(Operator):
 
     # -- lifecycle ----------------------------------------------------------
     def open(self) -> None:
+        self._tracer = getattr(self.ctx, "tracer", None)
+        if self._tracer is not None:
+            self._track = f"{self.ctx.task_name}.{self.ctx.subtask_index}"
         self.reader = self.source.create_reader(self.ctx)
         self.reader.open(self.ctx)
         grp = self.ctx.metrics
@@ -107,15 +120,23 @@ class SplitSourceOperator(Operator):
         None)`` or ``(DONE, None)``.  The loop emits a record at once, so
         the split's offset moves here without racing a barrier (one
         thread; barriers are served between polls)."""
+        tracer = self._tracer
         while True:
             if self._iter is None:
                 if self.current_split is None:
+                    if tracer is not None and not self._split_requested:
+                        self._split_requested = True
+                        tracer.instant(self._track, "split.request")
                     status, split = self.coordinator.poll_split(self.reader_index)
                     if status == EXHAUSTED:
                         return DONE, None
                     if status != ASSIGNED:
                         return WAIT, None
                     self.current_split = split
+                    if tracer is not None:
+                        self._split_requested = False
+                        tracer.instant(self._track, "split.assign",
+                                       args={"split": split.split_id})
                 # A restored in-flight split arrives with current_split set
                 # and no iterator: the same path as a fresh assignment.
                 self._iter = self.reader.read(self.current_split)
@@ -123,6 +144,9 @@ class SplitSourceOperator(Operator):
             try:
                 value = next(self._iter)
             except StopIteration:
+                if tracer is not None and self._split_started_s is not None:
+                    tracer.span(self._track, "split.read", self._split_started_s,
+                                time.monotonic(), args={"split": self.current_split.split_id})
                 self._iter = None
                 self.current_split = None
                 self._split_started_s = None

@@ -228,12 +228,13 @@ class DeviceBatch:
     is_device_batch = True
 
     __slots__ = ("tensors", "valid", "metas", "timestamp", "ready", "_metrics",
-                 "_host", "_lock")
+                 "_host", "_lock", "_tracer", "_track")
 
     def __init__(self, tensors: typing.Mapping[str, torch.Tensor], valid: np.ndarray,
                  metas: typing.Sequence[typing.Mapping[str, typing.Any]], *,
                  timestamp: typing.Optional[float] = None,
-                 ready: typing.Optional[torch.cuda.Event] = None, metrics=None):
+                 ready: typing.Optional[torch.cuda.Event] = None, metrics=None,
+                 tracer=None, track: typing.Optional[str] = None):
         self.tensors = dict(tensors)
         self.valid = valid
         self.metas = list(metas)
@@ -243,6 +244,10 @@ class DeviceBatch:
         self._metrics = metrics
         self._host: typing.Optional[typing.List[TensorValue]] = None
         self._lock = threading.Lock()
+        #: The producer's span tracer and track: the deferred D2H is a
+        #: ``d2h`` span (``deferred: true``) where it lands.
+        self._tracer = tracer
+        self._track = track
 
     @property
     def num_records(self) -> int:
@@ -272,6 +277,7 @@ class DeviceBatch:
         for the producer's event, then copies every tensor to the host."""
         with self._lock:
             if self._host is None:
+                t0 = time.monotonic()
                 if self.ready is not None:
                     self.ready.synchronize()
                 host = {}
@@ -282,6 +288,9 @@ class DeviceBatch:
                 if self._metrics is not None:
                     self._metrics.counter("d2h_batches").inc()
                     self._metrics.counter("d2h_bytes").inc(sum(a.nbytes for a in host.values()))
+                if self._tracer is not None:
+                    self._tracer.span(self._track, "d2h", t0, time.monotonic(),
+                                      args={"batch": self.num_records, "deferred": True})
                 records = []
                 for i in range(self.padded_size):
                     if self.valid[i]:
