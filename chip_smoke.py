@@ -300,7 +300,39 @@ Phases (any failure exits non-zero and prints no result line):
    the model subtask, one scrape of ``/metrics``, and ``python -m
    flink_tensorflow_tpu_torch.metrics <script> --snapshot-only``; the
    phase's seconds;
-18. print one ``kernels`` JSON line, the card line, and the final
+18. the health plane, cohort telemetry, the doctor, the record plane's
+   spans and the autoscale loop: (a) phase 10 (a)'s paged keyed job
+   under ``HealthConfig(interval_s=0.25)`` (the default catalogue),
+   traced, with a flight path and no roofline plane: tokens equal to
+   phase 4's, K1's launches equal to phase 10 (a)'s, a ``health.*`` gauge
+   for every subtask's operator and the job, every reported transition on
+   the flight ring, and ``python -m
+   flink_tensorflow_tpu_torch.tracing.doctor`` over the job's snapshot
+   and flight dump exiting 0 with the serving operator in its stage
+   table (the states ``kv-pool-pressure`` and ``serving-ttft`` reached are
+   printed); (b) phase 15 (c)'s Wide&Deep cohort at two processes with
+   ``telemetry_interval_s=0.2`` and tracing: the committed (key, step)
+   pairs and losses equal to the one-process run's, process 0's collector
+   fed by process 1, process 1's applied offset with a finite error
+   bound, the per-process traces stitched with cross-process journeys;
+   then ``bench.py:_shuffle_cohort_telemetry``'s pipeline with process 0
+   under ``python -m flink_tensorflow_tpu_torch.metrics --live --cohort``,
+   whose view holds process 1's subtask, and the bench's numbers; (c)
+   ``bench_overload`` at full size, credits on and off
+   (``core/overload_probe.py``): the on arm parks in ``wire.credit_wait``
+   spans with its send queue under window x frame quantum, the off arm's
+   queue larger, the stage tables and ``_shuffle_trace_attribution``'s
+   two passes printed; (d) ``bench_chaos``'s clean and chaos arms traced
+   at a quarter of the records: committed bytes equal to phase 16 (a)'s
+   clean arm's, and their ``stage_p50s``; (e) ``bench_autoscale`` at full
+   size under the port's ``AutoscaleSupervisor`` and
+   ``tests/_torch_autoscale_worker.py``: the static arm (2 workers) commits
+   the analytic running sums, the autoscale arm every record's sum exactly
+   once after exactly one checkpoint-gated 2 -> 3 rescale decided by
+   ``edge-queue``, which the doctor given its decision file names; the
+   decision latency, the respawn gap and the step-up ratio are printed;
+   K1 launches 0 times in (b)-(e); the phase's seconds;
+19. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -3712,11 +3744,12 @@ def check_cohort_gang(card, torch, per_rank):
     return {"cohort_gang": k1}
 
 
-def widedeep_cohort_proc(rank, world, ports, out, chk, *, par, throttle=0.0, restore_id=None):
+def widedeep_cohort_proc(rank, world, ports, out, chk, *, par, throttle=0.0, restore_id=None,
+                         extra=()):
     cmd = [sys.executable, "-m", "flink_tensorflow_tpu_torch.functions.train_cell", "--widedeep",
            "--rank", str(rank), "--world", str(world), "--plane-ports", ",".join(map(str, ports)),
            "--out", out, "--checkpoint-root", chk, "--par", str(par),
-           "--throttle", str(throttle)]
+           "--throttle", str(throttle), *extra]
     if restore_id is not None:
         cmd += ["--restore-id", str(restore_id)]
     env = dict(os.environ)
@@ -4591,6 +4624,495 @@ def check_observability(card, torch, fa, mdef, model, cfg, requests, want, incep
     return launches
 
 
+
+# -- Phase 18: the health plane, the autoscale loop, cohort telemetry, the
+# doctor and the record plane's spans -----------------------------------
+# (a) phase 10 (a)'s paged keyed job under the health plane; (b) phase 15
+# (c)'s Wide&Deep cohort at two processes with live telemetry, then the
+# reference's cohort-telemetry pipeline under ``--live --cohort``; (c)
+# ``bench_overload`` credits on and off; (d) ``bench_chaos`` traced; (e)
+# ``bench_autoscale``'s static and autoscale arms.
+HEALTH_INTERVAL_S = 0.25
+TELEMETRY_INTERVAL_S = 0.2
+#: 18 (b): the reference's cohort-telemetry pass (``bench.py:2398-2476``):
+#: ``source -> map(parallelism 2) -> sink`` over two processes, traced.
+COHORT_BENCH_RECORDS = 2000
+COHORT_BENCH_THROTTLE_S = 0.002
+COHORT_BENCH_PIPELINE = """
+import sys
+
+from flink_tensorflow_tpu_torch import DistributedConfig, StreamExecutionEnvironment
+
+
+def main(argv):
+    index = int(argv[argv.index("--index") + 1])
+    ports = argv[argv.index("--ports") + 1].split(",")
+    n, throttle = int(argv[argv.index("--n") + 1]), float(argv[argv.index("--throttle") + 1])
+    env = StreamExecutionEnvironment(parallelism=1)
+    env.configure(source_throttle_s=throttle, trace=True,
+                  trace_path=argv[argv.index("--trace") + 1])
+    env.set_distributed(DistributedConfig(
+        index, 2, tuple(f"127.0.0.1:{p}" for p in ports), connect_timeout_s=60.0,
+        telemetry_interval_s=float(argv[argv.index("--interval") + 1])))
+    (env.from_collection(list(range(n)), parallelism=1)
+        .map(lambda x: x + 1, name="work", parallelism=2)
+        .sink_to_callable(lambda v: None, name="sink", parallelism=1))
+    env.execute("cohort-bench", timeout=300)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
+"""
+#: 18 (c): ``bench_shuffle``'s traced passes (``bench.py:2533-2539``).
+TRACE_PASS_RECORDS = 10000
+TRACE_PASS_FLOATS = 1024
+#: 18 (d): bench_chaos traces every fourth record (``bench.py:2992``).
+CHAOS_TRACE_SAMPLE = 0.25
+CHAOS_STAGES = ("align", "snapshot", "checkpoint", "process", "emit")
+#: 18 (e): bench_autoscale at full size (``bench.py:3166-3190``).
+AUTOSCALE_RECORDS = 1800
+AUTOSCALE_EVERY = max(20, AUTOSCALE_RECORDS // 20)
+AUTOSCALE_KEYS = 4
+AUTOSCALE_CAPACITY = 8
+AUTOSCALE_DELAY_S = 0.02
+AUTOSCALE_COOLDOWN_S = 1.5
+
+
+def hb_record_ns(samples: int = OBS_PROBE_SAMPLES) -> float:
+    """One happens-before event on the sanitizer's record-plane path
+    (``bench.py:190-202``)."""
+    from flink_tensorflow_tpu_torch.core.sanitizer_rt import ConcurrencySanitizer
+
+    san = ConcurrencySanitizer(name="bench")
+    t0 = time.perf_counter()
+    for _ in range(samples):
+        san.hb("frame.send", "bench.0[ch0]", "0:1", fc="data", nbytes=256)
+    return (time.perf_counter() - t0) / samples * 1e9
+
+
+def run_doctor(*args):
+    """``python -m flink_tensorflow_tpu_torch.tracing.doctor`` on ``args``:
+    its exit code, printed findings and report."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "flink_tensorflow_tpu_torch.tracing.doctor", *args],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    lines = proc.stdout.strip().splitlines()
+    report = json.loads(lines[-1]) if proc.returncode == 0 and lines else None
+    return proc.returncode, lines[1:-1], report, proc.stderr
+
+
+def check_health_serving(card, torch, fa, model, cfg, requests, want, paged_k1, root):
+    """18 (a).  Returns K1's launches."""
+    from flink_tensorflow_tpu_torch.metrics.health import HealthConfig
+    from flink_tensorflow_tpu_torch.serving.cell import paged_cell
+
+    cell = paged_cell(requests, cfg, spill_root=os.path.join(root, "spill"))
+    flight_path = os.path.join(root, "paged.flight.json")
+    handles = []
+    got, row = keyed_arm(torch, fa, model, cell.serving, requests, "serving-paged-health",
+                         config={"health": HealthConfig(interval_s=HEALTH_INTERVAL_S),
+                                 "trace": True, "flight_path": flight_path},
+                         handles=handles)
+    hold_tokens("serving-paged-health", got, want, requests, model, torch)
+    if row["k1_launches"] != paged_k1:
+        fail(f"health serving: K1 launched {row['k1_launches']} times, the untraced paged "
+             f"run of phase 10 (a) {paged_k1}")
+    handle = handles[0]
+    evaluator, executor = handle.health, handle.executor
+    if evaluator is None or evaluator.interval_s != HEALTH_INTERVAL_S or evaluator._thread:
+        fail(f"health serving: the evaluator is {evaluator!r} (want one at "
+             f"{HEALTH_INTERVAL_S} s, stopped at wait)")
+    snap = executor.metrics.snapshot()
+    # Each subtask thread's head operator publishes the idle, busy and
+    # backpressure clocks (a chained member shares its head's, as in the
+    # reference), so each has a health target.
+    operators = {scope.rsplit(".", 1)[0] for scope, metrics in snap.items()
+                 if scope.rsplit(".", 1)[-1].isdigit() and "idle_s" in metrics}
+    gauges = snap.get("health", {})
+    if "job" not in gauges or not operators or not operators <= set(gauges):
+        fail(f"health serving: health gauges {sorted(gauges)} for operators "
+             f"{sorted(operators)} (each subtask's operator and the job need one)")
+    flight = [(e[1], e[5]["to"]) for e in executor.flight.events() if e[0] == "health"]
+    reported = [(f"{t.rule_id}:{t.target}", ("OK", "WARN", "BREACH")[t.new])
+                for t in evaluator.transitions]
+    if flight != reported:
+        fail(f"health serving: {len(reported)} transitions reported, the flight ring holds "
+             f"{len(flight)} of them in another form")
+    snap_path = os.path.join(root, "paged.snapshot.json")
+    with open(snap_path, "w") as f:
+        json.dump(snap, f, default=float)
+    executor.flight.dump(flight_path, "phase18", tracer=executor.tracer)
+    rc, findings, report, err = run_doctor("--snapshot", snap_path, "--flight", flight_path)
+    if rc != 0 or report is None:
+        fail(f"health serving: the doctor exited {rc}: {err[-2000:]}")
+    stages = report["stages"]
+    if "continuous_batching" not in stages:
+        fail(f"health serving: the doctor's stage table names {sorted(stages)}, not the "
+             "serving operator")
+    top_op = max(stages, key=lambda op: stages[op]["total_ms"])
+    view = evaluator.health()
+    out = {"ticks": evaluator.ticks, "transitions": reported, "job": view["job"],
+           "kv_pool_pressure": view["rules"].get("kv-pool-pressure"),
+           "serving_ttft": view["rules"].get("serving-ttft"),
+           "gauges": gauges, "doctor_top_operator": top_op,
+           "doctor_top_stage": stages[top_op]["stage"], "doctor_findings": findings,
+           "tokens_per_s": row["tokens_per_s"], "seconds": row["seconds"],
+           "k1_launches": row["k1_launches"], "card": card}
+    print("health (a) paged serving under the health plane", json.dumps(out), flush=True)
+    return row["k1_launches"]
+
+
+def check_live_cohort(card, torch, root):
+    """18 (b): phase 15 (c)'s Wide&Deep cohort at two processes with live
+    telemetry and tracing, against its one-process run; then the
+    reference's cohort-telemetry pipeline with process 0 under ``python -m
+    flink_tensorflow_tpu_torch.metrics --live --cohort``."""
+    from flink_tensorflow_tpu_torch.functions import train_cell
+    from flink_tensorflow_tpu_torch.tracing.stitch import (
+        cross_process_traces,
+        merge_cohort_trace_files,
+    )
+
+    mdef, schema, records = train_cell.widedeep_cell()
+    base = os.path.join(root, "wd-base")
+    train_cell.run_widedeep_cohort(
+        mdef, schema, records, None, out=base, checkpoint_root=os.path.join(root, "wd-chk1"),
+        parallelism=2, device_provider=lambda task, index: "cuda:0")
+    want = sorted(committed_steps(base))
+    out, chk = os.path.join(root, "wd-out"), os.path.join(root, "wd-chk")
+    trace = os.path.join(root, "wd.trace.json")
+    t0 = time.monotonic()
+    ports = free_ports(2)
+    procs = [widedeep_cohort_proc(r, 2, ports, out, chk, par=2,
+                                  throttle=COHORT_WIDEDEEP_THROTTLE_S,
+                                  extra=["--telemetry-interval", str(TELEMETRY_INTERVAL_S),
+                                         "--trace", trace]) for r in range(2)]
+    for r, (rc, log) in enumerate(wait_procs("live cohort", procs)):
+        if rc != 0:
+            fail(f"live cohort: process {r} failed:\n{log[-4000:]}")
+    wall_s = time.monotonic() - t0
+    got = sorted(committed_steps(out))
+    if [(k, s) for k, s, _ in got] != [(k, s) for k, s, _ in want] or \
+            any(a[2] != b[2] for a, b in zip(got, want)):
+        fail(f"live cohort: committed (key, step, loss) rows differ from the one-process "
+             f"run's ({len(got)} vs {len(want)})")
+    stats = []
+    for r in range(2):
+        with open(os.path.join(chk, f"seconds-{r}.json")) as f:
+            stats.append(json.load(f))
+    tel0, tel1 = stats[0]["telemetry"], stats[1]["telemetry"]
+    if not tel0.get("pushes") or tel0.get("peers_reporting") != [1]:
+        fail(f"live cohort: process 0's collector saw {tel0.get('pushes')} pushes from "
+             f"{tel0.get('peers_reporting')}, want pushes from [1]")
+    bound = (tel1.get("cohort_meta") or {}).get("error_bound_s")
+    if bound is None or not bound < float("inf"):
+        fail(f"live cohort: process 1's applied error bound is {bound}")
+    paths = [tel0["trace_path"], tel1["trace_path"]]
+    t1 = time.monotonic()
+    merged = merge_cohort_trace_files(paths)
+    stitched = cross_process_traces(merged)
+    stitch_s = time.monotonic() - t1
+    if not stitched:
+        fail("live cohort: no trace crossed the process boundary in the merged traces")
+    widedeep = {"events": len(records), "steps": len(want), "wall_s": wall_s,
+                "collector_pushes": tel0["pushes"], "peers_reporting": tel0["peers_reporting"],
+                "collector_push_bytes": tel0["push_bytes"],
+                "offset_to_proc0_s": tel1["cohort_meta"]["offset_to_proc0_s"],
+                "clock_error_bound_us": merged["cohort_merge"]["max_error_bound_s"] * 1e6,
+                "merged_events": sum(1 for e in merged["traceEvents"]
+                                     if e.get("ph") in ("X", "i")),
+                "cross_process_traces": len(stitched), "stitch_wall_s": stitch_s,
+                "losses_bit_equal": len(want), "card": card}
+    print("health (b) widedeep cohort with live telemetry", json.dumps(widedeep), flush=True)
+
+    script = os.path.join(root, "cohort_bench.py")
+    with open(script, "w") as f:
+        f.write(COHORT_BENCH_PIPELINE)
+    trace = os.path.join(root, "cb.trace.json")
+    ports = ",".join(map(str, free_ports(2)))
+    args = (f"--ports {ports} --n {COHORT_BENCH_RECORDS} --throttle "
+            f"{COHORT_BENCH_THROTTLE_S} --trace {trace} --interval {TELEMETRY_INTERVAL_S}")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.monotonic()
+    inspect = subprocess.Popen(
+        [sys.executable, "-m", "flink_tensorflow_tpu_torch.metrics", script, "--live",
+         "--cohort", "--live-interval", "0.5", "--job-args", f"--index 0 {args}"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    peer = subprocess.Popen([sys.executable, script, "--index", "1", *args.split()],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        live_out, live_err = inspect.communicate(timeout=COHORT_TIMEOUT_S)
+        peer_out, _ = peer.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        inspect.kill()
+        peer.kill()
+        fail("live cohort: the inspector or its peer hung")
+    wall_s = time.monotonic() - t0
+    if inspect.returncode != 0 or peer.returncode != 0:
+        fail(f"live cohort: the inspector exited {inspect.returncode}, the peer "
+             f"{peer.returncode}: {live_err.decode()[-2000:]} {peer_out.decode()[-2000:]}")
+    text = live_out.decode()
+    snap = json.loads(text.strip().splitlines()[-1])
+    rows = {(r["operator"], r["subtask"]): r for r in snap["subtasks"]}
+    if "cohort 2/2 procs" not in text or not rows.get(("work", 1), {}).get("records_in"):
+        fail(f"live cohort: the inspector's view is not merged ({snap.get('cohort')}, rows "
+             f"{sorted(rows)})")
+    root_t, ext = os.path.splitext(trace)
+    t1 = time.monotonic()
+    merged = merge_cohort_trace_files([f"{root_t}.proc{k}{ext}" for k in range(2)])
+    stitched = cross_process_traces(merged)
+    stitch_s = time.monotonic() - t1
+    bench = {"records": COHORT_BENCH_RECORDS, "wall_s": wall_s,
+             "collector_pushes": snap["cohort"]["pushes"],
+             "peers_reporting": snap["cohort"]["peers_reporting"],
+             "collector_push_bytes": widedeep["collector_push_bytes"],
+             "clock_error_bound_us": merged["cohort_merge"]["max_error_bound_s"] * 1e6,
+             "merged_events": sum(1 for e in merged["traceEvents"] if e.get("ph") in ("X", "i")),
+             "cross_process_traces": len(stitched), "stitch_wall_s": stitch_s,
+             "span_record_ns": span_record_ns(), "flight_record_ns": flight_record_ns(),
+             "hb_record_ns": hb_record_ns(), "live_frames": snap["frames"],
+             "work_records_in": [rows[("work", i)]["records_in"] for i in range(2)],
+             "card": card}
+    print("health (b) cohort telemetry bench, --live --cohort", json.dumps(bench), flush=True)
+
+
+def check_overload(card):
+    """18 (c): bench_overload credits on and off, then bench_shuffle's
+    traced passes."""
+    from flink_tensorflow_tpu_torch.core import overload_probe as probe
+
+    on, off = probe.overload_arm(True), probe.overload_arm(False)
+    bound = probe.credit_bound_bytes()
+    for arm in (on, off):
+        if arm["records_delivered"] != probe.RECORDS:
+            fail(f"overload: {arm['records_delivered']} of {probe.RECORDS} records delivered "
+                 f"(credits {arm['flow_control']})")
+    if not on["trace_attribution"].get("wire.credit_wait", {}).get("count"):
+        fail(f"overload: the credits-on arm has no wire.credit_wait spans: "
+             f"{on['trace_attribution']}")
+    if on["peak_send_queue_bytes"] > bound:
+        fail(f"overload: credits on, the send queue peaked at {on['peak_send_queue_bytes']} "
+             f"bytes, above window x frame quantum {bound}")
+    if off["peak_send_queue_bytes"] <= on["peak_send_queue_bytes"]:
+        fail(f"overload: credits off, the send queue peaked at {off['peak_send_queue_bytes']} "
+             f"bytes, not above the credits-on arm's {on['peak_send_queue_bytes']}")
+    print(f"health (c) overload stage table | card: {card}")
+    for arm in (on, off):
+        for stage, row in sorted(arm["trace_attribution"].items()):
+            print(f"  credits {'on ' if arm['flow_control'] else 'off'} {stage:<17} "
+                  f"count {row['count']:>6} total_ms {row['total_ms']:>10} "
+                  f"p50_ms {row['p50_ms']}")
+    row = {"records": probe.RECORDS, "payload_floats": probe.PAYLOAD_FLOATS,
+           "gate_capacity": probe.CAPACITY, "credit_bound_bytes": bound,
+           "stall_s": probe.STALL_S, "credits_on": on, "credits_off": off,
+           "off_over_on_peak_ratio": off["peak_send_queue_bytes"] / on["peak_send_queue_bytes"]
+           if on["peak_send_queue_bytes"] else None, "card": card}
+    print("health (c) overload", json.dumps(row), flush=True)
+    trace = {"percord": probe.trace_attribution(TRACE_PASS_RECORDS, TRACE_PASS_FLOATS,
+                                                flush_bytes=0),
+             "coalesced": probe.trace_attribution(TRACE_PASS_RECORDS, TRACE_PASS_FLOATS),
+             "records": TRACE_PASS_RECORDS, "floats": TRACE_PASS_FLOATS, "card": card}
+    print("health (c) shuffle trace attribution", json.dumps(trace), flush=True)
+
+
+def chaos_stage_p50s(trace_path) -> dict:
+    """Per-stage count, total and median p50 (ms) of one exported trace
+    (``bench.py:2908-2938``)."""
+    import numpy as np
+
+    from flink_tensorflow_tpu_torch.tracing.attribution import attribution, events_from_chrome
+
+    with open(trace_path) as f:
+        events = events_from_chrome(json.load(f))
+    merged = {}
+    for rows in attribution(events).values():
+        for stage, row in rows.items():
+            if stage in CHAOS_STAGES:
+                agg = merged.setdefault(stage, {"count": 0, "total_ms": 0.0, "p50s": []})
+                agg["count"] += row["count"]
+                agg["total_ms"] += row["total_ms"]
+                agg["p50s"].append(row["p50_ms"])
+    return {stage: {"count": agg["count"], "total_ms": agg["total_ms"],
+                    "p50_ms": float(np.median(agg["p50s"]))} for stage, agg in merged.items()}
+
+
+def check_traced_chaos(card, root, clean_digest):
+    """18 (d): bench_chaos's clean and chaos arms traced; committed bytes
+    equal to phase 16 (a)'s clean arm's."""
+    from flink_tensorflow_tpu_torch import RestartStrategy
+
+    rows = {}
+    for tag, faults, restart, timeout_s in (
+            ("clean", None, None, None),
+            ("chaos", CHAOS_SCHEDULE,
+             RestartStrategy(max_restarts=3, delay_s=0.05, backoff_multiplier=2.0,
+                             max_delay_s=1.0, jitter=0.1), 0.3)):
+        trace_path = os.path.join(root, f"chaos-{tag}.trace.json")
+        row, digest, _ = chaos_keyed_arm(
+            root, f"traced-{tag}", faults=faults, restart=restart, timeout_s=timeout_s,
+            config={"trace": True, "trace_path": trace_path,
+                    "trace_sample_rate": CHAOS_TRACE_SAMPLE})
+        if digest != clean_digest:
+            fail(f"traced chaos ({tag}): the committed output ({len(digest)} records) differs "
+                 f"from phase 16 (a)'s clean arm's ({len(clean_digest)})")
+        if row["sanitizer_violations"]:
+            fail(f"traced chaos ({tag}): {row['sanitizer_violations']} sanitizer violations")
+        row["stage_p50s"] = chaos_stage_p50s(trace_path)
+        if not row["stage_p50s"].get("process", {}).get("count"):
+            fail(f"traced chaos ({tag}): no process spans in {row['stage_p50s']}")
+        rows[tag] = row
+    if rows["chaos"]["restarts"] < 1:
+        fail("traced chaos: the chaos arm never restarted")
+    print("health (d) traced chaos", json.dumps({
+        "records": CHAOS_RECORDS, "schedule": CHAOS_SCHEDULE,
+        "trace_sample_rate": CHAOS_TRACE_SAMPLE, "byte_identical": True, **rows,
+        "card": card}), flush=True)
+
+
+def autoscale_arm(root, tag, max_workers):
+    """One arm of bench_autoscale (``bench.py:3194-3252``) under the port's
+    AutoscaleSupervisor: its row, its committed (key, i, sum) rows and the
+    decision file's path."""
+    from flink_tensorflow_tpu_torch.core.autoscale import AutoscaleSupervisor, read_decision
+    from flink_tensorflow_tpu_torch.io.files import read_committed
+
+    worker = os.path.join(REPO, "tests", "_torch_autoscale_worker.py")
+    out, chk = os.path.join(root, f"as-out-{tag}"), os.path.join(root, f"as-chk-{tag}")
+    decision_path = os.path.join(root, f"decision-{tag}.json")
+    ports_by_shape = {w: free_ports(w) for w in range(2, max_workers + 1)}
+    spawn_ts = {}
+
+    def command(w, num_workers, attempt):
+        spawn_ts.setdefault(attempt, time.time())
+        return [sys.executable, worker, "--index", str(w),
+                "--ports", ",".join(map(str, ports_by_shape[num_workers])),
+                "--out", out, "--chk", chk, "--n", str(AUTOSCALE_RECORDS),
+                "--every", str(AUTOSCALE_EVERY), "--par", str(num_workers),
+                "--delay", str(AUTOSCALE_DELAY_S), "--cap", str(AUTOSCALE_CAPACITY),
+                "--keys", str(AUTOSCALE_KEYS), "--slow-stage", "rebalance",
+                "--epoch", str(attempt), "--restore-id", "-1" if attempt == 0 else "-2",
+                "--decision", decision_path, "--min-workers", "1",
+                "--max-workers", str(max_workers), "--cooldown", str(AUTOSCALE_COOLDOWN_S)]
+
+    sup = AutoscaleSupervisor(command, 2, decision_path=decision_path, min_workers=1,
+                              max_workers=max_workers, max_rescales=2,
+                              env=lambda w, p, a: {"PYTHONPATH": REPO}, max_restarts=2,
+                              poll_s=0.05, kill_grace_s=8.0, attempt_timeout_s=300.0)
+    t0 = time.time()
+    outcome = sup.run()
+    wall = time.time() - t0
+    rows = sorted((int(r.meta["key"]), int(r.meta["i"]), int(r["v"]))
+                  for r in read_committed(out))
+    row = {"wall_s": wall, "records_per_s": AUTOSCALE_RECORDS / wall,
+           "attempts": outcome.attempts, "num_workers": outcome.num_workers,
+           "rescales": len(outcome.rescales), "records_committed": len(rows),
+           "decisions": [{k: d.get(k) for k in ("rule_id", "target", "value", "from_workers",
+                                                 "to_workers", "checkpoint_id")}
+                         for d in outcome.rescales]}
+    decision = read_decision(decision_path)
+    if decision is not None and outcome.rescales:
+        row["scale_decision_latency_s"] = float(decision["ts"]) - t0
+        row["rescale_respawn_s"] = spawn_ts[1] - float(decision["ts"])
+        row["post_decision_wall_s"] = t0 + wall - float(decision["ts"])
+    return row, rows, decision_path
+
+
+def running_sums_exactly_once(rows, n, keys) -> bool:
+    """Whether ``rows`` ((key, i, running sum)) hold every record of
+    ``range(n)`` under key ``i % keys`` exactly once, with each key's sums,
+    in increasing order, stepping by exactly its records' values: the keyed
+    state saw every record once, in some order.  A rebalance edge gives no
+    per-key order across its subtasks, so at a width that splits a key's
+    records the order (and so each running sum) may differ from index
+    order while the state is still exactly-once."""
+    if sorted((k, i) for k, i, _ in rows) != sorted((i % keys, i) for i in range(n)):
+        return False
+    for key in range(keys):
+        mine = sorted((v, i) for k, i, v in rows if k == key)
+        total = 0
+        for v, i in mine:
+            total += i
+            if v != total:
+                return False
+    return True
+
+
+def check_autoscale(card, root):
+    """18 (e): bench_autoscale's static arm (at most 2 workers) and
+    autoscale arm (up to 3): the static arm commits the analytic running
+    sums (at width 2 each key's records pass one slow subtask, so in order),
+    the autoscale arm every record's sum exactly once (at width 3 a key's
+    records cross three subtasks and may reach the sum out of index order;
+    whether they did is printed), the autoscale arm rescales 2 -> 3 exactly
+    once on ``edge-queue``, and the doctor given its decision file names
+    that rule."""
+    sums, want = {}, []
+    for i in range(AUTOSCALE_RECORDS):
+        k = i % AUTOSCALE_KEYS
+        sums[k] = sums.get(k, 0) + i
+        want.append((k, i, sums[k]))
+    want.sort()
+    static, static_rows, _ = autoscale_arm(root, "static", 2)
+    scaled, scaled_rows, decision_path = autoscale_arm(root, "autoscale", 3)
+    if static_rows != want:
+        fail(f"autoscale (static): {len(static_rows)} committed rows, not the {len(want)} "
+             "analytic running sums")
+    if not running_sums_exactly_once(scaled_rows, AUTOSCALE_RECORDS, AUTOSCALE_KEYS):
+        fail(f"autoscale: the autoscale arm's {len(scaled_rows)} committed rows do not hold "
+             "each record's running sum exactly once")
+    if static["rescales"] or static["num_workers"] != 2:
+        fail(f"autoscale (static): {static['rescales']} rescales, {static['num_workers']} "
+             "workers at the end, want 0 and 2")
+    decisions = scaled["decisions"]
+    if (scaled["rescales"] != 1 or scaled["num_workers"] != 3
+            or [(d["rule_id"], d["from_workers"], d["to_workers"]) for d in decisions]
+            != [("edge-queue", 2, 3)] or decisions[0]["checkpoint_id"] is None):
+        fail(f"autoscale: {scaled['rescales']} rescales ending at {scaled['num_workers']} "
+             f"workers, decisions {decisions}; want one checkpoint-gated 2 -> 3 on edge-queue")
+    rc, findings, report, err = run_doctor("--decision", decision_path)
+    if rc != 0 or not any("supervisor: edge-queue drove scale_up 2 -> 3" in f
+                          for f in findings):
+        fail(f"autoscale: the doctor (exit {rc}) does not name edge-queue: {findings} "
+             f"{err[-1000:]}")
+    row = {"records": AUTOSCALE_RECORDS, "checkpoint_every_n": AUTOSCALE_EVERY,
+           "keys": AUTOSCALE_KEYS, "channel_capacity": AUTOSCALE_CAPACITY,
+           "stage_service_s": AUTOSCALE_DELAY_S, "cooldown_s": AUTOSCALE_COOLDOWN_S,
+           "static_equals_analytic_sums": True, "autoscale_exactly_once": True,
+           "autoscale_equals_analytic_sums": scaled_rows == want,
+           "static": static, "autoscale": scaled,
+           "scale_decision_latency_s": scaled.get("scale_decision_latency_s"),
+           "rescale_respawn_s": scaled.get("rescale_respawn_s"),
+           "stepup_rate_ratio": scaled["records_per_s"] / static["records_per_s"],
+           "doctor_findings": findings, "card": card}
+    print("health (e) autoscale", json.dumps(row), flush=True)
+
+
+def check_health_plane(card, torch, fa, model, cfg, requests, want, paged_k1, clean_digest):
+    """Phase 18: the health plane, cohort telemetry, the record plane's
+    spans, the chaos plane traced and the autoscale loop.  Returns K1's
+    launches per path."""
+    import tempfile
+
+    t0 = time.monotonic()
+    print(f"health phase | card: {card}", flush=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_health_") as root:
+        launches["paged_health"] = check_health_serving(card, torch, fa, model, cfg, requests,
+                                                        want, paged_k1, root)
+        fa.flash_attention.launches = 0
+        check_live_cohort(card, torch, root)
+        check_overload(card)
+        check_traced_chaos(card, root, clean_digest)
+        check_autoscale(card, root)
+        launches["cohort_overload_chaos_autoscale"] = fa.flash_attention.launches
+    if launches["cohort_overload_chaos_autoscale"]:
+        fail(f"health: K1 launched {launches['cohort_overload_chaos_autoscale']} times in "
+             "(b)-(e), want 0")
+    print(f"health phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4695,6 +5217,9 @@ def main() -> int:
     observability_launches = check_observability(card, torch, fa, mdef, model, cfg, requests,
                                                  got, inception, direct, chaos_clean)
 
+    health_launches = check_health_plane(card, torch, fa, model, cfg, requests, got,
+                                         paged_launches["serving_paged"], chaos_clean)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -4713,7 +5238,7 @@ def main() -> int:
                              **paged_launches, **event_time_launches,
                              **transfer_launches, **parallel_launches, **split_launches,
                              **plane_launches, **chaos_launches,
-                             **observability_launches},
+                             **observability_launches, **health_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

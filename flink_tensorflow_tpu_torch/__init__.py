@@ -59,7 +59,13 @@ Ported so far:
   True)``: ``core.sanitizer_rt``, with the cohort stitcher
   ``core.sanitizer_stitch`` and the replay-purity scanner
   ``analysis.sanitizer``) and the job-to-job pipe
-  (``io.RemoteSink`` / ``io.RemoteSource``).
+  (``io.RemoteSink`` / ``io.RemoteSource``);
+- the observability planes: the span tracer and flight recorder
+  (``tracing``), the reporters, inspector and roofline plane
+  (``metrics``), the health plane (``JobConfig(health=HealthConfig(...))``:
+  ``metrics.health``), the autoscale loop (``core.autoscale``), cohort
+  telemetry (``core.cohort_telemetry``, ``metrics.cohort``) and the
+  doctor (``tracing.doctor``).
 """
 
 from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig
@@ -72,6 +78,8 @@ from flink_tensorflow_tpu_torch.core.faults import FaultPlan, FaultSpec
 from flink_tensorflow_tpu_torch.core.functions import ProcessFunction
 from flink_tensorflow_tpu_torch.core.state import StateDescriptor
 from flink_tensorflow_tpu_torch.core.stream import DataStream, KeyedStream, WindowedStream
+
+__version__ = "0.1.0"
 
 __all__ = [
     "CheckpointConfig",

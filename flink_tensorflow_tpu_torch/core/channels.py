@@ -65,6 +65,11 @@ class InputGate:
         self._blocked: typing.List[bool] = [False] * num_channels
         #: Elements put per channel (the runtime's per-edge queue gauges).
         self.puts_per_channel: typing.List[int] = [0] * num_channels
+        #: Elements per channel buffered anywhere in the gate (queue,
+        #: alignment stash, replay) until ``poll`` delivers them: the
+        #: per-edge depth gauges the health plane's ``edge-queue`` rule
+        #: reads.  Changed under the gate lock only.
+        self.buffered_per_channel: typing.List[int] = [0] * num_channels
         #: Deepest queue occupancy seen at a put (a monotone maximum).
         self.high_watermark = 0
         #: Seconds writers spent blocked on a full queue.
@@ -107,6 +112,7 @@ class InputGate:
                 return blocked  # gate torn down (job cancelled): drop
             self._queue.append((channel_idx, element))
             self.puts_per_channel[channel_idx] += 1
+            self.buffered_per_channel[channel_idx] += 1
             depth = len(self._queue)
             if depth > self.high_watermark:
                 self.high_watermark = depth
@@ -131,6 +137,7 @@ class InputGate:
             taken = min(room, len(elements))
             self._queue.extend((channel_idx, e) for e in elements[:taken])
             self.puts_per_channel[channel_idx] += taken
+            self.buffered_per_channel[channel_idx] += taken
             depth = len(self._queue)
             if depth > self.high_watermark:
                 self.high_watermark = depth
@@ -173,6 +180,8 @@ class InputGate:
             if self._blocked[idx]:
                 self._stashed[idx].append((idx, element))
                 continue
+            with self._lock:
+                self.buffered_per_channel[idx] -= 1
             if self._san is not None:
                 self._san.gate_delivered(self._san_name, idx)
             return idx, element
@@ -197,6 +206,9 @@ class InputGate:
                     self._notify(self._drain_listeners)
                 if idx < 0:
                     self._wake_sentinels -= 1
+                elif not self._blocked[idx]:
+                    # Delivered below (alignment state is this reader's own).
+                    self.buffered_per_channel[idx] -= 1
             if idx < 0:
                 return None  # wake() sentinel: hand control back now
             if self._blocked[idx]:
@@ -243,6 +255,10 @@ class InputGate:
         excluded)."""
         return max(0, len(self._queue) + len(self._replay)
                    + sum(len(d) for d in self._stashed) - self._wake_sentinels)
+
+    def channel_depth(self, idx: int) -> int:
+        """Elements of channel ``idx`` buffered in the gate."""
+        return max(0, self.buffered_per_channel[idx])
 
 
 class ChannelWriter:

@@ -13,9 +13,9 @@ planes' ``faults``, ``sanitize`` and ``sanitize_log_path``
 (``:108-123``, ``:207-213``; a fault plan is parsed at validation,
 ``:294``).  The observability planes' ``trace``, ``trace_path``,
 ``trace_sample_rate``, ``flight_recorder`` and ``flight_path``
-(``:125-152``), ``metrics`` (``:241-244``) and ``roofline``
-(``:254-261``), validated as ``:298-331`` validates them (the health
-plane is not ported yet).
+(``:125-152``), ``metrics`` (``:241-244``), ``health`` (``:245-253``)
+and ``roofline`` (``:254-261``), validated as ``:298-331`` validates
+them.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import dataclasses
 import typing
 
 from flink_tensorflow_tpu_torch.core.faults import FaultPlan
+from flink_tensorflow_tpu_torch.metrics.health import HealthConfig
 from flink_tensorflow_tpu_torch.metrics.reporters import MetricConfig
 from flink_tensorflow_tpu_torch.tensors.serde import WIRE_DTYPES
 
@@ -189,6 +190,14 @@ class JobConfig:
     #: nothing while the job runs: no reporter thread, metrics only in
     #: the ``JobResult``.
     metrics: MetricConfig = dataclasses.field(default_factory=MetricConfig)
+    #: Health plane (``metrics.health.HealthConfig``): SLO rules evaluated
+    #: over the metric snapshot (a cohort's merged one) each interval on
+    #: process 0, published as ``health.*`` gauges, flight events and
+    #: trace instants.  With ``health.autoscale``
+    #: (``core.autoscale.AutoscaleConfig``) a sustained breach of a
+    #: scaling rule writes a decision and stops the job for a rescale.
+    #: None starts no evaluator thread.
+    health: typing.Optional[HealthConfig] = None
     #: Roofline plane (``metrics.roofline.RooflineConfig``): the declared
     #: device peak (``"h100-sxm"`` by default) and drift tolerances; model
     #: runners join measured step times against ``roofline.cost_table``
@@ -235,6 +244,8 @@ class JobConfig:
                     "positions must be deterministic across the cohort")
         self.metrics.validate()
         self.checkpoint.validate()
+        if self.health is not None:
+            self.health.validate()
         if self.roofline is not None:
             self.roofline.validate()
         return self

@@ -37,12 +37,20 @@ layout its collective step needs.  Gradients never touch this plane.
 The chaos and sanitizer planes (JAX ``:252-271``, ``:344-353``): each
 remote writer takes the fault injector's hook for the edge it feeds, and
 with a sanitizer the writers and the server's routes log both halves of
-every frame, the process's log goes to ``<path>.proc<k>.json`` and
-carries the process's cohort identity (offsets 0: no clock sync yet).
+every frame, and the process's log goes to ``<path>.proc<k>.json``.
 
-Not started until its slice (``ROADMAP.md`` item 4): the cohort
-telemetry service (clock sync and metric pushes to process 0).
-``DistributedConfig.telemetry_interval_s`` is kept and validated for it.
+The telemetry plane (JAX ``:244-311``, ``:375-376``, ``:554-578``): a
+:class:`~flink_tensorflow_tpu_torch.core.cohort_telemetry.
+CohortTelemetryService` per process, on its own thread, runs every
+``telemetry_interval_s`` (0 disables it): peers ping process 0 for
+clock offsets, which land in the tracer (offset-corrected cross-process
+``queue`` spans) and in the tracer's and the sanitizer's cohort identity
+(a peer's error bound is infinite until it syncs), and push their
+registry's state to process 0's ``executor.cohort_collector`` (None on
+peers).  A traced cohort writes ``<trace>.proc<k>.json`` per process,
+each remote writer records its ``wire.flush``, ``serde``, ``wire`` and
+``wire.credit_wait`` spans, and the heartbeat monitor records
+``cohort/peer.lost`` on the flight ring before it fails the job.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import threading
 import time
 import typing
 
+from flink_tensorflow_tpu_torch.core.cohort_telemetry import CohortTelemetryService
 from flink_tensorflow_tpu_torch.core.graph import DataflowGraph, Transformation
 from flink_tensorflow_tpu_torch.core.runtime import LocalExecutor
 from flink_tensorflow_tpu_torch.core.shuffle import RemoteChannelWriter, ShuffleServer
@@ -81,8 +90,8 @@ class DistributedConfig:
     #: ``peers[process_index]``).
     bind: str = "0.0.0.0"
     connect_timeout_s: float = 60.0
-    #: Cadence of the cohort telemetry service (not started by the port
-    #: yet: ``ROADMAP.md`` item 4).  0 disables it.
+    #: Cadence of the cohort telemetry service (clock sync and metric
+    #: pushes to process 0).  0 disables it.
     telemetry_interval_s: float = 2.0
     #: The cohort's restart epoch; the supervisor's attempt.  It rides every
     #: handshake: a server of epoch E drops all frames of senders of an
@@ -175,6 +184,7 @@ class DistributedExecutor(LocalExecutor):
         self._peer_last_seen: typing.Dict[int, float] = {}
         self._hb_stop = threading.Event()
         self._hb_thread: typing.Optional[threading.Thread] = None
+        self._telemetry: typing.Optional[CohortTelemetryService] = None
         try:
             super().__init__(graph, **kwargs)
         except BaseException:
@@ -198,23 +208,41 @@ class DistributedExecutor(LocalExecutor):
         for st in self.subtasks:
             if st.gate is not None:
                 self._server.register_gate(st.t.name, st.index, st.gate)
-        # One happens-before log per process (``.proc<k>``): the stitcher
-        # takes the cohort's file set (JAX ``:252-271``).
+        # One trace file and one happens-before log per process
+        # (``.proc<k>``): a cohort writing one path would clobber itself,
+        # and the stitchers take the file set.
+        if self.trace_path and self.dist.num_processes > 1:
+            root, ext = os.path.splitext(self.trace_path)
+            self.trace_path = f"{root}.proc{self.dist.process_index}{ext or '.json'}"
         if self.sanitize_log_path and self.dist.num_processes > 1:
             root, ext = os.path.splitext(self.sanitize_log_path)
             self.sanitize_log_path = f"{root}.proc{self.dist.process_index}{ext or '.json'}"
+        # Before clock sync a peer's offset is unknown: 0 with an infinite
+        # bound (exact for process 0).  The telemetry service overwrites
+        # both blocks with measured offsets.
+        pre_sync = {
+            "process_index": self.dist.process_index,
+            "pid": os.getpid(),
+            "offset_to_proc0_s": 0.0,
+            "error_bound_s": float("inf") if self.dist.process_index else 0.0,
+        }
         if self.sanitizer is not None:
-            # No clock sync yet: every offset is 0, exact on one host.
-            self.sanitizer.cohort_meta = {
-                "process_index": self.dist.process_index,
-                "pid": os.getpid(),
-                "offset_to_proc0_s": 0.0,
-                "error_bound_s": 0.0,
-            }
+            self.sanitizer.cohort_meta = dict(pre_sync)
             # The server was built before the sanitizer: attach it before
             # start() opens the listener, so every route logs.
             self._server.sanitizer = self.sanitizer
+        if self.tracer is not None:
+            self.tracer.cohort_meta = dict(pre_sync)
+        self._telemetry = CohortTelemetryService(
+            process_index=self.dist.process_index, num_processes=self.dist.num_processes,
+            pid=os.getpid(), send=self._send_control, registry=self.metrics,
+            tracer=self.tracer, flight=self.flight, sanitizer=self.sanitizer,
+            interval_s=self.dist.telemetry_interval_s)
+        #: The cohort's merged metric feed (process 0; None on peers): the
+        #: health plane and ``--live --cohort`` read ``merged_snapshot()``.
+        self.cohort_collector = self._telemetry.collector
         self._server.start()
+        self._telemetry.start()
         if self.dist.heartbeat_timeout_s > 0 and self.dist.num_processes > 1:
             self._hb_thread = threading.Thread(
                 target=self._heartbeat_loop,
@@ -236,7 +264,7 @@ class DistributedExecutor(LocalExecutor):
             connect_timeout_s=self.dist.connect_timeout_s, metrics=self.metrics,
             flush_bytes=self.wire_flush_bytes, flush_ms=self.wire_flush_ms,
             wire_dtype=self.wire_dtype, reactor=self._server.reactor, shm=self.shm_channels,
-            epoch=self.dist.restart_epoch,
+            epoch=self.dist.restart_epoch, tracer=self.tracer,
             # Data edges take credits; control writers never do (2PC
             # announcements must not park behind data).
             flow_control=self.flow_control,
@@ -260,6 +288,11 @@ class DistributedExecutor(LocalExecutor):
                 self._durable_acks.setdefault(message[1], set()).add(sender)
                 self._durable_cv.notify_all()
             return
+        # Clock sync and metric pushes: queued for the service's own
+        # thread (this runs on the reactor, which must not block on a send).
+        if self._telemetry is not None and self._telemetry.handles(kind):
+            self._telemetry.on_control(sender, message)
+            return
         logger.warning("unknown control message %r from %d", kind, sender)
 
     def _get_control_writer(self, peer: int,
@@ -277,6 +310,13 @@ class DistributedExecutor(LocalExecutor):
                     epoch=self.dist.restart_epoch)
                 self._control_writers[peer] = writer
             return writer
+
+    def _send_control(self, peer: int, message: typing.Any) -> None:
+        """The telemetry service's send hook (its thread, never the
+        reactor's)."""
+        if self.cancelled.is_set():
+            return
+        self._get_control_writer(peer).write(message)
 
     # -- heartbeats ----------------------------------------------------------------
     def _heartbeat_loop(self) -> None:
@@ -306,6 +346,10 @@ class DistributedExecutor(LocalExecutor):
                     continue
                 else:
                     silent = now - last
+                if self.flight is not None:
+                    self.flight.record("cohort", "peer.lost", {
+                        "peer": p, "silent_s": round(silent, 3),
+                        "epoch": self.dist.restart_epoch})
                 self._transport_error(CohortPeerLost(
                     f"cohort peer {p} silent for {silent:.1f}s (heartbeat_timeout_s="
                     f"{timeout}) — failing fast so the supervisor restarts the cohort "
@@ -376,6 +420,8 @@ class DistributedExecutor(LocalExecutor):
 
     def _close_plane(self, join: bool) -> None:
         self._hb_stop.set()
+        if self._telemetry is not None:
+            self._telemetry.stop()
         for w in list(self._remote_writers):
             w.close()
         for w in list(self._control_writers.values()):

@@ -35,6 +35,17 @@ success and failure alike; ``JobHandle.cancel`` dumps the flight ring;
 and a ``ShutdownFlusher`` flushes all three on SIGTERM/SIGINT (main
 thread only).  The roofline plane runs without a cost table: the port
 has no pricer yet.
+
+The health plane (JAX ``:72-79``, ``:101-102``, ``:132-150``,
+``:628-634``, ``:655-709``): with ``JobConfig.health`` process 0 starts a
+:class:`~flink_tensorflow_tpu_torch.metrics.health.HealthEvaluator` over
+the registry's snapshot (a cohort's merged one on a distributed process
+0) every ``health.interval_s`` (default: the cohort's telemetry
+interval, else 1 s); ``JobHandle.wait`` and ``cancel`` stop it.  With
+``health.autoscale`` an
+:class:`~flink_tensorflow_tpu_torch.core.autoscale.AutoscaleActuator`
+rides its ticks and cancels the job on its decision, which
+``JobHandle.autoscale_decision`` then returns.
 """
 
 from __future__ import annotations
@@ -97,10 +108,13 @@ class RestartStrategy:
 class JobHandle:
     """Handle to an asynchronously running job."""
 
-    def __init__(self, executor: LocalExecutor, reporter=None):
+    def __init__(self, executor: LocalExecutor, reporter=None, health=None):
         self.executor = executor
         #: The job's ReporterThread (None without a report interval).
         self.reporter = reporter
+        #: The job's HealthEvaluator (process 0 with ``JobConfig.health``;
+        #: None otherwise).
+        self.health = health
         #: The signal hook ``execute_async`` installed (None off the main
         #: thread or with nothing to flush).
         self._flusher = None
@@ -124,6 +138,8 @@ class JobHandle:
     def _stop_observers(self) -> None:
         if self._flusher is not None:
             self._flusher.uninstall()
+        if self.health is not None:
+            self.health.stop()
         if self.reporter is not None:
             self.reporter.stop()
         self._export_trace()
@@ -149,6 +165,14 @@ class JobHandle:
         self._stop_observers()
         # A cancelled job keeps its black box, as a killed one does.
         self.executor.flight_dump("cancel")
+
+    @property
+    def autoscale_decision(self):
+        """The AutoscaleDecision this process made (None without one): a
+        cohort worker reads it after ``wait()`` and exits with the rescale
+        code, so its supervisor respawns the cohort resized."""
+        actuator = getattr(self.executor, "autoscale_actuator", None)
+        return actuator.decision if actuator is not None else None
 
     @property
     def metrics(self) -> MetricRegistry:
@@ -354,6 +378,7 @@ class StreamExecutionEnvironment:
             executor = LocalExecutor(self.graph, **common)
         executor.checkpoint_interval_s = cfg.checkpoint.interval_s
         reporter = self._make_reporter(report_interval_s, flight=executor.flight)
+        health = None
         try:
             if restore_from is not None:
                 if cfg.distributed is not None:
@@ -367,6 +392,7 @@ class StreamExecutionEnvironment:
                 # Crash-time flush: the snapshot that explains a failure is
                 # published when the first subtask dies.
                 executor.failure_listeners.append(reporter.flush_now)
+            health = self._make_health(executor)
             executor.start()
         except BaseException:
             executor.cancel()
@@ -376,7 +402,9 @@ class StreamExecutionEnvironment:
             raise
         if reporter is not None:
             reporter.start()
-        handle = JobHandle(executor, reporter)
+        if health is not None:
+            health.start()
+        handle = JobHandle(executor, reporter, health=health)
         # SIGTERM/SIGINT publish the final report, dump the flight ring and
         # export the trace before the previous handler runs; uninstalled
         # at wait()/cancel(), a no-op off the main thread.
@@ -392,6 +420,48 @@ class StreamExecutionEnvironment:
             if flusher.install():
                 handle._flusher = flusher
         return handle
+
+    def _make_health(self, executor):
+        """The health plane (not started), or None.  It runs on process 0
+        only: its feed is the cohort collector's merged snapshot on a
+        distributed executor, the registry's snapshot otherwise (the same
+        shape).  With ``health.autoscale`` the actuator subscribes to its
+        ticks and cancels the job on its decision."""
+        cfg = self.config
+        if cfg.health is None:
+            return None
+        dist = cfg.distributed
+        if dist is not None and dist.process_index != 0:
+            return None  # peers push metrics; process 0 evaluates
+        from flink_tensorflow_tpu_torch.metrics.health import HealthEvaluator
+
+        collector = getattr(executor, "cohort_collector", None)
+        if collector is not None:
+            snapshot_fn = collector.merged_snapshot
+        else:
+            registry = self.metric_registry
+            snapshot_fn = lambda: (time.time(), registry.snapshot())  # noqa: E731
+        interval = cfg.health.interval_s
+        if interval is None:
+            telemetry = dist.telemetry_interval_s if dist is not None else 0
+            interval = telemetry if telemetry > 0 else 1.0
+        health = HealthEvaluator(
+            cfg.health.resolved_rules(cfg.channel_capacity), interval_s=interval,
+            snapshot_fn=snapshot_fn, registry=self.metric_registry,
+            flight=executor.flight, tracer=executor.tracer)
+        if cfg.health.autoscale is not None:
+            from flink_tensorflow_tpu_torch.core.autoscale import (
+                AutoscaleActuator,
+                checkpoint_gate,
+            )
+
+            actuator = AutoscaleActuator(
+                cfg.health.autoscale, dist.num_processes if dist is not None else 1,
+                checkpoint_ready=checkpoint_gate(executor.coordinator.checkpoint_dir),
+                on_decision=lambda _d: executor.cancel(), flight=executor.flight)
+            health.subscribe_ticks(actuator.on_tick)
+            executor.autoscale_actuator = actuator
+        return health
 
     def _make_reporter(self, report_interval_s: typing.Optional[float], flight=None):
         """The job's ReporterThread (not started), or None: the call's

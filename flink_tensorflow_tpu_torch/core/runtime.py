@@ -1016,8 +1016,12 @@ class LocalExecutor:
                 span = (1 if isinstance(edge.partitioner, ForwardPartitioner)
                         else edge.upstream.parallelism)
                 lo = channel_base[(st.t.id, edge_idx)]
-                grp.gauge(f"edge{edge_idx}_{edge.upstream.name}_queue_puts",
+                name = f"edge{edge_idx}_{edge.upstream.name}"
+                grp.gauge(f"{name}_queue_puts",
                           lambda g=st.gate, a=lo, b=lo + span: sum(g.puts_per_channel[a:b]))
+                grp.gauge(f"{name}_queue_depth",
+                          lambda g=st.gate, a=lo, b=lo + span: sum(
+                              max(0, c) for c in g.buffered_per_channel[a:b]))
         process_index, num_processes = self._process_identity()
         for unit in st.units:
             device = (self.device_provider(unit.t.name, unit.index)

@@ -70,8 +70,17 @@ happens-before ring (JAX ``:394-400``, ``:448-641``, ``:998``,
 each frame sent, received and delivered with its barrier ids, credit
 grants, spends and parks, and a full gate's stall and resume, under one
 edge name and a connection id the sender mints per transport, so
-``core/sanitizer_stitch.py`` pairs both ends.  Left out until the port
-has a tracer: the writer's tracer spans.
+``core/sanitizer_stitch.py`` pairs both ends.
+
+Spans (JAX ``:1256-1266``, ``:1301-1310``, ``:1468-1470``,
+``:1504-1506``): a writer given a ``tracer`` records, on the track of the
+subtask it feeds, ``wire.flush`` (first buffered record to flush),
+``serde`` and ``wire`` per coalesced frame, ``serde`` and ``wire`` per
+lone record, and ``wire.credit_wait`` for each park at zero credit.  A
+record's trace context crosses in every frame shape (a columnar frame
+carries the contexts beside its timestamps), so the receiving subtask
+records the queue wait of a record minted on a peer once the cohort's
+clock sync knows the peer's offset (``Tracer.queue_span``).
 """
 
 from __future__ import annotations
@@ -220,24 +229,28 @@ def connect_with_retry(host: str, port: int, timeout_s: float, *,
 class ColumnarFrame:
     """A coalesced homogeneous run on the wire: the ``encode_batch`` bytes
     ride as one out-of-band buffer (wrapped as uint8), timestamps as a
-    per-record list (None when every record has none)."""
+    per-record list and trace contexts likewise (None when every record
+    has none)."""
 
-    __slots__ = ("payload", "timestamps")
+    __slots__ = ("payload", "timestamps", "traces")
 
-    def __init__(self, payload, timestamps):
+    def __init__(self, payload, timestamps, traces):
         self.payload = payload
         self.timestamps = timestamps
+        self.traces = traces
 
     def __getstate__(self):
-        return (self.payload, self.timestamps)
+        return (self.payload, self.timestamps, self.traces)
 
     def __setstate__(self, state):
-        self.payload, self.timestamps = state
+        self.payload, self.timestamps, self.traces = state
 
     def records(self) -> typing.List[el.StreamRecord]:
         values = decode_batch(memoryview(self.payload))
-        ts = self.timestamps
-        return [el.StreamRecord(v, None if ts is None else ts[i]) for i, v in enumerate(values)]
+        ts, traces = self.timestamps, self.traces
+        return [el.StreamRecord(v, None if ts is None else ts[i],
+                                None if traces is None else traces[i])
+                for i, v in enumerate(values)]
 
 
 def expand_message(obj) -> typing.List[typing.Any]:
@@ -888,7 +901,8 @@ class RemoteChannelWriter:
                  reconnect_timeout_s: float = 5.0,
                  flow_control: bool = False,
                  fault_hook: typing.Optional[typing.Callable[[], typing.Optional[str]]] = None,
-                 sanitizer: typing.Optional[typing.Any] = None):
+                 sanitizer: typing.Optional[typing.Any] = None,
+                 tracer: typing.Optional[typing.Any] = None):
         self.host = host
         self.port = port
         self.task = task
@@ -906,6 +920,10 @@ class RemoteChannelWriter:
         self._san = sanitizer
         self._edge = f"{task}.{subtask_index}[ch{channel_idx}]"
         self._hb_conn = ""
+        #: Span tracer (None when off): frames and credit parks land on
+        #: the track of the subtask this writer feeds.
+        self._tracer = tracer
+        self._track = f"{task}.{subtask_index}"
         self._fc_cv = threading.Condition()
         self._fc_credits = 0        # TCP grants available (may overdraw)
         self._fc_ring_spent = 0     # frames spent against the ring's grant cell
@@ -1096,11 +1114,15 @@ class RemoteChannelWriter:
             return
         self._buf = []
         self._buf_bytes = 0
+        t_first = self._buf_t0
         n = len(buf)
+        t0 = time.monotonic()
         obj: typing.Any = buf[0] if n == 1 else self._coalesce(buf)
         parts, payload_bytes = encode_obj_frame(obj)
+        t1 = time.monotonic()
         self._send_parts(parts, payload_bytes,
                          fc="align" if reason in ("barrier", "close") else "data")
+        t2 = time.monotonic()
         if self._records is not None:
             self._records.inc(n)
             self._bytes.inc(payload_bytes)
@@ -1108,6 +1130,15 @@ class RemoteChannelWriter:
             self._frame_records.record(n)
             self._frame_bytes.record(payload_bytes)
             self._flush_total.mark()
+        tracer = self._tracer
+        if tracer is not None:
+            # The coalescing delay apart from encode and send, so the
+            # attribution prices the buffer timeout on its own.
+            tracer.span(self._track, "wire.flush", t_first, t0,
+                        args={"reason": reason, "records": n})
+            tracer.span(self._track, "serde", t0, t1,
+                        args={"bytes": payload_bytes, "records": n})
+            tracer.span(self._track, "wire", t1, t2, args={"bytes": payload_bytes})
 
     def _coalesce(self, buf: typing.List[el.StreamRecord]) -> typing.Any:
         """Columnar when every record is a homogeneous TensorValue, else the
@@ -1118,11 +1149,15 @@ class RemoteChannelWriter:
                 payload = encode_batch([r.value for r in buf], self.wire_dtype)
                 timestamps = ([r.timestamp for r in buf]
                               if any(r.timestamp is not None for r in buf) else None)
-                return ColumnarFrame(np.frombuffer(payload, np.uint8), timestamps)
+                traces = ([r.trace for r in buf]
+                          if any(r.trace is not None for r in buf) else None)
+                return ColumnarFrame(np.frombuffer(payload, np.uint8), timestamps, traces)
         return buf
 
     def _send_one(self, element: typing.Any) -> None:
+        t0 = time.monotonic()
         parts, payload_bytes = encode_obj_frame(element)
+        t1 = time.monotonic()
         # A lone control element bypasses credit: a zero-credit edge must
         # still align and end.
         self._send_parts(parts, payload_bytes, fc="bypass",
@@ -1131,6 +1166,13 @@ class RemoteChannelWriter:
         if self._records is not None and isinstance(element, el.StreamRecord):
             self._records.inc()
             self._bytes.inc(payload_bytes)
+        tracer = self._tracer
+        if tracer is not None and isinstance(element, el.StreamRecord):
+            # The coalesced path's spans less wire.flush (nothing buffers).
+            t2 = time.monotonic()
+            tracer.span(self._track, "serde", t0, t1,
+                        args={"bytes": payload_bytes, "records": 1})
+            tracer.span(self._track, "wire", t1, t2, args={"bytes": payload_bytes})
 
     def _send_parts(self, parts, payload_bytes: int, fc: str = "data",
                     barriers: typing.Optional[typing.List[int]] = None) -> None:
@@ -1281,6 +1323,8 @@ class RemoteChannelWriter:
                 # the spend against the floor), so it survives truncation.
                 san.hb("credit.spend", self._edge, self._hb_conn, gen=self._fc_gen,
                        balance=self._fc_credits, floor=floor)
+        if self._tracer is not None and t0 is not None:
+            self._tracer.span(self._track, "wire.credit_wait", t0, time.monotonic())
 
     def _fc_acquire_ring(self, floor: int) -> None:
         """Ring-mode spend: our cumulative spends against the consumer's
@@ -1313,6 +1357,8 @@ class RemoteChannelWriter:
             if san is not None:
                 san.hb("credit.unpark", self._edge, self._hb_conn, gen=self._fc_gen,
                        waited_s=waited)
+            if self._tracer is not None:
+                self._tracer.span(self._track, "wire.credit_wait", t0, t0 + waited)
         if san is not None and spent:
             # The ring's grant cell is the grant counter: balance is grants
             # less spends.

@@ -411,7 +411,9 @@ def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[Distributed
                         every_n_records: int = WIDEDEEP_EVERY_N_RECORDS, parallelism: int = 2,
                         restore_id: typing.Optional[int] = None, throttle_s: float = 0.0,
                         device_provider=None, timeout: float = 600.0,
-                        report: typing.Optional[dict] = None) -> float:
+                        report: typing.Optional[dict] = None,
+                        config: typing.Optional[dict] = None,
+                        telemetry: typing.Optional[dict] = None) -> float:
     """The widedeep-online cell keyed over a cohort (``dist``; None: one
     process at the same keyed parallelism, the reference run):
     ``from_collection`` (on process 0) ``-> key_by(user) ->
@@ -422,11 +424,16 @@ def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[Distributed
     depend on its own events only.  The key is ``user *
     WIDEDEEP_KEY_STRIDE``, so the keyed edge crosses processes.  Returns the
     job's seconds; ``report``, when given, receives the job's metric
-    report."""
+    report.  ``config`` holds more ``JobConfig`` fields (tracing, say);
+    ``telemetry``, when given, receives what the cohort's telemetry plane
+    learned: process 0's collector counts and the size of one metric push
+    frame, and the tracer's cohort block."""
     from flink_tensorflow_tpu_torch.io.files import ExactlyOnceRecordFileSink
 
     env = StreamExecutionEnvironment(parallelism=1)
     env.source_throttle_s = throttle_s
+    if config:
+        env.configure(**config)
     if dist is not None:
         env.set_distributed(dist)
     if device_provider is not None:
@@ -442,10 +449,24 @@ def run_widedeep_cohort(mdef, schema, records, dist: typing.Optional[Distributed
     restore = {} if restore_id is None else dict(restore_from=checkpoint_root,
                                                  restore_checkpoint_id=restore_id)
     t0 = time.monotonic()
-    env.execute("widedeep-cohort", timeout=timeout, **restore)
+    handle = env.execute_async("widedeep-cohort", **restore)
+    handle.wait(timeout)
     seconds = time.monotonic() - t0
     if report is not None:
         report.update(env.metric_registry.report())
+    if telemetry is not None:
+        import pickle
+
+        executor = handle.executor
+        collector = getattr(executor, "cohort_collector", None)
+        if collector is not None:
+            telemetry.update(pushes=collector.pushes, peers_reporting=collector.peers_reporting)
+        # One metric push as it rides the control channel.
+        telemetry["push_bytes"] = len(pickle.dumps(
+            ("metrics_push", 0, 1, env.metric_registry.export_state()), protocol=5))
+        if executor.tracer is not None:
+            telemetry["cohort_meta"] = executor.tracer.cohort_meta
+            telemetry["trace_path"] = executor.trace_path
     return seconds
 
 
@@ -529,13 +550,18 @@ def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
 def widedeep_rank(rank: int, world: int, plane_ports: typing.Sequence[int], out: str,
                   checkpoint_root: str, *, parallelism: int, records: int = WIDEDEEP_RECORDS,
                   every_n_records: int = WIDEDEEP_EVERY_N_RECORDS,
-                  restore_id: typing.Optional[int] = None, throttle_s: float = 0.0) -> None:
+                  restore_id: typing.Optional[int] = None, throttle_s: float = 0.0,
+                  telemetry_interval_s: typing.Optional[float] = None,
+                  trace_path: typing.Optional[str] = None) -> None:
     """One process of the widedeep-online cell keyed over ``world``
     processes (:func:`run_widedeep_cohort`), its model subtasks on the card.
     Writes ``seconds-<rank>.json`` under ``checkpoint_root``: the job's
     seconds, its edge reconnects, the faults that fired
-    (``FLINK_TPU_FAULTS`` reaches the job through its config) and the
-    records its keyed subtasks took in."""
+    (``FLINK_TPU_FAULTS`` reaches the job through its config), the
+    records its keyed subtasks took in, and what the telemetry plane
+    learned.  ``telemetry_interval_s`` sets the cohort's telemetry cadence
+    (None: ``DistributedConfig``'s default); ``trace_path`` traces the job
+    (each process writes ``<trace>.proc<k>.json``)."""
     import json
 
     import torch
@@ -544,13 +570,16 @@ def widedeep_rank(rank: int, world: int, plane_ports: typing.Sequence[int], out:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mdef, schema, values = widedeep_cell(records=records)
+    extra = {} if telemetry_interval_s is None else {"telemetry_interval_s": telemetry_interval_s}
     dist = DistributedConfig(rank, world, tuple(f"127.0.0.1:{p}" for p in plane_ports),
-                             connect_timeout_s=60.0)
+                             connect_timeout_s=60.0, **extra)
     report: typing.Dict[str, typing.Any] = {}
-    seconds = run_widedeep_cohort(mdef, schema, values, dist, out=out,
-                                  checkpoint_root=checkpoint_root,
-                                  every_n_records=every_n_records, parallelism=parallelism,
-                                  restore_id=restore_id, throttle_s=throttle_s, report=report)
+    telemetry: typing.Dict[str, typing.Any] = {}
+    seconds = run_widedeep_cohort(
+        mdef, schema, values, dist, out=out, checkpoint_root=checkpoint_root,
+        every_n_records=every_n_records, parallelism=parallelism, restore_id=restore_id,
+        throttle_s=throttle_s, report=report, telemetry=telemetry,
+        config={"trace": True, "trace_path": trace_path} if trace_path else None)
     with open(os.path.join(checkpoint_root, f"seconds-{rank}.json"), "w") as f:
         json.dump({"rank": rank, "world": world, "seconds": seconds,
                    "edge_reconnects": report.get("recovery.edge_reconnects", {}).get("count", 0),
@@ -558,7 +587,8 @@ def widedeep_rank(rank: int, world: int, plane_ports: typing.Sequence[int], out:
                    "keyed_records_in": {k: v["count"] for k, v in report.items()
                                         if k.startswith("keyed_train.")
                                         and k.endswith(".records_in")},
-                   "sanitizer_violations": report.get("sanitizer.violations")}, f)
+                   "sanitizer_violations": report.get("sanitizer.violations"),
+                   "telemetry": telemetry}, f)
 
 
 if __name__ == "__main__":
@@ -589,12 +619,16 @@ if __name__ == "__main__":
     parser.add_argument("--every", type=int, default=WIDEDEEP_EVERY_N_RECORDS)
     parser.add_argument("--restore-id", type=int, default=None)
     parser.add_argument("--throttle", type=float, default=0.0)
+    parser.add_argument("--telemetry-interval", type=float, default=None,
+                        help="--widedeep: the cohort's telemetry cadence in seconds")
+    parser.add_argument("--trace", default=None, help="--widedeep: trace to this path")
     args = parser.parse_args()
     plane = None if args.plane_ports is None else [int(p) for p in args.plane_ports.split(",")]
     if args.widedeep:
         widedeep_rank(args.rank, args.world, plane, args.out, args.checkpoint_root,
                       parallelism=args.par, records=args.records, every_n_records=args.every,
-                      restore_id=args.restore_id, throttle_s=args.throttle)
+                      restore_id=args.restore_id, throttle_s=args.throttle,
+                      telemetry_interval_s=args.telemetry_interval, trace_path=args.trace)
     else:
         resnet_rank(args.rank, args.world, args.port, args.steps, args.out, args.backend,
                     args.local_batch_stats, args.checkpoint_root, args.attempt,

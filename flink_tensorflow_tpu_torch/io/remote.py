@@ -33,16 +33,25 @@ one ``selectors`` loop inside the source generator, and decodes only as
 fast as the pipeline consumes.
 
 The sink takes its coalescing defaults, its flow-control default, the
-sanitizer and its edge fault hook (``sever``, ``blackhole``, ``delay``
-from ``core/faults.py``) from the runtime context at ``open()``.  The
-reference's tracer spans and wire-latency histogram wait for the port's
-tracer.
+sanitizer, the tracer and its edge fault hook (``sever``, ``blackhole``,
+``delay`` from ``core/faults.py``) from the runtime context at
+``open()``.
+
+**Spans** (JAX ``:355-380``, ``:483-492``, ``:657-712``, ``:900-910``):
+a traced sink records ``wire.flush``, ``serde`` and ``wire`` per burst
+and ``wire.credit_wait`` per park longer than 1 ms, and stamps each
+traced record's metadata with ``__trace__ = (trace id, pid, send
+time)``, so the receiving job continues the same trace.  A traced
+source records ``serde`` per frame and, once the cohort's clock sync
+knows the sender's offset, the one-way ``edge.wire_latency_s`` of each
+frame's first record beside its error bound ``edge.wire_latency_err_s``.
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import select
 import selectors
 import socket
@@ -90,6 +99,9 @@ _FC_MAGIC = b"\xffFLOWCTL"
 _FC_PROBE_GRACE_S = 2.0
 _GRANT = struct.Struct("<Q")
 
+#: Origin pid of the cross-process trace stamps (the tracer's own).
+_PID = os.getpid()
+
 logger = logging.getLogger(__name__)
 
 
@@ -134,6 +146,8 @@ class RemoteSink(fn.SinkFunction):
         self.flow_control = flow_control
         self._wire: typing.Optional[str] = self.wire_dtype
         self._sock: typing.Optional[socket.socket] = None
+        self._tracer = None
+        self._track = ""
         self._san = None
         self._hb_edge = ""
         self._saved_counter = None
@@ -173,6 +187,8 @@ class RemoteSink(fn.SinkFunction):
                           flow_control=self.flow_control)
 
     def open(self, ctx) -> None:
+        self._tracer = getattr(ctx, "tracer", None)
+        self._track = f"{ctx.task_name}.{ctx.subtask_index}"
         # Distributed sanitizer: the job-to-job pipe logs its half of
         # each happens-before edge.  The edge name is directional and
         # sink-local on purpose — the pipe has no conn handshake, so the
@@ -342,6 +358,9 @@ class RemoteSink(fn.SinkFunction):
         self._credit_starved_s += waited
         if san is not None:
             san.hb("credit.unpark", self._hb_edge, waited_s=waited)
+        if self._tracer is not None and waited > 1e-3:
+            self._tracer.span(self._track, "wire.credit_wait", t0, time.monotonic(),
+                              args={"mode": fc})
         self._fc_credits -= 1
         if san is not None:
             san.hb("credit.spend", self._hb_edge,
@@ -352,6 +371,14 @@ class RemoteSink(fn.SinkFunction):
             raise TypeError("RemoteSink carries TensorValue records")
         if self._saved_counter is not None:
             self._saved_counter.inc(wire_bytes_saved(value, self._wire))
+        tracer = self._tracer
+        if tracer is not None:
+            # The trace id rides the frame in the record's metadata, so
+            # the receiving source continues the same trace; the pid and
+            # send stamp let a clock-synced receiver record the hop.
+            tctx = tracer.current()
+            if tctx is not None:
+                value = value.with_meta(__trace__=(tctx.trace_id, _PID, time.monotonic()))
         with self._lock:
             if self._error is not None:
                 exc, self._error = self._error, None
@@ -425,7 +452,9 @@ class RemoteSink(fn.SinkFunction):
             return
         self._buf = []
         self._buf_bytes = 0
+        t_first = self._buf_t0
         n = len(buf)
+        t0 = time.monotonic()
         if n > 1 and self.columnar:
             sig = batch_signature(buf[0])
             homogeneous = sig is not None and all(
@@ -442,12 +471,21 @@ class RemoteSink(fn.SinkFunction):
                 parts.append(_LEN.pack(len(payload)))
                 parts.append(payload)
         burst_bytes = sum(len(p) for p in parts)
+        t1 = time.monotonic()
         self._send_burst(parts, fc="align" if reason == "close" else "data")
+        t2 = time.monotonic()
         if self._flush_counters is not None:
             self._flush_counters[reason].inc()
             self._frame_records.record(n)
             self._frame_bytes.record(burst_bytes)
             self._flush_total.mark()
+        tracer = self._tracer
+        if tracer is not None:
+            tracer.span(self._track, "wire.flush", t_first, t0,
+                        args={"reason": reason, "records": n})
+            tracer.span(self._track, "serde", t0, t1,
+                        args={"bytes": burst_bytes, "records": n, "columnar": homogeneous})
+            tracer.span(self._track, "wire", t1, t2, args={"bytes": burst_bytes})
 
     def _send_burst(self, parts, fc: str = "data") -> None:
         """One burst onto the wire (scatter-gather sendmsg, no
@@ -614,27 +652,56 @@ class RemoteSource(fn.SourceFunction):
         #: Retained for API compatibility; the threadless loop needs no
         #: hand-off queue (its backlog is the per-connection parser).
         self.queue_capacity = queue_capacity
+        self._tracer = None
+        self._track = ""
         self._san = None
         self._hb_edge = ""
         self._credit_grants = None
+        self._wire_latency = None
+        self._wire_latency_err = 0.0
 
     def clone(self):
         return self  # the listener is the identity; parallelism must be 1
 
     def open(self, ctx) -> None:
+        self._tracer = getattr(ctx, "tracer", None)
+        self._track = f"{ctx.task_name}.{ctx.subtask_index}"
         # Directional receive-side edge name; deliberately distinct from
         # any sender's edge so the cohort stitcher never pairs the
         # conn-less pipe (see RemoteSink.open).
         self._san = getattr(ctx, "sanitizer", None)
-        self._hb_edge = f"remote:{self.port}->{ctx.task_name}.{ctx.subtask_index}"
+        self._hb_edge = f"remote:{self.port}->{self._track}"
         if ctx.metrics is not None:
             self._credit_grants = ctx.metrics.counter("credit_grants")
+            # One-way wire latency per frame, mapped into this clock by
+            # the cohort's offsets, with the estimate's error bound.
+            self._wire_latency = ctx.metrics.histogram("edge.wire_latency_s")
+            ctx.metrics.gauge("edge.wire_latency_err_s", lambda: self._wire_latency_err)
         if ctx.parallelism != 1:
             raise RuntimeError(
                 "RemoteSource owns one listener — run it with "
                 f"parallelism=1 (got {ctx.parallelism}); scale ingest by "
                 "raising fan_in instead"
             )
+
+    def _record_wire_latency(self, record, t_recv: float) -> None:
+        """One-way send-to-receive latency of a frame, read off its first
+        record's ``__trace__`` stamp (peeked: the source still admits the
+        trace), once the clock sync knows the origin's offset."""
+        hist = self._wire_latency
+        tracer = self._tracer
+        if hist is None or tracer is None:
+            return
+        meta = getattr(record, "meta", None)
+        stamp = meta.get("__trace__") if meta else None
+        if type(stamp) is not tuple:
+            return
+        _trace_id, origin, t_send = stamp
+        off = tracer.clock_offsets.get(origin)
+        if off is None or not t_send:
+            return
+        hist.record(max(0.0, t_recv - (t_send + off)))
+        self._wire_latency_err = tracer.clock_error.get(origin, 0.0)
 
     def run(self) -> typing.Iterator[typing.Any]:
         """Yields records; yields SOURCE_IDLE while waiting (accepting or
@@ -667,6 +734,7 @@ class RemoteSource(fn.SourceFunction):
         grants_counter = self._credit_grants
 
         san = self._san
+        tracer = self._tracer
 
         def queue_grant(conn: socket.socket, n: int) -> None:
             grant_out.setdefault(conn, bytearray()).extend(_GRANT.pack(n))
@@ -815,7 +883,16 @@ class RemoteSource(fn.SourceFunction):
                         if san is not None:
                             san.hb("frame.recv", self._hb_edge,
                                    nbytes=length)
-                        ready.extend(decode_frame(payload))
+                        if tracer is None:
+                            ready.extend(decode_frame(payload))
+                        else:
+                            t0 = time.monotonic()
+                            records = decode_frame(payload)
+                            tracer.span(self._track, "serde", t0, time.monotonic(),
+                                        args={"bytes": length, "records": len(records)})
+                            if records:
+                                self._record_wire_latency(records[0], t0)
+                            ready.extend(records)
             while ready:
                 yield ready.popleft()
         finally:

@@ -6,8 +6,10 @@ Port of ``flink_tensorflow_tpu/metrics/inspector.py``:
     python -m flink_tensorflow_tpu_torch.metrics pipeline.py --snapshot-only
 
 ``pipeline.py`` defines ``main(argv)`` that builds a port job and calls
-``execute``.  ``--live --cohort`` needs the cohort collector, which the
-port does not have yet: it fails with the reference's message.
+``execute``.  ``--live --cohort`` polls process 0's cohort collector
+(``executor.cohort_collector.merged_snapshot()``, every process's
+metrics merged): the pipeline must configure ``distributed=`` with
+``process_index=0``.
 
 The inspector captures a pipeline script's plan the same way the
 plan-time analyzer does (``analysis.capture``: the script's ``main`` runs

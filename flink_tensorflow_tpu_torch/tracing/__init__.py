@@ -6,9 +6,10 @@ Enable with ``JobConfig(trace=True)`` (optionally ``trace_path=...``,
 ``python -m flink_tensorflow_tpu_torch.tracing``: run a captured port
 pipeline under tracing and print the per-operator stage attribution
 table (``--from-file``, ``--cohort`` and ``--from-flight-dump`` read
-files instead).  Port of ``flink_tensorflow_tpu/tracing/`` without the
-doctor.  See ``tracer.py`` for the span model and
-``attribution.py`` for the profiler.
+files instead).  Port of ``flink_tensorflow_tpu/tracing/``.  See
+``tracer.py`` for the span model, ``attribution.py`` for the profiler
+and ``doctor.py`` for the root-cause report (``python -m
+flink_tensorflow_tpu_torch.tracing.doctor``).
 """
 
 from flink_tensorflow_tpu_torch.tracing.attribution import (

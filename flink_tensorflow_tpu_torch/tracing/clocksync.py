@@ -21,8 +21,7 @@ to one early lucky sample forever.
 
 Pure data structure, a copy of ``flink_tensorflow_tpu/tracing/clocksync.py``
 (the tests hold both to the same floats).  The live exchange over a
-cohort's control channel is not ported yet; tests inject synthetic skew
-directly.
+cohort's control channel is ``core/cohort_telemetry.py``.
 """
 
 from __future__ import annotations

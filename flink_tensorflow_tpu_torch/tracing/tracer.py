@@ -20,15 +20,15 @@ Context propagation: a sampled record carries a :class:`TraceContext`
 on its :class:`~flink_tensorflow_tpu_torch.core.elements.StreamRecord`
 through channel queues and rides thread-locally through
 :class:`ChainedOutput` direct calls.  A ``__trace__`` entry in a
-TensorValue's metadata continues an upstream trace at admission (the
-reference's remote edges write it; the port's record plane and pipe do
-not yet carry spans).
+TensorValue's metadata continues an upstream trace at admission (a
+traced ``RemoteSink`` writes it; the record plane carries the context
+itself, in every frame shape).
 
 Cross-process spans: monotonic clocks don't agree between processes, so
 a foreign enqueue stamp is only usable once a clock-offset exchange
-(tracing/clocksync.py; the port has no live exchange yet, so offsets
-come only through :meth:`Tracer.set_clock_offset`) has told this tracer
-the origin's offset — from then
+(tracing/clocksync.py, run by ``core/cohort_telemetry.py``, which calls
+:meth:`Tracer.set_clock_offset`) has told this tracer the origin's
+offset — from then
 on ``queue``/``wire`` spans are recorded OFFSET-CORRECTED into the
 local timebase (clamped so estimation error can never produce a
 negative duration) instead of suppressed, and ``flink-tpu-trace
