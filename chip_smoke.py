@@ -55,7 +55,7 @@ Phases (any failure exits non-zero and prints no result line):
    one SGD step at batch 4, its gradient and statistics' update on the
    card against the CPU's plain path in f32 (TF32 off) and in bf16;
    records/s, step time, losses, peak device memory, and the profiler's
-   busy share and launches per step; widedeep-online, Wide&Deep on
+   busy share and launches per step (over the first 8 steps); widedeep-online, Wide&Deep on
    ``key_by(user) -> OnlineTrainFunction(adam(1e-2), mini_batch=32,
    steps_per_dispatch=16)`` over 8192 events: (b) the loss falls within
    each user's run of steps on average, the step count is the sum over
@@ -86,7 +86,8 @@ Phases (any failure exits non-zero and prints no result line):
    records/s (steady and over the job), latency p50/p95, H2D bytes per
    batch and seconds, each beside the card line;
 9. chaining and device-resident dataflow (no TPU kernel on these paths;
-   K1 must launch 0 times), each comparison run A B B A in one process:
+   K1 must launch 0 times), each comparison run in one process, one pair
+   A B for (a)-(c) and A B B A for (d):
    (a) phase 5's cell chained (the default: the sink fused behind the
    window, 2 threads and 1 gate) and with ``configure(chaining=False)``
    (3 and 2), labels and scores equal bit for bit to phase 5's direct
@@ -109,7 +110,8 @@ Phases (any failure exits non-zero and prints no result line):
    pipeline at the serving cell's full width, every pool on the card and
    every run's K1 launches equal to layers x (prefill batches + warmup
    prefills): (a) ``paged_kv=True, page_tokens=16`` with the default 32
-   pages against the dense keyed arm, A B B A, tokens equal to phase 4's,
+   pages against the dense keyed arm, one pair (dense first), tokens
+   equal to phase 4's,
    the step H2D within the token, length and table vectors; (b) the
    oversubscription ladder, 4 seats and a 64-token budget, ``hbm_pages =
    max(4, demand // f)`` for f in 8, 16, 32, every demotion spilled to
@@ -225,10 +227,11 @@ Phases (any failure exits non-zero and prints no result line):
 15. the distributed record plane (``core/{reactor,shuffle,distributed}.py``;
    host-side, so K1 must launch 0 times): (a) ``bench.py:bench_shuffle``'s
    four arms (``percord_tcp``, ``coalesce_tcp``, ``coalesce_columnar_tcp``,
-   ``coalesce_columnar_shm``) at 64 x 40,000, 1,024 x 20,000 and 16,384 x
-   2,000 floats, one sender subprocess serving every arm in turn into this
-   process's reactor (``core/shuffle_probe.py``, best of
-   ``SHUFFLE_PASSES``): every record
+   ``coalesce_columnar_shm``) at the bench's three widths with a quarter
+   of its records (64 x 10,000, 1,024 x 5,000 and 16,384 x 500 floats;
+   ``SHUFFLE_SIZES``), one sender subprocess serving every arm in turn into
+   this process's reactor (``core/shuffle_probe.py``, one pass; phase 18
+   (c) runs the traced 1,024-float arms again): every record
    arrives; records/s, MB/s and the bench's two ratios printed, nothing
    about speed asserted; a tensor on the card written to a remote channel
    arrives as the same values in a CPU tensor; (b) resnet-train as ONE job
@@ -237,14 +240,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``from_collection(parallelism=2) -> count_window(16) ->
    DPTrainWindowFunction(parallelism=2) -> loss probe ->
    sink_to_callable(parallelism=1)``), 8 steps, checkpoints every 2 into
-   one shared directory, under a ``CohortSupervisor`` uninterrupted and
-   with the last process exiting at step 5 on attempt 0: 2 attempts, no
-   process left alive, the restore from checkpoint 2 (the newest common),
-   steps 5-8's losses and the final params and batch statistics equal to
-   the uninterrupted run's bit for bit, process 0's sink receiving every
-   (rank, step) once, and the uninterrupted run equal to phase 14 (c)'s
-   per-rank job bit for bit (the source is interleaved so each rank reads
-   the rows that job reads); (c) the widedeep-online cell keyed over the
+   one shared directory, under a ``CohortSupervisor`` with the last
+   process exiting at step 5 on attempt 0: 2 attempts, no process left
+   alive, the restore from checkpoint 2 (the newest common), steps 5-8's
+   losses and the final params and batch statistics equal bit for bit to
+   phase 14 (c)'s uninterrupted per-rank job (the source is interleaved
+   so each rank reads the rows that job reads), process 0's sink
+   receiving every (rank, step) of the restored attempt once; (c) the widedeep-online cell keyed over the
    cohort (``train_cell --widedeep``: ``key_by(user) ->
    OnlineTrainFunction(scope="key", mini_batch=32, steps_per_dispatch=16)
    -> ExactlyOnceRecordFileSink``) on two processes sharing ``cuda:0``,
@@ -286,11 +288,13 @@ Phases (any failure exits non-zero and prints no result line):
    the exported trace giving the same attribution counts; (b) phase 5's
    Inception cell traced: labels and scores bit-equal to phase 5's direct
    calls, one ``lane_wait``/``h2d``/``compute``/``d2h`` span per batch,
-   traced and untraced records/s in rotated rounds (A B B A), and the
+   traced and untraced records/s in one pair (untraced first), and the
    tracer's and flight recorder's cost per event; (c) phase 10 (a)'s
-   paged job under ``RooflineConfig(device="h100-sxm")``: tokens
-   unchanged, busy seconds, the bound, one compile event per distinct
-   prefill and step signature, MFU 0 (no cost table yet); (d) phase 16
+   paged job under ``RooflineConfig(device="h100-sxm")``, the plan priced
+   at ``execute_async`` (``analysis/costmodel.py``): tokens unchanged,
+   busy seconds, the bound, one compile event per distinct prefill and
+   step signature, none outside the predicted ladder, MFU above 0 and
+   under the plane's ceiling (105); (d) phase 16
    (a)'s chaos arm with ``flight_path`` and a second kill in epoch 1: the
    dump holds ``faults.kill``, ``job.failure`` and ``restart.attempt``,
    the committed bytes equal the clean arm's, and ``python -m
@@ -332,7 +336,26 @@ Phases (any failure exits non-zero and prints no result line):
    ``edge-queue``, which the doctor given its decision file names; the
    decision latency, the respawn gap and the step-up ratio are printed;
    K1 launches 0 times in (b)-(e); the phase's seconds;
-19. print one ``kernels`` JSON line, the card line, and the final
+19. the plan analyzer and the pricer (``analysis/{analyzer,rules,
+   costmodel}.py``): (a) phase 6 (a)'s keyed serving job, its plan
+   through ``validate_plan()`` (the analysis ``execute(validate=True)``
+   runs) then ``execute_async``: no ERROR diagnostic (the diagnostics
+   printed by rule), tokens equal to phase 4's, K1's launches equal to
+   phase 6 (a)'s; phase 5's Inception cell through ``validate_plan()`` (no
+   ERROR) then ``execute``, labels and scores equal to its direct calls;
+   (b) that serving job with its ``key_by`` taken out (a rebalance edge,
+   no key selector): ``execute(validate=True)`` raises
+   ``PlanValidationError`` naming ``serving-unkeyed-input``, K1 launches 0
+   times and ``torch.cuda.memory_allocated()`` is unchanged; (c) 17 (c)'s
+   priced roofline read back (MFU, the predicted ladder, the signatures
+   met, ``unpredicted_compiles``) beside the seconds ``cost_table_for_env``
+   takes on that plan and the device bytes it allocates (0), the table
+   non-empty; (d) phase 5's Inception cell under the same roofline: labels
+   and scores equal to the direct calls, MFU above 0 and under 105, the
+   achieved FLOP/s beside records/s; K1 launches 0 times on each
+   Inception run, the refused plan and the pricing, each read on its
+   own; the phase's seconds;
+20. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
@@ -429,6 +452,10 @@ INCEPTION_SCORE_TOL = 0.0
 RESNET_F32_TOL = {"loss": 1e-5, "grads_norm": 2e-3, "grads_max": 1e-2, "stats_update": 1e-5}
 RESNET_BF16_TOL = {"loss": 3e-2, "stats_update": 3e-2}
 RESNET_BF16_NOISE_FACTOR = 1.5
+#: Phase 7's profiled run: the cell's first 8 steps (256 records), not
+#: all 24 (the per-step readings are per step either way): a depth cut
+#: that made room for phase 19.
+RESNET_TRACE_STEPS = 8
 GRAD_LR = 1e6
 # widedeep-online (b): the card against a CPU run of the same job, both
 # checkpointed every 1024 events, bf16 compute on both: the first 16
@@ -565,16 +592,17 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_bound(b, h, t, tk, d, dtype, causal):
-    """Least time for the work of this call on the route K1 takes: visible
-    (q, k) pairs x 4D FLOPs at the route's peak (bf16/f16: tensor cores;
-    f32: three TF32 products, 3x the FLOPs at the TF32 peak), or
-    q+k+v+o+lse bytes at HBM rate.  Also returns the f32 FMA bound
-    (FLOPs at 67 TFLOP/s), printed beside it for f32 rows."""
-    pairs = sum(min(i + 1, tk) for i in range(t)) if causal else t * tk
-    flops = 4 * b * h * d * pairs
-    es = 4 if dtype == "float32" else 2
-    nbytes = es * (2 * b * t * h * d + 2 * b * tk * h * d) + 4 * b * h * t
+def k1_bound(b, h, t, tk, d, dtype, causal, return_lse=True):
+    """Least time for the work of this call on the route K1 takes: K1's
+    work (``ops/flash_attention.py:k1_cost``, which the plan-time pricer
+    charges too: visible (q, k) pairs x 4D FLOPs; q+k+v+o(+lse) bytes) at
+    the route's peak (bf16/f16: tensor cores; f32: three TF32 products, 3x
+    the FLOPs at the TF32 peak), or its bytes at HBM rate.  Also returns
+    the f32 FMA bound (FLOPs at 67 TFLOP/s), printed beside it for f32
+    rows."""
+    from flink_tensorflow_tpu_torch.ops.flash_attention import k1_cost
+
+    flops, nbytes = k1_cost(b, h, t, tk, d, dtype, causal, return_lse)
     if dtype == "float32":
         ops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
     else:
@@ -1124,8 +1152,9 @@ def check_training(card: str, torch, fa):
         fail(f"resnet-train: the card's bf16 gradient is {bf16_errs['grads_norm']} from the "
              f"CPU's, which is {noise} from its f32 one (factor {RESNET_BF16_NOISE_FACTOR})")
 
-    trace = profile(torch, lambda: cell.run_resnet(mdef, schema, records, mesh),
-                    cell.RESNET_STEPS)
+    traced_records = records[:RESNET_TRACE_STEPS * cell.RESNET_BATCH]
+    trace = profile(torch, lambda: cell.run_resnet(mdef, schema, traced_records, mesh),
+                    RESNET_TRACE_STEPS)
     gaps = np.diff(run.arrivals) * 1e3
     dispatch = run.env.metric_registry.group("dp_train.0").histogram("step_dispatch_s")
     resnet_row = {
@@ -1141,7 +1170,8 @@ def check_training(card: str, torch, fa):
         "busy_share_of_active_span": trace["device_busy_share_of_active_span"],
         "kernel_launches_per_step": trace["kernel_launches_per_step"],
         "copy_launches_per_step": trace["copy_launches_per_step"],
-        "device_kernel_ms_per_step": trace["device_kernel_ms"] / cell.RESNET_STEPS,
+        "device_kernel_ms_per_step": trace["device_kernel_ms"] / RESNET_TRACE_STEPS,
+        "traced_steps": RESNET_TRACE_STEPS,
         "traced_s": trace["traced_s"], "top_kernels": trace["top_kernels"][:6],
         "loop_bit_equal": loop_bits, "f32_vs_cpu": f32_errs, "bf16_vs_cpu": bf16_errs,
         "cpu_reference_steps_s": cpu_steps_s, "records_build_s": build_s, "card": card,
@@ -1604,7 +1634,19 @@ def fused_edge_puts(run) -> dict:
 
 #: The order of the two arms of a phase 9 comparison, A B B A: host time
 #: drifts within a call, and the first run in a process pays lazy loads.
+#: (d) keeps it (it holds two runs of one arm equal); (a)-(c) run one pair
+#: A B, a depth cut that made room for phase 19 (their rates are
+#: unresolved within the spread with four runs too).
 ABBA = (True, False, False, True)
+AB = (True, False)
+#: What the rates of a one-pair comparison (9 (a)-(c), 10 (a), 17 (b))
+#: can say: the first arm always runs first, so its rate carries that
+#: order, and the pair ranks neither arm.
+ONE_PAIR_RATES = "order-biased: one pair, the same arm first every call; ranks neither arm"
+
+
+def arm_order(arms, on="chained", off="unchained") -> str:
+    return ", ".join(on if a else off for a in arms)
 
 
 def check_layouts(card, what, runs, want):
@@ -1645,10 +1687,10 @@ def check_chained_inception_stream(card, torch, inception, direct):
 
     _, model, pixels = inception
     records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
-    runs = [(c, cell.run_cell_job(model, records, chaining=c)) for c in ABBA]
+    runs = [(c, cell.run_cell_job(model, records, chaining=c)) for c in AB]
     check_layouts(card, "inception-stream", runs, {True: (2, 1), False: (3, 2)})
-    row = {"card": card, "order": "chained, unchained, unchained, chained",
-           "chained": [], "unchained": []}
+    row = {"card": card, "order": arm_order(AB), "rates": ONE_PAIR_RATES, "chained": [],
+           "unchained": []}
     for chaining, run in runs:
         layout = "chained" if chaining else "unchained"
         check_ids(f"inception-stream {layout}", run.results, cell.RECORDS)
@@ -1667,7 +1709,7 @@ def check_chained_inception_stream(card, torch, inception, direct):
 def print_rates(card, what, row):
     rates = {k: [x["records_per_s"] for x in row[k]] for k in ("chained", "unchained")}
     print(f"{what} records_per_s chained {rates['chained']} unchained {rates['unchained']} "
-          f"| card: {card}", flush=True)
+          f"({ONE_PAIR_RATES}) | card: {card}", flush=True)
 
 
 def check_chained_inception_map(card, torch, inception):
@@ -1691,7 +1733,7 @@ def check_chained_inception_map(card, torch, inception):
     with tempfile.TemporaryDirectory() as tmp:
         bundle = os.path.join(tmp, "inception")
         save_bundle(mdef, model.params, bundle)
-        for chaining in ABBA:
+        for chaining in AB:
             fn = ModelMapFunction(bundle, micro_batch=MAP_MICRO_BATCH, idle_flush_s=1.0,
                                   warmup_batches=(MAP_MICRO_BATCH,), outputs=("label", "score"))
             runs.append((chaining, run_job(records, lambda s: s.map(fn, name="inception_map"),
@@ -1709,7 +1751,7 @@ def check_chained_inception_map(card, torch, inception):
             want_score[lo:lo + MAP_MICRO_BATCH] = out["score"].cpu().numpy()
     del module
     row = {"card": card, "records": MAP_RECORDS, "micro_batch": MAP_MICRO_BATCH,
-           "order": "chained, unchained, unchained, chained", "chained": [], "unchained": []}
+           "order": arm_order(AB), "rates": ONE_PAIR_RATES, "chained": [], "unchained": []}
     for chaining, run in runs:
         layout = "chained" if chaining else "unchained"
         check_ids(f"inception-map {layout}", run.results, MAP_RECORDS)
@@ -1818,7 +1860,7 @@ def check_resident_inception(card, torch, inception):
                       name="inception_map")
                 .map(DeviceMapFunction(softmax_top1), name="softmax"))
 
-    arms = [(on, run_resident(records, build, on)) for on in ABBA]
+    arms = [(on, run_resident(records, build, on)) for on in AB]
     plan = arms[0][1][3]
     print("inception-resident plan:\n" + "\n".join("  " + x for x in plan.splitlines()),
           flush=True)
@@ -1837,8 +1879,8 @@ def check_resident_inception(card, torch, inception):
             want_score[lo:lo + MAP_MICRO_BATCH] = out["score"].cpu().numpy()
     del module
     row = {"card": card, "records": MAP_RECORDS, "micro_batch": MAP_MICRO_BATCH,
-           "order": "on, off, off, on", "score_tolerance_off_vs_on": CHAIN_SCORE_TOL,
-           "on": [], "off": []}
+           "order": arm_order(AB, "on", "off"), "rates": ONE_PAIR_RATES,
+           "score_tolerance_off_vs_on": CHAIN_SCORE_TOL, "on": [], "off": []}
     got = {}
     for on, (results, latency, metrics, _, seconds) in arms:
         check_ids(f"inception-resident device_resident={on}", results, MAP_RECORDS)
@@ -1920,7 +1962,7 @@ def check_resident_resmlp(card, torch):
     row = {"card": card, "records": RESMLP_RECORDS, "dim": RESMLP_DIM,
            "micro_batch": RESMLP_MICRO,
            "source": f"PacedSource({RESMLP_RATE}, jitter=poisson)",
-           "order": "on, off, off, on", "on": [], "off": []}
+           "order": arm_order(ABBA, "on", "off"), "on": [], "off": []}
     out = {}
     for on, (results, latency, metrics, _, seconds) in arms:
         check_ids(f"resmlp-resident device_resident={on}", results, RESMLP_RECORDS)
@@ -1990,7 +2032,7 @@ def serving_operators(handle):
 
 def keyed_arm(torch, fa, model, cfg, requests, name, *, parallelism=1, tap=None,
               checkpoint_dir=None, every_n=None, restore=None, restart=None,
-              arrivals_out=False, config=None, handles=None):
+              arrivals_out=False, config=None, handles=None, validate=False):
     """One run of the keyed serving pipeline (``serving/cell.py:keyed_job``)
     on the card.  Returns its row: tokens by session, seconds from the
     first event at the sink to the last, K1's launches, the serving
@@ -1998,7 +2040,9 @@ def keyed_arm(torch, fa, model, cfg, requests, name, *, parallelism=1, tap=None,
     At parallelism 1 K1 must launch once per layer for every prefill batch
     and warmup prefill (of every attempt).  ``config`` holds more
     ``JobConfig`` fields (tracing, roofline); ``handles`` (a list) gets the
-    job's handle."""
+    job's handle; ``validate`` runs the plan analyzer
+    (``env.validate_plan``) once before the job starts, fails on an ERROR
+    diagnostic and puts the diagnostics in the row."""
     from flink_tensorflow_tpu_torch.functions.runner import PagedDecodeStepRunner
     from flink_tensorflow_tpu_torch.serving.cell import keyed_job
 
@@ -2009,6 +2053,9 @@ def keyed_arm(torch, fa, model, cfg, requests, name, *, parallelism=1, tap=None,
         env.enable_checkpointing(checkpoint_dir, every_n_records=every_n)
     if tap is not None and restart is not None:
         env.source_throttle_s = 0.01   # as TestPagedFailover: the crash lands mid-stream
+    diagnostics = env.validate_plan(raise_on_error=False) if validate else None
+    if diagnostics and any(d.severity.name == "ERROR" for d in diagnostics):
+        fail(f"{name}: ERROR diagnostics {diagnostics_by_rule(diagnostics)}")
     fa.flash_attention.launches = 0
     pools = []
     if restart is not None:
@@ -2046,6 +2093,8 @@ def keyed_arm(torch, fa, model, cfg, requests, name, *, parallelism=1, tap=None,
            "restarts": getattr(result, "restarts", 0)}
     if arrivals_out:
         row["events"] = events
+    if validate:
+        row["diagnostics"] = diagnostics
     for key in KV_COUNTERS:
         if f"continuous_batching.0.{key}" in rep:
             row[key] = rep[f"continuous_batching.0.{key}"]
@@ -2215,9 +2264,10 @@ def paged_serving_arms(card, torch, fa, model, cfg, requests, want, dense_keyed,
     def print_row(what, row):
         print(f"paged {what}", json.dumps({**row, "card": card}), flush=True)
 
-    # (a) serving-paged against the dense keyed arm, A B B A.
+    # (a) serving-paged against the dense keyed arm, one pair (a depth
+    # cut that made room for phase 19).
     rows = {"dense": [], "paged": []}
-    for arm in ("dense", "paged", "paged", "dense"):
+    for arm in ("dense", "paged"):
         arm_cfg = cell.serving if arm == "paged" else cfg
         got, row = keyed_arm(torch, fa, model, arm_cfg, requests, f"serving-{arm}")
         hold_tokens(f"serving-{arm}", got, want, requests, model, torch)
@@ -2250,7 +2300,8 @@ def paged_serving_arms(card, torch, fa, model, cfg, requests, want, dense_keyed,
     for key in ("tokens_per_s", "decode_step_p50_ms", "ttft_p50_ms"):
         print(f"paged (a) {key}: paged {[r[key] for r in rows['paged']]} "
               f"dense {[r[key] for r in rows['dense']]} "
-              f"(phase 6 (a) {dense_keyed.get(key)}) | card: {card}", flush=True)
+              f"(phase 6 (a) {dense_keyed.get(key)}; {ONE_PAIR_RATES}) | card: {card}",
+              flush=True)
 
     # (b) the oversubscription ladder against a dense-roomy arm.
     roomy, row = keyed_arm(torch, fa, model, cell.dense_roomy, requests, "dense-roomy")
@@ -3371,9 +3422,12 @@ FILESPLIT_THROTTLE_S = 0.0005
 # ranks' disks, so the restart restores checkpoint 2 and runs steps 5-8.
 SUPERVISED_STEPS = 8
 SUPERVISED_FAIL_AT_STEP = 5
-# Phase 15 (a): passes per shuffle arm and size (the bench takes the best
-# of 2).
-SHUFFLE_PASSES = 2
+# Phase 15 (a): bench_shuffle's three record widths at a quarter of its
+# record counts, one pass per arm and size (the bench takes the best of
+# 2): the depth cut that makes room for phase 19; phase 18 (c) runs the
+# 1,024-float arms traced at 10,000 records again.
+SHUFFLE_SIZES = ((64, 10000), (1024, 5000), (16384, 500))
+SHUFFLE_PASSES = 1
 # Phase 15 (c): the widedeep-online cell's 8,192 events paced at 1 ms
 # while two processes run it (a kill must find a committed checkpoint and
 # the stream unfinished), checkpoints every 1,024 events
@@ -3636,8 +3690,10 @@ def check_shuffle_arms(card, torch):
     from flink_tensorflow_tpu_torch.core.shuffle import RemoteChannelWriter, ShuffleServer
     from flink_tensorflow_tpu_torch.core.shuffle_probe import SIZES, shuffle_bench
 
+    if [w for w, _ in SHUFFLE_SIZES] != [w for w, _ in SIZES]:
+        fail(f"shuffle arms: widths {SHUFFLE_SIZES} are not the bench's {SIZES}")
     try:
-        bench = shuffle_bench(SIZES, SHUFFLE_PASSES)
+        bench = shuffle_bench(SHUFFLE_SIZES, SHUFFLE_PASSES)
     except RuntimeError as exc:
         fail(f"shuffle arms: {exc}")
     for name, rows in bench["arms"].items():
@@ -3669,9 +3725,10 @@ def check_shuffle_arms(card, torch):
 
 def check_cohort_gang(card, torch, per_rank):
     """Phase 15 (b): the reference's multihost DP job on the record plane,
-    uninterrupted and restarted; held to itself bit for bit, to phase 14
-    (c)'s per-rank job bit for bit, and for every (rank, step) once at
-    process 0's sink."""
+    failed at step 5 and restarted; held bit for bit to phase 14 (c)'s
+    per-rank job (the same two ranks, rows and steps, run uninterrupted),
+    and for every (rank, step) of the restored attempt once at process 0's
+    sink."""
     import gc
 
     from flink_tensorflow_tpu_torch.functions.train_cell import (
@@ -3681,64 +3738,47 @@ def check_cohort_gang(card, torch, per_rank):
 
     gc.collect()
     torch.cuda.empty_cache()
-    clean, want, clean_s, _, _ = supervised_ranks("cohort gang, uninterrupted", cohort=True)
     outcome, got, seconds, procs, held = supervised_ranks(
         "cohort gang, failed at step 5", SUPERVISED_FAIL_AT_STEP, cohort=True)
     restored = (SUPERVISED_FAIL_AT_STEP - 1) // SUPERVISED_EVERY_N_STEPS
     first = restored * SUPERVISED_EVERY_N_STEPS + 1
     codes = [p.returncode for p in procs]
-    if (clean.attempts, outcome.attempts, outcome.returncode) != (1, 2, 0):
-        fail(f"cohort gang: attempts {clean.attempts} and {outcome.attempts} "
-             f"(rc {outcome.returncode}), want 1 and 2")
+    if (outcome.attempts, outcome.returncode) != (2, 0):
+        fail(f"cohort gang: attempts {outcome.attempts} (rc {outcome.returncode}), want 2")
     if len(procs) != 4 or FAIL_EXIT_CODE not in codes or codes.count(0) != 2:
         fail(f"cohort gang: process exit codes {codes}")
-    steps = range(1, SUPERVISED_STEPS + 1)
-    # Process 0's sink: every (rank, step) once, each the step's loss.
-    for name, runs, span in (("uninterrupted", want, steps),
-                             ("restored", got, range(first, SUPERVISED_STEPS + 1))):
-        pairs = sorted(zip(runs[0]["gang_subtasks"], runs[0]["steps"]))
-        if pairs != [(g, s) for g in range(2) for s in span] or runs[1]["steps"]:
-            fail(f"cohort gang, {name}: process 0's sink received {pairs} (process 1's "
-                 f"{runs[1]['steps']}), want every (rank, step) of steps {list(span)} once")
-    losses = {}
-    for g, s, loss in zip(want[0]["gang_subtasks"], want[0]["steps"], want[0]["losses"]):
-        if losses.setdefault(s, loss) != loss:
-            fail(f"cohort gang: the ranks' losses of step {s} differ")
+    # Process 0's sink: every (rank, step) of the restored attempt once.
+    span = range(first, SUPERVISED_STEPS + 1)
+    pairs = sorted(zip(got[0]["gang_subtasks"], got[0]["steps"]))
+    if pairs != [(g, s) for g in range(2) for s in span] or got[1]["steps"]:
+        fail(f"cohort gang: process 0's sink received {pairs} (process 1's {got[1]['steps']}), "
+             f"want every (rank, step) of steps {list(span)} once")
     for r in range(2):
         if (got[r]["attempt"], got[r]["restored_checkpoint"]) != (1, restored):
             fail(f"cohort gang: process {r} restored {got[r]['restored_checkpoint']} on "
                  f"attempt {got[r]['attempt']}, want checkpoint {restored} on attempt 1")
-        if want[r]["device"] != "cuda:0":
-            fail(f"cohort gang: process {r} ran on {want[r]['device']}")
+        if got[r]["device"] != "cuda:0":
+            fail(f"cohort gang: process {r} ran on {got[r]['device']}")
         for coll in ("params", "batch_stats"):
-            if not _bit_equal(got[r]["variables"][coll], want[r]["variables"][coll]):
+            if not _bit_equal(got[r]["variables"][coll], per_rank[r]["variables"][coll]):
                 fail(f"cohort gang: process {r}'s final {coll} after the restore differ from "
-                     "the uninterrupted run's")
-            if not _bit_equal(want[r]["variables"][coll], per_rank[r]["variables"][coll]):
-                fail(f"cohort gang: process {r}'s final {coll} differ from phase 14 (c)'s "
-                     "per-rank job's")
-        if [losses[s] for s in steps] != per_rank[r]["losses"]:
-            fail(f"cohort gang: losses {[losses[s] for s in steps]} differ from phase 14 "
-                 f"(c)'s per-rank job's {per_rank[r]['losses']}")
+                     "phase 14 (c)'s per-rank job's")
     for g, s, loss in zip(got[0]["gang_subtasks"], got[0]["steps"], got[0]["losses"]):
-        if loss != losses[s]:
+        if loss != per_rank[g]["losses"][s - 1]:
             fail(f"cohort gang: rank {g}'s loss of step {s} after the restore {loss} differs "
-                 f"from the uninterrupted run's {losses[s]}")
-    k1 = sum(r["k1_launches"] for r in got + want)
+                 f"from phase 14 (c)'s per-rank job's {per_rank[g]['losses'][s - 1]}")
+    k1 = sum(r["k1_launches"] for r in got)
     if k1:
         fail(f"cohort gang: K1 launched {k1} times, want 0")
-    arrivals = want[0]["arrivals"]
+    arrivals = got[0]["arrivals"]
     row = {"processes": 2, "backend": "gloo + record plane", "device": "cuda:0",
            "steps": SUPERVISED_STEPS, "checkpoint_every_steps": SUPERVISED_EVERY_N_STEPS,
            "fail_at_step": SUPERVISED_FAIL_AT_STEP, "attempts": outcome.attempts,
            "exit_codes": codes, "restored_checkpoint": restored, "checkpoints_held": held,
-           "bit_equal": True,
-           "equal_to_per_rank_job": True,
-           "sink_records": {"uninterrupted": len(want[0]["steps"]),
-                            "restored": len(got[0]["steps"])},
-           "seconds_per_step": (arrivals[-1] - arrivals[0]) / (SUPERVISED_STEPS - 1),
-           "seconds_uninterrupted": clean_s, "seconds_supervised": seconds,
-           "job_seconds": {"uninterrupted": want[0]["seconds"], "restored": got[0]["seconds"]},
+           "bit_equal_to_per_rank_job": True, "sink_records_restored": len(got[0]["steps"]),
+           "seconds_per_step_restored": ((arrivals[-1] - arrivals[0]) / (len(arrivals) - 1)
+                                         if len(arrivals) > 1 else None),
+           "seconds_supervised": seconds, "job_seconds_restored": got[0]["seconds"],
            "k1_launches": k1, "card": card}
     print("cohort gang", json.dumps(row), flush=True)
     return {"cohort_gang": k1}
@@ -4299,8 +4339,9 @@ def check_chaos_plane(card, torch, fa, mdef, model, cfg, requests, want, incepti
 # roofline plane; (d) phase 16 (a)'s chaos arm with a flight path; (e) the
 # Inception cell under the reporters, then the inspector's CLI.
 OBS_INTERVAL_S = 0.5
-#: 17 (b)'s rotated rounds: traced or not, A B B A.
-OBS_TRACED_ROUNDS = (False, True, True, False)
+#: 17 (b)'s rounds: untraced then traced, one pair (a depth cut that made
+#: room for phase 19).
+OBS_TRACED_ROUNDS = (False, True)
 #: 17 (d): a second kill, in epoch 1, past epoch 0's restore point.  Each
 #: attempt's flight recorder is its own (as in the reference), so a dump
 #: holds ``restart.attempt`` only when a restarted attempt crashes too.
@@ -4401,28 +4442,17 @@ def check_traced_serving(card, torch, fa, model, cfg, requests, want, root):
 
 def check_traced_inception(card, torch, inception, direct):
     """17 (b): the Inception cell A B B A, traced and untraced."""
-    import numpy as np
-
     from flink_tensorflow_tpu_torch.models import inception_cell as cell
     from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
     from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 
     _, model, pixels = inception
-    want_label, want_score = direct
     records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
     batches = cell.RECORDS // cell.BATCH
     rates = {False: [], True: []}
     for traced in OBS_TRACED_ROUNDS:
         run = cell.run_cell_job(model, records, config={"trace": traced})
-        label = np.empty(cell.RECORDS, np.int32)
-        score = np.empty(cell.RECORDS, np.float32)
-        for r in run.results:
-            label[r.meta["id"]] = r["label"]
-            score[r.meta["id"]] = r["score"]
-        if len(run.results) != cell.RECORDS or not np.array_equal(label, want_label) \
-                or not np.array_equal(score, want_score):
-            fail(f"traced inception (traced={traced}): labels or scores differ from "
-                 "phase 5's direct calls")
+        hold_inception(f"traced inception (traced={traced})", run, direct)
         rps, _ = steady_rps(run.arrivals, cell.RECORDS, cell.BATCH,
                             cell.trailing_exclude(cell.RECORDS))
         rates[traced].append({"records_per_s": rps,
@@ -4439,6 +4469,7 @@ def check_traced_inception(card, torch, inception, direct):
         if run.tracer.dropped():
             fail(f"traced inception: the tracer dropped {run.tracer.dropped()} events")
     row = {"rounds": ["traced" if t else "untraced" for t in OBS_TRACED_ROUNDS],
+           "rates": ONE_PAIR_RATES,
            "untraced": rates[False], "traced": rates[True],
            "batches": batches, "span_record_ns": span_record_ns(),
            "flight_record_ns": flight_record_ns(), "card": card}
@@ -4446,17 +4477,17 @@ def check_traced_inception(card, torch, inception, direct):
 
 
 def check_paged_roofline(card, torch, fa, model, cfg, requests, want, root):
-    """17 (c).  Returns K1's launches."""
+    """17 (c): the plan priced at ``execute_async``.  Returns K1's launches
+    and the reading phase 19 (c) prints."""
     from flink_tensorflow_tpu_torch.metrics.roofline import BOUND_NAMES, RooflineConfig
     from flink_tensorflow_tpu_torch.serving.cell import paged_cell
 
     cell = paged_cell(requests, cfg, spill_root=os.path.join(root, "spill"))
     paged = cell.serving
     handles = []
+    roofline = RooflineConfig(device="h100-sxm")
     got, row = keyed_arm(torch, fa, model, paged, requests, "serving-paged-roofline",
-                         config={"trace": True,
-                                 "roofline": RooflineConfig(device="h100-sxm")},
-                         handles=handles)
+                         config={"trace": True, "roofline": roofline}, handles=handles)
     hold_tokens("serving-paged-roofline", got, want, requests, model, torch)
     executor = handles[0].executor
     snap = executor.metrics.snapshot()["continuous_batching.0"]
@@ -4468,22 +4499,32 @@ def check_paged_roofline(card, torch, fa, model, cfg, requests, want, root):
                        for b in paged.resolved_admit_buckets()
                        for t in paged.resolved_prompt_buckets()}
     signatures.add(f"decode:{paged.max_active_seqs}")
+    table = executor.roofline.table if executor.roofline is not None else None
+    op = table.op("continuous_batching") if table is not None else None
+    if op is None or not op.entries or op.notes:
+        fail(f"paged roofline: the plan's cost table holds no priced serving operator ({op})")
+    ladder = set(op.predicted_signatures)
     if not snap["roofline.busy_s"] > 0:
         fail(f"paged roofline: busy seconds {snap['roofline.busy_s']}")
     if snap["roofline.compile_events"] != len(signatures):
         fail(f"paged roofline: {snap['roofline.compile_events']} compile events, the run met "
              f"{len(signatures)} signatures")
-    if snap["roofline.mfu_pct"] != 0.0:
-        fail(f"paged roofline: MFU {snap['roofline.mfu_pct']} without a cost table")
+    if not signatures <= ladder or snap["roofline.unpredicted_compiles"]:
+        fail(f"paged roofline: signatures {sorted(signatures - ladder)} outside the predicted "
+             f"ladder, {snap['roofline.unpredicted_compiles']} unpredicted compiles")
+    if not 0.0 < snap["roofline.mfu_pct"] < roofline.mfu_ceiling_pct:
+        fail(f"paged roofline: MFU {snap['roofline.mfu_pct']} outside (0, "
+             f"{roofline.mfu_ceiling_pct})")
     out = {k: snap[f"roofline.{k}"] for k in ("busy_s", "compile_events",
-                                               "unpredicted_compiles", "mfu_pct",
-                                               "measured_h2d_per_call")}
+                                               "unpredicted_compiles", "mfu_pct", "flops_per_s",
+                                               "membw_pct", "measured_h2d_per_call",
+                                               "predicted_h2d_per_call", "h2d_drift_frac")}
     out.update(bound=BOUND_NAMES[snap["roofline.bound"]], signatures=sorted(signatures),
+               predicted_ladder=sorted(ladder),
                duty=snap["roofline.busy_s"] / row["seconds"] if row["seconds"] else None,
-               tokens_per_s=row["tokens_per_s"], k1_launches=row["k1_launches"],
-               mfu_note="0: no cost table (the port has no pricer yet)", card=card)
+               tokens_per_s=row["tokens_per_s"], k1_launches=row["k1_launches"], card=card)
     print("observability (c) serving-paged roofline", json.dumps(out), flush=True)
-    return row["k1_launches"]
+    return row["k1_launches"], out
 
 
 def check_flight_under_faults(card, root, clean_digest):
@@ -4611,8 +4652,8 @@ def check_observability(card, torch, fa, mdef, model, cfg, requests, want, incep
         fa.flash_attention.launches = 0
         check_traced_inception(card, torch, inception, direct)
         launches["inception_traced"] = fa.flash_attention.launches
-        launches["paged_roofline"] = check_paged_roofline(card, torch, fa, model, cfg,
-                                                          requests, want, root)
+        launches["paged_roofline"], paged_roofline = check_paged_roofline(
+            card, torch, fa, model, cfg, requests, want, root)
         fa.flash_attention.launches = 0
         check_flight_under_faults(card, root, clean_digest)
         check_reporters(card, inception, direct, root)
@@ -4621,7 +4662,7 @@ def check_observability(card, torch, fa, mdef, model, cfg, requests, want, incep
         if launches[key]:
             fail(f"observability: K1 launched {launches[key]} times on {key}, want 0")
     print(f"observability phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
-    return launches
+    return launches, paged_roofline
 
 
 
@@ -5113,6 +5154,201 @@ def check_health_plane(card, torch, fa, model, cfg, requests, want, paged_k1, cl
     return launches
 
 
+# -- Phase 19: the plan analyzer and the pricer -----------------------------
+
+
+def diagnostics_by_rule(diagnostics):
+    """``{"SEVERITY rule": count}`` of a diagnostics list."""
+    counts = {}
+    for d in diagnostics:
+        key = f"{d.severity.name} {d.rule}"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def check_unkeyed_plan_refused(card, torch, fa, model, cfg, requests):
+    """19 (b): phase 6's keyed serving job with its ``key_by`` taken out —
+    the serving operator wired by hand behind a rebalance edge, with no
+    key selector.  ``execute(validate=True)`` must raise before a device
+    is touched."""
+    from flink_tensorflow_tpu_torch import DataStream, StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.analysis import PlanValidationError
+    from flink_tensorflow_tpu_torch.core.graph import Edge
+    from flink_tensorflow_tpu_torch.core.partitioning import RebalancePartitioner
+    from flink_tensorflow_tpu_torch.serving import ContinuousBatchingOperator
+
+    env = StreamExecutionEnvironment(parallelism=1)
+    src = env.from_collection(requests)
+    name = "continuous_batching"
+    t = env.graph.add(name, lambda: ContinuousBatchingOperator(
+        name, model, cfg, device_from_context=True), 1,
+        inputs=[Edge(src.transformation, RebalancePartitioner())])
+    events = []
+    DataStream(env, t).sink_to_callable(events.append)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fa.flash_attention.launches = 0
+    t0 = time.monotonic()
+    try:
+        env.execute("serving-unkeyed", validate=True, timeout=60)
+    except PlanValidationError as exc:
+        diagnostics = exc.diagnostics
+    else:
+        fail("unkeyed plan: execute(validate=True) ran the job")
+    refused_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    errors = sorted({d.rule for d in diagnostics if d.severity.name == "ERROR"})
+    if "serving-unkeyed-input" not in errors:
+        fail(f"unkeyed plan: refused for {errors}, not serving-unkeyed-input")
+    if fa.flash_attention.launches or after != before or events:
+        fail(f"unkeyed plan: {fa.flash_attention.launches} K1 launches, device bytes "
+             f"{before} -> {after} before the refusal")
+    out = {"errors": errors, "diagnostics": diagnostics_by_rule(diagnostics),
+           "refused_s": refused_s, "k1_launches": fa.flash_attention.launches,
+           "allocated_bytes_before": before, "allocated_bytes_after": after, "card": card}
+    print("plan analyzer (b) unkeyed serving refused", json.dumps(out), flush=True)
+    return fa.flash_attention.launches
+
+
+def check_priced_plan(card, torch, fa, model, cfg, requests, paged_roofline, root):
+    """19 (c): 17 (c)'s reading beside what pricing that plan costs.
+    Returns K1's launches while it prices (0: the walk runs on meta
+    tensors)."""
+    from flink_tensorflow_tpu_torch.analysis.costmodel import cost_table_for_env
+    from flink_tensorflow_tpu_torch.metrics.roofline import RooflineConfig
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job, paged_cell
+
+    paged = paged_cell(requests, cfg, spill_root=os.path.join(root, "spill")).serving
+    env, _ = keyed_job(model, paged, requests)
+    env.configure(roofline=RooflineConfig(device="h100-sxm"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fa.flash_attention.launches = 0
+    t0 = time.monotonic()
+    table = cost_table_for_env(env)
+    priced_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    allocated = torch.cuda.memory_allocated() - before
+    op = table.op("continuous_batching")
+    if op is None or op.notes or not any(e.flops for e in op.entries):
+        fail(f"priced plan: no priced serving operator in the table ({op})")
+    if allocated:
+        fail(f"priced plan: pricing allocated {allocated} device bytes")
+    if sorted(op.predicted_signatures) != paged_roofline["predicted_ladder"]:
+        fail("priced plan: the ladder differs from the one 17 (c) joined against")
+    units = {f"{e.unit}@{e.signature}": e.flops for e in op.entries if e.flops}
+    out = {"cost_table_for_env_s": priced_s, "allocated_bytes": allocated,
+           "predicted_ladder": list(op.predicted_signatures),
+           "signatures_met": paged_roofline["signatures"],
+           "unpredicted_compiles": paged_roofline["unpredicted_compiles"],
+           "mfu_pct": paged_roofline["mfu_pct"], "flops_per_s": paged_roofline["flops_per_s"],
+           "bound": paged_roofline["bound"], "flops_per_unit": units, "k1_launches": launches,
+           "card": card}
+    print("plan analyzer (c) priced roofline", json.dumps(out), flush=True)
+    return launches
+
+
+def check_priced_inception(card, fa, inception, direct):
+    """19 (d): phase 5's Inception cell under the roofline plane, priced.
+    Returns K1's launches in that run."""
+    from flink_tensorflow_tpu_torch.metrics.roofline import BOUND_NAMES, RooflineConfig
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.models.stream_cell import steady_rps
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    _, model, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
+    roofline = RooflineConfig(device="h100-sxm")
+    fa.flash_attention.launches = 0
+    run = cell.run_cell_job(model, records, config={"roofline": roofline})
+    launches = fa.flash_attention.launches
+    hold_inception("priced inception", run, direct)
+    m = run.metrics
+    mfu = m["inception.0.roofline.mfu_pct"]
+    if not 0.0 < mfu < roofline.mfu_ceiling_pct:
+        fail(f"priced inception: MFU {mfu} outside (0, {roofline.mfu_ceiling_pct})")
+    rps, _ = steady_rps(run.arrivals, cell.RECORDS, cell.BATCH,
+                        cell.trailing_exclude(cell.RECORDS))
+    busy = m["inception.0.roofline.busy_s"]
+    out = {"mfu_pct": mfu, "flops_per_s": m["inception.0.roofline.flops_per_s"],
+           "membw_pct": m["inception.0.roofline.membw_pct"],
+           "bound": BOUND_NAMES[m["inception.0.roofline.bound"]], "busy_s": busy,
+           "duty": busy / run.seconds if run.seconds else None,
+           "compile_events": m["inception.0.roofline.compile_events"],
+           "unpredicted_compiles": m["inception.0.roofline.unpredicted_compiles"],
+           "records_per_s": rps, "job_records_per_s": cell.RECORDS / run.seconds,
+           "records": len(run.results), "k1_launches": launches, "card": card}
+    print("plan analyzer (d) inception priced", json.dumps(out), flush=True)
+    return launches
+
+
+def hold_inception(what, run, direct):
+    """Every record's label and score equal to phase 5's direct calls."""
+    import numpy as np
+
+    want_label, want_score = direct
+    label = np.full(len(want_label), -1, np.int32)
+    score = np.full(len(want_label), np.nan, np.float32)
+    for r in run.results:
+        label[r.meta["id"]] = r["label"]
+        score[r.meta["id"]] = r["score"]
+    if len(run.results) != len(want_label) or not np.array_equal(label, want_label) \
+            or not np.array_equal(score, want_score):
+        fail(f"{what}: labels or scores differ from phase 5's direct calls")
+
+
+def check_plan_analyzer(card, torch, fa, model, cfg, requests, want, keyed_launches, inception,
+                        direct, paged_roofline):
+    """Phase 19: the plan analyzer and the pricer.  Returns K1's launches
+    per path."""
+    import tempfile
+
+    from flink_tensorflow_tpu_torch.models import inception_cell as cell
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    t0 = time.monotonic()
+    print(f"plan analyzer phase | card: {card}", flush=True)
+    launches = {}
+    # (a) validated keyed serving, then the Inception cell.
+    got, row = keyed_arm(torch, fa, model, cfg, requests, "serving-validated", validate=True)
+    hold_tokens("serving-validated", got, want, requests, model, torch)
+    if row["k1_launches"] != keyed_launches["serving_pipeline"]:
+        fail(f"validated serving: {row['k1_launches']} K1 launches, phase 6 (a) "
+             f"{keyed_launches['serving_pipeline']}")
+    launches["serving_validated"] = row["k1_launches"]
+    out = {k: row[k] for k in ("tokens", "seconds", "tokens_per_s", "prefill_batches",
+                               "k1_launches")}
+    out.update(diagnostics=diagnostics_by_rule(row["diagnostics"]), card=card)
+    print("plan analyzer (a) serving validated", json.dumps(out), flush=True)
+    _, model_i, pixels = inception
+    records = [TensorValue({"image": pixels[i]}, {"id": i}) for i in range(cell.RECORDS)]
+    fa.flash_attention.launches = 0
+    run = cell.run_cell_job(model_i, records, validate=True)
+    launches["analyzer_inception_validated"] = fa.flash_attention.launches
+    hold_inception("validated inception", run, direct)
+    if any(d.severity.name == "ERROR" for d in run.diagnostics):
+        fail(f"validated inception: {diagnostics_by_rule(run.diagnostics)}")
+    print("plan analyzer (a) inception validated", json.dumps(
+        {"diagnostics": diagnostics_by_rule(run.diagnostics), "records": len(run.results),
+         "job_records_per_s": cell.RECORDS / run.seconds,
+         "k1_launches": launches["analyzer_inception_validated"], "card": card}), flush=True)
+    # (b) a bad plan refused before the card is touched.
+    launches["analyzer_unkeyed_refused"] = check_unkeyed_plan_refused(
+        card, torch, fa, model, cfg, requests)
+    # (c) the priced roofline, (d) the Inception cell priced.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analyzer_") as root:
+        launches["analyzer_pricing"] = check_priced_plan(card, torch, fa, model, cfg, requests,
+                                                         paged_roofline, root)
+    launches["analyzer_inception_priced"] = check_priced_inception(card, fa, inception, direct)
+    off_path = {k: v for k, v in launches.items() if k != "serving_validated" and v}
+    if off_path:
+        fail(f"plan analyzer: K1 launched on runs that reach no attention: {off_path}")
+    print(f"plan analyzer phase_seconds: {time.monotonic() - t0} | card: {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5214,11 +5450,14 @@ def main() -> int:
     chaos_launches, chaos_clean = check_chaos_plane(card, torch, fa, mdef, model, cfg,
                                                     requests, got, inception, direct)
 
-    observability_launches = check_observability(card, torch, fa, mdef, model, cfg, requests,
-                                                 got, inception, direct, chaos_clean)
+    observability_launches, paged_roofline = check_observability(
+        card, torch, fa, mdef, model, cfg, requests, got, inception, direct, chaos_clean)
 
     health_launches = check_health_plane(card, torch, fa, model, cfg, requests, got,
                                          paged_launches["serving_paged"], chaos_clean)
+
+    analyzer_launches = check_plan_analyzer(card, torch, fa, model, cfg, requests, got,
+                                            keyed_launches, inception, direct, paged_roofline)
 
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
@@ -5238,7 +5477,8 @@ def main() -> int:
                              **paged_launches, **event_time_launches,
                              **transfer_launches, **parallel_launches, **split_launches,
                              **plane_launches, **chaos_launches,
-                             **observability_launches, **health_launches},
+                             **observability_launches, **health_launches,
+                             **analyzer_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

@@ -171,14 +171,18 @@ def chainable_edge(edge: Edge, downstream: Transformation, *, out_degree: int,
     return sharding_fusion_conflict(up_op, down_op)
 
 
-def compute_chains(graph: DataflowGraph, *, enabled: bool = True) -> ChainPlan:
+def compute_chains(graph: DataflowGraph, *,
+                   operators: typing.Optional[typing.Dict[int, typing.Optional["Operator"]]] = None,
+                   enabled: bool = True) -> ChainPlan:
     """Group the graph's transformations into execution chains.
 
-    The factories run here once each, to read the operators' markers
-    (cheap: ``open()`` never runs).  ``enabled=False`` gives the
-    degenerate plan, every operator a chain of its own."""
+    ``operators`` reuses the plan analyzer's instances; omitted, the
+    factories run here once each, to read the operators' markers (cheap:
+    ``open()`` never runs).  ``enabled=False`` gives the degenerate plan,
+    every operator a chain of its own."""
     order = graph.topological_order()
-    operators = _instantiate_quietly(graph) if enabled else {}
+    if operators is None:
+        operators = _instantiate_quietly(graph) if enabled else {}
     out_degree: typing.Dict[int, int] = {t.id: 0 for t in order}
     for t in order:
         for e in t.inputs:

@@ -33,8 +33,18 @@ call's ``report_interval_s``) is set, which also flushes at the first
 failure; ``JobHandle.wait`` stops it and writes the Chrome trace on
 success and failure alike; ``JobHandle.cancel`` dumps the flight ring;
 and a ``ShutdownFlusher`` flushes all three on SIGTERM/SIGINT (main
-thread only).  The roofline plane runs without a cost table: the port
-has no pricer yet.
+thread only).  With ``JobConfig.roofline`` set and no ``cost_table``,
+``execute_async`` prices the plan once (``analysis.costmodel.
+cost_table_for_env``, JAX ``:380-396``) before the executor is built, so
+the plane's MFU, FLOP/s and bound read the table; the pricing is
+fail-soft, as the reference's is (an unpriceable plan still runs).
+
+Plan validation (JAX ``:351-369``, ``:439-469``, ``:550-558``):
+``validate_plan()`` runs the plan analyzer (``analysis.analyze``) over
+the graph and raises ``PlanValidationError`` on an ERROR diagnostic;
+``execute(validate=True)`` and ``execute_async(validate=True)`` call it
+before any executor is built or any device is touched.  Sources take a
+``schema=`` (a RecordSchema) that the analyzer propagates downstream.
 
 The health plane (JAX ``:72-79``, ``:101-102``, ``:132-150``,
 ``:628-634``, ``:655-709``): with ``JobConfig.health`` process 0 starts a
@@ -246,39 +256,68 @@ class StreamExecutionEnvironment:
         return compute_chains(self.graph, enabled=self.config.chaining).describe()
 
     def from_collection(self, data: typing.Sequence[typing.Any], *, name="collection",
-                        parallelism: int = 1) -> DataStream:
-        return self.from_source(CollectionSource(data), name=name, parallelism=parallelism)
+                        parallelism: int = 1, schema=None) -> DataStream:
+        return self.from_source(CollectionSource(data), name=name, parallelism=parallelism,
+                                schema=schema)
 
-    def from_source(self, source, *, name="source", parallelism: int = 1) -> DataStream:
+    def from_source(self, source, *, name="source", parallelism: int = 1,
+                    schema=None) -> DataStream:
         """``source`` is a :class:`SourceFunction` (a fixed stride per
         subtask, run by the legacy source loop) or a
         :class:`~flink_tensorflow_tpu_torch.sources.SplitSource` (splits
-        pulled by the readers, run by the mailbox loop)."""
+        pulled by the readers, run by the mailbox loop).  ``schema`` (a
+        RecordSchema) declares the records it emits, for the plan
+        analyzer only; a SplitSource may declare its own ``schema``
+        attribute (the argument wins)."""
         if isinstance(source, SplitSource):
             factory = lambda: SplitSourceOperator(name, source)  # noqa: E731
+            schema = schema if schema is not None else source.schema
         elif isinstance(source, fn.SourceFunction):
             factory = lambda: SourceOperator(name, source)  # noqa: E731
         else:
             raise TypeError("from_source expects a SourceFunction or SplitSource, "
                             f"got {type(source).__name__}")
-        t = self.graph.add(name, factory, parallelism, is_source=True)
+        t = self.graph.add(name, factory, parallelism, is_source=True, declared_schema=schema)
         return DataStream(self, t)
+
+    def validate_plan(self, *, raise_on_error: bool = True):
+        """Run the plan analyzer over this environment's graph; returns the
+        diagnostics, most severe first.  With ``raise_on_error`` (the
+        default) an ERROR diagnostic raises
+        :class:`~flink_tensorflow_tpu_torch.analysis.PlanValidationError`
+        before any executor is built: the ``execute(validate=True)`` gate."""
+        from flink_tensorflow_tpu_torch.analysis import (
+            PlanValidationError,
+            analyze,
+            has_errors,
+        )
+
+        diagnostics = analyze(self.graph, config=self.config)
+        if raise_on_error and has_errors(diagnostics):
+            raise PlanValidationError(diagnostics)
+        return diagnostics
 
     def execute(self, job_name: str = "job", *,
                 timeout: typing.Optional[float] = None,
                 restore_from: typing.Optional[str] = None,
                 restore_checkpoint_id: typing.Optional[int] = None,
                 restart_strategy: typing.Optional[RestartStrategy] = None,
+                validate: bool = False,
                 report_interval_s: typing.Optional[float] = None) -> JobResult:
         """Run the job to completion (``timeout`` bounds the wait).
         ``report_interval_s`` publishes metrics while it runs (the sinks
         of ``JobConfig.metrics``; the console when it names none).
+        ``validate=True`` runs the plan analyzer first and raises
+        ``PlanValidationError`` on an ERROR diagnostic, before a device is
+        touched.
 
         ``restore_from`` starts from a persisted checkpoint (the latest, or
         ``restore_checkpoint_id``).  With a ``restart_strategy`` (requires
         ``enable_checkpointing``) a failed attempt is joined — every
         subtask thread ended, every operator closed — and the job restarts
         from the newest completed checkpoint."""
+        if validate:
+            self.validate_plan()
         if restart_strategy is None:
             return self.execute_async(job_name, restore_from=restore_from,
                                       restore_checkpoint_id=restore_checkpoint_id,
@@ -345,9 +384,13 @@ class StreamExecutionEnvironment:
                       restore_from: typing.Optional[str] = None,
                       restore_checkpoint_id: typing.Optional[int] = None,
                       restart_epoch: int = 0,
+                      validate: bool = False,
                       report_interval_s: typing.Optional[float] = None) -> JobHandle:
         """``restart_epoch``: which attempt of the job this run is (a
-        cohort's comes from its ``DistributedConfig``)."""
+        cohort's comes from its ``DistributedConfig``).  ``validate=True``
+        runs ``validate_plan()`` before the executor is built."""
+        if validate:
+            self.validate_plan()
         cfg = self.config.validate()
         # configure(metrics=...) may have changed the seed after the
         # registry was made; histograms take it at first use.
@@ -369,7 +412,7 @@ class StreamExecutionEnvironment:
             sanitize_log_path=cfg.sanitize_log_path, trace=cfg.trace,
             trace_path=cfg.trace_path, trace_sample_rate=cfg.trace_sample_rate,
             flight_recorder=cfg.flight_recorder, flight_path=cfg.flight_path,
-            roofline=cfg.roofline)
+            roofline=self._priced_roofline(cfg.roofline))
         if cfg.distributed is not None:
             from flink_tensorflow_tpu_torch.core.distributed import DistributedExecutor
 
@@ -420,6 +463,21 @@ class StreamExecutionEnvironment:
             if flusher.install():
                 handle._flusher = flusher
         return handle
+
+    def _priced_roofline(self, roofline):
+        """``roofline`` with the plan priced once here when it names no
+        cost table, so every runner joins against the same table.
+        Fail-soft: an unpriceable plan still runs, and the plane publishes
+        busy, bound and compile gauges without MFU."""
+        if roofline is None or roofline.cost_table is not None:
+            return roofline
+        try:
+            from flink_tensorflow_tpu_torch.analysis.costmodel import cost_table_for_env
+
+            return dataclasses.replace(roofline, cost_table=cost_table_for_env(self))
+        except Exception:  # noqa: BLE001 - analysis never blocks execution
+            logging.getLogger(__name__).warning("pricing the plan failed", exc_info=True)
+            return roofline
 
     def _make_health(self, executor):
         """The health plane (not started), or None.  It runs on process 0

@@ -1,10 +1,12 @@
 """Logical dataflow graph (the JobGraph equivalent).
 
-Copy of ``flink_tensorflow_tpu/core/graph.py`` (``DataflowGraph`` ``:73``)
-without the plan-analysis fields: transformations record an operator
-factory, a parallelism, input edges and the two chaining opt-outs; the
-executor instantiates one operator per subtask, fuses chains
-(``analysis/chaining.py``) and wires channels per partitioner.  A
+Copy of ``flink_tensorflow_tpu/core/graph.py`` (``DataflowGraph`` ``:73``):
+transformations record an operator factory, a parallelism, input edges,
+the plan-time schema contract (``declared_schema`` on sources,
+``schema_fn`` downstream; only ``analysis/`` reads them) and the two
+chaining opt-outs; the executor instantiates one operator per subtask,
+fuses chains (``analysis/chaining.py``) and wires channels per
+partitioner.  A
 transformation may have several input edges (a union, a connected
 stream, a join); the runtime hands each record to its operator with the
 index of the edge it came through.  A side output is no edge of its
@@ -21,6 +23,7 @@ from flink_tensorflow_tpu_torch.core.partitioning import Partitioner
 
 if typing.TYPE_CHECKING:
     from flink_tensorflow_tpu_torch.core.operators import Operator
+    from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema
 
 
 class CycleError(RuntimeError):
@@ -47,6 +50,13 @@ class Transformation:
     parallelism: int
     inputs: typing.List[Edge] = dataclasses.field(default_factory=list)
     is_source: bool = False
+    #: Plan-time schema contract (the runtime ignores both): a source
+    #: declares the schema of the records it emits, and a downstream
+    #: operator how it transforms one — ``schema_fn(input_schema) ->
+    #: output_schema`` or a constant schema (None: unknown, which stops
+    #: propagation past this node without failing it).
+    declared_schema: typing.Optional["RecordSchema"] = None
+    schema_fn: typing.Optional[typing.Callable] = None
     #: Chaining opt-outs (Flink's startNewChain / disableChaining):
     #: ``chain_start`` pins this operator as the head of a new chain (its
     #: input edge never fuses); ``chainable=False`` keeps it out of
@@ -74,6 +84,8 @@ class DataflowGraph:
         parallelism: int,
         inputs: typing.Optional[typing.List[Edge]] = None,
         is_source: bool = False,
+        declared_schema: typing.Optional["RecordSchema"] = None,
+        schema_fn: typing.Optional[typing.Callable] = None,
     ) -> Transformation:
         if parallelism <= 0:
             raise ValueError(f"parallelism must be positive, got {parallelism}")
@@ -86,7 +98,8 @@ class DataflowGraph:
         self._names.add(unique)
         t = Transformation(id=self._next_id, name=unique, operator_factory=operator_factory,
                            parallelism=parallelism, inputs=list(inputs or []),
-                           is_source=is_source)
+                           is_source=is_source, declared_schema=declared_schema,
+                           schema_fn=schema_fn)
         self._next_id += 1
         self.transformations.append(t)
         return t
@@ -115,3 +128,7 @@ class DataflowGraph:
         for t in self.transformations:
             visit(t, [])
         return order
+
+    def downstream_of(self, t: Transformation) -> typing.List[Transformation]:
+        return [other for other in self.transformations
+                if any(e.upstream.id == t.id for e in other.inputs)]

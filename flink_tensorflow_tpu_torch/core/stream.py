@@ -13,6 +13,13 @@ sinks (``:313-326``); ``KeyedStream`` (``:344``) with ``process``,
 ``interval_join`` and ``reduce``; ``EventTimeWindowedStream``,
 ``SessionWindowedStream``, ``WindowedStream``, ``ConnectedStreams``,
 ``JoinBuilder`` and ``IntervalJoinBuilder`` (``:453-702``).
+
+Every operator records its plan-time schema contract on its
+transformation (JAX ``:66-77``): the ``output_schema=`` argument of
+``map``, ``flat_map``, ``process`` and ``WindowedStream.apply`` (a
+RecordSchema or an ``input_schema -> output_schema`` callable), else the
+function's own ``output_schema`` hook; operators that forward records
+unchanged (filter, union, timestamps) carry the identity.
 """
 
 from __future__ import annotations
@@ -69,6 +76,21 @@ def _count_trigger(size: int, slide: typing.Optional[int], timeout_s: typing.Opt
     if timeout_s is not None:
         return CountOrTimeoutTrigger(size, timeout_s)
     return CountTrigger(size)
+
+
+def _schema_fn(explicit, func):
+    """An operator's plan-time schema transform: the explicit
+    ``output_schema=`` argument wins; otherwise the function's optional
+    ``output_schema`` hook.  None: unknown (propagation stops at the node
+    without failing it)."""
+    if explicit is not None:
+        return explicit
+    return getattr(func, "output_schema", None)
+
+
+def _identity_schema(s):
+    """The schema transform of operators that forward records unchanged."""
+    return s
 
 
 class _LambdaMap(fn.MapFunction):
@@ -142,34 +164,41 @@ class DataStream:
                 p = RebalancePartitioner()
         return Edge(upstream=self.transformation, partitioner=p)
 
-    def _add_op(self, name, factory, parallelism) -> Transformation:
+    def _add_op(self, name, factory, parallelism, schema_fn=None) -> Transformation:
         parallelism = parallelism or self.env.default_parallelism
-        return self.env.graph.add(name, factory, parallelism, inputs=[self._edge(parallelism)])
+        return self.env.graph.add(name, factory, parallelism, inputs=[self._edge(parallelism)],
+                                  schema_fn=schema_fn)
 
     def map(self, f: typing.Union[fn.MapFunction, fn.AsyncMapFunction, typing.Callable], *,
-            name="map", parallelism=None) -> "DataStream":
+            name="map", parallelism=None, output_schema=None) -> "DataStream":
         """One result per record: a ``MapFunction``, a plain callable, or
         an ``AsyncMapFunction`` (results in arrival order, possibly later,
         e.g. ``ModelMapFunction``)."""
         func = f if isinstance(f, (fn.MapFunction, fn.AsyncMapFunction)) else _LambdaMap(f)
         return DataStream(self.env, self._add_op(name, lambda: MapOperator(name, func),
-                                                 parallelism))
+                                                 parallelism,
+                                                 schema_fn=_schema_fn(output_schema, func)))
 
-    def flat_map(self, f, *, name="flat_map", parallelism=None) -> "DataStream":
+    def flat_map(self, f, *, name="flat_map", parallelism=None,
+                 output_schema=None) -> "DataStream":
         """Zero or more results per record, each with the record's timestamp."""
         func = f if isinstance(f, fn.FlatMapFunction) else _LambdaFlatMap(f)
         return DataStream(self.env, self._add_op(name, lambda: FlatMapOperator(name, func),
-                                                 parallelism))
+                                                 parallelism,
+                                                 schema_fn=_schema_fn(output_schema, func)))
 
     def filter(self, f, *, name="filter", parallelism=None) -> "DataStream":
         func = f if isinstance(f, fn.FilterFunction) else _LambdaFilter(f)
+        # A filter drops records but never reshapes them.
         return DataStream(self.env, self._add_op(name, lambda: FilterOperator(name, func),
-                                                 parallelism))
+                                                 parallelism, schema_fn=_identity_schema))
 
-    def process(self, f: fn.ProcessFunction, *, name="process", parallelism=None) -> "DataStream":
+    def process(self, f: fn.ProcessFunction, *, name="process", parallelism=None,
+                output_schema=None) -> "DataStream":
         """An unkeyed process function (timers per subtask, no keyed state)."""
         return DataStream(self.env, self._add_op(name, lambda: ProcessOperator(name, f),
-                                                 parallelism))
+                                                 parallelism,
+                                                 schema_fn=_schema_fn(output_schema, f)))
 
     def start_new_chain(self) -> "DataStream":
         """Pin this operator as the head of a new chain: it never fuses
@@ -198,7 +227,8 @@ class DataStream:
         with one input edge per stream, so every API downstream (key_by,
         windows, joins, further unions) sees all of them."""
         merged = _UnionStream(self.env, [self, *others])
-        return merged.map(lambda v: v, name="union", parallelism=self.transformation.parallelism)
+        return merged.map(lambda v: v, name="union", parallelism=self.transformation.parallelism,
+                          output_schema=_identity_schema)
 
     def side_output(self, tag: str) -> "DataStream":
         """Tap the side output ``tag`` (e.g. the late records of an
@@ -231,7 +261,7 @@ class DataStream:
         return DataStream(self.env, self._add_op(
             name, lambda: TimestampAssignerOperator(name, ts_fn, out_of_orderness_s,
                                                     watermark_every),
-            self.transformation.parallelism))
+            self.transformation.parallelism, schema_fn=_identity_schema))
 
     def time_window_all(self, size_s: float, slide_s: typing.Optional[float] = None
                         ) -> "EventTimeWindowedStream":
@@ -277,10 +307,11 @@ class _UnionStream(DataStream):
         super().__init__(env, streams[0].transformation)
         self._streams = streams
 
-    def _add_op(self, name, factory, parallelism):
+    def _add_op(self, name, factory, parallelism, schema_fn=None):
         parallelism = parallelism or self.env.default_parallelism
         return self.env.graph.add(name, factory, parallelism,
-                                  inputs=[s._edge(parallelism) for s in self._streams])
+                                  inputs=[s._edge(parallelism) for s in self._streams],
+                                  schema_fn=schema_fn)
 
 
 class KeyedStream:
@@ -297,11 +328,11 @@ class KeyedStream:
                     HashPartitioner(self.key_selector, self.env.config.max_parallelism))
 
     def process(self, f: fn.ProcessFunction, *, name="keyed_process",
-                parallelism=None) -> DataStream:
+                parallelism=None, output_schema=None) -> DataStream:
         parallelism = parallelism or self.env.default_parallelism
         t = self.env.graph.add(
             name, lambda: ProcessOperator(name, f, key_selector=self.key_selector),
-            parallelism, inputs=[self._edge()])
+            parallelism, inputs=[self._edge()], schema_fn=_schema_fn(output_schema, f))
         return DataStream(self.env, t)
 
     def count_window(self, size: int, *, slide: typing.Optional[int] = None,
@@ -383,7 +414,8 @@ def _with_side_outputs(env, raw: Transformation, name, parallelism, late_tag) ->
     if late_tag is None:
         return stream
     main = stream.flat_map(lambda v: [] if isinstance(v, el.SideOutput) else [v],
-                           name=f"{name}:main", parallelism=parallelism)
+                           name=f"{name}:main", parallelism=parallelism,
+                           output_schema=_identity_schema)
     main._side_source = raw
     return main
 
@@ -414,7 +446,8 @@ class EventTimeWindowedStream:
             name, lambda: EventTimeWindowOperator(
                 name, f, self.size_s, key_selector=self.key_selector, slide_s=self.slide_s,
                 late_tag=late_tag, allowed_lateness_s=allowed_lateness_s),
-            parallelism, inputs=[self.upstream._edge(parallelism)])
+            parallelism, inputs=[self.upstream._edge(parallelism)],
+            schema_fn=_schema_fn(None, f))
         return _with_side_outputs(self.env, t, name, parallelism, late_tag)
 
 
@@ -436,7 +469,8 @@ class SessionWindowedStream:
             name, lambda: SessionWindowOperator(name, f, self.gap_s,
                                                 key_selector=self.key_selector,
                                                 late_tag=late_tag),
-            parallelism, inputs=[self.upstream._edge(parallelism)])
+            parallelism, inputs=[self.upstream._edge(parallelism)],
+            schema_fn=_schema_fn(None, f))
         return _with_side_outputs(self.env, t, name, parallelism, late_tag)
 
 
@@ -449,11 +483,13 @@ class WindowedStream:
         self.trigger = trigger
         self.key_selector = key_selector
 
-    def apply(self, f: fn.WindowFunction, *, name="window", parallelism=None) -> DataStream:
+    def apply(self, f: fn.WindowFunction, *, name="window", parallelism=None,
+              output_schema=None) -> DataStream:
         parallelism = parallelism or self.env.default_parallelism
         t = self.env.graph.add(
             name, lambda: WindowOperator(name, f, self.trigger, key_selector=self.key_selector),
-            parallelism, inputs=[self.upstream._edge(parallelism)])
+            parallelism, inputs=[self.upstream._edge(parallelism)],
+            schema_fn=_schema_fn(output_schema, f))
         return DataStream(self.env, t)
 
 
@@ -469,24 +505,27 @@ class ConnectedStreams:
         self.key_selector1 = key_selector1
         self.key_selector2 = key_selector2
 
-    def _add(self, name, factory, parallelism) -> DataStream:
+    def _add(self, name, factory, parallelism, schema_fn=None) -> DataStream:
         parallelism = parallelism or self.env.default_parallelism
         t = self.env.graph.add(name, factory, parallelism,
-                               inputs=[self.s1._edge(parallelism), self.s2._edge(parallelism)])
+                               inputs=[self.s1._edge(parallelism), self.s2._edge(parallelism)],
+                               schema_fn=schema_fn)
         return DataStream(self.env, t)
 
     def map(self, f: fn.CoMapFunction, *, name="co_map", parallelism=None) -> DataStream:
-        return self._add(name, lambda: CoMapOperator(name, f), parallelism)
+        return self._add(name, lambda: CoMapOperator(name, f), parallelism,
+                         schema_fn=_schema_fn(None, f))
 
     def flat_map(self, f: fn.CoFlatMapFunction, *, name="co_flat_map",
                  parallelism=None) -> DataStream:
-        return self._add(name, lambda: CoFlatMapOperator(name, f), parallelism)
+        return self._add(name, lambda: CoFlatMapOperator(name, f), parallelism,
+                         schema_fn=_schema_fn(None, f))
 
     def process(self, f: fn.CoProcessFunction, *, name="co_process",
                 parallelism=None) -> DataStream:
         return self._add(name, lambda: CoProcessOperator(
             name, f, key_selector1=self.key_selector1, key_selector2=self.key_selector2),
-            parallelism)
+            parallelism, schema_fn=_schema_fn(None, f))
 
 
 class JoinBuilder:
@@ -527,7 +566,8 @@ class JoinBuilder:
             name, lambda: WindowJoinOperator(name, func, size_s, key1, key2),
             parallelism or self.env.default_parallelism,
             inputs=[Edge(self.s1.transformation, HashPartitioner(key1, maxp)),
-                    Edge(self.s2.transformation, HashPartitioner(key2, maxp))])
+                    Edge(self.s2.transformation, HashPartitioner(key2, maxp))],
+            schema_fn=_schema_fn(None, func))
         return DataStream(self.env, t)
 
 
@@ -551,5 +591,6 @@ class IntervalJoinBuilder:
                                                self.left.key_selector,
                                                self.right.key_selector),
             parallelism or self.env.default_parallelism,
-            inputs=[self.left._edge(), self.right._edge()])
+            inputs=[self.left._edge(), self.right._edge()],
+            schema_fn=_schema_fn(None, func))
         return DataStream(self.env, t)

@@ -68,6 +68,14 @@ checkpoint never holds a token.  ``close()`` frees the arena only once
 the runner's fetch thread has ended: if it is wedged, a reaper thread
 waits for it (the reference frees the arena after a 10 s join whatever
 the thread is doing).
+
+**Plan-time hooks** (``:141-204``, ``:762-772``): the plan analyzer calls
+``output_schema(input_schema)``, which checks the incoming schema against
+the method's declared inputs (``plan_input_schema``) and derives the
+output schema by running the method on meta tensors (no weights copied,
+nothing allocated on a device); ``plan_policy`` is the bucket policy the
+runner will take; ``is_jit_boundary`` marks where records become one
+runner call (the reference's name for its jit boundary).
 """
 
 from __future__ import annotations
@@ -83,17 +91,20 @@ import torch
 
 from flink_tensorflow_tpu_torch.core import functions as fn
 from flink_tensorflow_tpu_torch.functions.runner import CompiledMethodRunner
-from flink_tensorflow_tpu_torch.models.base import Model, ModelMethod
+from flink_tensorflow_tpu_torch.models.base import Model, ModelMethod, meta_module, numpy_dtype
 from flink_tensorflow_tpu_torch.models.loaders import GraphLoader, SavedModelLoader
 from flink_tensorflow_tpu_torch.native.ring import TensorRing
+from flink_tensorflow_tpu_torch.ops.flash_attention import meta_calls
 from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketLadder, BucketPolicy
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
+from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, TensorSpec, check_compatible
 from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype
 from flink_tensorflow_tpu_torch.tensors.transfer import DeviceBatch
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
 ModelSource = typing.Union[Model, str, SavedModelLoader, typing.Callable[[], Model]]
+_UNKNOWN = object()
 
 
 def _resolve(source: ModelSource) -> Model:
@@ -113,6 +124,8 @@ class _ModelFunctionBase(fn.RichFunction):
     #: function can produce device batches, and consume them.
     device_capable = True
     accepts_device_batches = True
+    #: Records become one runner call here (the plan analyzer's boundary).
+    is_jit_boundary = True
 
     def __init__(
         self,
@@ -152,6 +165,63 @@ class _ModelFunctionBase(fn.RichFunction):
         self._device_chain_hint = False
         self.runner: typing.Optional[CompiledMethodRunner] = None
         self._out: typing.Optional[fn.Collector] = None
+        self._derived_schema: typing.Any = _UNKNOWN
+
+    # -- plan-time hooks (no model load, no device work) -------------------
+    def plan_input_schema(self) -> typing.Optional[RecordSchema]:
+        """The method's input schema when it is knowable without loading
+        anything: only for a resolved Model (a bundle path, loader or
+        factory would pay a load at plan time)."""
+        if isinstance(self._source, Model):
+            try:
+                return self._source.method(self._method_name).input_schema
+            except KeyError:
+                return None
+        return None
+
+    def output_schema(self, input_schema):
+        """The analyzer's hook: the incoming schema must satisfy the
+        method's inputs (raises ``SchemaMismatch``); the output schema is
+        derived on meta tensors, or None (unknown)."""
+        expected = self.plan_input_schema()
+        if expected is not None and input_schema is not None:
+            check_compatible(expected, input_schema,
+                             where=f"model method {self._method_name!r}")
+        return self._derive_output_schema()
+
+    def _derive_output_schema(self) -> typing.Optional[RecordSchema]:
+        """The output RecordSchema (cached), or None: the method runs once
+        on a batch of one of meta tensors over a meta copy of the module.
+        Only for a resolved Model whose method takes no per-record lengths;
+        dynamic dims run at the warmup length bucket (bucketing pins them
+        before anything reaches the device)."""
+        if self._derived_schema is not _UNKNOWN:
+            return self._derived_schema
+        self._derived_schema = None
+        expected = self.plan_input_schema()
+        if expected is None:
+            return None
+        try:
+            method = self._source.method(self._method_name)
+            if method.needs_lengths:
+                return None
+            inputs = expected.batched_struct(1, length_bucket=self._warmup_length_bucket)
+            with torch.no_grad(), meta_calls():
+                outputs = method.fn(meta_module(self._source.params), inputs)
+            fields = {}
+            for name in self._outputs or method.output_names or sorted(outputs):
+                out = outputs[name]
+                if out.dim() == 0 or out.shape[0] != 1:
+                    return None  # not batch-major: no per-record schema
+                fields[name] = TensorSpec(tuple(out.shape[1:]), numpy_dtype(out.dtype))
+            self._derived_schema = RecordSchema(fields)
+        except Exception:  # noqa: BLE001 - plan-time best effort, never fatal
+            self._derived_schema = None
+        return self._derived_schema
+
+    def plan_policy(self) -> BucketPolicy:
+        """The bucket policy the runner will take at open()."""
+        return self._policy or BucketPolicy()
 
     def clone(self) -> "fn.Function":
         # Subtasks share the host-side model (read-only); each builds its
@@ -649,6 +719,13 @@ class _GraphFunctionBase:
         kw["policy"] = BucketPolicy(fixed_batch=batch, lengths=BucketLadder([length_bucket]))
         kw.setdefault("warmup_length_bucket", length_bucket)
         super().__init__(None, "serve", **kw)
+
+    def output_schema(self, input_schema):
+        """Checks the incoming schema against the graph's declared inputs;
+        the output shapes live inside the frozen program: unknown here."""
+        if input_schema is not None:
+            check_compatible(self._graph_schema, input_schema, where="frozen graph inputs")
+        return None
 
     def open(self, ctx) -> None:
         device = resolve_device(getattr(ctx, "device", None))

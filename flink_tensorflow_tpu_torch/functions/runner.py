@@ -104,6 +104,71 @@ if typing.TYPE_CHECKING:
     from flink_tensorflow_tpu_torch.serving.paged import PagedKVHandle
 
 
+# -- the decode runners' device work (JAX ``_build_decode_calls`` ``:226``,
+# ``_build_paged_calls`` ``:486``) ------------------------------------------
+# Module-level so the plan-time pricer (``analysis/costmodel.py``) prices
+# the very calls the runners make, on meta tensors, and the very H2D they
+# count.
+
+
+def prefill_h2d_bytes(b: int, t: int, table_width: typing.Optional[int] = None) -> int:
+    """Host->device bytes of one prefill at ``[b, t]``: tokens and lengths
+    (int32), then the ``[b]`` slot vector (dense) or the ``[b,
+    table_width]`` scatter table (paged), int32."""
+    return 4 * (b * t + b + b * (table_width or 1))
+
+
+def decode_h2d_bytes(s: int, table_width: typing.Optional[int] = None) -> int:
+    """Host->device bytes of one padded decode step over ``s`` slots: the
+    token and length vectors (int32), then the ``[s]`` bool mask (dense)
+    or the ``[s, table_width]`` int32 block tables (paged)."""
+    return 8 * s + (4 * s * table_width if table_width else s)
+
+
+def dense_prefill(prefill, module, tokens, lengths, kc, vc, src=None, dst=None):
+    """The model's prefill, then rows ``src`` of the new K/V padded to the
+    pool's capacity and written into pool slots ``dst`` (no rows: every
+    row is bucket padding or warmup, computed and dropped).  Returns the
+    model's outputs."""
+    out = prefill.fn(module, {"tokens": tokens, "lengths": lengths})
+    if src is not None:
+        t = tokens.shape[1]
+        for pool, new in ((kc, out["k_cache"]), (vc, out["v_cache"])):
+            block = torch.zeros((src.shape[0], *pool.shape[1:]), dtype=pool.dtype,
+                                device=pool.device)
+            block[:, :, :t] = new[src]
+            pool[dst] = block
+    return out
+
+
+def paged_prefill(prefill, module, tokens, lengths, tables, kp, vp, capacity: int,
+                  page_tokens: int):
+    """The model's prefill, then each row's new K/V padded to ``capacity``
+    and scattered into the pages of its ``tables`` row (sentinel entries
+    land in the scratch page).  Returns the model's outputs."""
+    out = prefill.fn(module, {"tokens": tokens, "lengths": lengths})
+    b, t = tokens.shape
+    for pool, new in ((kp, out["k_cache"]), (vp, out["v_cache"])):
+        layers, heads, hd = new.shape[1], new.shape[3], new.shape[4]
+        dense = torch.zeros((b, layers, capacity, heads, hd), dtype=pool.dtype,
+                            device=pool.device)
+        dense[:, :, :t] = new
+        scatter_pages(pool, tables, dense, page_tokens)
+    return out
+
+
+def paged_decode(decode, module, token, lengths, tables, kp, vp, page_tokens: int):
+    """One paged step: gather the dense view, run the model's dense
+    ``decode_step`` on it, scatter every page back.  Returns the model's
+    outputs."""
+    result = decode.fn(module, {"token": token, "lengths": lengths,
+                                "k_cache": gather_pages(kp, tables),
+                                "v_cache": gather_pages(vp, tables)})
+    scatter_pages(kp, tables, result["k_cache"], page_tokens)
+    scatter_pages(vp, tables, result["v_cache"], page_tokens)
+    return result
+
+
 class DecodeStepRunner:
     """Owns the device copy of the model and the KV pool of one subtask.
 
@@ -247,22 +312,18 @@ class DecodeStepRunner:
         slot_arr = np.full((b,), self.pool_slots, np.int32)
         slot_arr[:n] = np.asarray(slots, np.int32)
         t0 = time.monotonic()
-        out = self._prefill.fn(self._module, {"tokens": self._to_device(tokens),
-                                              "lengths": self._to_device(lens)})
         # The JAX scatter drops out-of-range slots; torch indexing would
         # raise, so the rows to keep are chosen on the host.
         rows = np.nonzero(slot_arr < self.pool_slots)[0]
+        src = dst = None
         if len(rows):
             dst = self._to_device(slot_arr[rows].astype(np.int64))
             src = self._to_device(rows.astype(np.int64))
-            for pool, new in ((self._kc, out["k_cache"]), (self._vc, out["v_cache"])):
-                block = torch.zeros((len(rows), *pool.shape[1:]),
-                                    dtype=pool.dtype, device=self.device)
-                block[:, :, :t] = new[src]
-                pool[dst] = block
+        out = dense_prefill(self._prefill, self._module, self._to_device(tokens),
+                            self._to_device(lens), self._kc, self._vc, src, dst)
         host = out["next_token"].cpu().numpy()[:n]
         t1 = time.monotonic()
-        h2d = tokens.nbytes + lens.nbytes + slot_arr.nbytes
+        h2d = prefill_h2d_bytes(b, t)
         self.step_h2d_bytes += h2d
         if self._tracer is not None:
             self._tracer.span(self._trace_track, "decode.prefill", t0, t1,
@@ -292,7 +353,7 @@ class DecodeStepRunner:
         if self.padding_buckets:
             mask = np.zeros((self.pool_slots,), bool)
             mask[list(active_slots)] = True
-            self.step_h2d_bytes += toks.nbytes + lens.nbytes + mask.nbytes
+            self.step_h2d_bytes += decode_h2d_bytes(self.pool_slots)
             result = self._decode.fn(self._module, {
                 "token": self._to_device(toks), "lengths": self._to_device(lens),
                 "k_cache": self._kc, "v_cache": self._vc,
@@ -528,18 +589,12 @@ class PagedDecodeStepRunner(DecodeStepRunner):
             self._tables[slot] = table
             scatter[i, len(adopted):len(table)] = table[len(adopted):]
         t0 = time.monotonic()
-        out = self._prefill.fn(self._module, {"tokens": self._to_device(tokens),
-                                              "lengths": self._to_device(lens)})
-        tables = self._to_device(scatter).long()
-        for pool, new in ((self._kc, out["k_cache"]), (self._vc, out["v_cache"])):
-            layers, heads, hd = new.shape[1], new.shape[3], new.shape[4]
-            dense = torch.zeros((b, layers, self.capacity, heads, hd),
-                                dtype=pool.dtype, device=self.device)
-            dense[:, :, :t] = new
-            scatter_pages(pool, tables, dense, self.page_tokens)
+        out = paged_prefill(self._prefill, self._module, self._to_device(tokens),
+                            self._to_device(lens), self._to_device(scatter).long(),
+                            self._kc, self._vc, self.capacity, self.page_tokens)
         host = out["next_token"].cpu().numpy()[:n]
         t1 = time.monotonic()
-        h2d = tokens.nbytes + lens.nbytes + scatter.nbytes
+        h2d = prefill_h2d_bytes(b, t, self.table_width)
         self.step_h2d_bytes += h2d
         if self._tracer is not None:
             self._tracer.span(self._trace_track, "decode.prefill", t0, t1,
@@ -571,14 +626,11 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         tables = self.step_tables()
         toks = np.asarray(tokens_by_slot, np.int32)
         lens = np.asarray(lengths_by_slot, np.int32)
-        h2d = toks.nbytes + lens.nbytes + tables.nbytes
+        h2d = decode_h2d_bytes(self.pool_slots, self.table_width)
         self.step_h2d_bytes += h2d
-        tab = self._to_device(tables).long()
-        result = self._decode.fn(self._module, {
-            "token": self._to_device(toks), "lengths": self._to_device(lens),
-            "k_cache": gather_pages(self._kc, tab), "v_cache": gather_pages(self._vc, tab)})
-        scatter_pages(self._kc, tab, result["k_cache"], self.page_tokens)
-        scatter_pages(self._vc, tab, result["v_cache"], self.page_tokens)
+        result = paged_decode(self._decode, self._module, self._to_device(toks),
+                              self._to_device(lens), self._to_device(tables).long(),
+                              self._kc, self._vc, self.page_tokens)
         out = result["next_token"].cpu().numpy()
         t1 = time.monotonic()
         if self._tracer is not None:

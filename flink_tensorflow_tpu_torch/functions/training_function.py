@@ -26,8 +26,11 @@ mini-batches and emitting every in-flight metric.  Snapshots are host
 COPIES of the state (the gang updates its state in place, and on the CPU
 ``.cpu()`` would return the live tensors themselves).
 
-The reference's plan-time hooks (``output_schema``, ``plan_policy``)
-serve its analysis plane, which is not ported.
+The plan-time hooks (JAX ``:183-192``, ``:450-456``): ``output_schema``
+checks the incoming schema against ``train_schema`` (the analyzer's
+``schema-mismatch`` on the edge) and stops propagation (the per-step
+metrics records are the function's own); ``plan_policy`` is the fixed
+batch policy; ``is_jit_boundary`` marks the train step's call.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from flink_tensorflow_tpu_torch.parallel.mesh import replicate, shard_batch, spa
 from flink_tensorflow_tpu_torch.parallel.optim import sgd
 from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy, assemble
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
-from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema
+from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, check_compatible
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
@@ -143,6 +146,9 @@ class OnlineTrainFunction(fn.ProcessFunction):
     sequential steps); a partial chunk runs step by step at end of input
     and before a snapshot."""
 
+    #: Records feed the train step's call (the plan analyzer's boundary).
+    is_jit_boundary = True
+
     def __init__(self, model_def: ModelDef, optimizer=None, *, train_schema: RecordSchema,
                  scope: str = "subtask", mini_batch: int = 1, seed: int = 0,
                  pipeline_depth: int = 4, steps_per_dispatch: int = 1):
@@ -187,6 +193,17 @@ class OnlineTrainFunction(fn.ProcessFunction):
         return dup
 
     # -- lifecycle ---------------------------------------------------------
+    # -- plan-time hooks ---------------------------------------------------
+    def output_schema(self, input_schema):
+        """Incoming records must satisfy the train schema; the emitted
+        per-step metrics records are the function's own: unknown here."""
+        if input_schema is not None:
+            check_compatible(self.train_schema, input_schema, where="train_schema")
+        return None
+
+    def plan_policy(self) -> BucketPolicy:
+        return self._policy
+
     def open(self, ctx) -> None:
         self.ctx = ctx
         self.device = resolve_device(ctx.device)
@@ -390,6 +407,7 @@ class DPTrainWindowFunction(fn.WindowFunction):
 
     #: The gang owns the mesh and blocks in its step: the chaining pass
     #: never fuses it with a neighbour (``analysis/chaining.py``).
+    is_jit_boundary = True
     is_gang = True
 
     def __init__(self, model_def: ModelDef, optimizer=None, *, train_schema: RecordSchema,
@@ -422,6 +440,17 @@ class DPTrainWindowFunction(fn.WindowFunction):
         dup = copy.copy(self)
         dup._reset()
         return dup
+
+    # -- plan-time hooks ---------------------------------------------------
+    def output_schema(self, input_schema):
+        """Incoming records must satisfy the train schema; the emitted
+        per-step metrics records are the function's own: unknown here."""
+        if input_schema is not None:
+            check_compatible(self.train_schema, input_schema, where="train_schema")
+        return None
+
+    def plan_policy(self) -> BucketPolicy:
+        return self._policy
 
     def open(self, ctx) -> None:
         if ctx.mesh is None:

@@ -56,3 +56,29 @@ class Model:
             raise KeyError(
                 f"model {self.name!r} has no method {name!r}; available: {sorted(self._methods)}"
             ) from None
+
+
+def meta_module(module):
+    """A copy of ``module`` whose parameters and buffers are meta tensors
+    of the same shapes and dtypes: what the plan-time passes run a method
+    on (shapes propagate, nothing is allocated on any device, and the
+    weights are not copied)."""
+    import copy
+
+    import torch
+
+    memo = {}
+    for p in module.parameters():
+        memo[id(p)] = torch.nn.Parameter(torch.empty_like(p, device="meta"),
+                                         requires_grad=p.requires_grad)
+    for b in module.buffers():
+        memo[id(b)] = torch.empty_like(b, device="meta")
+    return copy.deepcopy(module, memo)
+
+
+def numpy_dtype(dtype) -> "typing.Any":
+    """The numpy dtype of a torch dtype (raises for one numpy lacks, as
+    bfloat16)."""
+    import numpy as np
+
+    return np.dtype(str(dtype).replace("torch.", ""))

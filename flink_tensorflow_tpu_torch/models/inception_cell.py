@@ -93,10 +93,12 @@ def run_cell_job(model, records: typing.Sequence[TensorValue], *, device_provide
                  warmup: bool = True, timeout: float = 600.0, chaining: bool = True,
                  lanes: int = LANES, use_ring: typing.Optional[bool] = None, batch: int = BATCH,
                  config: typing.Optional[typing.Dict[str, typing.Any]] = None,
-                 on_start: typing.Optional[typing.Callable[[typing.Any], None]] = None):
+                 on_start: typing.Optional[typing.Callable[[typing.Any], None]] = None,
+                 validate: bool = False):
     """Run the cell's job once (``chaining=False``: one thread per
     operator; ``use_ring=False``: the list path; ``config``: more
-    ``JobConfig`` fields, such as ``trace``) and return its ``CellRun``."""
+    ``JobConfig`` fields, such as ``trace``; ``validate``: the plan
+    analyzer first) and return its ``CellRun``."""
     fn = ModelWindowFunction(model, policy=BucketPolicy(fixed_batch=batch),
                              warmup_batches=(batch,) if warmup else (),
                              outputs=("label", "score"), transfer_lanes=lanes,
@@ -104,7 +106,8 @@ def run_cell_job(model, records: typing.Sequence[TensorValue], *, device_provide
     return run_job(records, lambda s: s.count_window(batch, timeout_s=TIMEOUT_S)
                    .apply(fn, name="inception"),
                    device_provider=device_provider, timeout=timeout,
-                   config={"chaining": chaining, **(config or {})}, on_start=on_start)
+                   config={"chaining": chaining, **(config or {})}, on_start=on_start,
+                   validate=validate)
 
 
 def run_graph_job(graph, input_schema, records: typing.Sequence[TensorValue], *,

@@ -33,17 +33,22 @@ class CellRun:
     plan: str = ""
     #: The job's span tracer (None untraced).
     tracer: typing.Any = None
+    #: The plan analyzer's diagnostics (None unless run with ``validate``).
+    diagnostics: typing.Optional[list] = None
 
 
 def run_job(records: typing.Sequence[TensorValue],
             build: typing.Callable[[DataStream], DataStream], *,
             device_provider=None, timeout: float = 600.0,
             config: typing.Optional[typing.Dict[str, typing.Any]] = None,
-            on_start: typing.Optional[typing.Callable[[typing.Any], None]] = None) -> CellRun:
+            on_start: typing.Optional[typing.Callable[[typing.Any], None]] = None,
+            validate: bool = False) -> CellRun:
     """``from_collection(records) -> build(stream) -> timed sink``, run
     once (sources and sink at parallelism 1); ``config`` holds
     ``JobConfig`` fields (``chaining``, ``device_resident``); ``on_start``
-    gets the job's handle once it runs."""
+    gets the job's handle once it runs; ``validate`` runs
+    ``env.validate_plan()`` first (an ERROR raises before the job starts)
+    and keeps its diagnostics."""
     env = StreamExecutionEnvironment(parallelism=1)
     env.configure(**(config or {}))
     if device_provider is not None:
@@ -56,6 +61,7 @@ def run_job(records: typing.Sequence[TensorValue],
         arrivals.append(time.monotonic())
 
     build(env.from_collection(records, parallelism=1)).sink_to_callable(sink)
+    diagnostics = env.validate_plan() if validate else None
     t0 = time.monotonic()
     handle = env.execute_async()
     if on_start is not None:
@@ -63,7 +69,8 @@ def run_job(records: typing.Sequence[TensorValue],
     job = handle.wait(timeout)
     ex = handle.executor
     return CellRun(results, arrivals, job.metrics, time.monotonic() - t0,
-                   len(ex.subtasks), len(ex._gates), ex.chain_plan.describe(), ex.tracer)
+                   len(ex.subtasks), len(ex._gates), ex.chain_plan.describe(), ex.tracer,
+                   diagnostics)
 
 
 def steady_rps(arrivals: typing.Sequence[float], total_records: int, first_batch: int,

@@ -13,13 +13,24 @@ launch adds one to ``flash_attention.launches``.
 
 :func:`flash_attention_decode` (one query per row over a cache) is plain
 PyTorch, as it is plain jnp in the JAX package.
+
+:func:`k1_cost` is K1's work for one call — visible ``(q, k)`` pairs ×
+4D FLOPs, and the bytes of q, k, v, o (and lse) — which the plan-time
+pricer (``analysis/costmodel.py``) charges for every call it meets and
+``chip_smoke.py`` divides by the card's peaks for K1's bound.  The
+plan-time passes run model code on ``meta`` tensors inside
+:func:`meta_calls`: there :func:`flash_attention` launches nothing and
+counts nothing, returns meta outputs and charges the open walk.  Outside
+it a meta tensor is refused like any device the kernel does not serve.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 import typing
 
 import torch
@@ -239,6 +250,57 @@ def _kernel(q, k, v, causal: bool, return_lse: bool):
     return o, lse
 
 
+def visible_pairs(t: int, tk: int, causal: bool) -> int:
+    """The ``(q, k)`` pairs one (batch, head) row block attends: all
+    ``t * tk``, or under the top-left causal mask ``sum_i min(i + 1, tk)``."""
+    if not causal:
+        return t * tk
+    if tk >= t:
+        return t * (t + 1) // 2
+    return tk * (tk + 1) // 2 + (t - tk) * tk
+
+
+def k1_cost(b: int, h: int, t: int, tk: int, d: int, dtype, causal: bool,
+            return_lse: bool) -> typing.Tuple[int, int]:
+    """``(flops, bytes)`` of one K1 call over ``[b, t, h, d]`` queries and
+    ``[b, tk, h, d]`` keys of ``dtype`` (a torch dtype or its name): two
+    matmuls over the visible pairs (4D FLOPs a pair), and each input read
+    once and each output written once (q, k, v, o; lse ``[b, h, t]`` f32
+    when asked for)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    es = _ELEM_BYTES[dtype]
+    flops = 4 * b * h * d * visible_pairs(t, tk, causal)
+    nbytes = es * (2 * b * t * h * d + 2 * b * tk * h * d) + (4 * b * h * t if return_lse else 0)
+    return flops, nbytes
+
+
+_META = threading.local()
+
+
+@contextlib.contextmanager
+def meta_calls(charge: typing.Optional[typing.Callable[[int, int], None]] = None):
+    """While open, a call of :func:`flash_attention` on meta tensors on
+    this thread is a plan-time call: no launch, no count, meta outputs, and
+    ``charge(flops, bytes)`` with :func:`k1_cost` when given (the pricer's
+    walk)."""
+    saved = getattr(_META, "walk", None)
+    _META.walk = (charge,)
+    try:
+        yield
+    finally:
+        _META.walk = saved
+
+
+def _meta_call(q, k, v, causal: bool, return_lse: bool, charge):
+    b, t, h, d = q.shape
+    if charge is not None:
+        charge(*k1_cost(b, h, t, k.shape[1], d, q.dtype, causal, return_lse))
+    o = torch.empty(q.shape, dtype=q.dtype, device="meta")
+    lse = torch.empty((b, h, t), dtype=torch.float32, device="meta") if return_lse else None
+    return o, lse
+
+
 def flash_attention(q, k, v, *, causal: bool = False, return_lse: bool = False):
     """Attention over ``[B, T, H, D]`` tensors (``k``/``v``: ``[B, Tk, H,
     D]``).  Returns ``o`` ``[B, T, H, D]`` in the input dtype, plus
@@ -246,9 +308,14 @@ def flash_attention(q, k, v, *, causal: bool = False, return_lse: bool = False):
 
     A CUDA tensor launches K1 (f32, bf16 or f16; D in 16/32/64/128;
     last dim contiguous, any other strides) or raises; a CPU tensor runs
-    :func:`flash_attention_reference`."""
+    :func:`flash_attention_reference`; a meta tensor inside
+    :func:`meta_calls` is a plan-time call (see the module docstring)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, return_lse=return_lse)
+    walk = getattr(_META, "walk", None)
+    if walk is not None and q.device.type == "meta":
+        o, lse = _meta_call(q, k, v, bool(causal), return_lse, walk[0])
+        return (o, lse) if return_lse else o
     o, lse = _kernel(q, k, v, bool(causal), return_lse)
     return (o, lse) if return_lse else o
 

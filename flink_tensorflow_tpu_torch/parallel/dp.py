@@ -123,7 +123,9 @@ def make_train_step(model_def: ModelDef, optimizer, *, inplace: bool = False,
         tensors.update((f"module.{n}", t) for n, t in zip(names, leaves))
         if step_no is None:
             step_no = int(state["step"])
-        generator = torch.Generator(leaves[0].device).manual_seed(fold_in(state["rng"], step_no))
+        # A meta state (the plan-time pricer's) draws from a host generator.
+        gen_device = leaves[0].device if leaves[0].device.type != "meta" else "cpu"
+        generator = torch.Generator(gen_device).manual_seed(fold_in(state["rng"], step_no))
         weight = None if data_group is None else _rank_weight(data_group, batch, leaves[0])
         with torch.enable_grad(), _moments(data_group):
             loss, (new_model_state, metrics) = torch.func.functional_call(

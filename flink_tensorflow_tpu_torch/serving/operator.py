@@ -108,6 +108,10 @@ class ContinuousBatchingOperator(Operator):
     the subtask's ``RuntimeContext.device`` (the job's device provider),
     else ``cuda``, which raises there if CUDA is absent."""
 
+    #: The plan analyzer's serving rules and the pricer find the operator
+    #: by this marker and read ``serving_config``.
+    is_continuous_batching = True
+
     def __init__(self, name: str, model: "Model",
                  config: typing.Optional[ServingConfig] = None,
                  key_selector: typing.Optional[typing.Callable] = None,

@@ -118,6 +118,10 @@ class _PacedReader(SourceReader):
 
 
 class PacedSplitSource(SplitSource):
+    #: Offers records on its own arrival schedule, whatever the pipeline's
+    #: pace: the plan analyzer's open-loop rules read this.
+    is_open_loop = True
+
     def __init__(self, data: typing.Sequence[typing.Any], rate_hz: float, *,
                  jitter: str = "poisson", seed: int = 0, num_splits: int = 8,
                  cycles: typing.Optional[int] = 1, ts_key: str = "sched_ts",

@@ -3,7 +3,12 @@
 Port of ``flink_tensorflow_tpu/tensors/schema.py``: what a model method
 declares, and the checks the coercion and batching layers run against it.
 Dynamic dims are spelled ``None``; batching pads them to a bucket before
-anything reaches the device.
+anything reaches the device.  The plan-time half (JAX ``:104``,
+``:124-194``): ``RecordSchema.is_static``, ``batched_struct`` (meta
+tensors of a ``[B, ...]`` batch, for the pricer's walk), and
+:class:`SchemaMismatch` / :func:`check_compatible`, which the operators'
+``output_schema`` hooks raise and the analyzer turns into an ERROR on the
+edge where it occurred.
 """
 
 from __future__ import annotations
@@ -32,6 +37,12 @@ class TensorSpec:
     @property
     def rank(self) -> int:
         return len(self.shape)
+
+    def with_batch(self, batch: int) -> typing.Tuple[int, ...]:
+        """Static batched shape; dynamic dims must already be resolved."""
+        if not self.is_static:
+            raise ValueError(f"cannot batch dynamic spec {self.shape} without bucketing")
+        return (batch, *self.shape)
 
     def validate(self, array: np.ndarray) -> None:
         if array.ndim != self.rank:
@@ -74,6 +85,10 @@ class RecordSchema:
     def names(self) -> typing.List[str]:
         return list(self.fields.keys())
 
+    @property
+    def is_static(self) -> bool:
+        return all(spec.is_static for spec in self.fields.values())
+
     def validate(self, record: typing.Mapping[str, np.ndarray]) -> None:
         missing = set(self.fields) - set(record)
         extra = set(record) - set(self.fields)
@@ -91,6 +106,59 @@ class RecordSchema:
         }
 
 
+    def batched_struct(self, batch: int, length_bucket: typing.Optional[int] = None,
+                       device="meta") -> typing.Dict[str, typing.Any]:
+        """Empty ``[B, ...]`` tensors, one per field, on ``device`` (meta by
+        default: shapes and dtypes, no storage) — what the pricer runs a
+        model method on.  Dynamic dims must be pinned by ``length_bucket``
+        (the :meth:`resolve_dynamic` rule) unless the schema is static."""
+        import torch
+
+        if length_bucket is None:
+            shapes = {name: spec.with_batch(batch) for name, spec in self.fields.items()}
+        else:
+            shapes = {name: (batch, *shape)
+                      for name, shape in self.resolve_dynamic(length_bucket).items()}
+        # The numpy dtype's name is torch's (uint8, int32, float32, bool).
+        return {name: torch.empty(shapes[name], dtype=getattr(torch, self.fields[name].dtype.name),
+                                  device=device)
+                for name in self.fields}
+
+
 def spec(shape, dtype=np.float32) -> TensorSpec:
     """Shorthand constructor: ``spec((299, 299, 3), np.uint8)``."""
     return TensorSpec(tuple(shape), dtype)
+
+
+class SchemaMismatch(TypeError):
+    """Two record schemas disagree (field set, rank, dtype, or a static
+    dim).  Raised by plan-time ``output_schema`` hooks; the analyzer turns
+    it into an ERROR diagnostic on the edge where it occurred."""
+
+
+def check_compatible(expected: RecordSchema, actual: RecordSchema, *, where: str = "") -> None:
+    """Check that records described by ``actual`` satisfy ``expected``.
+
+    Every expected field must be present with equal rank and dtype, and
+    equal static dims; a ``None`` (dynamic) dim on either side matches
+    anything.  Extra fields in ``actual`` are allowed: operators read the
+    fields they declare and pass the rest through.  Raises
+    :class:`SchemaMismatch` with a field-level message."""
+    ctx = f" at {where}" if where else ""
+    missing = [n for n in expected.names if n not in actual]
+    if missing:
+        raise SchemaMismatch(f"missing field(s) {missing}{ctx}: expected {expected}, got {actual}")
+    for name in expected.names:
+        want, got = expected[name], actual[name]
+        if want.rank != got.rank:
+            raise SchemaMismatch(
+                f"rank mismatch for field {name!r}{ctx}: expected {want.shape} "
+                f"(rank {want.rank}), got {got.shape} (rank {got.rank})")
+        if want.dtype != got.dtype:
+            raise SchemaMismatch(
+                f"dtype mismatch for field {name!r}{ctx}: expected {want.dtype}, got {got.dtype}")
+        for axis, (w, g) in enumerate(zip(want.shape, got.shape)):
+            if w is not None and g is not None and w != g:
+                raise SchemaMismatch(
+                    f"shape mismatch for field {name!r} axis {axis}{ctx}: "
+                    f"expected {want.shape}, got {got.shape}")

@@ -147,6 +147,36 @@ def test_unported_options_raise(model, kwargs):
         f.close()
 
 
+def test_plan_time_hooks_match_jax(model, variables):
+    """The analyzer's hooks (JAX ``model_function.py:141-204``): the
+    method's input schema, the output schema derived without a device (the
+    port runs the method on meta tensors, the reference ``jax.eval_shape``)
+    equal field for field, the plan policy, and a mismatched input
+    refused."""
+    from flink_tensorflow_tpu.tensors.schema import SchemaMismatch as JaxMismatch
+    from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, SchemaMismatch, spec
+
+    jmodel = jax_model_def("inception_v3", **CFG).to_model(variables)
+    jf = JaxModelWindowFunction(jmodel, outputs=("label", "score"))
+    pf = ModelWindowFunction(model, outputs=("label", "score"))
+    want, got = jf.output_schema(None), pf.output_schema(None)
+    assert got.names == want.names == ["label", "score"]
+    assert all((got[n].shape, got[n].dtype) == (want[n].shape, want[n].dtype)
+               for n in want.names)
+    assert pf.plan_input_schema().names == jf.plan_input_schema().names == ["image"]
+    assert pf.plan_policy().fixed_batch == jf.plan_policy().fixed_batch
+    assert pf.is_jit_boundary
+    with pytest.raises(SchemaMismatch, match="dtype"):
+        pf.output_schema(RecordSchema({"image": spec((SIZE, SIZE, 3), np.float32)}))
+    with pytest.raises(JaxMismatch, match="dtype"):
+        from flink_tensorflow_tpu.tensors import RecordSchema as JaxSchema
+        from flink_tensorflow_tpu.tensors import spec as jax_spec
+
+        jf.output_schema(JaxSchema({"image": jax_spec((SIZE, SIZE, 3), np.float32)}))
+    # A lazy source (a bundle path) stays unknown rather than load at plan time.
+    assert ModelWindowFunction("/nonexistent/bundle").output_schema(None) is None
+
+
 def test_no_device_provider_means_the_gpu(model, pixels):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")

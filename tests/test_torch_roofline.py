@@ -218,7 +218,9 @@ def test_cli_joins_a_trace_and_a_table(tmp_path, capsys):
 def test_serving_on_the_cpu_logs_one_compile_event_per_signature():
     """The dense serving job under ``RooflineConfig``: every distinct
     prefill bucket and the step signature is one compile event (its
-    warmup first sight), busy time accrues, MFU is 0 without a table."""
+    warmup first sight), busy time accrues, and the plan priced at
+    ``execute_async`` (no table was given) gives the MFU gauge a reading,
+    with every signature met inside the predicted ladder."""
     from flink_tensorflow_tpu_torch import StreamExecutionEnvironment
     from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
     from flink_tensorflow_tpu_torch.serving import (
@@ -250,4 +252,5 @@ def test_serving_on_the_cpu_logs_one_compile_event_per_signature():
     assert prefill_sigs <= seen
     assert seen - prefill_sigs == {"decode:3"}     # the pool's [S] step
     assert snap["roofline.compile_events"] == len(compiles) == len(seen)
-    assert snap["roofline.busy_s"] > 0 and snap["roofline.mfu_pct"] == 0.0
+    assert snap["roofline.busy_s"] > 0 and snap["roofline.mfu_pct"] > 0.0
+    assert snap["roofline.unpredicted_compiles"] == 0

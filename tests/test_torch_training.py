@@ -754,6 +754,35 @@ def test_train_schema_rejects_synthesized_names():
         OnlineTrainFunction(mdef, train_schema=schemas()[1], scope="global")
 
 
+def test_plan_time_hooks_match_jax():
+    """The analyzer's hooks on both training functions (JAX
+    ``training_function.py:183-192``, ``:450-456``): the incoming schema is
+    held to ``train_schema`` (the same field named in both packages'
+    ``SchemaMismatch``), propagation stops after the step, and the plan
+    policy is the fixed batch."""
+    from flink_tensorflow_tpu.tensors.schema import SchemaMismatch as JaxMismatch
+    from flink_tensorflow_tpu_torch.tensors.schema import SchemaMismatch
+
+    jschema, schema = schemas()
+    jdef, mdef = jax_model_def("widedeep", **TINY), get_model_def("widedeep", **TINY)
+    pairs = ((JaxOnlineTrain(jdef, train_schema=jschema, mini_batch=4),
+              OnlineTrainFunction(mdef, train_schema=schema, mini_batch=4)),
+             (JaxDPTrain(jdef, train_schema=jschema, global_batch=8),
+              DPTrainWindowFunction(mdef, train_schema=schema, global_batch=8)))
+    for jf, pf in pairs:
+        assert pf.is_jit_boundary and jf.is_jit_boundary
+        assert getattr(pf, "is_gang", False) == getattr(jf, "is_gang", False)
+        assert pf.plan_policy().fixed_batch == jf.plan_policy().fixed_batch
+        assert pf.output_schema(schema) is None and jf.output_schema(jschema) is None
+        assert pf.output_schema(None) is None
+        bad = {n: (schema[n].shape, np.float32 if n == "cat" else schema[n].dtype)
+               for n in schema.names}
+        with pytest.raises(SchemaMismatch, match="'cat'"):
+            pf.output_schema(RecordSchema({n: spec(*v) for n, v in bad.items()}))
+        with pytest.raises(JaxMismatch, match="'cat'"):
+            jf.output_schema(JaxSchema({n: jax_spec(*v) for n, v in bad.items()}))
+
+
 def test_no_port_module_imports_optax_or_flax():
     import sys
 
