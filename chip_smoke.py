@@ -355,12 +355,27 @@ Phases (any failure exits non-zero and prints no result line):
    achieved FLOP/s beside records/s; K1 launches 0 times on each
    Inception run, the refused plan and the pricing, each read on its
    own; the phase's seconds;
-20. print one ``kernels`` JSON line, the card line, and the final
+20. shardcheck and statecheck (``analysis/{shardcheck,statecheck}.py``):
+   (a) shardcheck on phase 6 (a)'s dense keyed plan and phase 10 (a)'s
+   paged plan, captured and not run, its predictions held equal to what
+   those runs measured (``ServingProbe``): every padded decode step's
+   H2D, the pool's and the params' bytes, the collectives; predicted
+   bytes per device printed beside the run's peak above the runner's
+   open; (b) the paged plan under half its predicted bytes refused by
+   ``execute(validate=True)`` on ``shardcheck-hbm-budget`` with 0 K1
+   launches and device bytes unchanged; (c) phase 6 (a)'s keyed serving
+   with ``padding_buckets=False``: shardcheck's unbounded-signature WARN,
+   phase 4's tokens, tokens/s beside the padded arm's (one order-biased
+   pair); (d) statecheck on the keyed, paged, Wide&Deep and
+   resnet-train plans (no ERROR), and a closure over a ``cuda:0`` tensor
+   refused before a record is processed; the phase's seconds;
+21. print one ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -874,7 +889,8 @@ def check_keyed_serving(card, torch, fa, mdef, model, cfg, requests, want, phase
 
     # (a) uninterrupted, parallelism 1.
     fa.flash_attention.launches = 0
-    events, seconds, grp = serve_keyed(model, cfg, requests)
+    with watched("keyed_6a"):
+        events, seconds, grp = serve_keyed(model, cfg, requests)
     launches_a = fa.flash_attention.launches
     got = tokens_checked(events)
     hold_tokens("keyed pipeline", got, want, requests, model, torch)
@@ -2269,7 +2285,8 @@ def paged_serving_arms(card, torch, fa, model, cfg, requests, want, dense_keyed,
     rows = {"dense": [], "paged": []}
     for arm in ("dense", "paged"):
         arm_cfg = cell.serving if arm == "paged" else cfg
-        got, row = keyed_arm(torch, fa, model, arm_cfg, requests, f"serving-{arm}")
+        with watched("paged_10a" if arm == "paged" else None):
+            got, row = keyed_arm(torch, fa, model, arm_cfg, requests, f"serving-{arm}")
         hold_tokens(f"serving-{arm}", got, want, requests, model, torch)
         if row["pool_devices"] != ["cuda"]:
             fail(f"serving-{arm}: pools on {row['pool_devices']}, want ['cuda']")
@@ -5349,6 +5366,308 @@ def check_plan_analyzer(card, torch, fa, model, cfg, requests, want, keyed_launc
     return launches
 
 
+class ServingProbe:
+    """Phase 20 (a)'s readings of the serving runs it watches (phase 6 (a)
+    and 10 (a)): the H2D bytes each padded decode step added to the
+    runner's ``step_h2d_bytes`` (``functions/runner.py:decode_step``), each
+    runner's pool and module bytes as it opened, the peak device bytes
+    above a baseline taken just before it opened, and the collectives
+    issued.  It wraps the decode runners' ``open`` and ``decode_step`` once
+    and passes straight through while no run is watched."""
+
+    def __init__(self, torch):
+        from flink_tensorflow_tpu_torch.functions import runner as r
+
+        self.torch = torch
+        self.tag = None
+        self.runs = {}
+        probe = self
+        opened = r.DecodeStepRunner.open
+
+        def open_(runner, ctx=None):
+            if probe.tag is None:
+                return opened(runner, ctx)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            opened(runner, ctx)
+            module = runner._module
+            probe.runs[probe.tag]["runners"].append({
+                "kind": type(runner).__name__, "base_bytes": base,
+                "pool_bytes": runner._kc.nbytes + runner._vc.nbytes,
+                "param_bytes": sum(t.nbytes for t in (*module.parameters(),
+                                                      *module.buffers()))})
+
+        r.DecodeStepRunner.open = open_
+        for cls in (r.DecodeStepRunner, r.PagedDecodeStepRunner):
+            def step(runner, *args, _step=cls.__dict__["decode_step"], **kw):
+                if probe.tag is None:
+                    return _step(runner, *args, **kw)
+                before = runner.step_h2d_bytes
+                out = _step(runner, *args, **kw)
+                if runner.padding_buckets:
+                    probe.runs[probe.tag]["step_h2d"].append(runner.step_h2d_bytes - before)
+                return out
+
+            cls.decode_step = step
+
+    def watching(self, tag):
+        import contextlib
+
+        from flink_tensorflow_tpu_torch.parallel import collectives
+
+        @contextlib.contextmanager
+        def run():
+            self.runs[tag] = {"runners": [], "step_h2d": []}
+            calls = dict(collectives.calls)
+            self.tag = tag
+            try:
+                yield
+            finally:
+                self.tag = None
+                self.torch.cuda.synchronize()
+                rec = self.runs[tag]
+                base = rec["runners"][0]["base_bytes"] if rec["runners"] else 0
+                rec["peak_bytes"] = self.torch.cuda.max_memory_allocated() - base
+                rec["collectives"] = {k: v - calls.get(k, 0)
+                                      for k, v in collectives.calls.items()
+                                      if v != calls.get(k, 0)}
+
+        return run()
+
+
+#: Installed by ``main`` before phase 6; phase 20 (a) reads it.
+PROBE = None
+
+
+def watched(tag):
+    """Watch the serving run inside (phase 20 (a)); a no-op when ``tag`` is
+    None or no probe is installed (a script that runs one phase alone)."""
+    import contextlib
+
+    if PROBE is None or tag is None:
+        return contextlib.nullcontext()
+    return PROBE.watching(tag)
+
+
+def check_shardcheck_readings(card, torch, fa, model, cfg, paged_cfg, requests):
+    """20 (a): shardcheck on phase 6 (a)'s dense keyed plan and phase 10
+    (a)'s paged one, captured and not executed, held to what those runs
+    measured.  Returns each plan's serving operator audit."""
+    from flink_tensorflow_tpu_torch.analysis import shardcheck
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job
+
+    ops = {}
+    for arm, arm_cfg, tag in (("dense", cfg, "keyed_6a"), ("paged", paged_cfg, "paged_10a")):
+        env, _ = keyed_job(model, arm_cfg, requests)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fa.flash_attention.launches = 0
+        t0 = time.monotonic()
+        report = shardcheck.report_for_env(env)
+        audit_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        if fa.flash_attention.launches or torch.cuda.memory_allocated() != before:
+            fail(f"shardcheck {arm}: the audit launched K1 or allocated device bytes")
+        (op,) = [o for o in report["operators"] if o["kind"] == "serving"]
+        seen = (PROBE.runs if PROBE is not None else {}).get(tag)
+        if not seen or len(seen["runners"]) != 1 or not seen["step_h2d"]:
+            fail(f"shardcheck {arm}: the {tag} run was not watched ({seen})")
+        (runner,) = seen["runners"]
+        hbm = op["hbm_per_device_bytes"]
+        steps = sorted(set(seen["step_h2d"]))
+        measured_collectives = {shardcheck.COLLECTIVE_NAMES.get(k, k): v
+                                for k, v in seen["collectives"].items()}
+        if op["notes"] or steps != [op["predicted_step_h2d_bytes"]]:
+            fail(f"shardcheck {arm}: predicted step H2D {op['predicted_step_h2d_bytes']}, "
+                 f"measured {steps} ({op['notes']})")
+        if hbm["kv_pool"] != runner["pool_bytes"] or hbm["params"] != runner["param_bytes"]:
+            fail(f"shardcheck {arm}: predicted pool {hbm['kv_pool']} / params {hbm['params']}"
+                 f", live {runner['pool_bytes']} / {runner['param_bytes']}")
+        if op["collectives"] != measured_collectives:
+            fail(f"shardcheck {arm}: predicted collectives {op['collectives']}, "
+                 f"measured {measured_collectives}")
+        row = {"plan": tag, "predicted_step_h2d_bytes": op["predicted_step_h2d_bytes"],
+               "measured_step_h2d_bytes": steps, "padded_decode_steps": len(seen["step_h2d"]),
+               "predicted_kv_pool_bytes": hbm["kv_pool"], "live_pool_bytes": runner["pool_bytes"],
+               "predicted_param_bytes": hbm["params"], "live_param_bytes": runner["param_bytes"],
+               "predicted_activation_bytes": hbm["activations"],
+               "predicted_collectives": op["collectives"],
+               "measured_collectives": measured_collectives,
+               "predicted_hbm_per_device_bytes": op["hbm_per_device_total"],
+               "measured_peak_above_open_bytes": seen["peak_bytes"],
+               "predicted_over_measured": op["hbm_per_device_total"] / seen["peak_bytes"],
+               "signatures": op["signatures"], "audit_s": audit_s,
+               "findings": {f"{f['severity']} {f['rule']}": sum(
+                   1 for g in report["findings"] if (g["severity"], g["rule"]) == (
+                       f["severity"], f["rule"])) for f in report["findings"]},
+               "card": card}
+        print(f"shardcheck (a) {arm}", json.dumps(row), flush=True)
+        ops[arm] = op
+    return ops
+
+
+def check_hbm_gate(card, torch, fa, model, paged_cfg, requests, predicted):
+    """20 (b): the paged plan under half its predicted per-device bytes is
+    refused by ``execute(validate=True)`` before the card is touched.
+    Returns K1's launches (0)."""
+    from flink_tensorflow_tpu_torch.analysis import PlanValidationError
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job
+
+    env, arrivals = keyed_job(model, paged_cfg, requests)
+    budget = predicted["hbm_per_device_total"] // 2
+    env.set_hbm_budget(budget)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fa.flash_attention.launches = 0
+    t0 = time.monotonic()
+    try:
+        env.execute("serving-over-budget", validate=True, timeout=60)
+    except PlanValidationError as exc:
+        diagnostics = exc.diagnostics
+    else:
+        fail("over-budget plan: execute(validate=True) ran the job")
+    refused_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    errors = sorted({d.rule for d in diagnostics if d.severity.name == "ERROR"})
+    if errors != ["shardcheck-hbm-budget"]:
+        fail(f"over-budget plan: refused for {errors}, not shardcheck-hbm-budget alone")
+    if fa.flash_attention.launches or after != before or arrivals:
+        fail(f"over-budget plan: {fa.flash_attention.launches} K1 launches, device bytes "
+             f"{before} -> {after} before the refusal")
+    (gate,) = [d.message for d in diagnostics if d.severity.name == "ERROR"]
+    out = {"hbm_budget_bytes": budget, "predicted_bytes": predicted["hbm_per_device_total"],
+           "errors": errors, "message": gate, "refused_s": refused_s,
+           "k1_launches": fa.flash_attention.launches, "allocated_bytes_before": before,
+           "allocated_bytes_after": after, "card": card}
+    print("shardcheck (b) admission gate", json.dumps(out), flush=True)
+    return fa.flash_attention.launches
+
+
+def check_exact_shapes(card, torch, fa, model, cfg, requests, want, dense_keyed):
+    """20 (c): phase 6 (a)'s keyed serving with ``padding_buckets=False``
+    (every step at its own shape, no warmup): shardcheck WARNs the
+    unbounded signature set first, the tokens are phase 4's.  Returns K1's
+    launches."""
+    import dataclasses
+
+    exact = dataclasses.replace(cfg, padding_buckets=False, warmup_compile=False)
+    got, row = keyed_arm(torch, fa, model, exact, requests, "serving-exact", validate=True)
+    warns = [d for d in row["diagnostics"]
+             if d.rule == "shardcheck-signatures" and d.severity.name == "WARN"]
+    if not warns or "unbounded" not in warns[0].message:
+        fail(f"exact shapes: no unbounded-signature WARN ({diagnostics_by_rule(row['diagnostics'])})")
+    hold_tokens("serving-exact", got, want, requests, model, torch)
+    out = {k: row[k] for k in ("tokens", "seconds", "tokens_per_s", "prefill_batches",
+                               "decode_steps", "decode_step_p50_ms", "ttft_p50_ms",
+                               "step_h2d_bytes", "k1_launches")}
+    out.update(padded_tokens_per_s=dense_keyed["tokens_per_s"],
+               padded_decode_step_p50_ms=dense_keyed["decode_step_p50_ms"],
+               order="padded (phase 6 (a)), exact", rates=ONE_PAIR_RATES,
+               warning=warns[0].message, card=card)
+    print("shardcheck (c) padding_buckets=False serving", json.dumps(out), flush=True)
+    return row["k1_launches"]
+
+
+def check_statecheck_plans(card, torch, fa, model, cfg, paged_cfg, requests, root):
+    """20 (d): statecheck on the keyed, paged, Wide&Deep and resnet-train
+    plans (no ERROR), and a closure over a card tensor refused before a
+    record is processed.  Returns K1's launches (0)."""
+    from flink_tensorflow_tpu_torch import ProcessFunction, StreamExecutionEnvironment
+    from flink_tensorflow_tpu_torch.analysis import PlanValidationError, capture_plan, statecheck
+    from flink_tensorflow_tpu_torch.functions import train_cell
+    from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from flink_tensorflow_tpu_torch.serving.cell import keyed_job
+
+    wmdef, wschema, wrecords = train_cell.widedeep_cell(records=64)
+    rmdef, rschema, rrecords = train_cell.resnet_cell(records=train_cell.RESNET_BATCH)
+    plans = {
+        "serving_keyed": lambda: keyed_job(model, cfg, requests)[0],
+        "serving_paged": lambda: keyed_job(model, paged_cfg, requests)[0],
+        "widedeep_online": lambda: capture_plan(lambda: train_cell.run_widedeep(
+            wmdef, wschema, wrecords, checkpoint_dir=os.path.join(root, "widedeep"))),
+        "resnet_gang": lambda: capture_plan(lambda: train_cell.run_resnet(
+            rmdef, rschema, rrecords, make_mesh({"data": 1}))),
+    }
+    fa.flash_attention.launches = 0
+    for name, build in plans.items():
+        t0 = time.monotonic()
+        report = statecheck.report_for_env(build())
+        audit_s = time.monotonic() - t0
+        counts = {}
+        for f in report["findings"]:
+            key = f"{f['severity']} {f['rule']}"
+            counts[key] = counts.get(key, 0) + 1
+        if report["errors"]:
+            fail(f"statecheck {name}: {counts}")
+        keygroup = [f["message"] for f in report["findings"]
+                    if f["rule"] == "statecheck-page-keygroup"]
+        if (name == "serving_paged") != bool(keygroup):
+            fail(f"statecheck {name}: page-keygroup findings {keygroup}")
+        row = {"plan": name, "findings": counts, "audit_s": audit_s,
+               "train_state_bytes": [o["train_state_bytes"] for o in report["operators"]
+                                     if o["train_state_bytes"]], "card": card}
+        if keygroup:
+            row["page_keygroup"] = keygroup[0]
+        print("statecheck (d)", json.dumps(row), flush=True)
+    # The seeded defect: keyed state kept in a card tensor a closure holds.
+    totals = torch.zeros(4, device="cuda:0")
+    processed = []
+
+    class Accumulate(ProcessFunction):
+        def process_element(self, value, ctx, out):
+            processed.append(value)
+            totals[ctx.current_key] += value
+            out.collect(value)
+
+    env = StreamExecutionEnvironment(parallelism=1)
+    (env.from_collection(list(range(64))).key_by(lambda x: x % 4)
+        .process(Accumulate(), name="accumulate").sink_to_list())
+    try:
+        env.execute("hidden-card-state", validate=True, timeout=60)
+    except PlanValidationError as exc:
+        diagnostics = exc.diagnostics
+    else:
+        fail("hidden card state: execute(validate=True) ran the job")
+    hidden = [d.message for d in diagnostics
+              if d.rule == "statecheck-hidden-state" and d.severity.name == "ERROR"]
+    if len(hidden) != 1 or "'totals'" not in hidden[0] or "cuda:0" not in hidden[0] \
+            or processed or float(totals.sum()):
+        fail(f"hidden card state: {hidden}, {len(processed)} records processed")
+    print("statecheck (d) hidden card state refused", json.dumps(
+        {"message": hidden[0], "records_processed": len(processed), "card": card}), flush=True)
+    return fa.flash_attention.launches
+
+
+def check_shard_state(card, torch, fa, model, cfg, requests, want, dense_keyed):
+    """Phase 20: shardcheck and statecheck.  Returns K1's launches per path."""
+    import tempfile
+
+    from flink_tensorflow_tpu_torch.serving.cell import paged_cell
+
+    t0 = time.monotonic()
+    print(f"shardcheck/statecheck phase | card: {card}", flush=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as root:
+        paged_cfg = paged_cell(requests, cfg, spill_root=os.path.join(root, "spill")).serving
+        ops = check_shardcheck_readings(card, torch, fa, model, cfg, paged_cfg, requests)
+        launches["shardcheck_over_budget_refused"] = check_hbm_gate(
+            card, torch, fa, model, paged_cfg, requests, ops["paged"])
+        launches["serving_exact_shapes"] = check_exact_shapes(card, torch, fa, model, cfg,
+                                                              requests, want, dense_keyed)
+        launches["statecheck_plans"] = check_statecheck_plans(card, torch, fa, model, cfg,
+                                                              paged_cfg, requests, root)
+    off_path = {k: v for k, v in launches.items() if k != "serving_exact_shapes" and v}
+    if off_path:
+        fail(f"shardcheck/statecheck: K1 launched on plan-time paths: {off_path}")
+    print(f"shardcheck/statecheck phase_seconds: {time.monotonic() - t0} | card: {card}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5425,6 +5744,8 @@ def main() -> int:
 
     _, inception, direct = check_inception(card, torch)
 
+    global PROBE
+    PROBE = ServingProbe(torch)
     keyed_launches, dense_keyed = check_keyed_serving(card, torch, fa, mdef, model, cfg,
                                                       requests, got, serving_row)
 
@@ -5459,6 +5780,8 @@ def main() -> int:
     analyzer_launches = check_plan_analyzer(card, torch, fa, model, cfg, requests, got,
                                             keyed_launches, inception, direct, paged_roofline)
 
+    audit_launches = check_shard_state(card, torch, fa, model, cfg, requests, got, dense_keyed)
+
     serving_k1 = k1_rows[0]
     kernels = {"kernels": [{
         "name": "flash_attention_fwd",
@@ -5478,7 +5801,7 @@ def main() -> int:
                              **transfer_launches, **parallel_launches, **split_launches,
                              **plane_launches, **chaos_launches,
                              **observability_launches, **health_launches,
-                             **analyzer_launches},
+                             **analyzer_launches, **audit_launches},
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

@@ -65,7 +65,13 @@ Ported so far:
   (``metrics``), the health plane (``JobConfig(health=HealthConfig(...))``:
   ``metrics.health``), the autoscale loop (``core.autoscale``), cohort
   telemetry (``core.cohort_telemetry``, ``metrics.cohort``) and the
-  doctor (``tracing.doctor``).
+  doctor (``tracing.doctor``);
+- the analysis planes (``analysis``): the plan analyzer and its 33 lint
+  rules, the pricer, shardcheck (layout, donation, the device-memory
+  budget ``JobConfig.hbm_budget_bytes`` over a shape-only
+  ``parallel.mesh.abstract_mesh``) and statecheck (hidden state, RNG
+  streams, rescale safety, the exactly-once dataflow); weight import by
+  name (``models.import_tf``).
 """
 
 from flink_tensorflow_tpu_torch.core.config import CheckpointConfig, JobConfig

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import typing
+import weakref
 
 if typing.TYPE_CHECKING:
     from flink_tensorflow_tpu_torch.analysis.rules import AnalysisContext
@@ -230,6 +231,15 @@ class UnitCost:
     k1_flops: int = 0
     hbm_bytes: int = 0
     collective_bytes: int = 0
+    #: High-water mark of the bytes of live op outputs: every tensor an op
+    #: allocates (neither a view nor an in-place or ``out=`` alias of an
+    #: input) counts from that op until it is freed; the call's inputs
+    #: and weights do not count (shardcheck's peak activation).
+    peak_live_bytes: int = 0
+    #: The port's collectives the call issued, by ``collectives.calls``
+    #: kind (counted under ``collectives.census``: on meta tensors they
+    #: move nothing).
+    collectives: typing.Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def flops(self) -> int:
@@ -267,6 +277,25 @@ def _walk_mode():
         def __init__(self):
             super().__init__()
             self.cost = UnitCost()
+            self.live_bytes = 0
+
+        def _freed(self, nbytes: int) -> None:
+            self.live_bytes -= nbytes
+
+        def _track(self, func, out) -> None:
+            if func.is_view:
+                return
+            returns = func._schema.returns
+            values = (list(out) if len(returns) > 1 and isinstance(out, (tuple, list))
+                      else [out])
+            for ret, value in zip(returns, values):
+                if ret.alias_info is not None:
+                    continue
+                for t in _tensors(value):
+                    n = _nbytes(t)
+                    self.live_bytes += n
+                    weakref.finalize(t, self._freed, n)
+            self.cost.peak_live_bytes = max(self.cost.peak_live_bytes, self.live_bytes)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
@@ -304,6 +333,7 @@ def _walk_mode():
             if not func.is_view and base not in LAYOUT_OPS:
                 cost.hbm_bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
                 cost.hbm_bytes += sum(_nbytes(t) for t in _tensors(out))
+            self._track(func, result)
             return result
 
     return _Walk()
@@ -313,6 +343,7 @@ def cost_of_call(fn: typing.Callable, *args, **kwargs) -> UnitCost:
     """Price one call ``fn(*args, **kwargs)`` over meta tensors: every ATen
     op it reaches, plus each K1 call at ``k1_cost``."""
     from flink_tensorflow_tpu_torch.ops import flash_attention as fa
+    from flink_tensorflow_tpu_torch.parallel import collectives
 
     mode = _walk_mode()
 
@@ -320,8 +351,9 @@ def cost_of_call(fn: typing.Callable, *args, **kwargs) -> UnitCost:
         mode.cost.k1_flops += flops
         mode.cost.hbm_bytes += nbytes
 
-    with fa.meta_calls(charge), mode:
+    with fa.meta_calls(charge), collectives.census() as counts, mode:
         fn(*args, **kwargs)
+    mode.cost.collectives = dict(counts)
     return mode.cost
 
 
@@ -569,9 +601,10 @@ def cost_table_for_ctx(ctx: "AnalysisContext") -> CostTable:
     return table
 
 
-def cost_table_for_env(env) -> CostTable:
-    """Price every runner unit of one environment's plan — what
-    ``execute_async`` calls when ``JobConfig.roofline`` names no table."""
+def context_for_env(env) -> "AnalysisContext":
+    """The analysis context of one environment's plan (operators built,
+    schemas propagated), as ``analyze`` builds it: what the pricer and the
+    shardcheck and statecheck reports read."""
     from flink_tensorflow_tpu_torch.analysis.rules import AnalysisContext
     from flink_tensorflow_tpu_torch.analysis.schema_prop import propagate
 
@@ -581,9 +614,14 @@ def cost_table_for_env(env) -> CostTable:
     for t in graph.transformations:
         try:
             operators[t.id] = t.operator_factory()
-        except Exception:  # noqa: BLE001 - an unbuildable op is simply unpriced
+        except Exception:  # noqa: BLE001 - factory-error is the analyzer's finding
             operators[t.id] = None
     flow = propagate(graph, order, operators)
-    ctx = AnalysisContext(graph=graph, order=order, operators=operators,
-                          schemas=flow.out, schema_sets=flow.out_sets, config=env.config)
-    return cost_table_for_ctx(ctx)
+    return AnalysisContext(graph=graph, order=order, operators=operators,
+                           schemas=flow.out, schema_sets=flow.out_sets, config=env.config)
+
+
+def cost_table_for_env(env) -> CostTable:
+    """Price every runner unit of one environment's plan — what
+    ``execute_async`` calls when ``JobConfig.roofline`` names no table."""
+    return cost_table_for_ctx(context_for_env(env))

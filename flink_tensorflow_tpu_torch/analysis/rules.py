@@ -1,8 +1,10 @@
 """Lint rule registry — structural checks over the logical plan.
 
-Port of ``flink_tensorflow_tpu/analysis/rules.py`` (``:1-1000``): the
-:class:`AnalysisContext`, the registry and all 21 rules of the reference,
-with its rule ids, severities and report order.  A model function marks
+Port of ``flink_tensorflow_tpu/analysis/rules.py``: the
+:class:`AnalysisContext`, the registry and all 33 rules of the reference,
+with its rule ids, severities and report order — the 21 defined here and
+the shardcheck and statecheck families, registered from the bottom of
+this module as the reference registers them.  A model function marks
 the boundary where records become one runner call with the reference's
 name, ``is_jit_boundary``: a new batch shape there is a new launch
 configuration (cuDNN plans, kernel builds, allocator growth), the
@@ -978,10 +980,20 @@ def _recompile_churn(ctx: AnalysisContext, emit: Emit) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The reference registers two more rule families here, from
-# analysis/shardcheck.py (layout, donation, HBM budget, compile signatures)
-# and analysis/statecheck.py (hidden state, train state, rescale safety,
-# RNG streams, and the exactly-once-boundary dataflow pass), each through a
-# ``_register_rules()`` call at the bottom of this module.  The port's
-# shardcheck and statecheck register theirs the same way when they land.
+# shardcheck family (analysis/shardcheck.py): the layout / donation /
+# device-memory budget / launch-signature verdicts register themselves here
+# so analyze(), validate_plan() and every CLI carry them.  Imported at the
+# bottom because shardcheck needs `rule` (defined above) at registration.
 # ---------------------------------------------------------------------------
+
+from flink_tensorflow_tpu_torch.analysis import shardcheck as _shardcheck  # noqa: E402
+
+_shardcheck._register_rules()
+
+# statecheck family (analysis/statecheck.py): hidden-state / train-state /
+# rescale-safety / RNG-stream / page-keygroup verdicts plus the
+# exactly-once dataflow pass register the same way.
+
+from flink_tensorflow_tpu_torch.analysis import statecheck as _statecheck  # noqa: E402
+
+_statecheck._register_rules()

@@ -177,8 +177,17 @@ class JobConfig:
     #: ``utils.device.resolve_device(None)`` — the GPU, or an error.
     device_provider: typing.Optional[typing.Callable[[str, int], typing.Any]] = None
     #: ``parallel.mesh.Mesh`` shared with gang operators (the DP trainer);
-    #: ``env.set_mesh``.
+    #: ``env.set_mesh``.  A shape-only mesh (``parallel.mesh.abstract_mesh``)
+    #: declares a layout for the plan analyzers (``analysis/shardcheck.py``)
+    #: on a machine that cannot build it; a job that needs its devices
+    #: fails at ``open()``.
     mesh: typing.Optional[typing.Any] = None
+    #: Per-device memory ceiling (bytes) of shardcheck's static budget:
+    #: params + optimizer state + KV pool + peak activations per device
+    #: under the mesh must fit, or the plan fails validation with an
+    #: ERROR naming the operator (``env.set_hbm_budget``).  None: no gate.
+    #: An H100 SXM card holds 80 GiB.
+    hbm_budget_bytes: typing.Optional[int] = None
     #: Aligned snapshots: directory, trigger mode, retention.
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
     #: Cohort membership (``core.distributed.DistributedConfig``): subtasks
@@ -233,8 +242,10 @@ class JobConfig:
             raise ValueError("device_provider must be callable (task, idx) -> device")
         if self.mesh is not None and not (hasattr(self.mesh, "shape")
                                           and hasattr(self.mesh, "devices")):
-            raise ValueError("mesh must be a parallel.mesh.Mesh (make_mesh), got "
-                             f"{type(self.mesh).__name__}")
+            raise ValueError("mesh must be a parallel.mesh.Mesh (make_mesh or "
+                             f"abstract_mesh), got {type(self.mesh).__name__}")
+        if self.hbm_budget_bytes is not None and self.hbm_budget_bytes < 1:
+            raise ValueError(f"hbm_budget_bytes must be >= 1, got {self.hbm_budget_bytes}")
         if self.distributed is not None:
             self.distributed.validate()
             if self.checkpoint.interval_s is not None:

@@ -226,8 +226,18 @@ class StreamExecutionEnvironment:
         return self.configure(distributed=distributed)
 
     def set_mesh(self, mesh) -> "StreamExecutionEnvironment":
-        """Share a ``parallel.mesh.Mesh`` with gang operators (DP training)."""
+        """Share a ``parallel.mesh.Mesh`` with gang operators (DP training).
+        A shape-only mesh (``parallel.mesh.abstract_mesh``) declares a
+        layout the plan analyzers check without devices."""
         return self.configure(mesh=mesh)
+
+    def set_hbm_budget(self, hbm_budget_bytes: typing.Optional[int]
+                       ) -> "StreamExecutionEnvironment":
+        """Declare the per-device memory ceiling the plan must fit
+        (``JobConfig.hbm_budget_bytes``): shardcheck's static budget —
+        params + optimizer state + KV pool + peak activations per device
+        under the mesh — gates ``execute(validate=True)`` against it."""
+        return self.configure(hbm_budget_bytes=hbm_budget_bytes)
 
     @property
     def mesh(self):

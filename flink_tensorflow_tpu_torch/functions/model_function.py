@@ -95,6 +95,7 @@ from flink_tensorflow_tpu_torch.models.base import Model, ModelMethod, meta_modu
 from flink_tensorflow_tpu_torch.models.loaders import GraphLoader, SavedModelLoader
 from flink_tensorflow_tpu_torch.native.ring import TensorRing
 from flink_tensorflow_tpu_torch.ops.flash_attention import meta_calls
+from flink_tensorflow_tpu_torch.parallel import collectives
 from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketLadder, BucketPolicy
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, TensorSpec, check_compatible
@@ -140,11 +141,31 @@ class _ModelFunctionBase(fn.RichFunction):
         stamp_stages: bool = False,
         device_resident: typing.Optional[bool] = None,
         wire_dtype: typing.Optional[str] = None,
+        donate_inputs: bool = False,
+        sharding_axes: typing.Optional[typing.Sequence[str]] = None,
+        output_sharding_axes: typing.Optional[typing.Sequence[str]] = None,
     ):
         if transfer_lanes < 1:
             raise ValueError(f"transfer_lanes must be >= 1, got {transfer_lanes}")
         self._source = model
         self._method_name = method
+        #: Declared layouts for the plan analyzers (JAX ``:87-105``): the
+        #: ``sharding-axis`` rule and chaining read ``sharding_axes``;
+        #: shardcheck's reshard audit compares an upstream's
+        #: ``output_sharding_axes`` (default: the input axes) with its
+        #: consumer's ``sharding_axes``.
+        if sharding_axes is not None:
+            self.sharding_axes = tuple(sharding_axes)
+        self.output_sharding_axes = (
+            tuple(output_sharding_axes) if output_sharding_axes is not None
+            else (tuple(sharding_axes) if sharding_axes is not None else None))
+        #: Donation, the port's meaning of the reference's
+        #: ``donate_argnums``: the runner drops its last reference to each
+        #: device batch it shipped as soon as the method returns, so the
+        #: caching allocator can reuse those pages for the outputs of the
+        #: batches that follow (XLA would alias them into this call's
+        #: outputs).  Shardcheck's donation audit reads it.
+        self._donate = donate_inputs
         self._policy = policy
         self._warmup = tuple(warmup_batches)
         self._warmup_length_bucket = warmup_length_bucket
@@ -206,7 +227,8 @@ class _ModelFunctionBase(fn.RichFunction):
             if method.needs_lengths:
                 return None
             inputs = expected.batched_struct(1, length_bucket=self._warmup_length_bucket)
-            with torch.no_grad(), meta_calls():
+            # Collectives count in a census of their own and move nothing.
+            with torch.no_grad(), meta_calls(), collectives.census():
                 outputs = method.fn(meta_module(self._source.params), inputs)
             fields = {}
             for name in self._outputs or method.output_names or sorted(outputs):
@@ -253,7 +275,7 @@ class _ModelFunctionBase(fn.RichFunction):
         self.runner = CompiledMethodRunner(model, self._method_name, policy=self._policy,
                                            output_names=self._outputs,
                                            dispatch_lanes=self._transfer_lanes,
-                                           wire_dtype=wire)
+                                           wire_dtype=wire, donate_inputs=self._donate)
         self.runner.open(ctx)
         # Leaving results on the device pays only where the next fused
         # operator consumes them: into a host consumer it would move the
@@ -455,8 +477,14 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
             return
         method = self.runner.method
         schema = method.input_schema
+        # A donated batch is the runner's to drop, never the arena's (the
+        # reference refuses the pair: its donated buffers may alias ring
+        # slots).
         eligible = (all(d is not None for n in schema.names for d in schema[n].shape)
-                    and not method.needs_lengths)
+                    and not method.needs_lengths and not self._donate)
+        if self._use_ring and self._donate:
+            raise ValueError("use_ring=True is incompatible with donate_inputs=True "
+                             "(donated buffers may alias the ring arena)")
         capacity = self._ring_capacity
         fixed = self.runner.policy.fixed_batch
         if capacity is None and fixed is not None:

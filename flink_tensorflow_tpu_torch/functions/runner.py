@@ -874,6 +874,9 @@ class CompiledMethodRunner:
     it, ``t_done`` results on the host; ``lane_wait_s``, ``assemble_s``,
     ``dispatch_s``, ``batch_n``).  ``service_ewma_s`` is the EWMA of
     dispatch -> results per batch, which latency-budget triggers reserve.
+    With ``donate_inputs`` the runner drops its last reference to a batch
+    it shipped as soon as the method returns, so the caching allocator
+    can reuse those pages for the outputs of the batches that follow.
 
     :meth:`dispatch_batch` ships a batch assembled elsewhere (the ring's
     views) with no assemble copy; its ``on_done`` runs when the batch's
@@ -890,9 +893,13 @@ class CompiledMethodRunner:
         output_names: typing.Optional[typing.Sequence[str]] = None,
         dispatch_lanes: int = 1,
         wire_dtype: typing.Optional[str] = None,
+        donate_inputs: bool = False,
     ):
         if dispatch_lanes < 1:
             raise ValueError("dispatch_lanes must be >= 1")
+        #: Drop the shipped batch as soon as the method returns (see
+        #: ``call`` in :meth:`open`).
+        self.donate_inputs = donate_inputs
         self.model = model
         self.method = model.method(method_name)
         self.policy = policy or BucketPolicy()
@@ -979,12 +986,20 @@ class CompiledMethodRunner:
                 out[k] = v
             return out
 
+        donate = self.donate_inputs
+
         def call(inputs, lengths):
+            if donate:
+                # The shipped dict is emptied, so when the method returns
+                # nothing of the runner's holds the device batch any more.
+                shipped, inputs = inputs, dict(inputs)
+                shipped.clear()
             inputs = widen(inputs)
             if method.needs_lengths:
                 outputs = method.fn(self._module, inputs, lengths)
             else:
                 outputs = method.fn(self._module, inputs)
+            del inputs
             if select is None:
                 return outputs
             missing = set(select) - set(outputs)

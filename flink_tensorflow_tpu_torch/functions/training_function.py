@@ -148,6 +148,11 @@ class OnlineTrainFunction(fn.ProcessFunction):
 
     #: Records feed the train step's call (the plan analyzer's boundary).
     is_jit_boundary = True
+    #: The step returns a new TrainState and the old one stays live until
+    #: its in-flight steps are fetched (``make_train_step(inplace=False)``),
+    #: as the reference's undonated step: statecheck's train-state audit
+    #: reads this.
+    donates_train_state = False
 
     def __init__(self, model_def: ModelDef, optimizer=None, *, train_schema: RecordSchema,
                  scope: str = "subtask", mini_batch: int = 1, seed: int = 0,
@@ -409,6 +414,10 @@ class DPTrainWindowFunction(fn.WindowFunction):
     #: never fuses it with a neighbour (``analysis/chaining.py``).
     is_jit_boundary = True
     is_gang = True
+    #: ``make_dp_train_step`` updates the state's tensors in place (the
+    #: port's form of the reference's donated state): statecheck's
+    #: train-state audit reads this.
+    donates_train_state = True
 
     def __init__(self, model_def: ModelDef, optimizer=None, *, train_schema: RecordSchema,
                  global_batch: int, seed: int = 0, pipeline_depth: int = 2):

@@ -17,7 +17,9 @@ from flink_tensorflow_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SEQ_AXIS,
     Mesh,
+    abstract_mesh,
     batch_sharding,
+    is_abstract_mesh,
     make_mesh,
     replicate,
     shard_batch,
@@ -55,11 +57,13 @@ __all__ = [
     "CohortSupervisor",
     "HostTopology",
     "Mesh",
+    "abstract_mesh",
     "batch_sharding",
     "full_attention",
     "global_mesh",
     "init_train_state",
     "initialize",
+    "is_abstract_mesh",
     "latest_common_checkpoint",
     "make_dp_train_step",
     "make_mesh",

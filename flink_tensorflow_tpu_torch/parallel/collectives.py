@@ -20,7 +20,10 @@ here, each over an explicit process group (the mesh's group for an axis,
 
 Each call adds one to ``calls[<op>]``, a plain counter a caller may read
 and reset (``all_reduce``, ``broadcast``, ``all_gather``, ``all_to_all``,
-``send_recv``).
+``send_recv``).  Under :func:`census` (the plan-time census of
+``analysis/shardcheck.py``, over meta tensors) they count in the
+census's own counter instead, and communicate nothing: each returns a
+tensor of its result's shape.
 """
 
 from __future__ import annotations
@@ -37,12 +40,33 @@ import torch.distributed as dist
 calls: typing.Counter[str] = collections.Counter()
 
 _MOMENTS: contextvars.ContextVar = contextvars.ContextVar("cross_replica_moments", default=None)
+_CENSUS: contextvars.ContextVar = contextvars.ContextVar("collective_census", default=None)
+
+
+@contextlib.contextmanager
+def census() -> typing.Iterator[typing.Counter[str]]:
+    """While active (on this thread), collectives count in the yielded
+    counter (not in :data:`calls`) and move no data: no process group is
+    needed."""
+    counts: typing.Counter[str] = collections.Counter()
+    token = _CENSUS.set(counts)
+    try:
+        yield counts
+    finally:
+        _CENSUS.reset(token)
+
+
+def _count(kind: str) -> bool:
+    """Count one collective; True when it must also communicate."""
+    counts = _CENSUS.get()
+    (calls if counts is None else counts)[kind] += 1
+    return counts is None
 
 
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (every rank gets the sum)."""
-    calls["all_reduce"] += 1
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    if _count("all_reduce"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
@@ -128,16 +152,17 @@ def broadcast_(tensors: typing.Sequence[torch.Tensor], src: int = 0, group=None)
     """Every tensor overwritten with rank ``src``'s (a global rank): one
     broadcast per dtype."""
     def bcast(flat):
-        calls["broadcast"] += 1
-        dist.broadcast(flat, src=src, group=group)
+        if _count("broadcast"):
+            dist.broadcast(flat, src=src, group=group)
 
     _coalesced_(tensors, bcast)
 
 
 def all_gather(t: torch.Tensor, group=None) -> typing.List[torch.Tensor]:
     """Every rank's ``t`` (same shape), in the group's rank order."""
-    calls["all_gather"] += 1
     t = t.contiguous()
+    if not _count("all_gather"):
+        return [torch.empty_like(t)]
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, t, group=group)
     return out
@@ -147,9 +172,10 @@ def all_to_all(staged: torch.Tensor, group=None) -> torch.Tensor:
     """``staged`` is ``[n, ...]`` with slot j bound for group rank j; the
     result's slot j came from group rank j (``lax.all_to_all`` with
     ``tiled=True``, on a contiguous staging layout)."""
-    calls["all_to_all"] += 1
     staged = staged.contiguous()
     out = torch.empty_like(staged)
+    if not _count("all_to_all"):
+        return out
     dist.all_to_all_single(out, staged, group=group)
     return out
 
@@ -158,7 +184,8 @@ def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
     """Send ``t`` to the next rank of the group and receive the previous
     rank's (``lax.ppermute`` with ``j -> j + 1 mod n``): one
     ``batch_isend_irecv`` exchange."""
-    calls["send_recv"] += 1
+    if not _count("send_recv"):
+        return torch.empty_like(t.contiguous())
     n = dist.get_world_size(group)
     me = dist.get_rank(group)
     nxt = dist.get_global_rank(group, (me + 1) % n) if group is not None else (me + 1) % n

@@ -1,7 +1,8 @@
 """Device meshes over one device, or over a cohort of processes.
 
 Port of ``flink_tensorflow_tpu/parallel/mesh.py``: ``make_mesh``
-(``:104``), ``batch_sharding`` (``:141``), ``spans_processes``
+(``:104``), the shape-only ``abstract_mesh`` and ``is_abstract_mesh``
+(``:109-125``), ``batch_sharding`` (``:141``), ``spans_processes``
 (``:158``), ``shard_batch`` (``:177``) and ``replicate`` (``:199``).  In
 the reference a mesh is a ``jax.sharding.Mesh`` and XLA emits the
 collectives.  In the port:
@@ -52,7 +53,12 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """This process's device."""
+        """This process's device (raises on a shape-only mesh)."""
+        if not self.devices:
+            raise RuntimeError(
+                f"mesh {dict(self.shape)} is shape-only (parallel.mesh.abstract_mesh): "
+                "it declares a layout for the plan analyzers and has no device to run "
+                "on; build one with make_mesh")
         return self.devices[0]
 
     @property
@@ -95,20 +101,39 @@ def _axis_groups(names, sizes, rank: int) -> typing.Dict[str, typing.Any]:
     return groups
 
 
-def make_mesh(axes: typing.Mapping[str, int], devices=None) -> Mesh:
-    """``make_mesh({"data": 1})`` -> a mesh on ``cuda:0`` (raises without a
-    card); ``devices=["cpu"]`` puts it on the CPU.  Inside a cohort of as
-    many processes as the axes' product (``multihost.initialize``) it
-    spans them, one device per process: ``devices`` then names this
-    process's device (default: its card, ``multihost.local_device``)."""
+def _checked_shape(axes: typing.Mapping[str, int]) -> typing.Dict[str, int]:
+    """``axes`` in the canonical order, validated as the reference's
+    ``MeshSpec`` validates (known names, sizes >= 1)."""
     unknown = set(axes) - set(AXIS_ORDER)
     if unknown:
         raise ValueError(f"unknown mesh axes {unknown}; known: {AXIS_ORDER}")
     for name, size in axes.items():
         if size < 1:
             raise ValueError(f"axis {name} must be >=1, got {size}")
-    names = tuple(a for a in AXIS_ORDER if a in axes)
-    shape = {a: axes[a] for a in names}
+    return {a: axes[a] for a in AXIS_ORDER if a in axes}
+
+
+def abstract_mesh(axes: typing.Mapping[str, int]) -> Mesh:
+    """A shape-only mesh (no devices): ``env.set_mesh(abstract_mesh({"data":
+    4, "tp": 2}))`` declares a layout that ``analysis/shardcheck.py`` and
+    ``statecheck.py`` check on a machine that cannot build it.  A job that
+    needs the mesh's devices fails at ``open()`` (:attr:`Mesh.device`)."""
+    return Mesh(_checked_shape(axes), ())
+
+
+def is_abstract_mesh(mesh) -> bool:
+    """True for a shape-only mesh (:func:`abstract_mesh`)."""
+    return isinstance(mesh, Mesh) and not mesh.devices
+
+
+def make_mesh(axes: typing.Mapping[str, int], devices=None) -> Mesh:
+    """``make_mesh({"data": 1})`` -> a mesh on ``cuda:0`` (raises without a
+    card); ``devices=["cpu"]`` puts it on the CPU.  Inside a cohort of as
+    many processes as the axes' product (``multihost.initialize``) it
+    spans them, one device per process: ``devices`` then names this
+    process's device (default: its card, ``multihost.local_device``)."""
+    shape = _checked_shape(axes)
+    names = tuple(shape)
     n = math.prod(shape.values())
     in_cohort = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if in_cohort else 1

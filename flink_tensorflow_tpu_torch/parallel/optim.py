@@ -63,18 +63,23 @@ class SGD:
 
 @dataclasses.dataclass(frozen=True)
 class Adam:
-    """``optax.adam(lr, b1, b2, eps)`` (``eps_root = 0``, no nesterov)."""
+    """``optax.adam(lr, b1, b2, eps, mu_dtype=...)`` (``eps_root = 0``, no
+    nesterov).  ``mu_dtype`` is optax's: the first moment is STORED in
+    that dtype, and each step computes it in the gradients' dtype from
+    the stored value and casts the new moment back (the bias-corrected
+    step uses the uncast moment)."""
 
     lr: float
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    mu_dtype: typing.Optional[torch.dtype] = None
 
     def init(self, params: Tree) -> dict:
         any_param = next(iter(params.values()))
         return {
             "count": torch.zeros((), dtype=torch.int32, device=any_param.device),
-            "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+            "mu": {n: torch.zeros_like(p, dtype=self.mu_dtype) for n, p in params.items()},
             "nu": {n: torch.zeros_like(p) for n, p in params.items()},
         }
 
@@ -82,12 +87,22 @@ class Adam:
         """Adam's unscaled step ``mu_hat / (sqrt(nu_hat) + eps)`` and the
         new moments; with ``inplace`` the state's own tensors update."""
         g, mu, nu = _lists(grads, state["mu"], state["nu"])
-        if inplace:
+        stored = mu
+        cast = any(m.dtype != x.dtype for m, x in zip(mu, g))
+        if inplace and not cast:
             torch._foreach_mul_(mu, self.b1)
+        elif not cast:
+            mu = torch._foreach_mul(mu, self.b1)
+        else:
+            # As optax: b1 (a weakly typed scalar, so rounded to mu_dtype
+            # first) times mu in mu_dtype, the sum in the gradients' dtype;
+            # stored back in mu_dtype below.
+            b1 = float(torch.tensor(self.b1, dtype=mu[0].dtype))
+            mu = [m.to(x.dtype) for m, x in zip(torch._foreach_mul(mu, b1), g)]
+        if inplace:
             torch._foreach_mul_(nu, self.b2)
             count = state["count"].add_(1)
         else:
-            mu = torch._foreach_mul(mu, self.b1)
             nu = torch._foreach_mul(nu, self.b2)
             count = state["count"] + 1
         torch._foreach_add_(mu, g, alpha=1 - self.b1)
@@ -100,6 +115,12 @@ class Adam:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(mu_hat, denom)
+        if cast:
+            if inplace:
+                torch._foreach_copy_(stored, mu)
+                mu = stored
+            else:
+                mu = [m.to(s.dtype) for m, s in zip(mu, stored)]
         return mu_hat, mu, nu, count
 
     def update(self, grads: Tree, state: dict, params: typing.Optional[Tree] = None):
@@ -119,5 +140,6 @@ def sgd(lr: float) -> SGD:
     return SGD(lr)
 
 
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Adam:
-    return Adam(lr, b1, b2, eps)
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
+         mu_dtype: typing.Optional[torch.dtype] = None) -> Adam:
+    return Adam(lr, b1, b2, eps, mu_dtype)

@@ -56,6 +56,10 @@ class FileSplitSource(SplitSource):
     value, each file is cut into ranges of at most that many records (the
     scan walks frame headers only), so one huge file still spreads."""
 
+    #: The write-ahead-log ingest path of the exactly-once dataflow pass:
+    #: durable frame files, split offsets in snapshots.
+    wal_fronted = True
+
     def __init__(self, paths: typing.Union[str, typing.Sequence[str]], *,
                  records_per_split: typing.Optional[int] = None, schema=None):
         if records_per_split is not None and records_per_split <= 0:

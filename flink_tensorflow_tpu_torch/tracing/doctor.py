@@ -4,8 +4,9 @@ root-cause report.
 Port of ``flink_tensorflow_tpu/tracing/doctor.py``, kept equal to it (the
 report and its JSON line are the reference's).  Run it as
 ``python -m flink_tensorflow_tpu_torch.tracing.doctor``.  The sanitizer,
-shardcheck, statecheck and roofline folds only parse report dicts;
-shardcheck and statecheck themselves are not ported yet.
+shardcheck, statecheck and roofline folds parse report dicts: those of
+``analysis/shardcheck.py --out`` and ``analysis/statecheck.py --out``
+(whose keys are the reference's), from either package.
 
     flink-tpu-doctor --snapshot cohort.snapshot.json
     flink-tpu-doctor --snapshot s.json --flight flight.json --top 3

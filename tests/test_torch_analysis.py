@@ -48,12 +48,13 @@ from flink_tensorflow_tpu_torch.analysis import __main__ as pcli
 from flink_tensorflow_tpu_torch.analysis.analyzer import _instantiate as p_instantiate
 from flink_tensorflow_tpu_torch.analysis.schema_prop import propagate as ppropagate
 
-#: Rule ids of the analyzer core (beside the registry's 21).
+#: Rule ids of the analyzer core (beside the registry's 33).
 CORE_RULES = {"cycle", "factory-error", "schema-mismatch", "schema-hook-error",
               "source-schema-unknown"}
 
-#: The reference's 21 lint rules, in its registration order, with its
-#: severities (JAX ``analysis/rules.py:129-1000``).
+#: The reference's 33 lint rules, in its registration order, with its
+#: severities (JAX ``analysis/rules.py:129-1016``: the 21 it defines, then
+#: the shardcheck and statecheck families it registers at its bottom).
 REFERENCE_RULES = [
     ("dangling-root", "ERROR"), ("keyed-partitioning", "ERROR"),
     ("forward-parallelism", "ERROR"), ("keyed-parallelism-bound", "ERROR"),
@@ -65,6 +66,12 @@ REFERENCE_RULES = [
     ("flow-control", "WARN"), ("cohort-telemetry", "WARN"), ("slo-unmonitored", "WARN"),
     ("serving-unkeyed-input", "ERROR"), ("serving-recompile-churn", "WARN"),
     ("kv-pool-undersized", "WARN"), ("recompile-churn", "WARN"),
+    ("shardcheck-collectives", "INFO"), ("shardcheck-reshard", "WARN"),
+    ("shardcheck-donation", "WARN"), ("shardcheck-partition", "ERROR"),
+    ("shardcheck-hbm-budget", "ERROR"), ("shardcheck-signatures", "WARN"),
+    ("statecheck-hidden-state", "ERROR"), ("statecheck-train-state", "WARN"),
+    ("statecheck-rescale", "WARN"), ("statecheck-rng-stream", "WARN"),
+    ("statecheck-page-keygroup", "WARN"), ("exactly-once-boundary", "WARN"),
 ]
 
 
@@ -1079,8 +1086,9 @@ def _(N):
 # ---------------------------------------------------------------------------
 
 def _key(diags, *, reference: bool):
-    """``(rule, severity, node, edge)`` per diagnostic; the reference's
-    shardcheck and statecheck families are left out."""
+    """``(rule, severity, node, edge)`` per diagnostic; of the reference's,
+    those of rules the port registers (all of them, shardcheck's and
+    statecheck's included) and of the analyzer core."""
     return [(d.rule, d.severity.name, d.node, d.edge) for d in diags
             if not reference or d.rule in RULES or d.rule in CORE_RULES]
 
@@ -1101,7 +1109,7 @@ def test_the_registry_holds_the_reference_rules_in_order():
     from flink_tensorflow_tpu.analysis.rules import RULES as JRULES
 
     assert [(r.id, r.severity.name) for r in RULES.values()] == REFERENCE_RULES
-    assert [(r.id, r.severity.name) for r in JRULES.values()][:21] == REFERENCE_RULES
+    assert [(r.id, r.severity.name) for r in JRULES.values()] == REFERENCE_RULES
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
