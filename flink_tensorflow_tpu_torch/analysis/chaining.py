@@ -114,6 +114,13 @@ class ChainPlan:
     device_resident_edges: typing.Set[typing.Tuple[int, int]] = dataclasses.field(
         default_factory=set)
 
+    def chain_of(self, t: Transformation) -> typing.List[Transformation]:
+        """The chain ``t`` runs in."""
+        for chain in self.chains:
+            if any(member.id == t.id for member in chain):
+                return chain
+        raise KeyError(t.name)
+
     @property
     def chained_edge_count(self) -> int:
         return sum(len(c) - 1 for c in self.chains)

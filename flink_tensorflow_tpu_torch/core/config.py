@@ -188,6 +188,10 @@ class JobConfig:
     #: ERROR naming the operator (``env.set_hbm_budget``).  None: no gate.
     #: An H100 SXM card holds 80 GiB.
     hbm_budget_bytes: typing.Optional[int] = None
+    #: User-level parameters, not interpreted by the framework (the
+    #: reference's ``user_params``; ``env.job_config`` is its deprecated
+    #: dict alias).
+    user_params: typing.Mapping[str, typing.Any] = dataclasses.field(default_factory=dict)
     #: Aligned snapshots: directory, trigger mode, retention.
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
     #: Cohort membership (``core.distributed.DistributedConfig``): subtasks

@@ -65,6 +65,7 @@ import logging
 import random
 import time
 import typing
+import warnings
 
 from flink_tensorflow_tpu_torch.analysis.chaining import compute_chains
 from flink_tensorflow_tpu_torch.checkpoint import store
@@ -219,6 +220,9 @@ class StreamExecutionEnvironment:
         """Assign a device per ``(task_name, subtask_index)``."""
         return self.configure(device_provider=provider)
 
+    def set_parallelism(self, parallelism: int) -> "StreamExecutionEnvironment":
+        return self.configure(parallelism=parallelism)
+
     def set_distributed(self, distributed) -> "StreamExecutionEnvironment":
         """Join a process cohort (``core.distributed.DistributedConfig``):
         subtasks spread over it and keyed and rebalance edges span
@@ -258,6 +262,49 @@ class StreamExecutionEnvironment:
     @property
     def checkpoint_dir(self) -> typing.Optional[str]:
         return self.config.checkpoint.dir
+
+    # The reference's legacy attributes, each delegating to the config.
+    @property
+    def channel_capacity(self) -> int:
+        return self.config.channel_capacity
+
+    @channel_capacity.setter
+    def channel_capacity(self, v: int) -> None:
+        self.configure(channel_capacity=v)
+
+    @property
+    def checkpoint_interval_s(self) -> typing.Optional[float]:
+        return self.config.checkpoint.interval_s
+
+    @checkpoint_interval_s.setter
+    def checkpoint_interval_s(self, v: typing.Optional[float]) -> None:
+        self.configure(checkpoint=dataclasses.replace(self.config.checkpoint, interval_s=v))
+
+    @property
+    def device_provider(self):
+        return self.config.device_provider
+
+    @device_provider.setter
+    def device_provider(self, v) -> None:
+        self.configure(device_provider=v)
+
+    @property
+    def job_config(self) -> typing.Dict[str, typing.Any]:
+        """Deprecated: the untyped user-parameter dict (a live view of
+        ``config.user_params``); use ``configure(user_params={...})``."""
+        warnings.warn("env.job_config is deprecated; use env.configure(user_params=...)",
+                      DeprecationWarning, stacklevel=2)
+        params = self.config.user_params
+        if not isinstance(params, dict):
+            params = dict(params)
+            self.configure(user_params=params)
+        return params
+
+    @job_config.setter
+    def job_config(self, v: typing.Mapping[str, typing.Any]) -> None:
+        warnings.warn("env.job_config is deprecated; use env.configure(user_params=...)",
+                      DeprecationWarning, stacklevel=2)
+        self.configure(user_params=dict(v))
 
     def describe(self) -> str:
         """The job's chain plan as the executor will run it: one line per

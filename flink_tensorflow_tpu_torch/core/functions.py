@@ -216,5 +216,10 @@ class SourceFunction(RichFunction, abc.ABC):
 
 
 class SinkFunction(RichFunction, abc.ABC):
+    #: Delivery guarantee, read by statecheck's exactly-once pass: True,
+    #: replayed duplicates collapse (a transactional sink); False, every
+    #: replayed record repeats the side effect; None (default), unknown.
+    idempotent: typing.Optional[bool] = None
+
     @abc.abstractmethod
     def invoke(self, value: typing.Any) -> None: ...

@@ -36,6 +36,9 @@ class Partitioner(abc.ABC):
     @abc.abstractmethod
     def select(self, value: typing.Any, num_channels: int) -> typing.Sequence[int]: ...
 
+    def is_broadcast(self) -> bool:
+        return False
+
 
 class ForwardPartitioner(Partitioner):
     """1:1 — requires equal upstream/downstream parallelism."""
@@ -94,3 +97,6 @@ class BroadcastPartitioner(Partitioner):
 
     def select(self, value, num_channels):
         return tuple(range(num_channels))
+
+    def is_broadcast(self) -> bool:
+        return True

@@ -1191,6 +1191,10 @@ class LocalExecutor:
                     return
                 logger.warning("periodic checkpoint failed", exc_info=True)
 
+    def run(self, timeout: typing.Optional[float] = None) -> None:
+        self.start()
+        self.join(timeout)
+
     def join(self, timeout: typing.Optional[float] = None) -> None:
         deadline = None if timeout is None else time.monotonic() + timeout
         for st in self.subtasks:

@@ -36,6 +36,15 @@ class TimeWindow:
     end: float
 
 
+class WindowAssigner:
+    """Maps a record and its timestamp to its window: the reference's
+    base class for user assigners (the window operators of both packages
+    assign their windows themselves)."""
+
+    def assign(self, value: typing.Any, timestamp: typing.Optional[float]) -> typing.Any:
+        raise NotImplementedError
+
+
 class Trigger:
     """Decides when a window fires (fire-and-purge, or fire-and-retain for
     a sliding trigger)."""

@@ -1141,7 +1141,7 @@ class CompiledMethodRunner:
 
     def _enqueue(self, item, on_done=None) -> None:
         with self._lock:
-            self._pending.append((item, on_done))
+            self._pending.append((item, on_done, time.monotonic()))
             self._work_cv.notify()
 
     def _dispatch_work(self, records, t0: float):
@@ -1262,7 +1262,7 @@ class CompiledMethodRunner:
                     self._work_cv.wait()
                 if not self._pending:
                     return  # stop requested and queue drained
-                item, on_done = self._pending[0]
+                item, on_done, _ = self._pending[0]
             try:
                 results, copied = self._process_item(item)
                 entry = (results, on_done, copied)
@@ -1433,3 +1433,18 @@ class CompiledMethodRunner:
     def flush(self) -> typing.List[TensorValue]:
         """Wait for every in-flight batch (end of input / pre-snapshot)."""
         return self.collect_ready(0)
+
+    def oldest_pending_age_s(self, now: typing.Optional[float] = None) -> typing.Optional[float]:
+        """Seconds since the oldest batch still in flight was dispatched,
+        or None when none is (a stall check's hook)."""
+        with self._lock:
+            if not self._pending:
+                return None
+            t0 = self._pending[0][2]
+        return (now if now is not None else time.monotonic()) - t0
+
+    def run_batch(self, records: typing.Sequence[typing.Any]) -> typing.List[TensorValue]:
+        """One micro-batch, synchronously: dispatch it and wait for every
+        batch in flight (this one last)."""
+        self.dispatch(records)
+        return self.flush()

@@ -98,6 +98,13 @@ _LEN = struct.Struct("<Q")
 _FC_MAGIC = b"\xffFLOWCTL"
 _FC_PROBE_GRACE_S = 2.0
 _GRANT = struct.Struct("<Q")
+#: How long a closing sink keeps reading (and discarding) what its peer
+#: still sends after the end-of-stream marker, until the peer closes its
+#: side.  A socket closed with unread bytes (credit grants that arrived
+#: after the last burst) is reset instead of shut down, and the reset
+#: makes the peer's kernel drop what the peer had not read yet: the last
+#: bursts and the marker, so the source took a clean end for a drop.
+_CLOSE_DRAIN_S = 5.0
 
 #: Origin pid of the cross-process trace stamps (the tracer's own).
 _PID = os.getpid()
@@ -604,7 +611,24 @@ class RemoteSink(fn.SinkFunction):
                 sock.shutdown(socket.SHUT_WR)
             except OSError:
                 pass
+            _drain_until_peer_closes(sock, _CLOSE_DRAIN_S)
             sock.close()
+
+
+def _drain_until_peer_closes(sock: socket.socket, timeout_s: float) -> None:
+    """Read and discard until the peer closes (or ``timeout_s`` passes),
+    so the close that follows sends a FIN and not a reset."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return
+        try:
+            readable, _, _ = select.select([sock], [], [], remaining)
+            if not readable or not sock.recv(1 << 16):
+                return
+        except (OSError, ValueError):
+            return
 
 
 class RemoteSource(fn.SourceFunction):

@@ -12,6 +12,11 @@
 - :mod:`.roofline` — the roofline plane's probes, report and presets.
 """
 
+from flink_tensorflow_tpu_torch.metrics.cohort import (
+    CohortCollector,
+    merge_states,
+    state_to_snapshot,
+)
 from flink_tensorflow_tpu_torch.metrics.registry import (
     Counter,
     Gauge,
@@ -33,6 +38,7 @@ from flink_tensorflow_tpu_torch.metrics.reporters import (
 )
 
 __all__ = [
+    "CohortCollector",
     "ConsoleReporter",
     "Counter",
     "Gauge",
@@ -48,4 +54,6 @@ __all__ = [
     "PrometheusHttpReporter",
     "ReporterThread",
     "Timer",
+    "merge_states",
+    "state_to_snapshot",
 ]

@@ -41,6 +41,7 @@ a dict lookup plus a handful of integer adds (priced next to
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import json
 import time
 import typing
@@ -588,6 +589,12 @@ def roofline_report(
 # ---------------------------------------------------------------------------
 # CLI — flink-tpu-roofline
 # ---------------------------------------------------------------------------
+
+
+def matches_scope(pattern: str, scope: str) -> bool:
+    """``fnmatch`` of a scope against a pattern, as the health rules'
+    scope filters match."""
+    return fnmatch.fnmatch(scope, pattern)
 
 
 def _load_snapshot(path: str) -> typing.Mapping:

@@ -57,6 +57,15 @@ class Model:
                 f"model {self.name!r} has no method {name!r}; available: {sorted(self._methods)}"
             ) from None
 
+    @property
+    def methods(self) -> typing.Mapping[str, ModelMethod]:
+        return self._methods
+
+    def with_params(self, params: Params) -> "Model":
+        """A new model over ``params`` (an ``nn.Module``) with this one's
+        name, methods and metadata; this model is left as it was."""
+        return Model(self.name, params, self._methods, self.metadata)
+
 
 def meta_module(module):
     """A copy of ``module`` whose parameters and buffers are meta tensors

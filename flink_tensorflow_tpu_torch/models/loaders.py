@@ -109,9 +109,12 @@ class SavedModelLoader:
             raise ValueError(f"{self.path} is not a {BUNDLE_FORMAT} bundle (format {fmt!r})")
         return manifest
 
-    def load(self) -> Model:
+    def model_def(self) -> ModelDef:
         manifest = self.manifest()
-        model_def = get_model_def(manifest["architecture"], **manifest["config"])
+        return get_model_def(manifest["architecture"], **manifest["config"])
+
+    def load(self) -> Model:
+        model_def = self.model_def()
         module = (model_def.make_module() if model_def.make_module is not None
                   else model_def.module(**model_def.config))
         state = torch.load(os.path.join(self.path, BUNDLE_PARAMS), weights_only=True,

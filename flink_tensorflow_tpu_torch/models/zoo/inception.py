@@ -25,6 +25,18 @@ What is held equal to the flax definition:
   ``compute_dtype`` (``jnp.mean`` of a bf16 tensor); the Dense head runs
   in f32.
 
+Train mode (the reference's ``apply(train=True, mutable=["batch_stats"],
+rngs={"dropout": rng})``): ``forward(x, stats, generator)`` with a dict
+``stats`` normalizes by the batch's moments, taken in f32 as flax takes
+them (``E[x]`` and ``max(E[x^2] - E[x]^2, 0)``, biased; over a cohort the
+global batch's, ``parallel.collectives.batch_moments``), and writes each
+batch norm's new running statistics, ``0.9997 ra + 0.0003 batch``, into
+``stats`` under the buffer's ``state_dict`` name (the module's own
+buffers are not touched).  Dropout on the pooled features keeps each
+with probability ``1 - dropout_rate``, drawn from ``generator`` (the
+caller's ``torch.Generator`` on the features' device), and scales the
+kept ones by ``1 / (1 - dropout_rate)``, as flax's ``nn.Dropout``.
+
 Weights: the port's own initialiser (:func:`init_inception`, from an
 explicit ``torch.Generator``, the same distributions as flax's init) or
 flax ``variables`` carried across by ``models/convert.py``.
@@ -41,12 +53,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from flink_tensorflow_tpu_torch.models.base import ModelMethod
-from flink_tensorflow_tpu_torch.models.zoo._common import lecun_normal_
+from flink_tensorflow_tpu_torch.models.zoo._common import lecun_normal_, weighted_metrics
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef, register_model_def
-from flink_tensorflow_tpu_torch.ops.preprocessing import inception_normalize
+from flink_tensorflow_tpu_torch.ops.preprocessing import _rounded, inception_normalize
+from flink_tensorflow_tpu_torch.parallel import collectives
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
 
 BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.9997
+
+Stats = typing.Optional[typing.Dict[str, torch.Tensor]]
 
 
 class ConvBN(nn.Module):
@@ -62,14 +78,29 @@ class ConvBN(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.stride = tuple(strides)
         self.padding = (kernel[0] // 2, kernel[1] // 2) if padding == "SAME" else (0, 0)
+        #: ``state_dict`` prefix, set by the owning :class:`InceptionV3`.
+        self.path = ""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Stats = None) -> torch.Tensor:
         w = self.weight.to(x.dtype, memory_format=torch.channels_last)
         y = F.conv2d(x, w, None, self.stride, self.padding)
-        # Mixed-type batch norm: bf16 in, f32 statistics and arithmetic,
-        # one rounding to bf16 on the way out.
-        y = F.batch_norm(y, self.mean, self.var, self.scale, self.bias, False, 0.0, BN_EPSILON)
-        return F.relu(y, inplace=True)
+        if stats is None:
+            # Mixed-type batch norm: bf16 in, f32 statistics and
+            # arithmetic, one rounding to bf16 on the way out.
+            y = F.batch_norm(y, self.mean, self.var, self.scale, self.bias, False, 0.0,
+                             BN_EPSILON)
+            return F.relu(y, inplace=True)
+        yf = y.float()
+        mean, mean_sq = collectives.batch_moments(yf.mean(dim=(0, 2, 3)),
+                                                  (yf * yf).mean(dim=(0, 2, 3)))
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        with torch.no_grad():
+            stats[self.path + "mean"] = BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean
+            stats[self.path + "var"] = BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
+        return F.relu(((y - mean.view(shape)) * mul.view(shape)
+                       + self.bias.view(shape)).to(y.dtype))
 
 
 def _avg_pool_same(x: torch.Tensor) -> torch.Tensor:
@@ -94,12 +125,12 @@ class InceptionA(nn.Module):
         ])
         self.out_channels = 64 + 64 + 96 + pool_features
 
-    def forward(self, x):
+    def forward(self, x, stats: Stats = None):
         c = self.convs
-        b1 = c[0](x)
-        b5 = c[2](c[1](x))
-        b3 = c[5](c[4](c[3](x)))
-        bp = c[6](_avg_pool_same(x))
+        b1 = c[0](x, stats)
+        b5 = c[2](c[1](x, stats), stats)
+        b3 = c[5](c[4](c[3](x, stats), stats), stats)
+        bp = c[6](_avg_pool_same(x), stats)
         return torch.cat([b1, b5, b3, bp], 1)
 
 
@@ -114,10 +145,10 @@ class ReductionA(nn.Module):
         ])
         self.out_channels = 384 + 96 + cin
 
-    def forward(self, x):
+    def forward(self, x, stats: Stats = None):
         c = self.convs
-        b3 = c[0](x)
-        bd = c[3](c[2](c[1](x)))
+        b3 = c[0](x, stats)
+        bd = c[3](c[2](c[1](x, stats), stats), stats)
         return torch.cat([b3, bd, _max_pool_valid(x)], 1)
 
 
@@ -141,12 +172,12 @@ class InceptionB(nn.Module):
         ])
         self.out_channels = 4 * 192
 
-    def forward(self, x):
+    def forward(self, x, stats: Stats = None):
         c = self.convs
-        b1 = c[0](x)
-        b7 = c[3](c[2](c[1](x)))
-        bd = c[8](c[7](c[6](c[5](c[4](x)))))
-        bp = c[9](_avg_pool_same(x))
+        b1 = c[0](x, stats)
+        b7 = c[3](c[2](c[1](x, stats), stats), stats)
+        bd = c[8](c[7](c[6](c[5](c[4](x, stats), stats), stats), stats), stats)
+        bp = c[9](_avg_pool_same(x), stats)
         return torch.cat([b1, b7, bd, bp], 1)
 
 
@@ -163,10 +194,10 @@ class ReductionB(nn.Module):
         ])
         self.out_channels = 320 + 192 + cin
 
-    def forward(self, x):
+    def forward(self, x, stats: Stats = None):
         c = self.convs
-        b3 = c[1](c[0](x))
-        b7 = c[5](c[4](c[3](c[2](x))))
+        b3 = c[1](c[0](x, stats), stats)
+        b7 = c[5](c[4](c[3](c[2](x, stats), stats), stats), stats)
         return torch.cat([b3, b7, _max_pool_valid(x)], 1)
 
 
@@ -188,22 +219,26 @@ class InceptionC(nn.Module):
         ])
         self.out_channels = 320 + 4 * 384 + 192
 
-    def forward(self, x):
+    def forward(self, x, stats: Stats = None):
         c = self.convs
-        b1 = c[0](x)
-        b3 = c[1](x)
-        bd = c[5](c[4](x))
-        bp = c[8](_avg_pool_same(x))
-        return torch.cat([b1, c[2](b3), c[3](b3), c[6](bd), c[7](bd), bp], 1)
+        b1 = c[0](x, stats)
+        b3 = c[1](x, stats)
+        bd = c[5](c[4](x, stats), stats)
+        bp = c[8](_avg_pool_same(x), stats)
+        return torch.cat([b1, c[2](b3, stats), c[3](b3, stats), c[6](bd, stats),
+                          c[7](bd, stats), bp], 1)
 
 
 class InceptionV3(nn.Module):
     """The whole net.  ``forward`` takes ``[B, 3, H, W]`` (any dtype; a
-    ``channels_last`` view of HWC records) and returns f32 logits."""
+    ``channels_last`` view of HWC records) and returns f32 logits;
+    ``stats`` (a dict) selects train mode, ``generator`` feeds dropout."""
 
-    def __init__(self, num_classes: int = 1000, compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, num_classes: int = 1000, compute_dtype: torch.dtype = torch.bfloat16,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         self.stem = nn.ModuleList([
             ConvBN(3, 32, (3, 3), strides=(2, 2)),
             ConvBN(32, 32, (3, 3)),
@@ -223,16 +258,25 @@ class InceptionV3(nn.Module):
             cin = block.out_channels
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes)   # f32, (out, in)
+        for name, m in self.named_modules():
+            if isinstance(m, ConvBN):
+                m.path = name + "."
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Stats = None,
+                generator: typing.Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         s = self.stem
-        x = s[1](s[0](x))
-        x = _max_pool_valid(s[2](x))
-        x = _max_pool_valid(s[4](s[3](x)))
+        x = s[1](s[0](x, stats), stats)
+        x = _max_pool_valid(s[2](x, stats))
+        x = _max_pool_valid(s[4](s[3](x, stats), stats))
         for block in self.blocks:
-            x = block(x)
+            x = block(x, stats)
         feats = x.mean(dim=(2, 3), dtype=torch.float32).to(self.compute_dtype)
+        if stats is not None and self.dropout_rate > 0:
+            keep = 1.0 - self.dropout_rate
+            mask = torch.rand(feats.shape, generator=generator, device=feats.device) < keep
+            feats = torch.where(mask, feats / _rounded(keep, feats.dtype),
+                                torch.zeros((), dtype=feats.dtype, device=feats.device))
         return self.head(feats.float())
 
 
@@ -290,6 +334,18 @@ def build(num_classes: int = 1000, image_size: int = 299, uint8_input: bool = Fa
 
         return inception_from_flax(params, InceptionV3(num_classes, dtype))
 
+    def loss_fn(module: InceptionV3, batch, generator):
+        stats: typing.Dict[str, torch.Tensor] = {}
+        x = batch["image"].permute(0, 3, 1, 2)
+        if uint8_input:
+            x = inception_normalize(x, module.compute_dtype)
+        logits = module(x, stats, generator)
+        labels = batch["label"]
+        per_ex = F.cross_entropy(logits, labels.long(), reduction="none")
+        hits = (torch.argmax(logits, -1) == labels).float()
+        loss, acc = weighted_metrics(per_ex, hits, batch.get("valid"))
+        return loss, ({"batch_stats": stats}, {"loss": loss, "accuracy": acc})
+
     return ModelDef(
         architecture="inception_v3",
         config={"num_classes": num_classes, "image_size": image_size,
@@ -300,5 +356,6 @@ def build(num_classes: int = 1000, image_size: int = 299, uint8_input: bool = Fa
                                       output_names=("logits", "label", "score"), fn=serve)},
         init_fn=init_fn,
         load_fn=load_fn,
+        loss_fn=loss_fn,
         make_module=make_module,
     )

@@ -81,6 +81,16 @@ def _load_lib(hold_gil: bool) -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the C++ ring builds and loads here (it is built now if it
+    was not).  ``TensorRing`` itself has no fallback: it raises."""
+    try:
+        _load_lib(False)
+    except Exception:  # noqa: BLE001 - any build or load failure
+        return False
+    return True
+
+
 def _soa_layout(schema: RecordSchema, length_bucket: int, capacity: int):
     """Per field ``(region offset, shape, dtype, row bytes)``, each region
     ``capacity`` tightly packed rows starting 64-byte aligned; returns

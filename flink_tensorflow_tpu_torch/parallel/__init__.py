@@ -15,7 +15,12 @@ from flink_tensorflow_tpu_torch.parallel.dp import (
 from flink_tensorflow_tpu_torch.parallel.mesh import (
     AXIS_ORDER,
     DATA_AXIS,
+    EXPERT_AXIS,
+    FSDP_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
     SEQ_AXIS,
+    TP_AXIS,
     Mesh,
     abstract_mesh,
     batch_sharding,
@@ -51,7 +56,12 @@ from flink_tensorflow_tpu_torch.parallel.ulysses import (
 __all__ = [
     "AXIS_ORDER",
     "DATA_AXIS",
+    "EXPERT_AXIS",
+    "FSDP_AXIS",
+    "MODEL_AXIS",
+    "PIPE_AXIS",
     "SEQ_AXIS",
+    "TP_AXIS",
     "CohortFailed",
     "CohortOutcome",
     "CohortSupervisor",

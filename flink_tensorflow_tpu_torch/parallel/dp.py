@@ -24,9 +24,9 @@ are then averaged over the axis (one all-reduce), and every rank takes
 the same optimizer step, so the state stays replicated.  At one rank every
 collective is a copy and every weight 1, so the step keeps its bits.
 
-``rng``: neither zoo model draws random numbers, so the state keeps an
-integer seed and each step derives a ``torch.Generator`` from ``(seed,
-step)`` — the snapshot stays plain data.  The reference's jitted step
+``rng``: the state keeps an integer seed and each step derives a
+``torch.Generator`` on the state's device from ``(seed, step)`` (what
+Inception's dropout draws from) — the snapshot stays plain data.  The reference's jitted step
 donates its state (``donate_argnums=(0,)``); the port's form of that is
 an in-place update of the state's tensors (``inplace=True``, what
 :func:`make_dp_train_step` builds), so a snapshot of such a state must

@@ -36,7 +36,12 @@ from flink_tensorflow_tpu_torch.utils.device import resolve_device
 #: The reference's canonical axis order (``mesh.py:AXIS_ORDER``).
 AXIS_ORDER = ("pipe", "data", "fsdp", "expert", "seq", "model", "tp")
 DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
+TP_AXIS = "tp"
 
 
 @dataclasses.dataclass(frozen=True)

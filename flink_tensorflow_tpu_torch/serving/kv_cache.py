@@ -50,6 +50,9 @@ class KVBlock:
     def __reduce__(self):
         return (KVBlock, (self.k, self.v, self.length))
 
+    def nbytes(self) -> int:
+        return self.k.nbytes + self.v.nbytes
+
     def __repr__(self) -> str:
         return f"KVBlock(shape={tuple(self.k.shape)}, length={self.length})"
 
@@ -102,6 +105,10 @@ class SessionState:
                                      "SpilledKVBlock"]] = None
     meta: typing.Dict[str, typing.Any] = dataclasses.field(default_factory=dict)
 
+    def cache_length(self) -> int:
+        """Valid cache positions a resume starts from (0 = fresh prefill)."""
+        return self.kv.length if self.kv is not None else 0
+
 
 class KVCacheState:
     """Keyed-state facade: one :class:`SessionState` per session id,
@@ -126,6 +133,9 @@ class KVCacheState:
 
     def put(self, key, state: SessionState) -> None:
         self._scoped(key, lambda: self._store.put(self.DESCRIPTOR, state))
+
+    def remove(self, key) -> None:
+        self._scoped(key, lambda: self._store.remove(self.DESCRIPTOR))
 
     def keys(self) -> typing.List[typing.Any]:
         return list(self._store.keys(self.DESCRIPTOR.name))

@@ -1,9 +1,11 @@
 """Tensor coercion — host values in, schema-conforming TensorValues out.
 
-Port of ``flink_tensorflow_tpu/tensors/coercion.py:coerce`` (``:57``) and
-the array-like conversion under it: a record, a mapping, a tuple in
-schema order or a single array becomes a host ``TensorValue`` whose
-fields match the schema's dtypes and shapes.
+Port of ``flink_tensorflow_tpu/tensors/coercion.py``: a record, a
+mapping, a tuple in schema order or a single array becomes a host
+``TensorValue`` whose fields match the schema's dtypes and shapes.
+``register_converter`` adds rules that ``coerce_field`` consults before
+the array-like conversion (the latest registration first), and
+``image_to_float`` scales a uint8 image on the host.
 """
 
 from __future__ import annotations
@@ -15,8 +17,23 @@ import numpy as np
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, TensorSpec
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
 
+Converter = typing.Callable[[typing.Any, TensorSpec], np.ndarray]
+
+_CONVERTERS: typing.List[typing.Tuple[typing.Callable[[typing.Any], bool], Converter]] = []
+
+
+def register_converter(predicate: typing.Callable[[typing.Any], bool],
+                       converter: Converter) -> None:
+    """Register a coercion rule; later registrations win (user overrides)."""
+    _CONVERTERS.insert(0, (predicate, converter))
+
 
 def coerce_field(value: typing.Any, spec: TensorSpec) -> np.ndarray:
+    for predicate, converter in _CONVERTERS:
+        if predicate(value):
+            out = converter(value, spec)
+            spec.validate(out)
+            return out
     arr = np.asarray(value)
     if arr.dtype != spec.dtype:
         arr = arr.astype(spec.dtype)
@@ -55,3 +72,14 @@ def coerce(value: typing.Any, schema: RecordSchema) -> TensorValue:
         name = schema.names[0]
         return TensorValue({name: coerce_field(value, schema[name])})
     raise TypeError(f"cannot coerce {type(value).__name__} to {schema}")
+
+
+def image_to_float(image: np.ndarray, *, scale: float = 1.0 / 255.0, offset: float = 0.0,
+                   dtype=np.float32) -> np.ndarray:
+    """uint8 HWC image -> scaled float array on the host (JAX
+    ``coercion.py:94``).  The device-side version is
+    ``ops/preprocessing.py:normalize_image``, inside the model call."""
+    img = np.asarray(image)
+    if img.dtype == np.uint8:
+        img = img.astype(dtype)
+    return (img * scale + offset).astype(dtype)

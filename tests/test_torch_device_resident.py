@@ -104,15 +104,10 @@ def _runner(model, emit_device=False, device="cpu"):
     return r
 
 
-def _run_batch(runner, records):
-    runner.dispatch(records)
-    return runner.flush()
-
-
 def test_materialize_once_and_iteration():
     r = _runner(_res_model(), emit_device=True)
     try:
-        out = _run_batch(r, _records(3))
+        out = r.run_batch(_records(3))
         assert len(out) == 1 and isinstance(out[0], DeviceBatch)
         db = out[0]
         assert db.num_records == 3 and db.padded_size == 4 and not db.materialized
@@ -130,8 +125,8 @@ def test_results_match_host_path():
     host, dev = _runner(model), _runner(model, emit_device=True)
     try:
         recs = _records(4)
-        want = _run_batch(host, recs)
-        got = _run_batch(dev, recs)[0].materialize()
+        want = host.run_batch(recs)
+        got = dev.run_batch(recs)[0].materialize()
         for a, b in zip(want, got):
             np.testing.assert_array_equal(a["x"], b["x"])
     finally:
@@ -142,7 +137,7 @@ def test_results_match_host_path():
 def test_pickle_is_refused():
     r = _runner(_res_model(), emit_device=True)
     try:
-        db = _run_batch(r, _records(2))[0]
+        db = r.run_batch(_records(2))[0]
         with pytest.raises(TypeError, match="device-resident"):
             pickle.dumps(db)
     finally:
@@ -153,14 +148,14 @@ def test_dispatch_device_consumes_upstream_tensors():
     model = _res_model()
     up, down, mid = _runner(model, emit_device=True), _runner(model), _runner(model)
     try:
-        db = _run_batch(up, _records(4))[0]
+        db = up.run_batch(_records(4))[0]
         assert down.dispatch_device(db) is True
         out = down.flush()
         assert [tv.meta["id"] for tv in out] == [0, 1, 2, 3]
         assert not db.materialized
         assert down._metrics.counter("h2d_elided_batches").count == 1
         assert down._metrics.counter("h2d_bytes").count == 0
-        ref = _run_batch(down, _run_batch(mid, _records(4)))   # two host hops
+        ref = down.run_batch(mid.run_batch(_records(4)))   # two host hops
         for a, b in zip(ref, out):
             np.testing.assert_array_equal(a["x"], b["x"])
     finally:
@@ -172,7 +167,7 @@ def test_dispatch_device_schema_mismatch_takes_the_counted_host_path():
     up = _runner(_res_model(), emit_device=True)
     down = _runner(_res_model(dim=DIM * 2))
     try:
-        db = _run_batch(up, _records(2))[0]
+        db = up.run_batch(_records(2))[0]
         assert down.dispatch_device(db) is False          # shape mismatch
         assert down._metrics.counter("device_batch_host_fallbacks").count == 1
     finally:

@@ -11,7 +11,9 @@ source and a port sink feeds a JAX source.  Each job runs with its own
 timeout; no assert depends on timing."""
 
 import importlib
+import socket
 import threading
+import time
 import types
 
 import numpy as np
@@ -235,3 +237,55 @@ def test_close_waits_for_a_reconnect_in_flight(name):
     reader.join(10)
     assert not reader.is_alive() and [int(r.meta["i"]) for r in got] == [1]
     source.close()
+
+
+@pytest.mark.parametrize("name", sorted(PKGS))
+def test_close_reads_late_grants_until_the_peer_closes(name):
+    """A credit grant that reaches the sink after its last burst sits
+    unread in its socket.  A close with unread bytes makes the kernel reset
+    the connection instead of closing it, and a reset drops whatever the
+    peer had not read yet: under load, the last bursts and the end-of-stream
+    marker, so the source took a finished sink for a dropped one and waited
+    out its reconnect grace (the flake of the severed and columnar pipes
+    above).  The reference's close resets: the peer's next grant hits a
+    broken pipe.  The port's reads and discards until the peer has read the
+    marker and closed its side, so it ends with a FIN."""
+    p = PKGS[name]
+    server = socket.socket()
+    server.bind(("127.0.0.1", 0))
+    server.listen(1)
+    sink = p.remote.RemoteSink("127.0.0.1", server.getsockname()[1], flush_bytes=0,
+                               flow_control=False)
+    sink.open(types.SimpleNamespace(task_name="rsink", subtask_index=0, metrics=None))
+    conn, _ = server.accept()
+    try:
+        sink.invoke(p.tv.TensorValue({"v": np.int64(1)}, {"i": 1}))
+        conn.sendall(p.remote._GRANT.pack(1))   # unread by the sink
+        time.sleep(0.1)
+        closer = threading.Thread(target=sink.close)
+        closer.start()
+        time.sleep(0.3)
+        closing = closer.is_alive()
+        late = None
+        try:
+            for _ in range(2):   # the first send after a reset may still pass
+                conn.sendall(p.remote._GRANT.pack(1))
+                time.sleep(0.05)
+        except OSError as exc:
+            late = exc
+        data = b""
+        while True:
+            chunk = conn.recv(1 << 16)
+            if not chunk:
+                break
+            data += chunk
+    finally:
+        conn.close()
+        server.close()
+    closer.join(10)
+    assert not closer.is_alive()
+    assert data.endswith(p.remote._LEN.pack(0))   # the marker arrived here
+    if name == "jax":
+        assert not closing and isinstance(late, (BrokenPipeError, ConnectionResetError))
+    else:
+        assert closing and late is None
