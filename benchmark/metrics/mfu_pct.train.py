@@ -1,0 +1,8 @@
+"""Training: forward and backward FLOPs per record at the traced slice's
+records/s over the bf16 dense peak, %."""
+
+from benchmark import readers
+
+
+def read(job):
+    return readers.mfu_pct(job, "train")
