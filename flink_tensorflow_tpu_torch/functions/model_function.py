@@ -432,7 +432,9 @@ def _close_ring_after(thread: threading.Thread, ring: TensorRing) -> None:
 class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
     """Micro-batch inference: one device call per fired window (chunked
     when the window exceeds the policy's biggest bucket); through the
-    ring where eligible (``use_ring``, see the module docstring)."""
+    ring where eligible (``use_ring``, see the module docstring).  Traced,
+    each batch's hand-off of its results downstream is a ``batch.emit``
+    span on the subtask's track and an ``emit_s`` value."""
 
     #: A window counts elements: a device batch would count as one, so
     #: device batches materialize before they enter a window.  The
@@ -461,6 +463,10 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
         self._ring: typing.Optional[TensorRing] = None
         self._last_ingested: typing.Optional[TensorValue] = None
         self._metrics = None
+        #: Traced: the subtask's track and the ``emit_s`` histogram.
+        self._tracer = None
+        self._track: typing.Optional[str] = None
+        self._emit_hist = None
 
     def clone(self) -> "fn.Function":
         dup = super().clone()
@@ -473,6 +479,11 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
     def open(self, ctx) -> None:
         super().open(ctx)
         self._metrics = getattr(ctx, "metrics", None)
+        self._tracer = getattr(ctx, "tracer", None)
+        if self._tracer is not None:
+            self._track = f"{ctx.task_name}.{ctx.subtask_index}"
+            if self._metrics is not None:
+                self._emit_hist = self._metrics.histogram("emit_s")
         if self._use_ring is False:
             return
         method = self.runner.method
@@ -575,13 +586,30 @@ class ModelWindowFunction(_ModelFunctionBase, fn.WindowFunction):
 
     # -- firing ------------------------------------------------------------
     def _emit(self, records) -> None:
+        # Traced: a batch's hand-off runs from its first result leaving
+        # ``collect_*`` to its last handed downstream.
+        traced = self._tracer is not None
+        t_first, n = None, 0
         for record in records:
+            if traced and t_first is None:
+                t_first = time.monotonic()
             route = self._routes[0]
             route[0].collect(record)
             # A device batch answers all its records at once.
-            route[1] -= record.num_records if getattr(record, "is_device_batch", False) else 1
+            k = record.num_records if getattr(record, "is_device_batch", False) else 1
+            n += k
+            route[1] -= k
             if route[1] <= 0:
                 self._routes.popleft()
+                if traced:
+                    self._trace_emit(t_first, n)
+                t_first, n = None, 0
+
+    def _trace_emit(self, t_first: float, n: int) -> None:
+        t = time.monotonic()
+        self._tracer.span(self._track, "batch.emit", t_first, t, args={"records": n})
+        if self._emit_hist is not None:
+            self._emit_hist.record(t - t_first)
 
     def process_window(self, key, window, elements, out: fn.Collector):
         elements = list(elements)

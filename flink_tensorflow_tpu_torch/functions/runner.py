@@ -52,6 +52,20 @@ subtask's track: a ``CompiledMethodRunner`` batch is ``lane_wait``,
 already take (JAX ``:1541-1553``, ``:1625-1640``): ``compute`` runs from
 the launch returning to the fetch thread reaching the batch, ``d2h`` is
 the fetch's own wait, and nothing waits on the device for the tracer.
+The ``h2d`` span's args split it at the H2D's end (``h2d_s``, the ring's
+wait and the H2D enqueue; ``launch_s``, the kernel launches and the D2H
+enqueue) and give the lane's CPU seconds over it (``cpu_s``, from
+``time.thread_time``; its wall time less this is time the lane was
+runnable but waiting, for the interpreter lock or the ring), also the
+``dispatch_cpu_s`` histogram.  On the card the runner also times each
+batch on the device with its own CUDA events (``tracing/device_clock.py``):
+one on the compute stream just before the H2D and the batch's event after
+its D2H, read by the fetch thread once it has waited for the batch, so
+no wait is added.  Each batch is a ``device`` span on
+``<track>.device``; where the stream sat idle before it, a
+``device.idle`` span names the batch's stage when the stream went idle
+(``window``: not yet dispatched, ``lane_wait``, ``h2d`` or ``launch``),
+and ``device_gap_s`` takes the idle seconds, one value per batch.
 The decode runners record ``decode.prefill`` (with its ``[batch, prompt]``
 bucket), ``decode.step``, ``cache.h2d`` / ``cache.d2h`` spans and
 ``cache.resident`` / ``cache.cow`` instants (JAX ``:347-481``,
@@ -96,6 +110,7 @@ from flink_tensorflow_tpu_torch.tensors.transfer import (
     torch_dtype,
 )
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+from flink_tensorflow_tpu_torch.tracing.device_clock import DeviceClock, StreamTimeline, place, tile
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
 if typing.TYPE_CHECKING:
@@ -929,8 +944,14 @@ class CompiledMethodRunner:
         #: stamps the lanes and the fetch thread already take.
         self._tracer = None
         self._trace_track: typing.Optional[str] = None
+        #: Traced on the card: the device clock and the compute stream's
+        #: timeline the fetch thread places each batch's events on.
+        self._clock: typing.Optional[DeviceClock] = None
+        self._timeline: typing.Optional[StreamTimeline] = None
         #: Roofline probe (None without ``JobConfig.roofline``): each batch's
-        #: compute span joins the plan's cost entries.
+        #: device time (traced on the card, from its events, counting only
+        #: the time past the stream's latest end; else its host-stamped
+        #: compute span) joins the plan's cost entries.
         self._roofline = None
         #: In-flight batches, ``(lane future, on_done)`` in dispatch order;
         #: appended by the dispatching thread, consumed FIFO by the fetch
@@ -1021,6 +1042,10 @@ class CompiledMethodRunner:
             self._tracer = getattr(ctx, "tracer", None)
             if self._tracer is not None:
                 self._trace_track = f"{ctx.task_name}.{ctx.subtask_index}"
+                if self.device.type == "cuda":
+                    self._clock = DeviceClock.on(self.device)
+                    self._timeline = StreamTimeline()
+                    self._transfer.timed = True
             plane = getattr(ctx, "roofline", None)
             if plane is not None:
                 self._roofline = plane.probe(ctx.task_name, metrics=ctx.metrics)
@@ -1152,31 +1177,37 @@ class CompiledMethodRunner:
         stream = (torch.cuda.stream(self._stream) if self._stream is not None
                   else contextlib.nullcontext())
         t_b = time.monotonic()
+        cpu = time.thread_time() if self._tracer is not None else None
         with stream, torch.inference_mode():
             shipped = self._transfer.assemble_and_ship(
                 records, self.method.input_schema, self.policy)
             t_h2d = time.monotonic()
             handle = self._finish_launch(self._call(shipped.inputs, shipped.lengths))
-        # As the reference's stamps: the lane's wait includes the assembly.
+        # As the reference's stamps: the lane's wait includes the assembly
+        # (host copies: its seconds are CPU seconds, taken off ``cpu_s``).
         return self._launched(shipped, handle, t0, t_b + shipped.assemble_s, t_h2d,
-                              shipped.assemble_s)
+                              shipped.assemble_s,
+                              None if cpu is None else cpu + shipped.assemble_s)
 
     def _launch_batch(self, batch: Batch, t0: float, assemble_s: float, ready):
         """The lane work of :meth:`dispatch_batch`: H2D and launch."""
         stream = (torch.cuda.stream(self._stream) if self._stream is not None
                   else contextlib.nullcontext())
         t_b = time.monotonic()
+        cpu = time.thread_time() if self._tracer is not None else None
         if ready is not None:
             ready()
         with stream, torch.inference_mode():
             shipped = self._transfer.ship_batch(batch)
             t_h2d = time.monotonic()
             handle = self._finish_launch(self._call(shipped.inputs, shipped.lengths))
-        return self._launched(shipped, handle, t0, t_b, t_h2d, assemble_s)
+        return self._launched(shipped, handle, t0, t_b, t_h2d, assemble_s, cpu)
 
     @staticmethod
     def _launched(shipped, handle: FetchHandle, t0: float, t_lane_start: float,
-                  t_h2d: float, assemble_s: float):
+                  t_h2d: float, assemble_s: float, cpu: typing.Optional[float]):
+        """The batch's timings; ``cpu`` is the lane's ``time.thread_time()``
+        at ``t_lane_start`` (traced only)."""
         t_c = time.monotonic()
         timings = {
             "t0": t0,
@@ -1189,8 +1220,12 @@ class CompiledMethodRunner:
             "wire_saved": shipped.wire_saved,
             "pinned_allocations": shipped.pinned_allocations,
             "t_lane_start": t_lane_start,
+            "t_h2d": t_h2d,
             "t_dispatched": t_c,
+            "started": shipped.started,
         }
+        if cpu is not None:
+            timings["cpu_s"] = max(0.0, time.thread_time() - cpu)
         return shipped.batch, handle, timings, shipped.copied
 
     def _finish_launch(self, outputs) -> FetchHandle:
@@ -1304,6 +1339,10 @@ class CompiledMethodRunner:
         # own event wait ends it.
         t_compute_end = t_fetch if d2h_bytes is not None else t_done
         tracer = self._tracer
+        # Traced on the card: the batch's device time past the end the
+        # stream had reached (lanes' batches overlap on one stream), and
+        # the stream's idle time before it.
+        device_s = gap = None
         if tracer is not None:
             # The stage spans tile t0..t_done, cut at the stamps the lanes
             # and this thread already take (no extra wait on the device).
@@ -1315,17 +1354,37 @@ class CompiledMethodRunner:
                 tracer.instant(track, "h2d.elided", ts=timings["t_lane_start"],
                                args={"batch": n})
             else:
+                args = {"bytes": timings["h2d_bytes"], "batch": n,
+                        "assemble_s": round(timings["assemble_s"], 6),
+                        "h2d_s": round(timings["t_h2d"] - timings["t_lane_start"], 6),
+                        "launch_s": round(timings["t_dispatched"] - timings["t_h2d"], 6)}
+                if "cpu_s" in timings:
+                    args["cpu_s"] = round(timings["cpu_s"], 6)
                 tracer.span(track, "h2d", timings["t_lane_start"], timings["t_dispatched"],
-                            args={"bytes": timings["h2d_bytes"], "batch": n,
-                                  "assemble_s": round(timings["assemble_s"], 6)})
+                            args=args)
             tracer.span(track, "compute", timings["t_dispatched"], t_compute_end,
                         args={"batch": n})
             if d2h_bytes is None:
                 tracer.instant(track, "d2h.elided", ts=t_done, args={"batch": n})
             else:
                 tracer.span(track, "d2h", t_fetch, t_done, args={"batch": n})
+            started = timings.get("started")
+            if started is not None and self._clock is not None:
+                device_s, gap = place(
+                    self._clock, self._timeline, started, handle.done,
+                    tile(("lane_wait", "h2d", "launch"),
+                         (timings["t0"], timings["t_lane_start"], timings["t_h2d"],
+                          timings["t_dispatched"])),
+                    tracer, track, {"batch": n})
+            if self._metrics is not None:
+                if "cpu_s" in timings:
+                    self._metrics.histogram("dispatch_cpu_s").record(timings["cpu_s"])
+                if gap is not None:
+                    self._metrics.histogram("device_gap_s").record(gap)
         if self._roofline is not None:
-            self._roofline.observe(self.method.name, t_compute_end - timings["t_dispatched"],
+            self._roofline.observe(self.method.name,
+                                   (t_compute_end - timings["t_dispatched"]) if device_s is None
+                                   else device_s,
                                    signature=f"b{batch.padded_size}",
                                    h2d_bytes=timings["h2d_bytes"])
         if self.stamp_stages and d2h_bytes is not None:

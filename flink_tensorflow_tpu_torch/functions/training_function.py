@@ -59,6 +59,7 @@ from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy, assemble
 from flink_tensorflow_tpu_torch.tensors.coercion import coerce
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, check_compatible
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+from flink_tensorflow_tpu_torch.tracing.device_clock import DeviceClock, StreamTimeline, place, tile
 from flink_tensorflow_tpu_torch.utils.device import resolve_device
 
 
@@ -408,7 +409,27 @@ class DPTrainWindowFunction(fn.WindowFunction):
     window (size the count window so).  Every process must fire the same
     number of windows, so feed equal partitions, and checkpoints must land
     at the same step on every process: use count-based triggers
-    (``every_n_records``), which cut each partition at the same record."""
+    (``every_n_records``), which cut each partition at the same record.
+
+    **Traced** (``ctx.tracer``), each step records on the subtask's track
+    ``train.assemble`` (the records stacked into arrays), ``train.ship``
+    (``shard_batch``), ``train.launch`` (the step's forward, backward and
+    optimizer launches), which tile ``step_dispatch_s``, and when its
+    metrics are drained ``train.drain`` (the wait for them on the host)
+    and ``train.emit`` (``out.collect``), with the histograms
+    ``step_assemble_s``, ``step_ship_s``, ``step_launch_s`` and
+    ``loss_wait_s``.  On the card a timing event goes onto the step's
+    stream just before its H2D and one after its launches; once the drain
+    has waited for the step (which it does anyway), the step is a
+    ``device`` span on ``<track>.device``, and where the stream sat idle
+    before it, a ``device.idle`` span names this thread's span when the
+    stream went idle (``window``: between ``process_window`` calls) and
+    ``step_gap_s`` takes the idle seconds (``tracing/device_clock.py``)."""
+
+    #: The traced step's host spans that tile ``step_dispatch_s``, and
+    #: their histograms.
+    STEP_SPANS = ("train.assemble", "train.ship", "train.launch")
+    STEP_HISTOGRAMS = ("step_assemble_s", "step_ship_s", "step_launch_s")
 
     #: The gang owns the mesh and blocks in its step: the chaining pass
     #: never fuses it with a neighbour (``analysis/chaining.py``).
@@ -444,6 +465,15 @@ class DPTrainWindowFunction(fn.WindowFunction):
         self._step_no = 0
         self._out: typing.Optional[fn.Collector] = None
         self._cudnn = _CudnnHold()
+        #: Traced: the tracer, this subtask's track, the recent host spans
+        #: (a device gap's stage is read from them), and on the card the
+        #: device clock and the step stream's timeline.
+        self._tracer = None
+        self._track: typing.Optional[str] = None
+        self._host_spans: typing.Deque[typing.Tuple[str, float, float]] = collections.deque(
+            maxlen=64)
+        self._clock: typing.Optional[DeviceClock] = None
+        self._timeline: typing.Optional[StreamTimeline] = None
 
     def clone(self):
         dup = copy.copy(self)
@@ -498,6 +528,12 @@ class DPTrainWindowFunction(fn.WindowFunction):
         # step counter is never read after this.
         self._step_no = int(state["step"])
         self._state = replicate(self.mesh, state)
+        self._tracer = getattr(ctx, "tracer", None)
+        if self._tracer is not None:
+            self._track = f"{ctx.task_name}.{ctx.subtask_index}"
+            if self.mesh.device.type == "cuda":
+                self._clock = DeviceClock.on(self.mesh.device)
+                self._timeline = StreamTimeline()
 
     def close(self) -> None:
         if self._state is not None:
@@ -506,26 +542,79 @@ class DPTrainWindowFunction(fn.WindowFunction):
 
     def process_window(self, key, window, elements, out: fn.Collector) -> None:
         self._out = out
+        traced = self._tracer is not None
         t0 = time.monotonic()
         _, arrays = _train_batch_arrays(list(elements), self.train_schema, self._policy)
+        if traced:
+            stamps = [t0, time.monotonic()]
+            started = self._step_event()
         batch = shard_batch(self.mesh, arrays)
+        if traced:
+            stamps.append(time.monotonic())
         # Dispatch and go: the step is queued on the device; its metrics
         # are read pipeline_depth windows later.
         self._state, metrics = self._step_fn(self._state, batch, self._step_no)
+        events = (started, self._step_event()) if traced and started is not None else None
+        t1 = time.monotonic()
         # Host seconds to assemble, ship and launch the step.
-        self.ctx.metrics.histogram("step_dispatch_s").record(time.monotonic() - t0)
+        self.ctx.metrics.histogram("step_dispatch_s").record(t1 - t0)
         self._step_no += 1
-        self._pending.append((metrics, self._step_no, len(elements)))
+        if traced:
+            self._trace_dispatch(stamps + [t1])
+        self._pending.append((metrics, self._step_no, len(elements), events))
         self._drain(out, self.pipeline_depth - 1)
 
     def _drain(self, out: fn.Collector, keep: int) -> None:
         while len(self._pending) > keep:
-            metrics, step_no, n = self._pending.popleft()
+            metrics, step_no, n, events = self._pending.popleft()
+            traced = self._tracer is not None
+            if traced:
+                t0 = time.monotonic()
             host = {k: v.cpu().numpy() for k, v in metrics.items()}
             host["step"] = np.asarray(step_no, np.int64)
+            if traced:
+                t1 = time.monotonic()
             out.collect(TensorValue(host))
+            if traced:
+                self._trace_drain(step_no, events, t0, t1, time.monotonic())
             self.ctx.metrics.meter("train_records").mark(n)
             self.ctx.metrics.counter("train_steps").inc()
+
+    # -- tracing (``ctx.tracer`` only) -------------------------------------
+    def _step_event(self):
+        """A timing event on the step's stream (traced on the card), else
+        None."""
+        if self._clock is None:
+            return None
+        return DeviceClock.record(torch.cuda.current_stream(self.mesh.device))
+
+    def _host_span(self, name: str, t0: float, t1: float, args: dict) -> None:
+        self._tracer.span(self._track, name, t0, t1, args=args)
+        self._host_spans.append((name, t0, t1))
+
+    def _trace_dispatch(self, stamps) -> None:
+        """The step's three host spans and their histograms, cut at the
+        stamps of its ``step_dispatch_s``."""
+        args = {"step": self._step_no}
+        for (name, a, b), hist in zip(tile(self.STEP_SPANS, stamps), self.STEP_HISTOGRAMS):
+            self._host_span(name, a, b, args)
+            self.ctx.metrics.histogram(hist).record(b - a)
+
+    def _trace_drain(self, step_no: int, events, t0: float, t1: float, t2: float) -> None:
+        """A drained step's ``train.drain`` (``t0``-``t1``, its loss wait)
+        and ``train.emit`` spans, and on the card its device span.  The
+        copy of its metrics to the host waited for every step launched so
+        far, so its events have completed."""
+        args = {"step": step_no}
+        self._host_span("train.drain", t0, t1, args)
+        self._host_span("train.emit", t1, t2, args)
+        m = self.ctx.metrics
+        m.histogram("loss_wait_s").record(t1 - t0)
+        if events is not None:
+            _, gap = place(self._clock, self._timeline, events[0], events[1], self._host_spans,
+                           self._tracer, self._track, args)
+            if gap is not None:
+                m.histogram("step_gap_s").record(gap)
 
     def on_finish(self, out: fn.Collector) -> None:
         self._drain(out, 0)

@@ -15,7 +15,10 @@ continuous per-operator ``roofline.*`` gauges:
   :data:`BOUND_NAMES`): host (device duty cycle below threshold), wire
   (h2d rate dominates both utilization fractions), else compute vs
   memory by the larger busy-time utilization fraction.
-- ``roofline.busy_s`` — device-busy seconds attributed so far.
+- ``roofline.busy_s`` — device-busy seconds attributed so far (where the
+  runner is traced on the card, the union of its batches' intervals
+  between their own CUDA events; else each batch's host-stamped compute
+  interval).
 - ``roofline.measured_h2d_per_call`` / ``roofline.predicted_h2d_per_call``
   / ``roofline.h2d_drift_frac`` — measured against priced transfer bytes.
 - ``roofline.compile_events`` / ``roofline.unpredicted_compiles`` — the
@@ -214,7 +217,13 @@ class RooflineProbe:
     def observe(self, unit: str, busy_s: float, *,
                 signature: typing.Optional[str] = None,
                 h2d_bytes: int = 0, d2h_bytes: int = 0) -> None:
-        """Attribute one measured call of ``unit`` at ``signature``."""
+        """Attribute one measured call of ``unit`` at ``signature``.
+        ``busy_s`` is the call's device time: from the runner's own CUDA
+        events where it has them (traced, on the card), the time its
+        interval adds past the end the stream had reached, so overlapping
+        batches are not counted twice; else its host-stamped compute
+        interval (launch to the fetch thread reaching the batch, which
+        overlaps the batches around it)."""
         key = (unit, signature)
         if key not in self._seen:
             self._seen.add(key)

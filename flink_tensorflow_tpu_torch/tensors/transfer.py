@@ -24,7 +24,11 @@ the same contract is kept with explicit streams and events:
   for the owner of a pre-assembled batch's memory to wait on likewise;
 - the D2H moves only the outputs the job selected, into pinned host
   buffers, on the compute stream, followed by a per-batch event that the
-  fetch thread waits on; it never synchronizes the whole device.
+  fetch thread waits on; it never synchronizes the whole device;
+- with ``timed`` set (a runner traced on the card), a timing event
+  goes onto the compute stream just before each H2D (``Shipped.started``)
+  and the per-batch event after the D2H times too, so the two give the
+  batch's extent on the device.
 
 **Wire narrowing** (``wire_dtype``): each float field wider than the wire
 dtype is narrowed host-side straight into the slot's pinned buffer
@@ -60,6 +64,7 @@ from flink_tensorflow_tpu_torch.tensors.batching import Batch, BucketPolicy, ass
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema
 from flink_tensorflow_tpu_torch.tensors.serde import normalize_wire_dtype, to_bf16, wire_itemsize
 from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+from flink_tensorflow_tpu_torch.tracing.device_clock import DeviceClock
 
 _TRUTHY = ("1", "true", "on", "yes")
 
@@ -190,6 +195,9 @@ class Shipped(typing.NamedTuple):
     pinned_allocations: int
     #: The event after the batch's H2D (None on the CPU).
     copied: typing.Optional[torch.cuda.Event]
+    #: A timing event on the compute stream just before the H2D (with
+    #: ``DeviceTransfer.timed`` only).
+    started: typing.Optional[torch.cuda.Event] = None
 
 
 class FetchHandle:
@@ -328,6 +336,8 @@ class DeviceTransfer:
         self._slots = [StagingSlot() for _ in range(max(1, slots))] if self.cuda else []
         self._next = 0
         self._lock = threading.Lock()
+        #: A traced runner's device timing (see the module docstring).
+        self.timed = False
 
     def _acquire(self) -> typing.Optional[StagingSlot]:
         """The next staging slot, locked; waits for the H2D copy that last
@@ -450,6 +460,7 @@ class DeviceTransfer:
         if not self.cuda:
             return Shipped(batch, host, host_lengths, nbytes, saved, 0.0, 0, None)
         compute = torch.cuda.current_stream(self.device)
+        started = DeviceClock.record(compute) if self.timed else None
         with torch.cuda.stream(self._stream):
             dev = {n: t.to(self.device, non_blocking=True) for n, t in host.items()}
             lengths = {n: t.to(self.device, non_blocking=True) for n, t in host_lengths.items()}
@@ -460,7 +471,7 @@ class DeviceTransfer:
         compute.wait_event(copied)
         for t in (*dev.values(), *lengths.values()):
             t.record_stream(compute)
-        return Shipped(batch, dev, lengths, nbytes, saved, 0.0, 0, copied)
+        return Shipped(batch, dev, lengths, nbytes, saved, 0.0, 0, copied, started)
 
     def start_fetch(self, outputs: typing.Mapping[str, torch.Tensor]) -> FetchHandle:
         """Enqueue the D2H of ``outputs`` on the caller's current stream,
@@ -474,7 +485,7 @@ class DeviceTransfer:
             host[n] = h
         # A blocking-sync event: the fetch thread sleeps in the wait
         # instead of spinning a core the dispatch lanes need.
-        done = torch.cuda.Event(blocking=True)
+        done = torch.cuda.Event(blocking=True, enable_timing=self.timed)
         done.record(torch.cuda.current_stream(self.device))
         return FetchHandle(host, done)
 
@@ -483,7 +494,7 @@ class DeviceTransfer:
         current stream (the computation of ``outputs``)."""
         done = None
         if self.cuda:
-            done = torch.cuda.Event(blocking=True)
+            done = torch.cuda.Event(blocking=True, enable_timing=self.timed)
             done.record(torch.cuda.current_stream(self.device))
         return FetchHandle(dict(outputs), done, on_device=True)
 

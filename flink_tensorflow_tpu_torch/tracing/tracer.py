@@ -37,6 +37,15 @@ timeline on the process-0 clock.  Before the offsets arrive (or on a
 non-cohort job) the old suppression applies: the trace id still
 survives, so one logical record is one trace cluster either way.
 
+One clock with the device trace: spans are on ``time.monotonic()``, and
+``torch.profiler``'s events are in Unix nanoseconds.  A tracer reads a
+clock anchor (the two clocks read back to back, the tightest of a few
+readings kept) when it is made and again at each :meth:`Tracer.events`
+and export; :meth:`Tracer.to_unix_ns` places a span's stamp on the
+profiler's clock, and the Chrome export carries the anchor as its
+``clock`` block, so ``utils/profiling.trace(..., tracer=...)`` can write
+the spans into the profiler's own ``trace.json``.
+
 Sampling is **head-based and deterministic**: the admission decision is
 made once, at the source, by a per-track counter stride derived from
 ``(sample_rate, seed)`` — two runs of the same seeded job sample the
@@ -58,6 +67,31 @@ _TRUTHY = ("1", "true", "on", "yes")
 #: carry their origin pid so receivers can tell a foreign monotonic
 #: timestamp from a local one.
 _PID = os.getpid()
+
+
+#: Readings taken for one clock anchor; the tightest is kept.
+ANCHOR_READINGS = 5
+
+
+def tightest(read: typing.Callable[[], tuple], n: int = ANCHOR_READINGS) -> tuple:
+    """Of ``n`` readings ``read()``, each a tuple whose last item is the
+    host seconds it took to read, the one read in the least time."""
+    return min((read() for _ in range(n)), key=lambda r: r[-1])
+
+
+def _read_unix() -> typing.Tuple[float, int, float]:
+    a = time.monotonic()
+    unix_ns = time.time_ns()
+    b = time.monotonic()
+    return 0.5 * (a + b), unix_ns, b - a
+
+
+def clock_anchor() -> typing.Tuple[float, int]:
+    """``(monotonic seconds, Unix ns)`` read at one instant: the
+    :func:`tightest` reading of ``time.time_ns()`` between two monotonic
+    stamps, placed at their middle."""
+    mono, unix_ns, _ = tightest(_read_unix)
+    return mono, unix_ns
 
 
 def env_enabled() -> bool:
@@ -192,6 +226,9 @@ class Tracer:
         #: process-0 timebase: {"process_index", "pid",
         #: "offset_to_proc0_s", "error_bound_s", "epoch_monotonic_s"}.
         self.cohort_meta: typing.Optional[dict] = None
+        #: ``(monotonic s, Unix ns)`` at one instant (:func:`clock_anchor`),
+        #: read again at each :meth:`events` and export.
+        self.clock = clock_anchor()
 
     # -- recording (hot path when ON) -----------------------------------
     def _ring(self) -> _Ring:
@@ -287,10 +324,25 @@ class Tracer:
             self.span(track, "queue", min(now, ctx.t_queue + off), now,
                       args={"trace": ctx.trace_id, "origin": ctx.origin})
 
+    # -- the clock shared with the device trace --------------------------
+    def to_unix_ns(self, t: float) -> int:
+        """The monotonic stamp ``t`` in Unix nanoseconds, the clock of
+        ``torch.profiler``'s events."""
+        mono, unix_ns = self.clock
+        return unix_ns + round((t - mono) * 1e9)
+
+    def clock_meta(self) -> dict:
+        """The export's ``clock`` block: a span's Unix time is
+        ``epoch_unix_ns + ts * 1000`` (``ts`` in microseconds)."""
+        mono, unix_ns = self.clock
+        return {"epoch_monotonic_s": self.epoch, "epoch_unix_ns": self.to_unix_ns(self.epoch),
+                "anchor_monotonic_s": mono, "anchor_unix_ns": unix_ns}
+
     # -- export ----------------------------------------------------------
     def events(self) -> typing.List[tuple]:
         """All recorded events, merged across threads, time-ordered:
         ``(track, name, ph, t0, dur, args)`` with monotonic seconds."""
+        self.clock = clock_anchor()
         with self._rings_lock:
             rings = list(self._rings)
         out: typing.List[tuple] = []
@@ -310,8 +362,10 @@ class Tracer:
         for barriers / watermarks / sanitizer findings.  A cohort
         tracer's export carries its ``cohort`` block (process index, pid,
         clock offset, epoch) so ``flink-tpu-trace --cohort`` can merge
-        per-process files onto one timebase."""
+        per-process files onto one timebase.  Its ``clock`` block places
+        ``ts`` on the Unix clock (:meth:`clock_meta`)."""
         trace = events_to_chrome(self.events(), epoch=self.epoch)
+        trace["clock"] = self.clock_meta()
         if self.cohort_meta is not None:
             meta = dict(self.cohort_meta)
             meta.setdefault("epoch_monotonic_s", self.epoch)

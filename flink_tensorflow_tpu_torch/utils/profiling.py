@@ -7,6 +7,10 @@ Port of ``flink_tensorflow_tpu/utils/profiling.py`` in PyTorch's idiom:
   a Chrome trace (Perfetto-loadable) under ``log_dir``.  Where CUDA
   activity cannot be traced (no card, or CUPTI does not start) it
   raises: a CPU-only trace is never handed back as a device trace.
+  Given the job's span tracer, it writes the tracer's spans into the same
+  ``trace.json``, shifted onto the profiler's clock
+  (:func:`merge_tracer`): one Perfetto timeline in which each device
+  idle gap sits under the program span open at the time.
 - :func:`annotate_batch` — names one micro-batch execution
   (``torch.profiler.record_function``), so the trace attributes device
   work to operator + batch number.
@@ -18,6 +22,7 @@ Port of ``flink_tensorflow_tpu/utils/profiling.py`` in PyTorch's idiom:
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import typing
 
@@ -25,9 +30,11 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: str, *, record_shapes: bool = False):
+def trace(log_dir: str, *, record_shapes: bool = False, tracer=None):
     """Record a ``torch.profiler`` trace of the enclosed block (CPU and
-    CUDA activities) and export it to ``<log_dir>/trace.json``.
+    CUDA activities) and export it to ``<log_dir>/trace.json``; with
+    ``tracer`` (a :class:`~flink_tensorflow_tpu_torch.tracing.Tracer`),
+    its spans join the file on the profiler's clock.
 
     Raises ``RuntimeError`` when CUDA is unavailable or the profiler
     comes back without its CUDA activity (CUPTI did not start)."""
@@ -45,7 +52,38 @@ def trace(log_dir: str, *, record_shapes: bool = False):
         yield prof
     finally:
         prof.__exit__(None, None, None)
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        path = os.path.join(log_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        if tracer is not None:
+            with open(path) as f:
+                merged = merge_tracer(json.load(f), tracer)
+            with open(path, "w") as f:
+                json.dump(merged, f)
+
+
+def merge_tracer(profile: dict, tracer) -> dict:
+    """``profile`` (a ``torch.profiler`` Chrome trace) with ``tracer``'s
+    tracks added under a process of their own.  The profiler's ``ts`` is
+    microseconds after ``baseTimeNanoseconds`` on the Unix clock (after
+    the epoch where the file has no base); each span is placed there
+    through :meth:`Tracer.to_unix_ns`."""
+    from flink_tensorflow_tpu_torch.tracing.tracer import events_to_chrome
+
+    events = tracer.events()    # re-reads the tracer's clock anchor
+    base_ns = int(profile.get("baseTimeNanoseconds", 0))
+    mono, unix_ns = tracer.clock
+    # The monotonic instant at the profiler's ts 0: ts = (t - epoch) * 1e6.
+    epoch = mono - (unix_ns - base_ns) / 1e9
+    rows = profile.get("traceEvents", [])
+    pids = [ev["pid"] for ev in rows if isinstance(ev.get("pid"), int)]
+    pid = max(pids, default=0) + 1
+    spans = events_to_chrome(events, epoch=epoch, process_name="flink-tensorflow-tpu spans")
+    for ev in spans["traceEvents"]:
+        ev["pid"] = pid
+    out = dict(profile)
+    out["traceEvents"] = list(rows) + spans["traceEvents"]
+    out["clock"] = tracer.clock_meta()
+    return out
 
 
 def annotate_batch(scope: str, step: int):

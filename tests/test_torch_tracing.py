@@ -428,23 +428,22 @@ def test_traced_serving_prefill_buckets_match_jax():
 
 # -- the off path ---------------------------------------------------------------------
 
-def test_off_path_allocates_nothing_in_tracing_or_roofline():
+def _assert_off_path_allocates_nothing(env, n_out, out, wait=60):
+    """Run ``env``'s job untraced under tracemalloc: ``tracing/`` and
+    ``metrics/roofline.py`` allocate nothing."""
     import flink_tensorflow_tpu_torch.metrics.roofline  # noqa: F401
     import flink_tensorflow_tpu_torch.tracing.attribution  # noqa: F401
+    import flink_tensorflow_tpu_torch.tracing.device_clock  # noqa: F401
     import flink_tensorflow_tpu_torch.tracing.tracer  # noqa: F401
 
-    env = StreamExecutionEnvironment().configure(flight_recorder=False)
-    out = []
-    (env.from_collection(list(range(200))).map(lambda x: x + 1, name="inc")
-        .sink_to_callable(out.append))
     tracemalloc.start()
     try:
         handle = env.execute_async("t")
-        handle.wait(60)
+        handle.wait(wait)
         snap = tracemalloc.take_snapshot()
     finally:
         tracemalloc.stop()
-    assert len(out) == 200
+    assert len(out) == n_out
     assert handle.executor.tracer is None and handle.executor.flight is None
     assert handle.executor.roofline is None
     pkg = REPO / "flink_tensorflow_tpu_torch"
@@ -453,6 +452,54 @@ def test_off_path_allocates_nothing_in_tracing_or_roofline():
         tracemalloc.Filter(True, str(pkg / "metrics" / "roofline.py")),
     ]).statistics("filename")
     assert sum(s.size for s in stats) == 0, stats
+
+
+def test_off_path_allocates_nothing_in_tracing_or_roofline():
+    env = StreamExecutionEnvironment().configure(flight_recorder=False)
+    out = []
+    (env.from_collection(list(range(200))).map(lambda x: x + 1, name="inc")
+        .sink_to_callable(out.append))
+    _assert_off_path_allocates_nothing(env, 200, out)
+
+
+@pytest.mark.parametrize("job", ["runner", "gang"])
+def test_off_path_allocates_nothing_in_tracing_or_roofline_for_the_runner_and_the_gang(job):
+    """The same for a model window job (the ring, the lanes, the fetch
+    thread and the emit) and for a data-parallel gang's train steps:
+    untraced, their hooks of the device timing and the step spans are
+    one ``is None`` test each."""
+    from flink_tensorflow_tpu_torch.functions import DPTrainWindowFunction, ModelWindowFunction
+    from flink_tensorflow_tpu_torch.models import lenet_cell
+    from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
+    from flink_tensorflow_tpu_torch.parallel import optim
+    from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from flink_tensorflow_tpu_torch.tensors.batching import BucketPolicy
+    from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
+    from flink_tensorflow_tpu_torch.tensors.value import TensorValue
+
+    env = StreamExecutionEnvironment(parallelism=1).configure(flight_recorder=False)
+    if job == "runner":
+        _, model, _, records = lenet_cell.lenet_cell(0, records=64)
+        env.set_device_provider(lambda task, index: "cpu")
+        out = (env.from_collection(records).count_window(16)
+               .apply(ModelWindowFunction(model, policy=BucketPolicy(fixed_batch=16),
+                                          outputs=("label",)), name="infer")
+               .sink_to_list())
+        n_out = 64
+    else:
+        cfg = dict(num_classes=4, image_size=32, width=8, stage_sizes=(1, 1))
+        rng = np.random.RandomState(0)
+        recs = [TensorValue({"image": rng.rand(32, 32, 3).astype(np.float32),
+                             "label": np.int32(i % 4)}) for i in range(24)]
+        env.set_mesh(make_mesh({"data": 1}, devices=["cpu"]))
+        schema = RecordSchema({"image": spec((32, 32, 3)), "label": spec((), np.int32)})
+        out = (env.from_collection(recs).count_window(8)
+               .apply(DPTrainWindowFunction(get_model_def("resnet50", **cfg), optim.adam(1e-2),
+                                            train_schema=schema, global_batch=8),
+                      name="dp_train")
+               .sink_to_list())
+        n_out = 3
+    _assert_off_path_allocates_nothing(env, n_out, out, wait=300)
 
 
 def test_untraced_records_carry_no_context_and_frames_stay_jax_bytes():
