@@ -14,7 +14,17 @@ Phases (any failure exits non-zero and prints no result line):
    card at the serving shape and at larger shapes, and time kernel, plain
    version and ``scaled_dot_product_attention`` (a yardstick only, where
    Tk > 0) beside the bound of the route K1 takes (tensor cores for
-   bf16/f16, 3xTF32 for f32; f32 rows also carry the FMA bound);
+   bf16/f16, 3xTF32 for f32; f32 rows also carry the FMA bound); then
+   (b) hold the fused train-mode batch norm (``ops/batch_norm.py``) at
+   ResNet-50's stem shape (256 x 64 x 112 x 112, bf16, with its ReLU)
+   element by element to its plain version in float64, dx where the
+   ReLU's mask is 0 (the batch-norm terms alone) besides, and refuse
+   faults planted in its dx and dscale; then time its forward plus
+   backward beside its bound (each input and output byte once), the
+   plain version and ``F.batch_norm``'s train mode (a yardstick only).
+   Phases 5, 7, 13 and 21 count its launches on the paths they drive
+   (one a batch norm a train step on the card, 0 in eval mode), printed
+   in the kernels line;
 4. serve the repo's serving-bench configuration (char transformer
    64 wide x 3 layers, 96 requests from ``RandomState(11)``) through the
    port's subtask loop on the card, count K1's launches, and hold every
@@ -499,6 +509,33 @@ RESNET_BF16_NOISE_FACTOR = 1.5
 #: all 24 (the per-step readings are per step either way): a depth cut
 #: that made room for phase 19.
 RESNET_TRACE_STEPS = 8
+# Phase 3 (b): the fused batch norm at ResNet-50's stem (256 x 64 x 112 x
+# 112, bf16, with its ReLU), against the plain version run by autograd on
+# float64 copies of the same inputs (its moments in f32, as the formula
+# takes them), with the ReLU's mask the kernel chose: where the value
+# before the ReLU lies within rounding of 0 either side is right, and the
+# kernel's choice must lie there (within BN_EITHER of the magnitudes that
+# make the value).  The output and dx, element by element: half a bf16
+# step of the rounded value plus BN_ARITH of the magnitudes the f32
+# arithmetic works on (for dx, |dz a| and the terms dmu / M and
+# 2 x dq / M with the sums of the terms' magnitudes in place of the
+# sums).  Where the mask is 0, dx is those two terms alone, some 1e-3 of
+# the largest dx, and the magnitudes there are some 1e3 times the terms,
+# so those elements are held besides to BN_MASKED of the largest of them:
+# half a bf16 step for the rounding, the other half for the f32 sums the
+# terms come from (their error is some 1e-6 of the terms).  The faults
+# planted after the check (BN_FAULTS) must fail it.  The running
+# statistics, dscale and dbias: f32 sums of 3.2 M terms in a
+# fixed order, held to BN_SUMS of the largest (the card read 5e-7 to
+# 6e-7 of the largest against the bf16 plain version).
+BN_STEM_SHAPE = (256, 64, 112, 112)
+BN_ARITH = 1e-4
+BN_EITHER = 1e-5
+BN_SUMS = 1e-4
+BN_MASKED = 2.0 ** -7
+#: Faults planted in the kernel's readings that the check must refuse: dx
+#: without dmu / M, dx without 2 x dq / M, dscale off by 0.1% (a wrong r).
+BN_FAULTS = ("dx_without_dmu", "dx_without_dq", "dscale_times_1.001")
 GRAD_LR = 1e6
 # widedeep-online (b): the card against a CPU run of the same job, both
 # checkpointed every 1024 events, bf16 compute on both: the first 16
@@ -635,6 +672,37 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: The fused batch norm's launches by path (``bn_counted``), for the
+#: kernels line.
+BN_LAUNCHES = {}
+
+
+def bn_reset() -> None:
+    from flink_tensorflow_tpu_torch.ops.batch_norm import batch_norm_train
+
+    batch_norm_train.launches = 0
+
+
+def bn_counted(path: str, want: int) -> int:
+    """The fused batch norm's launches since ``bn_reset`` (or the last
+    ``bn_counted``), kept under ``path`` in ``BN_LAUNCHES``; fails unless
+    they are ``want`` (one a batch norm a train step on the card, none on
+    the CPU or in eval mode).  Sets the counter to 0 again."""
+    from flink_tensorflow_tpu_torch.ops.batch_norm import batch_norm_train
+
+    got = batch_norm_train.launches
+    BN_LAUNCHES[path] = got
+    if got != want:
+        fail(f"{path}: the fused batch norm launched {got} times, want {want}")
+    batch_norm_train.launches = 0
+    return got
+
+
+def batch_norms(variables) -> int:
+    """The train-mode batch norms of a step: one a running mean."""
+    return sum(1 for n in variables["batch_stats"] if n.endswith(".mean"))
+
+
 def k1_bound(b, h, t, tk, d, dtype, causal, return_lse=True):
     """Least time for the work of this call on the route K1 takes: K1's
     work (``ops/flash_attention.py:k1_cost``, which the plan-time pricer
@@ -711,6 +779,156 @@ def check_k1(fa, torch):
         print("K1", json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+def bn_truth(torch, x, dout, scale, bias, run_mean, run_var, mask, eps, momentum):
+    """The plain version of the fused batch norm by autograd on float64
+    copies of the inputs, with the ReLU's mask ``mask`` (the kernel's):
+    ``(want, mags, terms)``.  ``want`` holds the output, the two running
+    statistics, dx, dscale and dbias; ``mags`` the magnitudes the output's
+    and dx's bounds scale by, the value before the ReLU and where either
+    side of the ReLU is right; ``terms`` dmu / M and 2 x dq / M, for the
+    planted faults."""
+    from flink_tensorflow_tpu_torch.ops import batch_norm as bn
+
+    xd = x.double().requires_grad_()
+    sd, bd = scale.double().requires_grad_(), bias.double().requires_grad_()
+    pre, new_mean, new_var = bn.batch_norm_train_reference(
+        xd, sd, bd, run_mean.double(), run_var.double(), eps=eps, momentum=momentum, relu=False)
+    dz = dout.double() * mask
+    dx, dscale, dbias = torch.autograd.grad(pre, (xd, sd, bd), dz)
+    with torch.no_grad():
+        dims, view = (0, 2, 3), (1, -1, 1, 1)
+        xv, sv, pre = xd.detach(), sd.detach(), pre.detach()
+        m = xv.numel() // xv.shape[1]
+        mu = xv.mean(dims)
+        var = ((xv * xv).mean(dims) - mu * mu).clamp(min=0)
+        r = torch.rsqrt(var + eps)
+        a = r * sv
+        centred = xv - mu.view(view)
+        out_mag = centred.abs() * a.abs().view(view) + bd.detach().abs().view(view)
+        # dmu and dv, signed for the faults and in magnitude for the bound.
+        dv = -0.5 * sv * r ** 3 * (dz * centred).sum(dims) * (var > 0)
+        dmu = -a * dz.sum(dims) - 2 * mu * dv
+        abs_dz = dz.abs()
+        mag_dv = 0.5 * sv.abs() * r ** 3 * (abs_dz * centred.abs()).sum(dims)
+        mag_dmu = a.abs() * abs_dz.sum(dims) + 2 * mu.abs() * mag_dv
+        dx_mag = (abs_dz * a.abs().view(view) + (mag_dmu / m).view(view)
+                  + 2 * xv.abs() * (mag_dv / m).view(view))
+        want = {"out": pre.clamp(min=0), "new_mean": new_mean, "new_var": new_var, "dx": dx,
+                "dscale": dscale, "dbias": dbias}
+        mags = {"out": out_mag, "dx": dx_mag, "pre": pre,
+                "either": pre.abs() <= BN_EITHER * out_mag}
+        terms = {"dmu": (dmu / m).view(view), "dq": 2 * xv * (dv / m).view(view)}
+    return want, mags, terms
+
+
+def bn_held(torch, got, want, mags, mask):
+    """``{name: worst error over its bound}`` of the fused batch norm's
+    readings against ``bn_truth``'s (the comment above ``BN_STEM_SHAPE``):
+    a reading above 1 is out of bounds.  ``dx_masked`` holds dx where the
+    ReLU's mask is 0 (there dx is dmu / M + 2 x dq / M alone)."""
+    held = {}
+    for name in ("out", "dx"):
+        g, w = got[name].double(), want[name]
+        err = (g - w).abs()
+        limit = 2.0 ** -8 * torch.maximum(g.abs(), w.abs()) + BN_ARITH * mags[name]
+        held[name] = float((err / limit).max())
+    off = ~mask
+    held["dx_masked"] = float((got["dx"].double() - want["dx"])[off].abs().max()
+                              / (BN_MASKED * want["dx"][off].abs().max()))
+    for name in ("new_mean", "new_var", "dscale", "dbias"):
+        g, w = got[name].double(), want[name]
+        held[name] = float((g - w).abs().max() / (BN_SUMS * w.abs().max()))
+    return held
+
+
+def check_batch_norm(card: str, torch):
+    """The fused train-mode batch norm (``ops/batch_norm.py``) at
+    ResNet-50's stem shape, bf16, with its ReLU: held element by element
+    to the plain version in float64 (``bn_truth``, ``bn_held``), with
+    faults planted in its dx and dscale that the check must refuse; then
+    forward plus backward timed beside its bound, the plain version's
+    time and ``F.batch_norm``'s train mode (cuDNN, a yardstick only: the
+    port never calls it)."""
+    import torch.nn.functional as F
+
+    from flink_tensorflow_tpu_torch.ops import batch_norm as bn
+
+    n, c, h, w = BN_STEM_SHAPE
+    eps, momentum = 1e-5, 0.9
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = (torch.randn(n, c, h, w, device="cuda", generator=gen) * 1.5 + 0.3).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dout = torch.randn(n, c, h, w, device="cuda", generator=gen).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+    bias = torch.rand(c, device="cuda", generator=gen) - 0.5
+    run_mean = torch.rand(c, device="cuda", generator=gen) - 0.5
+    run_var = torch.rand(c, device="cuda", generator=gen) + 0.5
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+
+    def pair(fn):
+        out, new_mean, new_var = fn(*leaves, run_mean, run_var, eps=eps, momentum=momentum,
+                                    relu=True)
+        return (out, new_mean, new_var, *torch.autograd.grad(out, leaves, dout))
+
+    def library():
+        out = F.relu(F.batch_norm(leaves[0], run_mean.clone(), run_var.clone(), leaves[1],
+                                  leaves[2], True, 1 - momentum, eps))
+        return (out, *torch.autograd.grad(out, leaves, dout))
+
+    launches = bn.batch_norm_train.launches
+    got = dict(zip(("out", "new_mean", "new_var", "dx", "dscale", "dbias"),
+                   (t.detach() for t in pair(bn.batch_norm_train))))
+    if bn.batch_norm_train.launches != launches + 1:
+        fail("fused batch norm: the launch counter did not count the call")
+    mask = got["out"] > 0
+    want, mags, terms = bn_truth(torch, x, dout, scale, bias, run_mean, run_var, mask, eps,
+                                 momentum)
+    flips = mask != (mags["pre"] > 0)
+    wrong_side = int((flips & ~mags["either"]).sum())
+    if wrong_side:
+        fail(f"fused batch norm: {wrong_side} elements on the wrong side of the ReLU, beyond "
+             "rounding of 0")
+    held = bn_held(torch, got, want, mags, mask)
+    if not all(v <= 1 for v in held.values()):
+        fail(f"fused batch norm: off the float64 plain version beyond its bounds (a reading "
+             f"above 1 is out): {held}")
+    planted = {}
+    for fault in BN_FAULTS:
+        bad = dict(got)
+        if fault == "dx_without_dmu":
+            bad["dx"] = (got["dx"].double() - terms["dmu"]).to(torch.bfloat16)
+        elif fault == "dx_without_dq":
+            bad["dx"] = (got["dx"].double() - terms["dq"]).to(torch.bfloat16)
+        else:
+            bad["dscale"] = got["dscale"] * 1.001
+        caught = bn_held(torch, bad, want, mags, mask)
+        planted[fault] = max(caught.values())
+        if planted[fault] <= 1:
+            fail(f"fused batch norm: the check passes a planted fault, {fault}: {caught}")
+    flip_count = int(flips.sum())
+    del want, mags, terms, flips, mask, bad
+    gc.collect()
+    torch.cuda.empty_cache()
+    elements = n * c * h * w
+    kernel, plain, lib = [], [], []
+    for _ in range(3):
+        kernel.append(time_ms(lambda: pair(bn.batch_norm_train), 20))
+        plain.append(time_ms(lambda: pair(bn.batch_norm_train_reference), 5))
+        lib.append(time_ms(library, 20))
+    row = {"shape": list(BN_STEM_SHAPE), "dtype": "bfloat16", "relu": True,
+           "err_over_bound": held, "planted_faults_err_over_bound": planted,
+           "mask_flips": flip_count, "kernel_ms": sorted(kernel)[1],
+           "plain_ms": sorted(plain)[1], "library_ms": sorted(lib)[1],
+           # Each input and output once: x and out forward, dout, x and dx backward.
+           "bound_ms": 10 * elements / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           # The two-pass design's own traffic: 16 bytes an element.
+           "two_pass_bytes_ms": 16 * elements / PEAK_BYTES * 1e3,
+           "kernel_ms_runs": kernel, "library_ms_runs": lib, "card": card}
+    print("batch_norm", json.dumps(row), flush=True)
+    return row
 
 
 def by_session(events):
@@ -1142,6 +1360,7 @@ def check_training(card: str, torch, fa):
     mesh = make_mesh({"data": 1})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    bn_reset()
     run = cell.run_resnet(mdef, schema, records, mesh)
     peak_bytes = torch.cuda.max_memory_allocated()
     losses = [float(r["loss"]) for r in run.results]
@@ -1150,6 +1369,8 @@ def check_training(card: str, torch, fa):
     if not all(np.isfinite(losses)):
         fail(f"resnet-train: non-finite loss {losses}")
     final = run.function.current_params()
+    bns = batch_norms(final)
+    bn_counted("resnet_train", bns * cell.RESNET_STEPS)
 
     # (a) a direct loop of the gang's step over the same 24 batches.
     opt = adam(cell.RESNET_LR)
@@ -1169,6 +1390,7 @@ def check_training(card: str, torch, fa):
         release_cudnn_heuristics()
     loop_bits = loop == losses and _bit_equal(final, state["variables"])
     del state, step
+    bn_counted("resnet_train_loop", bns * cell.RESNET_STEPS)
     if not loop_bits:
         fail(f"resnet-train: the gang differs from a direct loop: losses equal {loop == losses}, "
              f"largest loss difference {max(abs(a - b) for a, b in zip(losses, loop))}")
@@ -1178,6 +1400,8 @@ def check_training(card: str, torch, fa):
     f32 = resnet_one_step(torch, mdef, records, schema, "float32", mesh.device)
     bf16 = resnet_one_step(torch, mdef, records, schema, "bfloat16", mesh.device)
     cpu_steps_s = time.monotonic() - t_cpu
+    # One step each at f32 and bf16 on the card; the CPU's run the plain path.
+    bn_counted("resnet_one_step_card_vs_cpu", 2 * bns)
     f32_errs = one_step_errs(f32, with_max=True)
     bf16_errs = one_step_errs(bf16, with_max=False)
     # The CPU's bf16 gradient against its f32 one: what bf16 costs.
@@ -1199,6 +1423,7 @@ def check_training(card: str, torch, fa):
     traced_records = records[:RESNET_TRACE_STEPS * cell.RESNET_BATCH]
     trace = profile(torch, lambda: cell.run_resnet(mdef, schema, traced_records, mesh),
                     RESNET_TRACE_STEPS)
+    bn_counted("resnet_train_traced", bns * RESNET_TRACE_STEPS)
     gaps = np.diff(run.arrivals) * 1e3
     dispatch = run.env.metric_registry.group("dp_train.0").histogram("step_dispatch_s")
     resnet_row = {
@@ -1312,6 +1537,7 @@ def check_training(card: str, torch, fa):
         print(f"widedeep-online {key}: {widedeep_row[key]} | card: {card}", flush=True)
     if fa.flash_attention.launches != 0:
         fail(f"training launched K1 {fa.flash_attention.launches} times, want 0")
+    bn_counted("widedeep_online", 0)
     resnet_ref = {"mdef": mdef, "schema": schema, "records": records, "losses": losses,
                   "final": final, "row": resnet_row}
     return {"resnet_train": 0, "widedeep_online": 0}, resnet_ref
@@ -3064,6 +3290,7 @@ def check_dp_nccl(card, torch, fa, ref):
         fail(f"dp nccl: cohort {topo}, backend {backend}, mesh over a group {mesh.distributed}")
     collectives.calls.clear()
     fa.flash_attention.launches = 0
+    bn_reset()
     run = cell.run_resnet(mdef, schema, records, mesh)
     launches = fa.flash_attention.launches
     calls = dict(collectives.calls)
@@ -3072,7 +3299,8 @@ def check_dp_nccl(card, torch, fa, ref):
     if not (losses == ref["losses"] and _bit_equal(final, ref["final"])):
         fail(f"dp nccl: differs from phase 7 (a): losses equal {losses == ref['losses']}, "
              f"largest loss difference {max(abs(a - b) for a, b in zip(losses, ref['losses']))}")
-    bns = sum(1 for n in final["batch_stats"] if n.endswith(".mean"))
+    bns = batch_norms(final)
+    bn_counted("dp_nccl", bns * cell.RESNET_STEPS)
     per_step = calls.get("all_reduce", 0) / cell.RESNET_STEPS
     if per_step != 2 + 2 * bns:
         fail(f"dp nccl: {per_step} all-reduces per step, want 2 + 2 x {bns} batch norms")
@@ -3118,6 +3346,7 @@ def check_dp_nccl(card, torch, fa, ref):
         floor_losses = [float(x) for x in floor_losses]
     finally:
         release_cudnn_heuristics()
+    bn_counted("dp_nccl_loops", 2 * bns * DP_GLOO_STEPS)
     floor = {"losses": floor_losses, "variables": _to(state["variables"], "cpu"),
              "start": start["variables"], "variables_1": floor1, "ref_1": ref1}
     del state, step
@@ -3238,6 +3467,16 @@ def check_dp_gloo(card, torch, ref8, losses8, floor):
                                      start),
             "local_statistics_1": dp_errs(local[0]["variables"], local[0]["losses"], ref1,
                                           losses1, start)}
+    # Each rank launches the fused batch norm once a batch norm a step, its
+    # backward's moment gradients summed over the gloo group.
+    bns = batch_norms(ranks[0]["variables"])
+    for what, runs, steps in (("dp_gloo", ranks, DP_GLOO_STEPS), ("dp_gloo_1_step", one, 1),
+                              ("dp_gloo_local_statistics", local, 1)):
+        got = [r["bn_launches"] for r in runs]
+        BN_LAUNCHES[what] = sum(got)
+        if got != [bns * steps] * len(runs):
+            fail(f"{what}: the ranks launched the fused batch norm {got} times, want "
+                 f"{bns * steps} each")
     bars = {f"{c}_{k}": DP_NOISE_FACTOR * errs[f"noise_floor_{k}"][c]["update_norm"]
             for c in ("params", "batch_stats") for k in (8, 1)}
     step_ms = [float(np.median(np.diff(r["arrivals"]))) * 1e3 for r in ranks]
@@ -6045,6 +6284,7 @@ def check_inception_training(card, torch, fa):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    bn_reset()
     run = cell.run_resnet(mdef, schema, records, mesh, batch=INCEPTION_TRAIN_BATCH)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(r["loss"]) for r in run.results]
@@ -6053,6 +6293,8 @@ def check_inception_training(card, torch, fa):
     if not all(np.isfinite(losses)):
         fail(f"inception-train: non-finite loss {losses}")
     final = run.function.current_params()
+    bns = batch_norms(final)
+    bn_counted("inception_train", bns * INCEPTION_TRAIN_STEPS)
     step_ms = np.diff(run.arrivals) * 1e3
     job_s = run.seconds
     del run
@@ -6061,8 +6303,10 @@ def check_inception_training(card, torch, fa):
     job_stats_1 = one.function.current_params()["batch_stats"]
     job_loss_1 = float(one.results[0]["loss"])
     del one
+    bn_counted("inception_train_1_step", bns)
     loop, state, loop_stats_1, loop_params_1 = inception_direct_loop(torch, mdef, schema,
                                                                       records, mesh)
+    bn_counted("inception_train_loop", bns * INCEPTION_TRAIN_STEPS)
     direct = {c: {n: t.detach().cpu() for n, t in state["variables"][c].items()}
               for c in ("params", "batch_stats")}
     del state
@@ -6106,9 +6350,11 @@ def check_examples(card, torch, fa):
     training path.  Returns K1's launches per path."""
     t0 = time.monotonic()
     print(f"examples phase | card: {card}", flush=True)
+    bn_reset()
     launches = check_example_inception(card, torch, fa)
     launches.update(check_example_jobs(card, torch, fa))
     launches.update(check_example_serving(card, torch, fa))
+    bn_counted("example_jobs", 0)
     off_path = {k: v for k, v in launches.items() if k != "example_llm_serving" and v}
     if off_path:
         fail(f"examples: K1 launched on paths without attention: {off_path}")
@@ -6144,6 +6390,7 @@ def main() -> int:
             print(f"  {source}: {entry}: {line}")
 
     k1_rows = check_k1(fa, torch)
+    bn_row = check_batch_norm(card, torch)
 
     from flink_tensorflow_tpu_torch.serving.cell import serve, serving_cell
 
@@ -6191,7 +6438,9 @@ def main() -> int:
     }
     print("serving", json.dumps(serving_row), flush=True)
 
+    bn_reset()
     _, inception, direct = check_inception(card, torch)
+    bn_counted("inception_stream", 0)
 
     global PROBE
     PROBE = ServingProbe(torch)
@@ -6254,6 +6503,19 @@ def main() -> int:
                              **plane_launches, **chaos_launches,
                              **observability_launches, **health_launches,
                              **analyzer_launches, **audit_launches, **example_launches},
+    }, {
+        "name": "batch_norm_train",
+        "route": "cuda",
+        "source": "flink_tensorflow_tpu_torch/csrc/batch_norm.cu",
+        "replaces": None,
+        "launches": sum(BN_LAUNCHES.values()),
+        "err_over_bound": bn_row["err_over_bound"],
+        "ms": bn_row["kernel_ms"],
+        "plain_ms": bn_row["plain_ms"],
+        "bound_ms": bn_row["bound_ms"],
+        "bound_by": bn_row["bound_by"],
+        "library_ms": bn_row["library_ms"],
+        "launches_by_path": BN_LAUNCHES,
     }]}
     print(json.dumps(kernels))
     print(f"card: {card}")

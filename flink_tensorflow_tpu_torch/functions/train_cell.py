@@ -483,12 +483,12 @@ def local_batch_statistics():
     """While active, train-mode batch norm takes its moments over each
     rank's own rows (the gradients are still averaged): the control that
     shows a check can tell the global batch statistics from local ones."""
-    shared = collectives.batch_moments
-    collectives.batch_moments = lambda mean, mean_sq: (mean, mean_sq)
+    shared = collectives.cross_replica_moments
+    collectives.cross_replica_moments = lambda group, size: contextlib.nullcontext()
     try:
         yield
     finally:
-        collectives.batch_moments = shared
+        collectives.cross_replica_moments = shared
 
 
 def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
@@ -501,6 +501,7 @@ def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
     cohort runs it as one job (:func:`run_cohort_resnet`)."""
     import torch
 
+    from flink_tensorflow_tpu_torch.ops.batch_norm import batch_norm_train
     from flink_tensorflow_tpu_torch.ops.flash_attention import flash_attention
     from flink_tensorflow_tpu_torch.parallel import multihost
     from flink_tensorflow_tpu_torch.parallel.mesh import make_mesh
@@ -538,6 +539,7 @@ def resnet_rank(rank: int, world: int, port: int, steps: int, out: str,
                     "arrivals": list(run.arrivals), "seconds": run.seconds,
                     "device": str(mesh.device), "calls": dict(collectives.calls),
                     "k1_launches": flash_attention.launches,
+                    "bn_launches": batch_norm_train.launches,
                     "attempt": attempt, "restored_checkpoint": restored,
                     "gang_subtasks": [int(r.meta.get("gang_subtask", rank))
                                       for r in run.results],

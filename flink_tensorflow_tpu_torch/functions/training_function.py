@@ -52,6 +52,7 @@ from flink_tensorflow_tpu_torch.functions.runner import (
     release_cudnn_heuristics,
 )
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef
+from flink_tensorflow_tpu_torch.ops.batch_norm import batch_norm_train
 from flink_tensorflow_tpu_torch.parallel import dp
 from flink_tensorflow_tpu_torch.parallel.mesh import replicate, shard_batch, spans_processes
 from flink_tensorflow_tpu_torch.parallel.optim import sgd
@@ -414,7 +415,8 @@ class DPTrainWindowFunction(fn.WindowFunction):
     **Traced** (``ctx.tracer``), each step records on the subtask's track
     ``train.assemble`` (the records stacked into arrays), ``train.ship``
     (``shard_batch``), ``train.launch`` (the step's forward, backward and
-    optimizer launches), which tile ``step_dispatch_s``, and when its
+    optimizer launches; its ``bn_launches`` arg counts the fused batch
+    norm's, ``ops.batch_norm``), which tile ``step_dispatch_s``, and when its
     metrics are drained ``train.drain`` (the wait for them on the host)
     and ``train.emit`` (``out.collect``), with the histograms
     ``step_assemble_s``, ``step_ship_s``, ``step_launch_s`` and
@@ -551,6 +553,7 @@ class DPTrainWindowFunction(fn.WindowFunction):
         batch = shard_batch(self.mesh, arrays)
         if traced:
             stamps.append(time.monotonic())
+            bn0 = batch_norm_train.launches
         # Dispatch and go: the step is queued on the device; its metrics
         # are read pipeline_depth windows later.
         self._state, metrics = self._step_fn(self._state, batch, self._step_no)
@@ -560,7 +563,7 @@ class DPTrainWindowFunction(fn.WindowFunction):
         self.ctx.metrics.histogram("step_dispatch_s").record(t1 - t0)
         self._step_no += 1
         if traced:
-            self._trace_dispatch(stamps + [t1])
+            self._trace_dispatch(stamps + [t1], batch_norm_train.launches - bn0)
         self._pending.append((metrics, self._step_no, len(elements), events))
         self._drain(out, self.pipeline_depth - 1)
 
@@ -592,11 +595,14 @@ class DPTrainWindowFunction(fn.WindowFunction):
         self._tracer.span(self._track, name, t0, t1, args=args)
         self._host_spans.append((name, t0, t1))
 
-    def _trace_dispatch(self, stamps) -> None:
+    def _trace_dispatch(self, stamps, bn_launches: int) -> None:
         """The step's three host spans and their histograms, cut at the
-        stamps of its ``step_dispatch_s``."""
+        stamps of its ``step_dispatch_s``; ``train.launch`` also carries
+        the step's launches of the fused batch norm (``bn_launches``)."""
         args = {"step": self._step_no}
         for (name, a, b), hist in zip(tile(self.STEP_SPANS, stamps), self.STEP_HISTOGRAMS):
+            if name == "train.launch":
+                args = {**args, "bn_launches": bn_launches}
             self._host_span(name, a, b, args)
             self.ctx.metrics.histogram(hist).record(b - a)
 

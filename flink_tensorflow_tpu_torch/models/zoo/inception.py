@@ -29,7 +29,8 @@ Train mode (the reference's ``apply(train=True, mutable=["batch_stats"],
 rngs={"dropout": rng})``): ``forward(x, stats, generator)`` with a dict
 ``stats`` normalizes by the batch's moments, taken in f32 as flax takes
 them (``E[x]`` and ``max(E[x^2] - E[x]^2, 0)``, biased; over a cohort the
-global batch's, ``parallel.collectives.batch_moments``), and writes each
+global batch's, ``parallel.collectives.batch_moments``; on the card a
+fused kernel pair, ``ops.batch_norm.batch_norm_train``), and writes each
 batch norm's new running statistics, ``0.9997 ra + 0.0003 batch``, into
 ``stats`` under the buffer's ``state_dict`` name (the module's own
 buffers are not touched).  Dropout on the pooled features keeps each
@@ -55,8 +56,8 @@ from torch import nn
 from flink_tensorflow_tpu_torch.models.base import ModelMethod
 from flink_tensorflow_tpu_torch.models.zoo._common import lecun_normal_, weighted_metrics
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef, register_model_def
+from flink_tensorflow_tpu_torch.ops.batch_norm import batch_norm_train
 from flink_tensorflow_tpu_torch.ops.preprocessing import _rounded, inception_normalize
-from flink_tensorflow_tpu_torch.parallel import collectives
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
 
 BN_EPSILON = 1e-3
@@ -90,17 +91,10 @@ class ConvBN(nn.Module):
             y = F.batch_norm(y, self.mean, self.var, self.scale, self.bias, False, 0.0,
                              BN_EPSILON)
             return F.relu(y, inplace=True)
-        yf = y.float()
-        mean, mean_sq = collectives.batch_moments(yf.mean(dim=(0, 2, 3)),
-                                                  (yf * yf).mean(dim=(0, 2, 3)))
-        var = torch.clamp(mean_sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            stats[self.path + "mean"] = BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean
-            stats[self.path + "var"] = BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
-        return F.relu(((y - mean.view(shape)) * mul.view(shape)
-                       + self.bias.view(shape)).to(y.dtype))
+        y, stats[self.path + "mean"], stats[self.path + "var"] = batch_norm_train(
+            y, self.scale, self.bias, self.mean, self.var, eps=BN_EPSILON,
+            momentum=BN_MOMENTUM, relu=True)
+        return y
 
 
 def _avg_pool_same(x: torch.Tensor) -> torch.Tensor:

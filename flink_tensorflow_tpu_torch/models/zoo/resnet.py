@@ -23,7 +23,9 @@ What is held equal to the flax definition:
   ``valid``-weighted).  Inside a data-parallel step over a cohort the
   two moments are the global batch's (``parallel.collectives.
   batch_moments``), as XLA computes them over the reference's sharded
-  batch.  In eval mode BN uses the running statistics;
+  batch.  Train mode runs ``ops.batch_norm.batch_norm_train`` (on the
+  card a fused kernel pair; the stem's and each block's first two norms
+  apply their ReLU in it).  In eval mode BN uses the running statistics;
 - the last BN of each block starts with scale 0;
 - the head's mean over H and W accumulates in f32 and rounds to
   ``compute_dtype`` (``jnp.mean`` of a bf16 tensor); the Dense runs in f32.
@@ -47,8 +49,8 @@ from torch import nn
 from flink_tensorflow_tpu_torch.models.base import ModelMethod
 from flink_tensorflow_tpu_torch.models.zoo._common import lecun_normal_, weighted_metrics
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef, register_model_def
+from flink_tensorflow_tpu_torch.ops.batch_norm import batch_norm_train
 from flink_tensorflow_tpu_torch.ops.preprocessing import inception_normalize
-from flink_tensorflow_tpu_torch.parallel import collectives
 from flink_tensorflow_tpu_torch.tensors.schema import RecordSchema, spec
 
 BN_EPSILON = 1e-5
@@ -67,32 +69,31 @@ def same_padding(size: int, kernel: int, stride: int) -> typing.Tuple[int, int]:
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=compute)``."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=compute)``,
+    followed by a ReLU when ``relu``.  Train mode is
+    ``ops.batch_norm.batch_norm_train`` (the fused kernel pair on the
+    card)."""
 
-    def __init__(self, features: int, scale_init: float = 1.0):
+    def __init__(self, features: int, scale_init: float = 1.0, relu: bool = False):
         super().__init__()
         self.scale = nn.Parameter(torch.full((features,), scale_init))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.relu = relu
         #: ``state_dict`` prefix, set by the owning :class:`ResNet`.
         self.path = ""
 
     def forward(self, x: torch.Tensor, stats: Stats) -> torch.Tensor:
-        if stats is None:
-            mean, var = self.mean, self.var
-        else:
-            xf = x.float()
-            mean, mean_sq = collectives.batch_moments(xf.mean(dim=(0, 2, 3)),
-                                                      (xf * xf).mean(dim=(0, 2, 3)))
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
-            with torch.no_grad():
-                stats[self.path + "mean"] = BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean
-                stats[self.path + "var"] = BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var
+        if stats is not None:
+            y, stats[self.path + "mean"], stats[self.path + "var"] = batch_norm_train(
+                x, self.scale, self.bias, self.mean, self.var, eps=BN_EPSILON,
+                momentum=BN_MOMENTUM, relu=self.relu)
+            return y
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
-        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        mul = torch.rsqrt(self.var + BN_EPSILON) * self.scale
+        y = ((x - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
+        return F.relu(y) if self.relu else y
 
 
 class Conv(nn.Module):
@@ -124,9 +125,9 @@ class BottleneckBlock(nn.Module):
     def __init__(self, cin: int, filters: int, stride: int = 1):
         super().__init__()
         self.conv1 = Conv(cin, filters, 1)
-        self.bn1 = BatchNorm(filters)
+        self.bn1 = BatchNorm(filters, relu=True)
         self.conv2 = Conv(filters, filters, 3, stride)
-        self.bn2 = BatchNorm(filters)
+        self.bn2 = BatchNorm(filters, relu=True)
         self.conv3 = Conv(filters, filters * 4, 1)
         self.bn3 = BatchNorm(filters * 4, scale_init=0.0)
         # flax projects when the residual's shape differs from the output's.
@@ -137,8 +138,8 @@ class BottleneckBlock(nn.Module):
             self.proj = self.proj_bn = None
 
     def forward(self, x: torch.Tensor, stats: Stats) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), stats))
-        y = F.relu(self.bn2(self.conv2(y), stats))
+        y = self.bn1(self.conv1(x), stats)
+        y = self.bn2(self.conv2(y), stats)
         y = self.bn3(self.conv3(y), stats)
         residual = x if self.proj is None else self.proj_bn(self.proj(x), stats)
         return F.relu(y + residual)
@@ -154,7 +155,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.stem = Conv(3, width, 7, 2, (3, 3))
-        self.stem_bn = BatchNorm(width)
+        self.stem_bn = BatchNorm(width, relu=True)
         blocks = []
         cin = width
         for i, count in enumerate(stage_sizes):
@@ -170,7 +171,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, stats: Stats = None) -> torch.Tensor:
         x = x.to(self.compute_dtype)
-        x = F.relu(self.stem_bn(self.stem(x), stats))
+        x = self.stem_bn(self.stem(x), stats)
         x = F.max_pool2d(x, 3, 2, padding=1)
         for block in self.blocks:
             x = block(x, stats)

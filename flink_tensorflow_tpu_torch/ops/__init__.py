@@ -1,6 +1,8 @@
 """Device ops of the port: flash attention (``ops.flash_attention``, K1, a
 hand-written CUDA kernel with its plain PyTorch version), the paged KV
-layout ops and the image preprocessing ops, exported here.  The package
+layout ops and the image preprocessing ops, exported here, and the conv
+nets' train-mode batch norm (``ops.batch_norm``, a hand-written CUDA
+kernel pair with its plain version).  The package
 keeps ``flash_attention`` as the submodule's name, as its callers import
 it (``ops.flash_attention.flash_attention`` is the function the
 reference exports as ``ops.flash_attention``)."""

@@ -12,9 +12,10 @@ here, each over an explicit process group (the mesh's group for an axis,
   incoming gradients over the group, which is the adjoint of a sum that
   every rank receives.  Batch norm's global moments rest on it;
 - :func:`cross_replica_moments` makes train-mode batch norm
-  (``models/zoo/resnet.py:BatchNorm``) average its per-rank ``E[x]`` and
-  ``E[x^2]`` over a group for the length of a train step, which is what
-  the JAX step computes over its global batch;
+  (``ops/batch_norm.py``) average its per-rank ``E[x]`` and ``E[x^2]``
+  over a group for the length of a train step, which is what the JAX
+  step computes over its global batch; the fused kernel's backward takes
+  its moments' gradients through :func:`moment_grads_`;
 - :func:`all_reduce_mean_` averages a list of tensors in place with one
   collective per dtype (the gradients of a step, the state's broadcast).
 
@@ -115,6 +116,23 @@ def batch_moments(mean: torch.Tensor, mean_sq: torch.Tensor
     group, size = active
     both = all_reduce_sum(torch.stack([mean, mean_sq]), group) / size
     return both[0], both[1]
+
+
+def moments_group():
+    """``(group, size)`` of the active :func:`cross_replica_moments` on
+    this thread, or None."""
+    return _MOMENTS.get()
+
+
+def moment_grads_(grads: torch.Tensor, active) -> torch.Tensor:
+    """The transpose of :func:`batch_moments` for a kernel that takes its
+    own gradient: the per-rank gradients of the averaged moments
+    (``grads``, contiguous) summed in place over the group of ``active``
+    (:func:`moments_group` at the forward) and divided by its size.  At
+    one rank the sum is a copy and the division by 1 exact."""
+    group, size = active
+    all_reduce_(grads, group)
+    return grads.div_(size)
 
 
 def _by_dtype(tensors: typing.Sequence[torch.Tensor]):
