@@ -11,6 +11,12 @@ the program's job, and reports when it is warm (:meth:`Job.warm`); the
 harness then measures the window and calls :meth:`Job.finish` and
 :meth:`Job.check`.  The sink keeps, for every result, its id and the
 time it arrived, so every rate is over all the window's work.
+
+A kind says what loop it drives (:attr:`Job.loop`), which the rate
+readers go by, and prices its record for the traced run's rooflines
+and MFU (:meth:`Job.work_count`): by default an image forward pass or a
+training step's batch; a kind whose records are token sequences prices
+its own, a served request being its prefill and its decode steps.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from benchmark import load, spec, weights
+from benchmark.reference import count as counting
 from flink_tensorflow_tpu_torch.core import functions as port_fn
 from flink_tensorflow_tpu_torch.core.environment import StreamExecutionEnvironment
 from flink_tensorflow_tpu_torch.models.zoo.registry import get_model_def
@@ -48,10 +55,9 @@ def image_shape(config) -> typing.Tuple[int, int, int]:
 def port_model(config, seed: int, device: torch.device):
     """``(model def, the program's module)`` with the seed's weights."""
     mdef = get_model_def(config["architecture"], **config["port"])
-    ref = weights.reference_module(config, seed, device)
     with torch.device(device):
         module = mdef.make_module()
-    weights.load_into(module, ref)
+    weights.into_program(config, module, seed, device)
     return mdef, module
 
 
@@ -60,6 +66,11 @@ class Job:
     the window and the registry readings."""
 
     kind = ""
+    #: The loop the job drives, which the end-to-end rate readers go by:
+    #: ``"inference"`` (a closed loop whose records' results reach the
+    #: sink, ``metrics/records_per_s.py``) or ``"training"``
+    #: (``metrics/train_records_per_s.py``).
+    loop = ""
 
     def __init__(self, cell, seed: int, device: torch.device, trace: bool):
         self.cell = cell
@@ -131,8 +142,15 @@ class Job:
         """``(numbers read, records attempted, records failed)``."""
         raise NotImplementedError
 
-    def work(self) -> typing.Tuple[int, str]:
-        """``(records a step, check kind)``: the batch the count of a
-        record's work takes (``reference/count.py``), and whether it
-        counts a forward pass or a training step."""
-        raise NotImplementedError
+    def work_count(self) -> counting.Count:
+        """The work of one record, which the traced run's rooflines and
+        MFU read: here the configuration's reference on an image forward,
+        or in a training loop on a step's batch of
+        ``train_batch_per_worker`` (``reference/count.py``)."""
+        config = self.config
+        train = self.loop == "training"
+        return counting.count(
+            weights.reference_class(config),
+            {**weights.reference_kwargs(config), "compute_dtype": config["compute_dtype"]},
+            batch=int(config["train_batch_per_worker"]) if train else 1,
+            image_size=config["image_size"], train=train)

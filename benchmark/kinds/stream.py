@@ -54,6 +54,7 @@ class Reservoir:
 
 class StreamJob(jobs.Job):
     kind = "stream"
+    loop = "inference"
 
     def __init__(self, cell, seed, device, trace):
         super().__init__(cell, seed, device, trace)
@@ -112,9 +113,6 @@ class StreamJob(jobs.Job):
         with self.lock:
             ids = list(self.ids)
         return (self.feed.emitted - len(set(ids))) + (len(ids) - len(set(ids)))
-
-    def work(self):
-        return 1, "forward"
 
 
 JOB = StreamJob

@@ -55,6 +55,7 @@ class _CapturingTrain(DPTrainWindowFunction):
 
 class TrainJob(jobs.Job):
     kind = "train"
+    loop = "training"
 
     def __init__(self, cell, seed, device, trace):
         super().__init__(cell, seed, device, trace)
@@ -156,9 +157,6 @@ class TrainJob(jobs.Job):
         good = sum(1 for k, (step, loss) in enumerate(losses[:steps])
                    if step == k + 1 and math.isfinite(loss))
         return self.batch * (steps - good + max(0, len(losses) - steps))
-
-    def work(self):
-        return self.batch, "train"
 
 
 JOB = TrainJob

@@ -2,7 +2,8 @@
 
 Each reader gets the finished job (``jobs.Job``) and returns a number,
 or None where the job holds nothing for it to read, in which case the
-harness leaves the metric out of the result line.
+harness leaves the metric out of the result line.  The end-to-end rates
+go by the loop a job drives; the per-layer readers by its kind.
 """
 
 from __future__ import annotations
@@ -14,10 +15,11 @@ import numpy as np
 from benchmark.reference.count import PEAK_FLOPS
 
 
-def rate(job, kind: str) -> typing.Optional[float]:
-    """Records of ``kind`` jobs whose result reached the sink inside the
-    window, over the window's seconds."""
-    if job.kind != kind:
+def rate(job, loop: str) -> typing.Optional[float]:
+    """Records of a job that drives ``loop`` (``jobs.Job.loop``), whatever
+    its kind, whose result reached the sink inside the window, over the
+    window's seconds."""
+    if job.loop != loop:
         return None
     return job.in_window(job.t0, job.t1) / job.seconds
 

@@ -86,8 +86,6 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, *,
 
     from benchmark import check, jobs
     from benchmark import trace as tracing
-    from benchmark.reference import count as counting
-    from benchmark.weights import reference_class, reference_kwargs
 
     phases = [("imports", time.monotonic())]
     job = jobs.kind(cell.mix["job"], cell.base)(cell, seed, device, trace)
@@ -157,15 +155,11 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, *,
               f"{job.in_window(job.t0, job.t1) / seconds!r} in the whole window",
               file=sys.stderr)
     gc.unfreeze()
-    per, kind = job.work()
-    config = cell.config
     job.count = None
-    if trace:   # the rooflines' and MFU's count of the work
-        job.count = counting.count(
-            reference_class(config),
-            {**reference_kwargs(config), "compute_dtype": config["compute_dtype"]},
-            batch=per if kind == "train" else 1, image_size=config["image_size"],
-            train=kind == "train")
+    if trace:   # the rooflines' and MFU's count of a record's work
+        job.count = job.work_count()
+        print(f"count a record: {job.count.flops!r} FLOP, {job.count.bytes!r} bytes, "
+              f"least {job.count.least_s!r} s", file=sys.stderr)
     numbers, attempted, lost = job.check()
     correct, shown, readings = check.verdict(numbers, cell.limits, lost)
     for key, value in readings.items():

@@ -118,6 +118,50 @@ def test_count_matches_the_published_figures():
     assert all(w.least_s > 0 for w in trained.work)
 
 
+#: ``(flops, bytes, least_s)`` a record, as the image count read before
+#: it became a use of ``count_work`` (the same FLOP counter and byte
+#: sizes): the four must not move by a bit.
+IMAGE_COUNTS = {
+    "inception-75-forward": (402996416.0, 45438374.0, 1.3563693731343284e-05),
+    "resnet-tiny-train-4": (3800064.0, 339846.0, 1.014465671641791e-07),
+    "inception-299-forward": (11426432192.0, 97930774.0, 2.9961502999260523e-05),
+    "resnet50-224-train-256": (24299077632.0, 110262348.125, 3.980849062325129e-05),
+}
+IMAGE_CASES = {
+    "inception-75-forward": (inception_v3.InceptionV3, {"num_classes": 10, "dropout": 0.2},
+                             1, 75, False),
+    "resnet-tiny-train-4": (resnet50.ResNet50, {"num_classes": 10, "width": 8,
+                                                "stage_sizes": [1, 1, 1, 1]}, 4, 32, True),
+    "inception-299-forward": (inception_v3.InceptionV3, {"num_classes": 1000, "dropout": 0.2},
+                              1, 299, False),
+    "resnet50-224-train-256": (resnet50.ResNet50, {"num_classes": 1000, "width": 64,
+                                                   "stage_sizes": [3, 4, 6, 3]}, 256, 224, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IMAGE_CASES))
+def test_the_image_count_reads_as_before_to_the_bit(case):
+    cls, kwargs, batch, size, train = IMAGE_CASES[case]
+    got = count.count(cls, {**kwargs, "compute_dtype": "bfloat16"}, batch=batch,
+                      image_size=size, train=train)
+    assert (got.flops, got.bytes, got.least_s) == IMAGE_COUNTS[case]
+    assert got.total_flops == got.flops
+
+
+def test_count_work_prices_any_call_with_its_matmul_dtype():
+    with torch.device("meta"):
+        a, b = torch.zeros(3, 64, 32), torch.zeros(32, 16)
+
+    def run():
+        a @ b
+
+    wide = count.count_work(run, compute_dtype="bfloat16", records=3)
+    narrow = count.count_work(run, compute_dtype="bfloat16", records=3, matmul_dtype="bfloat16")
+    assert wide.flops == narrow.flops == 2 * 64 * 32 * 16
+    assert wide.bytes == 4 * (64 * 32 * 3 + 32 * 16 + 64 * 16 * 3) / 3
+    assert narrow.bytes == wide.bytes / 2
+
+
 def test_fp8_control_is_coarser_than_exact():
     _, ref, *_ = _pair("inception")
     from benchmark.reference import arith

@@ -5,13 +5,17 @@ a new configuration, mix or metric needs only new files and entries."""
 import json
 import os
 import re
+import shutil
+import subprocess
+import sys
 import time
 
 import pytest
 import torch
 
 from benchmark import jobs, run, spec
-from benchmark.tests.tiny import ROOT, tiny_root
+from benchmark.reference.count import PEAK_FLOPS
+from benchmark.tests.tiny import HERE, ROOT, tiny_root
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -125,6 +129,107 @@ def test_a_new_config_mix_and_metric_are_files_and_entries(tmp_path):
     # The cells already there see nothing of it.
     assert "steps_per_s.train" not in {m.name for m in spec.cell("resnet50-train", root)
                                        .per_layer}
+
+
+#: Run in the copy, whose ``benchmark`` package is the one imported: both
+#: runs of the new cell on the CPU, and what each job read.
+_TOKEN_RUNS = """
+import json, time
+import torch
+from benchmark import jobs, run, spec
+
+made = []
+real = jobs.kind
+
+
+def kind(name, base=spec.HERE):
+    class Seen(real(name, base)):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+    return Seen
+
+
+jobs.kind = kind
+cell = spec.cell("tiny-decoder-serve")
+out = []
+for trace in (False, True):
+    result = run.measure(cell, 2**31 + 11, 1.5, trace, torch.device("cpu"),
+                         t_origin=time.monotonic(), age=0.0)
+    job = made[-1]
+    out.append({"result": result, "base": job.cell.base,
+                "in_window": job.in_window(job.t0, job.t1), "seconds": job.seconds,
+                "flops": job.count.flops if trace else None,
+                "slice_rate": job.slice_records / job.slice.window_s if trace else None})
+print(json.dumps(out))
+"""
+
+
+def test_a_token_sequence_config_kind_mix_and_metric_are_files_and_entries(tmp_path):
+    """In a (small) copy: a configuration whose records are token sequences
+    (its plain decoder in the copy's ``reference/``, weights made per
+    tensor), a ``serve`` kind driving ``continuous_batching`` in a closed
+    loop of sessions, its mix, limits, a cell listed in ``records_per_s``
+    and a per-layer metric, all from ``tests/token_cell`` as files and
+    entries alone: the end-to-end rate and the per-layer metric are read,
+    the traced count is the kind's own (a request's prefill and decode
+    steps), and no file that was in the copy changed."""
+    root = tiny_root(tmp_path)
+    bench_dir = os.path.join(root, "benchmark")
+    before = {}
+    for base, _, files in os.walk(bench_dir):
+        for name in files:
+            path = os.path.join(base, name)
+            before[path] = open(path, "rb").read()
+    new = os.path.join(HERE, "token_cell")
+    for base, _, files in os.walk(new):
+        for name in files:
+            assert not os.path.exists(os.path.join(bench_dir, os.path.relpath(base, new), name))
+    shutil.copytree(new, bench_dir, dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "tiny-decoder", "source": "https://arxiv.org/abs/1706.03762",
+                             "file": "benchmark/configs/tiny-decoder.json", "reduced": [],
+                             "why": "a decoder served through the serving plane"})
+    bench["workloads"].append({"name": "tiny-decoder-serve", "config": "tiny-decoder",
+                               "traffic": "serve-closed", "chips": 1,
+                               "why": "closed loop of 8 sessions, 12-token prompts, 6 tokens"})
+    bench["per_layer"].append({"name": "mfu_pct.serve", "unit": "%", "better": "higher",
+                               "source": "device_trace", "layer": "whole step",
+                               "moves": "records_per_s", "workloads": ["tiny-decoder-serve"]})
+    for m in bench["end_to_end"]:
+        if m["name"] == "records_per_s":
+            m["workloads"].append("tiny-decoder-serve")
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, ROOT])}
+    proc = subprocess.run([sys.executable, "-c", _TOKEN_RUNS], capture_output=True, text=True,
+                          cwd=root, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    plain, traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert plain["base"] == bench_dir   # the copy's harness ran, not this one
+    for run_ in (plain, traced):
+        result = run_["result"]
+        assert result["correct"] and result["failed"] == 0, result["checked"]
+        assert set(result["checked"]) == {"failed", "token_gap"}
+    rate = plain["result"]["metrics"]["records_per_s"]["value"]
+    assert rate > 0 and rate == plain["in_window"] / plain["seconds"]
+    assert set(plain["result"]["metrics"]) == {"records_per_s", "setup_s"}
+    # A request: a 12-token prefill (logits of the last position alone),
+    # then 5 decode steps over caches of 13 to 17 positions; 2 layers of
+    # width 32, MLP 128, vocabulary 48.
+    d, mlp, vocab, layers, prompt = 32, 128, 48, 2, 12
+    prefill = layers * (8 * prompt * d * d + 4 * prompt * prompt * d + 4 * prompt * d * mlp)
+    decode = sum(layers * (8 * d * d + 4 * cache * d + 4 * d * mlp)
+                 for cache in range(prompt + 1, prompt + 6))
+    assert traced["flops"] == prefill + decode + 6 * 2 * d * vocab
+    mfu = traced["result"]["metrics"]["mfu_pct.serve"]["value"]
+    assert mfu == pytest.approx(100 * traced["flops"] * traced["slice_rate"] / PEAK_FLOPS)
+    assert mfu > 0
+    assert all(open(p, "rb").read() == data for p, data in before.items())
+    # The cells already there see nothing of it.
+    assert "mfu_pct.serve" not in {m.name for m in spec.cell("inception-stream", root).per_layer}
 
 
 def test_unknown_workload_is_refused():

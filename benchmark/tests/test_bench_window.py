@@ -12,7 +12,7 @@ from benchmark.kinds.stream import Reservoir
 
 
 def _closed(times, t0=10.0, t1=20.0):
-    job = types.SimpleNamespace(kind="stream", t0=t0, t1=t1, seconds=t1 - t0)
+    job = types.SimpleNamespace(kind="stream", loop="inference", t0=t0, t1=t1, seconds=t1 - t0)
     job.in_window = lambda a, b: int(((np.asarray(times) >= a) & (np.asarray(times) < b)).sum())
     return job
 
@@ -20,9 +20,9 @@ def _closed(times, t0=10.0, t1=20.0):
 def test_a_stall_inside_the_window_lowers_the_rate():
     steady = np.arange(0.0, 30.0, 0.001)                    # 1,000 records/s
     stalled = steady[(steady < 14.0) | (steady >= 16.0)]    # 2 s of nothing
-    assert readers.rate(_closed(steady), "stream") == pytest.approx(1000.0, rel=1e-3)
-    assert readers.rate(_closed(stalled), "stream") == pytest.approx(800.0, rel=1e-3)
-    assert readers.rate(_closed(steady), "train") is None
+    assert readers.rate(_closed(steady), "inference") == pytest.approx(1000.0, rel=1e-3)
+    assert readers.rate(_closed(stalled), "inference") == pytest.approx(800.0, rel=1e-3)
+    assert readers.rate(_closed(steady), "training") is None
 
 
 def test_the_reservoir_samples_the_whole_window_evenly_and_from_the_seed():
