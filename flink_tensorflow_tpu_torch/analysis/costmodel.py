@@ -47,6 +47,7 @@ Everything is fail-soft: a unit whose walk raises becomes a note on its
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing
 import weakref
 
@@ -406,10 +407,12 @@ def _cost_serving(t, op) -> OperatorCost:
         S, C = cfg.max_active_seqs, cfg.capacity
         i32 = torch.int32
         with torch.no_grad(), meta_calls():
-            k_like = prefill.fn(module, {
+            like = prefill.fn(module, {
                 "tokens": _meta((cfg.bucket_admit(S), min(cfg.bucket_prompt_len(C), C)), i32),
-                "lengths": _meta((cfg.bucket_admit(S),), i32)})["k_cache"]
-        _, layers, _, heads, hd = k_like.shape  # [B, L, T, H, Dh]
+                "lengths": _meta((cfg.bucket_admit(S),), i32)})
+        k_like, v_like = like["k_cache"], like["v_cache"]
+        layers = k_like.shape[1]
+        parts = (tuple(k_like.shape[3:]), tuple(v_like.shape[3:]))  # [B, L, T, *part]
         pool_dtype = k_like.dtype
         esz = k_like.element_size()
         paged = bool(cfg.paged_kv)
@@ -417,10 +420,11 @@ def _cost_serving(t, op) -> OperatorCost:
             pt = cfg.page_tokens
             Pc = pages_per_session(C, pt)  # table width per session
             P = cfg.resolved_hbm_pages()
-            pool_shape = (P + 1, layers, pt, heads, hd)  # + the sentinel page
+            lead = (P + 1, layers, pt)  # + the sentinel page
         else:
             Pc = None  # no block tables
-            pool_shape = (S, layers, C, heads, hd)
+            lead = (S, layers, C)
+        k_shape, v_shape = (lead + part for part in parts)
         combos = sorted({(b, min(n, C)) for (kind, b, n) in sigs if kind == "prefill"})
         if len(combos) > MAX_SIGNATURE_TRACES:
             cost.notes.append(
@@ -431,7 +435,7 @@ def _cost_serving(t, op) -> OperatorCost:
         with torch.no_grad():
             for b, n in combos:
                 tok, lens = _meta((b, n), i32), _meta((b,), i32)
-                kc, vc = _meta(pool_shape, pool_dtype), _meta(pool_shape, pool_dtype)
+                kc, vc = _meta(k_shape, pool_dtype), _meta(v_shape, pool_dtype)
                 if paged:
                     unit = cost_of_call(paged_prefill, prefill, module, tok, lens,
                                         _meta((b, Pc), torch.long), kc, vc, C, pt)
@@ -442,7 +446,7 @@ def _cost_serving(t, op) -> OperatorCost:
                 cost.entries.append(_entry_of(
                     "prefill", serving_signature("prefill", b, n), unit,
                     h2d_bytes=prefill_h2d_bytes(b, n, Pc), d2h_bytes=b * 4))
-            kc, vc = _meta(pool_shape, pool_dtype), _meta(pool_shape, pool_dtype)
+            kc, vc = _meta(k_shape, pool_dtype), _meta(v_shape, pool_dtype)
             tok, lens = _meta((S,), i32), _meta((S,), i32)
             if paged:
                 unit = cost_of_call(paged_decode, decode, module, tok, lens,
@@ -458,13 +462,14 @@ def _cost_serving(t, op) -> OperatorCost:
         # (park/extract/insert/spill revival).  Transfers are not launch
         # shapes, so they stay OUT of predicted_signatures.
         if paged:
-            page_bytes = 2 * layers * pt * heads * hd * esz
+            per_token = sum(math.prod(part) for part in parts)
+            page_bytes = layers * pt * per_token * esz
             for n_pages in range(1, Pc + 1):
                 cost.entries.append(CostEntry(
                     unit="cache_move", signature=f"cache:pages:{n_pages}",
                     h2d_bytes=n_pages * page_bytes, d2h_bytes=n_pages * page_bytes))
         else:
-            block_bytes = 2 * layers * C * heads * hd * esz
+            block_bytes = layers * C * sum(math.prod(part) for part in parts) * esz
             cost.entries.append(CostEntry(
                 unit="cache_move", signature="cache:block",
                 h2d_bytes=block_bytes, d2h_bytes=block_bytes))

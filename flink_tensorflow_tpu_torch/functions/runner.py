@@ -141,10 +141,10 @@ def decode_h2d_bytes(s: int, table_width: typing.Optional[int] = None) -> int:
 
 
 def dense_prefill(prefill, module, tokens, lengths, kc, vc, src=None, dst=None):
-    """The model's prefill, then rows ``src`` of the new K/V padded to the
-    pool's capacity and written into pool slots ``dst`` (no rows: every
-    row is bucket padding or warmup, computed and dropped).  Returns the
-    model's outputs."""
+    """The model's prefill, then rows ``src`` of the new cache parts
+    padded to the pool's capacity and written into pool slots ``dst`` (no
+    rows: every row is bucket padding or warmup, computed and dropped).
+    Returns the model's outputs."""
     out = prefill.fn(module, {"tokens": tokens, "lengths": lengths})
     if src is not None:
         t = tokens.shape[1]
@@ -164,34 +164,67 @@ def paged_prefill(prefill, module, tokens, lengths, tables, kp, vp, capacity: in
     out = prefill.fn(module, {"tokens": tokens, "lengths": lengths})
     b, t = tokens.shape
     for pool, new in ((kp, out["k_cache"]), (vp, out["v_cache"])):
-        layers, heads, hd = new.shape[1], new.shape[3], new.shape[4]
-        dense = torch.zeros((b, layers, capacity, heads, hd), dtype=pool.dtype,
+        dense = torch.zeros((b, new.shape[1], capacity, *new.shape[3:]), dtype=pool.dtype,
                             device=pool.device)
         dense[:, :, :t] = new
         scatter_pages(pool, tables, dense, page_tokens)
     return out
 
 
-def paged_decode(decode, module, token, lengths, tables, kp, vp, page_tokens: int):
+def paged_decode(decode, module, token, lengths, tables, kp, vp, page_tokens: int,
+                 probe=None):
     """One paged step: gather the dense view, run the model's dense
     ``decode_step`` on it, scatter every page back.  Returns the model's
     outputs."""
-    result = decode.fn(module, {"token": token, "lengths": lengths,
-                                "k_cache": gather_pages(kp, tables),
-                                "v_cache": gather_pages(vp, tables)})
+    inputs = {"token": token, "lengths": lengths, "k_cache": gather_pages(kp, tables),
+              "v_cache": gather_pages(vp, tables)}
+    if probe is not None:
+        inputs["probe"] = probe
+    result = decode.fn(module, inputs)
     scatter_pages(kp, tables, result["k_cache"], page_tokens)
     scatter_pages(vp, tables, result["v_cache"], page_tokens)
     return result
 
 
-class DecodeStepRunner:
-    """Owns the device copy of the model and the KV pool of one subtask.
+class _DecodeGraph(typing.NamedTuple):
+    """A captured padded decode step: its graph, the static inputs each
+    replay is fed through, the static next tokens, and the probe captured
+    with it (traced jobs)."""
 
-    The model contributes two methods (``models/zoo/chartransformer`` is
-    the reference instance): ``prefill`` ``{tokens [B, T], lengths [B]}``
-    -> ``{next_token [B], k_cache [B, L, T, H, Dh], v_cache}`` and
-    ``decode_step`` ``{token, lengths, k_cache, v_cache, active}``, which
-    writes the new position into the given caches."""
+    graph: typing.Any
+    inputs: typing.Dict[str, torch.Tensor]
+    next_token: torch.Tensor
+    probe: typing.Any
+
+
+class DecodeStepRunner:
+    """Owns the model's module on the device and the KV pool of one subtask.
+
+    The model contributes two methods (``models/zoo/chartransformer`` and
+    ``models/zoo/deepseek_v2`` are the instances): ``prefill`` ``{tokens
+    [B, T], lengths [B]}`` -> ``{next_token [B], k_cache [B, L, T, *part0],
+    v_cache [B, L, T, *part1]}`` and ``decode_step`` ``{token, lengths,
+    k_cache, v_cache, active[, probe]}``, which writes the new position
+    into the given caches.  The two cache parts and their shapes a token
+    are the module's ``kv_cache_spec()`` (``models/base.py:KVCacheSpec``):
+    K and V ``[H, Dh]`` each for ``char_transformer``, the latent ``[1,
+    512]`` and ``[1, 64]`` for DeepSeek-V2.  ``_kc``/``_vc`` and a block's
+    ``k``/``v`` are parts 0 and 1.
+
+    On the card, a module that declares its decode step free of host
+    syncs (``decode_graph_safe``, DeepSeek-V2) has the padded step captured
+    once as a CUDA graph, at the first step after the warm-up, and replayed
+    every step after: the host launches one graph, not the step's thousands
+    of kernels.  Each replay takes its token, length and mask vectors
+    through static device inputs; the pool is written in place as in the
+    eager step.
+
+    Traced, each decode step hands the model a
+    :class:`~flink_tensorflow_tpu_torch.tracing.device_clock.StepProbe`
+    (a graph captures its own) and, after the step's fetch, records what
+    the model put in it as histograms of the same names (DeepSeek-V2:
+    ``moe_device_s``, ``latent_attn_device_s``, ``moe_routed_rows``,
+    ``moe_experts_touched``, ``latent_live_bytes``)."""
 
     def __init__(
         self,
@@ -212,8 +245,8 @@ class DecodeStepRunner:
         self._prefill = model.method("prefill")
         self._decode = model.method("decode_step")
         self._module = None
-        self._kc: typing.Optional[torch.Tensor] = None   # [S, L, C, H, Dh]
-        self._vc: typing.Optional[torch.Tensor] = None
+        self._kc: typing.Optional[torch.Tensor] = None   # [S, L, C, *part0]
+        self._vc: typing.Optional[torch.Tensor] = None   # [S, L, C, *part1]
         self._metrics = None
         #: Span tracer and track (from ctx at open; None untraced) and the
         #: roofline probe (None without ``JobConfig.roofline``).
@@ -225,6 +258,8 @@ class DecodeStepRunner:
         self.block_h2d_events = 0     # host block -> pool (admission/restore)
         self.block_d2h_events = 0     # pool -> host block (barrier/preempt)
         self.device_block_moves = 0   # pool <-> DeviceKVBlock (no host touch)
+        self._graph: typing.Optional[_DecodeGraph] = None
+        self._warming = False
 
     # -- lifecycle ---------------------------------------------------------
     def open(self, ctx: typing.Optional["RuntimeContext"] = None) -> None:
@@ -242,27 +277,41 @@ class DecodeStepRunner:
             # The reference is f32 throughout: keep f32 products off TF32
             # (already PyTorch's default; set so no caller's flag leaks in).
             torch.backends.cuda.matmul.allow_tf32 = False
-        self._module = copy.deepcopy(self.model.params).to(self.device)
+        params = self.model.params
+        if all(_on_device(t, self.device) for t in
+               list(params.parameters()) + list(params.buffers())):
+            # Already where it runs: used in place, never a second copy.
+            self._module = params
+        else:
+            self._module = copy.deepcopy(params).to(self.device)
         self._ensure_pool()
 
+    def _pool_parts(self, slots: int, positions: int) -> None:
+        """Both pool tensors, ``[slots, L, positions, *part]`` each after
+        the module's ``kv_cache_spec()``, zero-filled: masked positions
+        weigh exactly 0 in the attention, and 0 x NaN from uninitialised
+        memory would be NaN."""
+        spec = self._module.kv_cache_spec()
+        self._kc, self._vc = (
+            torch.zeros((slots, spec.layers, positions, *part), dtype=spec.dtype,
+                        device=self.device) for part in spec.parts)
+
     def _ensure_pool(self) -> None:
-        """Allocate the pool, shaped after the model, zero-filled: masked
-        positions weigh exactly 0 in the attention, and 0 x NaN from
-        uninitialised memory would be NaN."""
-        m = self._module
-        shape = (self.pool_slots, len(m.layers), self.capacity, m.heads, m.head_dim)
-        self._kc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
-        self._vc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
+        self._pool_parts(self.pool_slots, self.capacity)
 
     def close(self) -> None:
+        self._graph = None
         self._module = None
         self._kc = self._vc = None
 
     def warmup(self, admit_buckets: typing.Sequence[int],
-               prompt_buckets: typing.Sequence[int]) -> None:
+               prompt_buckets: typing.Sequence[int],
+               prefill_token_budget: typing.Optional[int] = None) -> None:
         """Run every (admit x prompt-length) prefill bucket plus the
         decode step once, so the kernel build and first launches happen
-        before the first live session.  Warmup rows go to the
+        before the first live session; with ``prefill_token_budget`` only
+        the buckets whose padded tokens it holds (the scheduler never
+        presents the others).  Warmup rows go to the
         out-of-range slot (dropped) and the warm decode runs fully masked
         — the pool stays clean.  Counters, metrics and stage spans are
         suppressed (one ``jit_warmup_compile`` span covers the warmup); the
@@ -275,6 +324,7 @@ class DecodeStepRunner:
         tracer, self._tracer = self._tracer, None
         saved = (self.step_h2d_bytes, self.block_h2d_events,
                  self.block_d2h_events, self.device_block_moves)
+        self._warming = True
         t_warm = time.monotonic()
         if self._roofline is not None:
             self._roofline.begin_warmup()
@@ -282,6 +332,8 @@ class DecodeStepRunner:
             for b in admit_buckets:
                 for t in prompt_buckets:
                     t = min(t, self.capacity)
+                    if prefill_token_budget is not None and b * t > prefill_token_budget:
+                        continue
                     self.prefill([np.ones((t,), np.int32)], [t],
                                  [self.pool_slots], batch_bucket=b)
             self.decode_step([0] * self.pool_slots, [0] * self.pool_slots, [])
@@ -290,12 +342,14 @@ class DecodeStepRunner:
                 self._roofline.end_warmup()
             self._metrics = metrics
             self._tracer = tracer
+            self._warming = False
             (self.step_h2d_bytes, self.block_h2d_events,
              self.block_d2h_events, self.device_block_moves) = saved
             if tracer is not None:
                 tracer.span(self._trace_track, "jit_warmup_compile", t_warm, time.monotonic(),
                             args={"admit_buckets": list(admit_buckets),
-                                  "prompt_buckets": list(prompt_buckets)})
+                                  "prompt_buckets": list(prompt_buckets),
+                                  "prefill_token_budget": prefill_token_budget})
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
@@ -342,7 +396,8 @@ class DecodeStepRunner:
         self.step_h2d_bytes += h2d
         if self._tracer is not None:
             self._tracer.span(self._trace_track, "decode.prefill", t0, t1,
-                              args={"batch": n, "bucket": [b, t]})
+                              args={"batch": n, "bucket": [b, t], "tokens": int(lens.sum()),
+                                    "padded_tokens": b * t})
         if self._metrics is not None:
             self._metrics.histogram("prefill_s").record(t1 - t0)
             self._metrics.counter("prefill_batches").inc()
@@ -365,34 +420,43 @@ class DecodeStepRunner:
         h2d_before = self.step_h2d_bytes
         toks = np.asarray(tokens_by_slot, np.int32)
         lens = np.asarray(lengths_by_slot, np.int32)
+        probe = None
         if self.padding_buckets:
             mask = np.zeros((self.pool_slots,), bool)
             mask[list(active_slots)] = True
             self.step_h2d_bytes += decode_h2d_bytes(self.pool_slots)
-            result = self._decode.fn(self._module, {
-                "token": self._to_device(toks), "lengths": self._to_device(lens),
-                "k_cache": self._kc, "v_cache": self._vc,
-                "active": self._to_device(mask)})
-            out = result["next_token"].cpu().numpy()
+            if self._graphed():
+                graph = self._decode_graph()
+                for name, value in (("token", toks), ("lengths", lens), ("active", mask)):
+                    graph.inputs[name].copy_(torch.from_numpy(value))
+                graph.graph.replay()
+                out = graph.next_token.cpu().numpy()
+                probe = graph.probe
+            else:
+                probe = self._probe()
+                inputs = {"token": self._to_device(toks), "lengths": self._to_device(lens),
+                          "k_cache": self._kc, "v_cache": self._vc,
+                          "active": self._to_device(mask)}
+                if probe is not None:
+                    inputs["probe"] = probe
+                out = self._decode.fn(self._module, inputs)["next_token"].cpu().numpy()
         else:
+            probe = self._probe()
             slots = np.asarray(sorted(active_slots), np.int64)
             self.step_h2d_bytes += toks[slots].nbytes + lens[slots].nbytes + slots.nbytes
             rows = self._to_device(slots)
             kc, vc = self._kc[rows], self._vc[rows]
-            result = self._decode.fn(self._module, {
-                "token": self._to_device(toks[slots]),
-                "lengths": self._to_device(lens[slots]), "k_cache": kc, "v_cache": vc})
+            inputs = {"token": self._to_device(toks[slots]),
+                      "lengths": self._to_device(lens[slots]), "k_cache": kc, "v_cache": vc}
+            if probe is not None:
+                inputs["probe"] = probe
+            result = self._decode.fn(self._module, inputs)
             self._kc[rows] = kc
             self._vc[rows] = vc
             out = np.zeros((self.pool_slots,), np.int32)
             out[slots] = result["next_token"].cpu().numpy()
         t1 = time.monotonic()
-        if self._tracer is not None:
-            self._tracer.span(self._trace_track, "decode.step", t0, t1,
-                              args={"active": len(active_slots)})
-        if self._metrics is not None:
-            self._metrics.histogram("decode_step_s").record(t1 - t0)
-            self._metrics.counter("decode_steps").inc()
+        self._observe_step(t0, t1, lens, active_slots, probe)
         if self._roofline is not None:
             # Padded mode presents the one [S] signature; exact mode's
             # signature is the active-set size.
@@ -402,6 +466,63 @@ class DecodeStepRunner:
                                    h2d_bytes=self.step_h2d_bytes - h2d_before,
                                    d2h_bytes=int(out.nbytes))
         return out
+
+    def _probe(self, graphed: bool = False):
+        """A probe for the step's model when traced, else None."""
+        if self._tracer is None:
+            return None
+        from flink_tensorflow_tpu_torch.tracing.device_clock import StepProbe
+
+        return StepProbe(self.device, graphed=graphed)
+
+    def _graphed(self) -> bool:
+        """Whether the padded step replays a CUDA graph (see the class)."""
+        return (self.device.type == "cuda" and not self._warming
+                and getattr(self._module, "decode_graph_safe", False))
+
+    def _decode_graph(self) -> _DecodeGraph:
+        """The captured step, captured now if it is not yet (or was
+        captured with another probe setting)."""
+        graph = self._graph
+        if graph is not None and (graph.probe is not None) == (self._tracer is not None):
+            return graph
+        self._graph = None
+        dev = self.device
+        inputs = {"token": torch.zeros(self.pool_slots, dtype=torch.int32, device=dev),
+                  "lengths": torch.zeros(self.pool_slots, dtype=torch.int32, device=dev),
+                  "active": torch.zeros(self.pool_slots, dtype=torch.bool, device=dev)}
+        call = {**inputs, "k_cache": self._kc, "v_cache": self._vc}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # Every row inactive: the pool keeps its bytes.
+            self._decode.fn(self._module, call)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        probe = self._probe(graphed=True)
+        if probe is not None:
+            call["probe"] = probe
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            out = self._decode.fn(self._module, call)
+        self._graph = _DecodeGraph(captured, inputs, out["next_token"], probe)
+        return self._graph
+
+    def _observe_step(self, t0: float, t1: float, lens: np.ndarray, active_slots,
+                      probe) -> None:
+        """A finished step's span (its live and padded cache positions),
+        its histograms and, traced, what the model put in the probe (read
+        now: the step's results are on the host, so its work is done)."""
+        if self._tracer is not None:
+            live = int(sum(int(lens[s]) + 1 for s in active_slots))
+            self._tracer.span(self._trace_track, "decode.step", t0, t1,
+                              args={"active": len(active_slots), "live_positions": live,
+                                    "padded_positions": self.pool_slots * self.capacity})
+        if self._metrics is not None:
+            self._metrics.histogram("decode_step_s").record(t1 - t0)
+            self._metrics.counter("decode_steps").inc()
+            if probe is not None:
+                for name, value in probe.read().items():
+                    self._metrics.histogram(name).record(value)
 
     # -- block movement (keyed-state residency boundary) -------------------
     def extract_block(self, slot: int, length: int, *, host: bool):
@@ -421,8 +542,9 @@ class DecodeStepRunner:
         # A copy even when the pool is on the CPU (where ``.cpu()`` returns
         # the pool's own view): a snapshot or a preempted block must not
         # change when the slot is written again.
-        k = self._kc[slot].to("cpu", copy=True).numpy()
-        v = self._vc[slot].to("cpu", copy=True).numpy()
+        from flink_tensorflow_tpu_torch.serving.kv_cache import host_array
+
+        k, v = host_array(self._kc[slot]), host_array(self._vc[slot])
         t1 = time.monotonic()
         self._observe_move("cache.d2h", t0, t1, {"slot": slot, "length": length},
                            "cache:block", d2h_bytes=int(k.nbytes + v.nbytes))
@@ -531,16 +653,14 @@ class PagedDecodeStepRunner(DecodeStepRunner):
     # -- pool geometry -----------------------------------------------------
     def _ensure_pool(self) -> None:
         """``num_pages`` pages plus the scratch page, zero-filled."""
-        m = self._module
-        shape = (self.num_pages + 1, len(m.layers), self.page_tokens, m.heads, m.head_dim)
-        self._kc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
-        self._vc = torch.zeros(shape, dtype=m.emb.dtype, device=self.device)
+        self._pool_parts(self.num_pages + 1, self.page_tokens)
 
     def page_nbytes(self) -> typing.Optional[int]:
-        """K+V bytes of ONE page (None before the pool is built)."""
+        """Bytes of ONE page, both cache parts (None before the pool is
+        built)."""
         if self._kc is None:
             return None
-        return 2 * self._kc[0].numel() * self._kc.element_size()
+        return (self._kc[0].numel() + self._vc[0].numel()) * self._kc.element_size()
 
     def _alloc(self, n: int) -> typing.Optional[typing.List[int]]:
         """Allocate ``n`` pages, evicting index-only pages LRU under
@@ -613,8 +733,8 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         self.step_h2d_bytes += h2d
         if self._tracer is not None:
             self._tracer.span(self._trace_track, "decode.prefill", t0, t1,
-                              args={"batch": n, "bucket": [b, t],
-                                    "pages_shared": adopted_pages})
+                              args={"batch": n, "bucket": [b, t], "tokens": int(lens.sum()),
+                                    "padded_tokens": b * t, "pages_shared": adopted_pages})
         if self._metrics is not None:
             self._metrics.histogram("prefill_s").record(t1 - t0)
             self._metrics.counter("prefill_batches").inc()
@@ -643,17 +763,13 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         lens = np.asarray(lengths_by_slot, np.int32)
         h2d = decode_h2d_bytes(self.pool_slots, self.table_width)
         self.step_h2d_bytes += h2d
+        probe = self._probe()
         result = paged_decode(self._decode, self._module, self._to_device(toks),
                               self._to_device(lens), self._to_device(tables).long(),
-                              self._kc, self._vc, self.page_tokens)
+                              self._kc, self._vc, self.page_tokens, probe)
         out = result["next_token"].cpu().numpy()
         t1 = time.monotonic()
-        if self._tracer is not None:
-            self._tracer.span(self._trace_track, "decode.step", t0, t1,
-                              args={"active": len(active_slots)})
-        if self._metrics is not None:
-            self._metrics.histogram("decode_step_s").record(t1 - t0)
-            self._metrics.counter("decode_steps").inc()
+        self._observe_step(t0, t1, lens, active_slots, probe)
         if self._roofline is not None:
             self._roofline.observe("decode_step", t1 - t0, signature=f"decode:{self.pool_slots}",
                                    h2d_bytes=h2d, d2h_bytes=int(out.nbytes))
@@ -722,12 +838,15 @@ class PagedDecodeStepRunner(DecodeStepRunner):
         every consumer).  New host arrays, never views of the pool, even
         when the pool is on the CPU: the pages are written again.  Returns
         ``(k, v, wire_bytes)``: only the gathered pages cross the wire."""
+        from flink_tensorflow_tpu_torch.serving.kv_cache import host_array
+
         ids = torch.as_tensor(list(pages), dtype=torch.long).to(self.device)
         out = []
         wire = 0
         for pool in (self._kc, self._vc):
-            got = pool.index_select(0, ids).cpu().numpy()      # a new tensor
+            got = pool.index_select(0, ids)                     # a new tensor
             wire += int(got.nbytes)
+            got = host_array(got)
             dense = np.zeros((pool.shape[1], self.capacity, *pool.shape[3:]), got.dtype)
             dense[:, :len(pages) * self.page_tokens] = pages_to_dense(got[None])[0]
             out.append(dense)

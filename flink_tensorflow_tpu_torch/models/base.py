@@ -34,6 +34,18 @@ class ModelMethod:
     needs_lengths: bool = False
 
 
+class KVCacheSpec(typing.NamedTuple):
+    """What a served model's cache holds (its module's
+    ``kv_cache_spec()``): ``layers`` layers of two parts a token, each
+    ``(heads, width)``, in ``dtype``.  The serving runners shape their
+    pools and blocks from it: ``char_transformer``'s K and V are
+    ``(H, Dh)`` each, DeepSeek-V2's latent ``(1, 512)`` and ``(1, 64)``."""
+
+    layers: int
+    parts: typing.Tuple[typing.Tuple[int, int], typing.Tuple[int, int]]
+    dtype: typing.Any
+
+
 class Model:
     """A loaded model: params + named methods."""
 

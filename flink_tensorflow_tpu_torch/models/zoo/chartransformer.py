@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flink_tensorflow_tpu_torch.models.base import ModelMethod
+from flink_tensorflow_tpu_torch.models.base import KVCacheSpec, ModelMethod
 from flink_tensorflow_tpu_torch.models.zoo.registry import ModelDef, register_model_def
 from flink_tensorflow_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -82,6 +82,11 @@ class CharTransformer(nn.Module):
         self.head = nn.Parameter(torch.zeros(d, vocab_size))
         self.ln_f = nn.Parameter(torch.ones(d))
         self.layers = nn.ModuleList(_Block(d, mlp_ratio * d) for _ in range(num_layers))
+
+    def kv_cache_spec(self) -> KVCacheSpec:
+        """K and V, ``[H, Dh]`` each a layer and a token."""
+        part = (self.heads, self.head_dim)
+        return KVCacheSpec(len(self.layers), (part, part), self.emb.dtype)
 
     def _logits(self, h):
         return _rms_norm(h, self.ln_f) @ self.head

@@ -77,7 +77,8 @@ def register_model_def(name: str):
     return deco
 
 
-_ZOO_MODULES = ("chartransformer", "inception", "widedeep", "resnet", "lenet", "bilstm")
+_ZOO_MODULES = ("chartransformer", "inception", "widedeep", "resnet", "lenet", "bilstm",
+                "deepseek_v2")
 
 
 def get_model_def(architecture: str, **config) -> ModelDef:

@@ -62,7 +62,7 @@ class FixedWindowGenerateFunction(fn.WindowFunction):
         self._runner.open(ctx)
         if cfg.warmup_compile:
             self._runner.warmup(cfg.resolved_admit_buckets(),
-                                cfg.resolved_prompt_buckets())
+                                cfg.resolved_prompt_buckets(), cfg.prefill_token_budget)
 
     def close(self) -> None:
         if self._runner is not None:

@@ -1,8 +1,10 @@
 """KV-cache blocks and the keyed-state facade that owns them.
 
 Port of ``flink_tensorflow_tpu/serving/kv_cache.py``.  One session's
-cache is a ``[L, C, H, Dh]`` K/V pair plus its valid length, in one of
-these residency forms:
+cache is a pair of parts ``[L, C, *part]`` (``k`` is part 0, ``v`` part 1,
+their shapes a token the model's ``kv_cache_spec()``: K and V ``[H, Dh]``
+for ``char_transformer``, DeepSeek-V2's latent ``[1, 512]`` and ``[1,
+64]``) plus its valid length, in one of these residency forms:
 
 - :class:`KVBlock` — host numpy, picklable: the form in checkpoints (and
   the paged pool's warm rung).
@@ -37,7 +39,9 @@ if typing.TYPE_CHECKING:
 
 
 class KVBlock:
-    """Host-resident cache of one session: k/v ``[L, C, H, Dh]`` f32."""
+    """Host-resident cache of one session: parts 0 and 1 (``k``, ``v``)
+    ``[L, C, *part]`` as numpy, in the pool's dtype or, for bfloat16
+    (which numpy lacks), widened exactly to float32."""
 
     __slots__ = ("k", "v", "length")
     kind = "host"
@@ -57,6 +61,16 @@ class KVBlock:
         return f"KVBlock(shape={tuple(self.k.shape)}, length={self.length})"
 
 
+def host_array(t) -> np.ndarray:
+    """A new host numpy copy of tensor ``t`` (never a view of a CPU pool,
+    which is written again); bfloat16, which numpy lacks, widened exactly
+    to float32, which narrows back exactly into the pool."""
+    import torch
+
+    t = t.to("cpu", copy=True)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 class DeviceKVBlock:
     """Device-resident cache of one session (torch tensors owned by the
     block, not views of the pool)."""
@@ -70,7 +84,7 @@ class DeviceKVBlock:
         self.length = int(length)
 
     def to_host(self) -> KVBlock:
-        return KVBlock(self.k.cpu().numpy(), self.v.cpu().numpy(), self.length)
+        return KVBlock(host_array(self.k), host_array(self.v), self.length)
 
     def __reduce__(self):
         raise TypeError(

@@ -176,7 +176,7 @@ class ContinuousBatchingOperator(Operator):
         self._runner.open(self.ctx)
         if cfg.warmup_compile:
             self._runner.warmup(cfg.resolved_admit_buckets(),
-                                cfg.resolved_prompt_buckets())
+                                cfg.resolved_prompt_buckets(), cfg.prefill_token_budget)
         self._seq = self._restored_seq
         self._grp = grp
         if grp is not None:
@@ -190,6 +190,7 @@ class ContinuousBatchingOperator(Operator):
             grp.gauge("preempted", lambda s=sched: s.counters.preempted)
             grp.gauge("rejected", lambda s=sched: s.counters.rejected)
             grp.gauge("serving_steps", lambda s=sched: s.counters.steps)
+            grp.gauge("prefill_budget_held", lambda s=sched: s.prefill_budget_held)
             grp.gauge("step_h2d_bytes", lambda r=runner: r.step_h2d_bytes)
             grp.gauge("cache_h2d_blocks", lambda r=runner: r.block_h2d_events)
             grp.gauge("cache_d2h_blocks", lambda r=runner: r.block_d2h_events)
@@ -453,9 +454,13 @@ class ContinuousBatchingOperator(Operator):
             sess = sessions[key]
             return sess.kv.length if sess.kv is not None else len(sess.prompt)
 
+        def prefill_of(key):
+            sess = sessions[key]
+            return 0 if sess.kv is not None else len(sess.prompt)
+
         fresh: typing.List[typing.Tuple[typing.Any, int, _Session]] = []
         admit_gate = self._admit_gate() if self._paged else None
-        for key, slot in sched.plan_admissions(length_of, admit_gate):
+        for key, slot in sched.plan_admissions(length_of, admit_gate, prefill_of):
             sess = sessions[key]
             sess.status = ACTIVE
             if sess.kv is not None:

@@ -90,6 +90,12 @@ class ServingConfig:
     #: Cold rung directory; ``None`` disables disk spill (warm blocks
     #: then accumulate on the host without bound).
     spill_dir: typing.Optional[str] = None
+    #: Padded tokens one prefill may take (admitted sessions' batch
+    #: bucket times their longest prompt's bucket).  Admission stops
+    #: before the session that would pass it; the first waiting session
+    #: is always admitted.  Prefill shapes over it are never presented,
+    #: so they are neither warmed nor priced.  ``None``: no cap.
+    prefill_token_budget: typing.Optional[int] = None
 
     def resolved_hbm_pages(self) -> int:
         if self.hbm_pages is not None:
@@ -124,18 +130,26 @@ class ServingConfig:
                 return b
         return self.max_active_seqs
 
+    def prefill_fits(self, batch: int, length: int) -> bool:
+        """Whether a prefill bucket ``[batch, length]`` is within
+        ``prefill_token_budget``."""
+        budget = self.prefill_token_budget
+        return budget is None or batch * min(length, self.capacity) <= budget
+
     def compile_signatures(
         self,
     ) -> typing.Optional[typing.Tuple[typing.Tuple[str, int, int], ...]]:
         """Every distinct step shape this config can present, as ``(kind,
         batch, length)`` tuples — the prefill admit x prompt bucket grid
-        plus the single padded decode step — or ``None`` when
-        ``padding_buckets`` is off and the set is unbounded."""
+        (within ``prefill_token_budget``) plus the single padded decode
+        step — or ``None`` when ``padding_buckets`` is off and the set is
+        unbounded."""
         if not self.padding_buckets:
             return None
         sigs = [("prefill", b, t)
                 for b in self.resolved_admit_buckets()
-                for t in self.resolved_prompt_buckets()]
+                for t in self.resolved_prompt_buckets()
+                if self.prefill_fits(b, t)]
         sigs.append(("decode", self.max_active_seqs, 1))
         return tuple(sigs)
 
@@ -164,6 +178,10 @@ class TokenBudgetScheduler:
             range(config.max_active_seqs - 1, -1, -1))
         self.tokens_in_use = 0
         self.counters = SchedulerCounters()
+        #: Admissions stopped because the next prefill would pass
+        #: ``prefill_token_budget`` (beside ``counters``, which keep the
+        #: JAX scheduler's fields).
+        self.prefill_budget_held = 0
 
     @property
     def has_work(self) -> bool:
@@ -182,6 +200,7 @@ class TokenBudgetScheduler:
         self, length_of: typing.Callable[[typing.Any], int],
         admit_gate: typing.Optional[
             typing.Callable[[typing.Any, int], bool]] = None,
+        prefill_of: typing.Optional[typing.Callable[[typing.Any], int]] = None,
     ) -> typing.List[typing.Tuple[typing.Any, int]]:
         """Pop admissible sessions off the waiting queue: ``[(key, slot)]``
         in arrival order.  ``length_of(key)`` is the cache length the
@@ -189,7 +208,15 @@ class TokenBudgetScheduler:
         ``admit_gate(key, length)`` is the paged pool's page check (free
         pages instead of a contiguous slot); a False stops admission
         FIFO-fairly — nobody jumps the queue past a session the pool
-        can't seat yet."""
+        can't seat yet.  ``prefill_of(key)`` is the prompt length the
+        session prefills (0 for one resuming from its cache; default
+        ``length_of``): with ``prefill_token_budget`` set, admission stops
+        before the session whose prompt would take the admitted prefills'
+        padded tokens past it (``prefill_budget_held``)."""
+        cfg = self.config
+        prefill_of = prefill_of or length_of
+        prefills = 0            # sessions of this admission that prefill
+        longest = 0             # their longest prompt
         out: typing.List[typing.Tuple[typing.Any, int]] = []
         hyst = self.config.admit_hysteresis
         if (hyst > 1 and self.active
@@ -201,8 +228,18 @@ class TokenBudgetScheduler:
             need = length_of(key) + 1
             if self.tokens_in_use + need > self.config.token_budget and self.active:
                 break  # budget-full (never starves: an empty active set admits)
+            prompt = prefill_of(key)
+            if prompt and cfg.prefill_token_budget is not None and prefills:
+                grown = max(longest, prompt)
+                if not cfg.prefill_fits(cfg.bucket_admit(prefills + 1),
+                                        cfg.bucket_prompt_len(grown)):
+                    self.prefill_budget_held += 1
+                    break  # the next prefill batch takes it first
             if admit_gate is not None and not admit_gate(key, need - 1):
                 break  # no pages free — tier pressure clears first
+            if prompt:
+                prefills += 1
+                longest = max(longest, prompt)
             self.waiting.popleft()
             slot = self.free_slots.pop()
             self.active[key] = slot

@@ -30,11 +30,14 @@ consecutive stamps into spans.  The arithmetic takes any events with an
 :func:`place` records a ``device`` span per interval on ``<track>.device``
 and, after an idle stream, a ``device.idle`` span whose ``host`` arg names
 the host's stage when the stream went idle and whose ``stages`` arg splits
-the idle time by stage.  Nothing here is built unless the job is traced.
+the idle time by stage.  :class:`StepProbe` carries CUDA events and
+device-side counts into a model's step and reads them after the step's
+sync.  Nothing here is built unless the job is traced.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import typing
 
@@ -213,3 +216,53 @@ def place(clock: DeviceClock, timeline: StreamTimeline, start, end,
         idle_args["stages"] = {k: round(v, 6) for k, v in share.items()}
         tracer.span(on, "device.idle", t_start - gap, t_start, args=idle_args)
     return added, gap
+
+
+class StepProbe:
+    """What a model reports of one step from inside it, read once the
+    step's own sync has passed: the device seconds of named sections
+    (CUDA timing events on the current stream around each, summed over
+    the step; none on the CPU) and counts it adds as device tensors, so
+    nothing waits on the device while the step is queued."""
+
+    def __init__(self, device, *, graphed: bool = False):
+        self._cuda = getattr(device, "type", device) == "cuda"
+        #: Captured into a CUDA graph: its events become the graph's event
+        #: record nodes, which every replay records again, and its counts
+        #: the graph's static outputs; read after each replay.
+        self._graphed = graphed
+        self._sections: typing.Dict[str, typing.List[typing.Tuple[typing.Any, typing.Any]]] = {}
+        self._counts: typing.Dict[str, typing.Any] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        """Time the device work queued inside the block under ``name``."""
+        if not self._cuda:
+            yield
+            return
+        start = self._event()
+        yield
+        self._sections.setdefault(name, []).append((start, self._event()))
+
+    def _event(self):
+        if not self._graphed:
+            return DeviceClock.record()
+        import torch
+
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        return event
+
+    def add(self, name: str, value) -> None:
+        """Add ``value`` (a device tensor or a number) to the count ``name``."""
+        held = self._counts.get(name)
+        self._counts[name] = value if held is None else held + value
+
+    def read(self) -> typing.Dict[str, float]:
+        """Every section's seconds and every count, by name.  Call after
+        the step's work has completed (its results were fetched)."""
+        out = {name: sum(elapsed_s(a, b) for a, b in pairs)
+               for name, pairs in self._sections.items()}
+        for name, value in self._counts.items():
+            out[name] = float(value)
+        return out
